@@ -1,0 +1,446 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, each printing one JSON line (any failure raises, exit code != 0):
+
+1. device and build -- the card, its ``nvidia-smi`` name and power limit,
+   and the kernels built from ``src/repro_torch/kernels/vcgra/csrc/``;
+2. kernels vs their plain PyTorch versions on the card -- both kernels
+   over every grid dtype, the Sobel grid and the all-apps grid, radius 0
+   and 1, ragged N, odd non-square frames and every tile height, plus the
+   main path's own shapes;
+3. the main path -- ``FleetFrontend()`` (``device="cuda"``,
+   ``backend="hopper"``) serves 8 x 1080p requests, a ragged 4K/720p/480p/
+   1080p flush, all nine library apps on the all-apps grid, and one
+   named-channel flush through ``PixieFleet.submit``; every output equals
+   the numpy oracles and ``backend="torch"`` on the card, and the launch
+   counters show which kernels served it;
+4. times with CUDA events at the main path's shapes, beside each kernel's
+   bound and its plain version's time, and the end-to-end flush time.
+
+Then the kernel table line and, last, ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside a checkout of the repository, it exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+#: The card's memory rate and scalar peak (H100 SXM data sheet).  The data
+#: sheet has no int32 row; the float32
+#: non-tensor peak bounds the scalar int32 rate from above, so
+#: ops / SCALAR_OPS_PER_S stays a lower bound on the time.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+
+SOBEL_APPS = ["sobel_x", "sobel_y", "sharpen", "laplace", "threshold", "identity"]
+MAIN_APPS = SOBEL_APPS + ["sobel_x", "laplace"]
+KERNEL_SOURCE = "src/repro_torch/kernels/vcgra/csrc/vcgra.cu"
+REPLACES = {
+    "vcgra_fused_batched": "src/repro/kernels/vcgra/vcgra_kernel.py:348",
+    "vcgra_batched": "src/repro/kernels/vcgra/vcgra_kernel.py:229",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def shared_grid(names, name="all-apps"):
+    """One grid that fits every named library app (per-level width = max
+    demand + 1), built like the test suites' shared grid."""
+    from repro_torch.core import applications as apps
+    from repro_torch.core.grid import custom
+    from repro_torch.core.place import level_demand
+
+    dfgs = [apps.ALL_APPS[n]() for n in names]
+    demands = [level_demand(g) for g in dfgs]
+    depth = max(len(d) for d in demands)
+    demands = [list(d) + [1] * (depth - len(d)) for d in demands]
+    widths = [max(d[lvl] for d in demands) + 1 for lvl in range(depth)]
+    return custom(name, max(len(g.inputs) for g in dfgs), widths, 1)
+
+
+def retyped(grid, dtype_name):
+    bits, float_pe = {"int32": (32, False), "int16": (16, False),
+                      "float32": (32, True), "bfloat16": (16, True)}[dtype_name]
+    return dataclasses.replace(grid, data_bits=bits, float_pe=float_pe)
+
+
+def compare(got, want, dtype_name) -> float:
+    """Max |got - want|; raises unless bitwise (0.5 for bf16, the
+    reference's own bf16 tolerance, relative and absolute)."""
+    import torch
+
+    torch.cuda.synchronize()
+    g, w = got.double().cpu(), want.double().cpu()
+    if g.shape != w.shape:
+        raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if dtype_name == "bfloat16":
+        if not bool(((g - w).abs() <= 0.5 + 0.5 * w.abs()).all()):
+            raise AssertionError(f"bf16 mismatch, max abs err {err}")
+    elif not torch.equal(got.cpu(), want.cpu()):
+        raise AssertionError(f"{dtype_name} mismatch, max abs err {err}")
+    return err
+
+
+def fused_operands(grid, names, images, device, radius=1, rng=None):
+    """Dense banks for ``names`` on ``grid`` (library ingest plans, or
+    random runtime tap selects and consts when ``rng`` is given)."""
+    import torch
+    from repro_torch.core import applications as apps
+    from repro_torch.core.bitstream import VCGRAConfig
+    from repro_torch.core.ingest import IngestPlan
+    from repro_torch.core.pixie import map_app
+    from repro_torch.kernels.vcgra import pack_settings_batched
+
+    cfgs = [map_app(apps.ALL_APPS[n](), grid) for n in names]
+    settings = pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=device))
+    if rng is None:
+        ingests = IngestPlan.stack([c.ingest for c in cfgs], grid.dtype, device=device)
+    else:
+        n, c = len(names), grid.num_inputs
+        taps = (2 * radius + 1) ** 2
+        ingests = (
+            torch.as_tensor(rng.integers(0, taps + 1, (n, c)), dtype=torch.int32, device=device),
+            torch.as_tensor(rng.integers(-8, 9, (n, c)), device=device).to(grid.dtype),
+        )
+    frames = torch.as_tensor(images, device=device).to(grid.dtype)
+    return settings, ingests, frames
+
+
+def phase_device_and_build():
+    import torch
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    from repro_torch.kernels.vcgra import build
+
+    t0 = time.perf_counter()
+    path = build.build_library(verbose=True)
+    build_s = time.perf_counter() - t0
+    build.load_library()
+    emit({"phase": "device_and_build", "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "library": str(path.relative_to(ROOT)), "build_s": build_s})
+    return card
+
+
+def phase_kernels_vs_plain(device, all_grid):
+    """Every case: kernel on the card vs its plain version on the same
+    inputs, synchronized after each case."""
+    import torch
+    from repro_torch.core import applications as apps
+    from repro_torch.core.bitstream import VCGRAConfig
+    from repro_torch.core.grid import sobel_grid
+    from repro_torch.core.pixie import map_app
+    from repro_torch.core.tiling import TILE_AUTO
+    from repro_torch.kernels.vcgra import (
+        pack_settings_batched, vcgra_batched, vcgra_batched_ref,
+        vcgra_fused_batched, vcgra_fused_batched_ref,
+    )
+
+    rng = np.random.default_rng(0)
+    all_names = sorted(apps.ALL_APPS)
+    errs = {"vcgra_fused_batched": 0.0, "vcgra_batched": 0.0}
+    cases = {"vcgra_fused_batched": 0, "vcgra_batched": 0}
+    for dtype_name in ("int32", "int16", "float32", "bfloat16"):
+        for base, names in ((sobel_grid(), SOBEL_APPS), (all_grid, all_names)):
+            grid = retyped(base, dtype_name)
+            for radius in (0, 1):
+                for n, H, W in ((3, 37, 53), (len(names) + 3, 64, 17), (1, 1, 1)):
+                    picked = [names[i % len(names)] for i in range(n)]
+                    images = rng.integers(0, 256, (n, H, W)).astype(np.int32)
+                    settings, ingests, frames = fused_operands(
+                        grid, picked, images, device, radius,
+                        rng=rng if radius == 0 else None)
+                    want = vcgra_fused_batched_ref(grid, radius, settings, ingests, frames)
+                    for tr in (None, 1, 3, H + 1, TILE_AUTO):
+                        got = vcgra_fused_batched(grid, radius, settings, ingests, frames,
+                                                  tile_rows=tr)
+                        errs["vcgra_fused_batched"] = max(
+                            errs["vcgra_fused_batched"], compare(got, want, dtype_name))
+                        cases["vcgra_fused_batched"] += 1
+            cfgs = [map_app(apps.ALL_APPS[n](), grid) for n in names]
+            settings = pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=device))
+            for B in (45, 1000):
+                xs = torch.as_tensor(rng.integers(0, 256, (len(names), grid.num_inputs, B)),
+                                     device=device).to(grid.dtype)
+                got = vcgra_batched(grid, settings, xs)
+                errs["vcgra_batched"] = max(errs["vcgra_batched"], compare(
+                    got, vcgra_batched_ref(grid, settings, xs), dtype_name))
+                cases["vcgra_batched"] += 1
+    return errs, cases
+
+
+def oracle(app, img):
+    """The port's numpy oracle of one library app on one frame."""
+    from repro_torch.core import applications as apps
+
+    img = img.astype(np.int32)
+    kernels = {"sobel_x": (apps.SOBEL_X, 1.0), "sobel_y": (apps.SOBEL_Y, 1.0),
+               "sharpen": (apps.SHARPEN, 1.0), "laplace": (apps.LAPLACE, 1.0),
+               "gauss3": (apps.GAUSS3, 16.0), "box3": (apps.BOX3, 9.0)}
+    if app in kernels:
+        return apps.conv2d_reference(img, *kernels[app])
+    if app == "sobel_mag":
+        return apps.sobel_magnitude_reference(img)
+    if app == "threshold":
+        return (img > 128).astype(np.int32)
+    if app == "identity":
+        return img
+    raise KeyError(app)
+
+
+def serve(svc, requests):
+    """Submit (app, frame, grid) requests and drain them in one flush."""
+    handles = [svc.submit(app, img, grid=grid) for app, img, grid in requests]
+    svc.flush()
+    return [h.result() for h in handles]
+
+
+def phase_main_path(device, all_grid):
+    import torch
+    from repro_torch.core import applications as apps
+    from repro_torch.kernels.vcgra import LAUNCHES, reset_launch_counts
+    from repro_torch.runtime.fleet import FleetRequest, PixieFleet
+    from repro_torch.serve import FleetFrontend
+
+    rng = np.random.default_rng(1)
+
+    def frame(h, w):
+        return rng.integers(0, 256, (h, w)).astype(np.int32)
+
+    flushes = [
+        [(a, frame(1080, 1920), None) for a in MAIN_APPS],
+        [(a, frame(h, w), None) for a, (h, w) in zip(
+            ["sobel_x", "sharpen", "threshold", "laplace"],
+            [(2160, 3840), (720, 1280), (480, 640), (1080, 1920)])],
+        [(a, frame(1080, 1920), all_grid) for a in sorted(apps.ALL_APPS)],
+    ]
+    channel_frames = [frame(1080, 1920) for _ in range(4)]
+    channel_apps = ["sobel_x", "sharpen", "laplace", "threshold"]
+
+    def channel_requests():
+        reqs = []
+        for app, img in zip(channel_apps, channel_frames):
+            taps = apps.stencil_inputs(torch.from_numpy(img))
+            reqs.append(FleetRequest(app=app, inputs={k: v.numpy() for k, v in taps.items()}))
+        return reqs
+
+    svc = FleetFrontend()
+    if (svc.backend, svc.device.type) != ("hopper", "cuda"):
+        raise AssertionError(f"FleetFrontend() defaults: {svc.backend}, {svc.device}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    served = [serve(svc, reqs) for reqs in flushes]
+    served_channels = svc.fleet.run_many(channel_requests())
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+
+    stats = svc.stats
+    fused, packed = stats.fused_dispatches, stats.dispatches - stats.fused_dispatches
+    if launches != {"vcgra_fused_batched": fused, "vcgra_batched": packed} \
+            or (fused, packed) != (3, 1):
+        raise AssertionError(f"launches {launches} vs dispatches fused={fused} packed={packed}")
+    plans = {k.rsplit("|", 1)[0] for k in stats.dispatch_plans}
+    if stats.overlay_builds != len(plans):
+        raise AssertionError(f"{stats.overlay_builds} builds for {len(plans)} plans")
+
+    for reqs, outs in zip(flushes, served):
+        for (app, img, _), out in zip(reqs, outs):
+            if not np.array_equal(out, oracle(app, img)):
+                raise AssertionError(f"{app} {img.shape} differs from the numpy oracle")
+    for app, img, out in zip(channel_apps, channel_frames, served_channels):
+        if not np.array_equal(out, oracle(app, img).reshape(1, -1)):
+            raise AssertionError(f"named-channel {app} differs from the numpy oracle")
+
+    oracle_svc = FleetFrontend(backend="torch")
+    for reqs, outs in zip(flushes, served):
+        for got, want in zip(outs, serve(oracle_svc, reqs)):
+            if not np.array_equal(got, want):
+                raise AssertionError("hopper output differs from backend='torch'")
+        torch.cuda.empty_cache()
+    oracle_fleet = PixieFleet(backend="torch")
+    for got, want in zip(served_channels, oracle_fleet.run_many(channel_requests())):
+        if not np.array_equal(got, want):
+            raise AssertionError("hopper channel output differs from backend='torch'")
+    torch.cuda.empty_cache()
+    emit({"phase": "main_path", "flushes": len(flushes) + 1,
+          "requests": sum(map(len, flushes)) + len(channel_apps),
+          "launches": launches, "dispatch_plans": stats.dispatch_plans,
+          "overlay_builds": stats.overlay_builds, "main_path_s": main_s,
+          "checked_against": ["numpy oracles", "backend='torch' on the card"]})
+    return svc, flushes[0], channel_requests, launches
+
+
+def cuda_ms(fn, reps):
+    """Median device time of ``fn`` over ``reps`` runs, by CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(bytes_moved, ops):
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_times(device, svc, main_reqs, channel_requests):
+    """Kernel, plain and bound at the main path's shapes: B1 on the
+    8 x 1080p flush's n8x2048x2048 canvas, B2 on the named-channel flush's
+    [8, C, 2^21] stack; plus the end-to-end flush time."""
+    import torch
+    from repro_torch.core.bitstream import VCGRAConfig
+    from repro_torch.core.grid import sobel_grid
+    from repro_torch.core.interpreter import pack_inputs
+    from repro_torch.core.pixie import map_app
+    from repro_torch.core.tiling import itemsize, pad_batches, pad_channels, pow2_bucket
+    from repro_torch.core import applications as apps
+    from repro_torch.kernels.vcgra import (
+        pack_settings_batched, vcgra_batched, vcgra_batched_ref,
+        vcgra_fused_batched, vcgra_fused_batched_ref,
+    )
+
+    grid = sobel_grid()
+    canvas = np.zeros((8, 2048, 2048), np.int32)
+    for i, (_, img, _) in enumerate(main_reqs):
+        canvas[i, :img.shape[0], :img.shape[1]] = img
+    settings, ingests, frames = fused_operands(grid, MAIN_APPS, canvas, device)
+    n, hw, K = 8, 2048 * 2048, grid.num_outputs
+    size = itemsize(grid.dtype)
+    rows = {}
+
+    def run_b1():
+        return vcgra_fused_batched(grid, 1, settings, ingests, frames, tile_rows="auto")
+
+    def plain_b1():
+        return vcgra_fused_batched_ref(grid, 1, settings, ingests, frames)
+
+    err = compare(run_b1(), plain_b1(), "int32")
+    b_ms, b_by = bound(n * hw * size * (1 + K), n * hw * grid.num_pes)
+    rows["vcgra_fused_batched"] = dict(
+        ms=cuda_ms(run_b1, 20), plain_ms=cuda_ms(plain_b1, 3), bound_ms=b_ms, bound_by=b_by,
+        shape=f"n{n}x2048x2048", main_path_err=err)
+
+    reqs = channel_requests()
+    cfgs = [map_app(apps.ALL_APPS[r.app](), grid) for r in reqs]
+    xs = [pad_channels(pack_inputs(c, r.inputs, grid.dtype, device=device), grid.num_inputs)
+          for c, r in zip(cfgs, reqs)]
+    B = pow2_bucket(max(x.shape[-1] for x in xs), 256)
+    xs = pad_batches(xs, B)
+    xs += [torch.zeros_like(xs[0])] * (8 - len(xs))
+    cfgs += [cfgs[0]] * (8 - len(cfgs))
+    xstack = torch.stack(xs)
+    bsettings = pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=device))
+
+    def run_b2():
+        return vcgra_batched(grid, bsettings, xstack)
+
+    def plain_b2():
+        return vcgra_batched_ref(grid, bsettings, xstack)
+
+    err = compare(run_b2(), plain_b2(), "int32")
+    b_ms, b_by = bound(8 * B * size * (grid.num_inputs + K), 8 * B * grid.num_pes)
+    rows["vcgra_batched"] = dict(
+        ms=cuda_ms(run_b2, 20), plain_ms=cuda_ms(plain_b2, 3), bound_ms=b_ms, bound_by=b_by,
+        shape=f"n8x{grid.num_inputs}x{B}", main_path_err=err)
+
+    flush_ms, runs = [], 5
+    before = dict(svc.timings)
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        serve(svc, main_reqs)
+        torch.cuda.synchronize()
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+    # The fleet's own split: host packing (canvas fill, copy to the card)
+    # vs dispatch (kernel launch and the outputs' copy back), per flush.
+    split = {f"{k}_ms_per_flush": (svc.timings[k] - before[k]) * 1e3 / runs
+             for k in ("pack_s", "dispatch_s")}
+    e2e = {"flush": "8 x 1080p int32, sobel-5x9", "median_ms": statistics.median(flush_ms),
+           "runs_ms": flush_ms, **split}
+    emit({"phase": "times", "kernels": rows, "end_to_end": e2e,
+          "rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S, "scalar_ops_per_s": SCALAR_OPS_PER_S},
+          "library_ms": None,
+          "library_note": "no single PyTorch call computes a VCGRA overlay"})
+    return rows, e2e
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    card = phase_device_and_build()
+
+    from repro_torch.core import applications as apps
+
+    all_grid = shared_grid(sorted(apps.ALL_APPS))
+    t0 = time.perf_counter()
+    errs, cases = phase_kernels_vs_plain(device, all_grid)
+    emit({"phase": "kernels_vs_plain", "cases": cases, "max_abs_err": errs,
+          "tolerance": "bitwise for int32/int16/float32; bf16 |d| <= 0.5 + 0.5|ref|",
+          "seconds": time.perf_counter() - t0})
+
+    svc, main_reqs, channel_requests, launches = phase_main_path(device, all_grid)
+    rows, e2e = phase_times(device, svc, main_reqs, channel_requests)
+
+    kernels = []
+    for name in ("vcgra_fused_batched", "vcgra_batched"):
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(errs[name], r["main_path_err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None, "shape": r["shape"],
+        })
+    emit({"kernels": kernels, "launches": launches, "card": card,
+          "end_to_end_flush_ms": e2e["median_ms"]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

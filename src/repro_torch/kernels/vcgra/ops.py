@@ -1,0 +1,239 @@
+"""Wrappers of the Hopper VCGRA kernels and their plan-registry cells.
+
+``vcgra_fused_batched`` and ``vcgra_batched`` check their operands,
+allocate the output and launch the CUDA kernel of ``csrc/vcgra.cu`` on
+PyTorch's current stream.  Each keeps a launch count in :data:`LAUNCHES`,
+raised where (and only where) it launches, so a run can show that its main
+path went through the kernels.  A wrapper given CPU tensors computes its
+plain PyTorch version (``ref.py``) instead -- that is the only fallback:
+for CUDA tensors it launches the kernel or raises.
+
+The module registers the ``backend="hopper"`` cells of the plan matrix:
+(batched, fused) runs ``vcgra_fused_batched``, (batched, unfused) runs
+``vcgra_batched``, and the single-app cells ride them with N=1.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.grid import GridSpec
+from repro_torch.core.plan import OverlayPlan, lift_app_axis, register_executor
+from repro_torch.core.tiling import check_tile_rows, resolve_tile_rows
+from repro_torch.kernels.vcgra import ref
+from repro_torch.kernels.vcgra.build import load_library
+
+#: Launches of each kernel since the last :func:`reset_launch_counts`.
+LAUNCHES: Dict[str, int] = {"vcgra_fused_batched": 0, "vcgra_batched": 0}
+
+_DTYPE_CODES = {torch.int32: 0, torch.int16: 1, torch.float32: 2, torch.bfloat16: 3}
+
+#: Grid-axis limit of the launch: the app axis rides ``gridDim.y``.
+_MAX_APPS = 65535
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def pack_settings_batched(grid: GridSpec, stacked_configs):
+    """Stacked settings (``VCGRAConfig.stack``: per-level tuples of
+    [N, w] / [N, w, 2] plus out_sel [N, K]) -> the dense rectangular banks
+    the kernels stage in shared memory:
+    ``(ops int32 [N, L, max_w], sel int32 [N, L, max_w, 2], out int32 [N, K])``.
+    Pad slots hold Op.NONE / select 0 and are never read (the kernels loop
+    the grid's true per-level widths)."""
+    opcodes, selects, out_sel = stacked_configs
+    max_w = max(grid.pes_per_level)
+    ops_d = torch.stack(
+        [F.pad(o.to(torch.int32), (0, max_w - o.shape[1])) for o in opcodes], dim=1
+    )
+    sel_d = torch.stack(
+        [F.pad(s.to(torch.int32), (0, 0, 0, max_w - s.shape[1])) for s in selects],
+        dim=1,
+    )
+    return ops_d, sel_d, out_sel.to(torch.int32).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _level_widths(pes_per_level: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The grid's per-level PE counts as an int32 tensor on ``device``
+    (built once per grid and device, not per launch)."""
+    return torch.tensor(pes_per_level, dtype=torch.int32, device=device)
+
+
+def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
+           dtype: torch.dtype, device: torch.device) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_settings(grid: GridSpec, n: int, settings, device) -> None:
+    ops, sel, out_sel = settings
+    L, max_w = grid.num_levels, max(grid.pes_per_level)
+    _check("ops", ops, (n, L, max_w), torch.int32, device)
+    _check("sel", sel, (n, L, max_w, 2), torch.int32, device)
+    _check("out_sel", out_sel, (n, grid.num_outputs), torch.int32, device)
+
+
+def _launch_target(grid: GridSpec, n: int, device: torch.device):
+    """The bound library, after the checks only a launch needs."""
+    if device.type != "cuda":
+        raise ValueError(f"the Hopper kernels run on CUDA tensors, got {device}")
+    lib = load_library()
+    widest = max(grid.num_inputs, max(grid.pes_per_level))
+    if widest > lib.vcgra_max_vals():
+        raise ValueError(
+            f"grid {grid.name!r} needs a {widest}-wide value vector; the "
+            f"kernels hold at most {lib.vcgra_max_vals()}"
+        )
+    if n > _MAX_APPS:
+        raise ValueError(f"{n} apps in one launch; at most {_MAX_APPS}")
+    return lib
+
+
+def _raise_on_error(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def vcgra_fused_batched(grid: GridSpec, radius: int, settings, ingests,
+                        images: torch.Tensor, tile_rows=None) -> torch.Tensor:
+    """N raw frames, N tenants, ONE launch: the Hopper twin of the
+    reference's Pallas ``vcgra_fused_batched``.
+
+    ``settings``: dense banks (:func:`pack_settings_batched`);
+    ``ingests``: (tap_sel int32 [N, C], const_vals [N, C] in grid dtype);
+    ``images``: [N, H, W], cast to the grid dtype at entry like the eager
+    path's ``form_tap_bank``.  Returns [N, num_outputs, H*W] in the grid
+    dtype.  ``tile_rows`` is validated and resolved like the reference's;
+    the kernel reads each tap straight from the frame, so its output is
+    the same for every tile height.
+    """
+    frames = images.to(grid.dtype)
+    n, H, W = frames.shape
+    if int(radius) < 0:
+        raise ValueError(f"radius must be >= 0, got {radius}")
+    resolve_tile_rows(check_tile_rows(tile_rows), H, W, radius, grid)
+    device = frames.device
+    tap_sel, consts = ingests
+    _check_settings(grid, n, settings, device)
+    _check("tap_sel", tap_sel, (n, grid.num_inputs), torch.int32, device)
+    _check("const_vals", consts, (n, grid.num_inputs), grid.dtype, device)
+    _check("images", frames, (n, H, W), grid.dtype, device)
+    if device.type == "cpu":
+        return ref.vcgra_fused_batched_ref(grid, radius, settings, ingests, frames)
+    lib = _launch_target(grid, n, device)
+    K = grid.num_outputs
+    out = torch.empty((n, K, H * W), dtype=grid.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    ops, sel, out_sel = settings
+    widths = _level_widths(grid.pes_per_level, device)
+    with torch.cuda.device(device):
+        rc = lib.vcgra_fused_batched(
+            _DTYPE_CODES[grid.dtype], frames.data_ptr(), ops.data_ptr(),
+            sel.data_ptr(), out_sel.data_ptr(), tap_sel.data_ptr(),
+            consts.data_ptr(), widths.data_ptr(), out.data_ptr(),
+            n, H, W, grid.num_levels, max(grid.pes_per_level), K,
+            grid.num_inputs, int(radius), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error("vcgra_fused_batched", rc)
+    LAUNCHES["vcgra_fused_batched"] += 1
+    return out
+
+
+def vcgra_batched(grid: GridSpec, settings, xs: torch.Tensor) -> torch.Tensor:
+    """N tenants over pre-packed channels ``[N, num_inputs, B]`` in ONE
+    launch -> ``[N, num_outputs, B]``: the Hopper twin of the reference's
+    Pallas ``vcgra_batched``.  B needs no padding (the kernel masks the
+    ragged last block)."""
+    n, C, B = xs.shape
+    device = xs.device
+    _check_settings(grid, n, settings, device)
+    _check("xs", xs, (n, grid.num_inputs, B), grid.dtype, device)
+    if device.type == "cpu":
+        return ref.vcgra_batched_ref(grid, settings, xs)
+    lib = _launch_target(grid, n, device)
+    K = grid.num_outputs
+    out = torch.empty((n, K, B), dtype=grid.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    ops, sel, out_sel = settings
+    widths = _level_widths(grid.pes_per_level, device)
+    with torch.cuda.device(device):
+        rc = lib.vcgra_batched(
+            _DTYPE_CODES[grid.dtype], xs.data_ptr(), ops.data_ptr(), sel.data_ptr(),
+            out_sel.data_ptr(), widths.data_ptr(), out.data_ptr(),
+            n, B, grid.num_levels, max(grid.pes_per_level), K, C,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error("vcgra_batched", rc)
+    LAUNCHES["vcgra_batched"] += 1
+    return out
+
+
+# -- plan executors ------------------------------------------------------------
+
+
+def _batched_fused_fn(grid: GridSpec, radius: int, tile_rows=None):
+    """``fn(stacked_configs, stacked_ingests, images) -> [N, K, H*W]``."""
+
+    def fn(stacked_configs, stacked_ingests, images):
+        settings = pack_settings_batched(grid, stacked_configs)
+        return vcgra_fused_batched(grid, radius, settings, stacked_ingests,
+                                   images, tile_rows=tile_rows)
+
+    return fn
+
+
+def _batched_fn(grid: GridSpec):
+    """``fn(stacked_configs, xs) -> [N, K, B]``."""
+
+    def fn(stacked_configs, xs):
+        return vcgra_batched(grid, pack_settings_batched(grid, stacked_configs),
+                             xs.to(grid.dtype))
+
+    return fn
+
+
+@register_executor("hopper", batched=True, fused=True)
+def _plan_batched_fused(plan: OverlayPlan):
+    return _batched_fused_fn(plan.grid, plan.radius, plan.tile_rows)
+
+
+@register_executor("hopper", batched=True, fused=False)
+def _plan_batched(plan: OverlayPlan):
+    return _batched_fn(plan.grid)
+
+
+@register_executor("hopper", batched=False, fused=False)
+def _plan_single(plan: OverlayPlan):
+    """Single-app execution rides the batched kernel with N=1."""
+    batched = _batched_fn(plan.grid)
+
+    def fn(config, x):
+        return batched(lift_app_axis(config), x[None])[0]
+
+    return fn
+
+
+@register_executor("hopper", batched=False, fused=True)
+def _plan_single_fused(plan: OverlayPlan):
+    batched = _batched_fused_fn(plan.grid, plan.radius, plan.tile_rows)
+
+    def fn(config, ingest, image):
+        return batched(lift_app_axis(config), lift_app_axis(ingest), image[None])[0]
+
+    return fn

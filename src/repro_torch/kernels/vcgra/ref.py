@@ -1,0 +1,84 @@
+"""Plain PyTorch versions of the two Hopper VCGRA kernels.
+
+Same operands and results as the kernels (dense settings banks, see
+``ops.pack_settings_batched``), written independently of
+``core/interpreter.py`` so the two oracles check each other: the
+interpreter gathers through flat offset banks and muxes every unit per
+lane, while these loop over apps and PE slots and apply each slot's one
+configured unit (``core.ops.apply_op``).  The kernel wrappers take these
+only for tensors on the CPU; on the card the tests and ``chip_smoke.py``
+hold each kernel against them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.grid import GridSpec
+from repro_torch.core.ops import Op, apply_op
+
+DenseSettings = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+#: Opcodes with a functional unit; every other code (NONE, MAC, unknown)
+#: makes its PE output 0, as the reference's mux chain does.
+_UNIT_OPS = frozenset(int(o) for o in Op if o not in (Op.NONE, Op.MAC))
+
+
+def _pe(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One PE slot: its configured unit, or zeros."""
+    if op in _UNIT_OPS:
+        return apply_op(Op(op), a, b)
+    return torch.zeros_like(a)
+
+
+def _levels(grid: GridSpec, ops: list, sel: list, out_sel: list,
+            x: torch.Tensor) -> torch.Tensor:
+    """One app's level pipeline: ``x [C, P] -> [K, P]`` (settings as
+    host lists: ops [L][max_w], sel [L][max_w][2], out_sel [K])."""
+    for lvl, width in enumerate(grid.pes_per_level):
+        x = torch.stack([
+            _pe(ops[lvl][s], x[sel[lvl][s][0]], x[sel[lvl][s][1]])
+            for s in range(width)
+        ])
+    return torch.stack([x[k] for k in out_sel])
+
+
+def vcgra_batched_ref(grid: GridSpec, settings: DenseSettings,
+                      xs: torch.Tensor) -> torch.Tensor:
+    """Pre-packed channels ``[N, C, B]`` -> ``[N, K, B]``."""
+    ops, sel, out_sel = (t.tolist() for t in settings)
+    return torch.stack([
+        _levels(grid, ops[i], sel[i], out_sel[i], xs[i]) for i in range(xs.shape[0])
+    ])
+
+
+def vcgra_fused_batched_ref(grid: GridSpec, radius: int, settings: DenseSettings,
+                            ingests: Tuple[torch.Tensor, torch.Tensor],
+                            images: torch.Tensor) -> torch.Tensor:
+    """Raw frames ``[N, H, W]`` -> ``[N, K, H*W]``: each channel is a tap
+    of the zero-padded frame or its const value, then the level pipeline."""
+    ops, sel, out_sel = (t.tolist() for t in settings)
+    tap_sel = ingests[0].tolist()
+    consts = ingests[1]
+    frames = images.to(grid.dtype)
+    n, H, W = frames.shape
+    r = int(radius)
+    side = 2 * r + 1
+    padded = F.pad(frames, (r, r, r, r))
+    outs = []
+    for i in range(n):
+        chans = []
+        for c, t in enumerate(tap_sel[i]):
+            if t == side * side:
+                chans.append(consts[i, c].expand(H * W))
+            elif 0 <= t < side * side:
+                dj, di = divmod(t, side)
+                chans.append(padded[i, dj: dj + H, di: di + W].reshape(H * W))
+            else:
+                chans.append(frames.new_zeros(H * W))
+        outs.append(_levels(grid, ops[i], sel[i], out_sel[i], torch.stack(chans)))
+    return torch.stack(outs)

@@ -1,0 +1,45 @@
+"""The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py`` import
+neither JAX nor the reference package, and importing the serving entry
+point pulls no JAX into the process.  (Only the tests import both.)"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(?:import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
+    r"|from\s+repro\b(?!_torch))",
+    re.MULTILINE,
+)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_imports(path):
+    text = path.read_text(encoding="utf-8")
+    offenders = [
+        f"{path.relative_to(REPO)}:{text.count(chr(10), 0, m.start()) + 1}"
+        for m in FORBIDDEN.finditer(text)
+    ]
+    assert not offenders, "the port may not import jax or repro: " + ", ".join(offenders)
+
+
+def test_serving_entry_point_imports_without_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch.serve.fleet_frontend\n"
+        "import repro_torch.kernels.vcgra\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
