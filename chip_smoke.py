@@ -6,19 +6,31 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing one JSON line (any failure raises, exit code != 0):
 
 1. device and build -- the card, its ``nvidia-smi`` name and power limit,
-   and the kernels built from ``src/repro_torch/kernels/vcgra/csrc/``;
-2. kernels vs their plain PyTorch versions on the card -- both kernels
-   over every grid dtype, the Sobel grid and the all-apps grid, radius 0
-   and 1, ragged N, odd non-square frames and every tile height, plus the
-   main path's own shapes;
+   and the kernels built from ``src/repro_torch/kernels/vcgra/csrc/`` (one
+   ``nvcc`` per source, all at once);
+2. kernels vs their plain PyTorch versions on the card -- B1 and B2 over
+   every grid dtype, the Sobel grid and the all-apps grid, radius 0 and 1,
+   ragged N, odd non-square frames and every tile height; B3 (the chain
+   kernel) over every grid dtype, the pipe-shared and all-apps grids (and a
+   two-output pipe-shared grid with random output muxes and forwarded
+   channels), chains of radii (1,1,1), (1,0), (0,1) and (1,0,1,1), N = 3
+   and 11, ragged ``hw`` down to (1, 1) and every tile height;
 3. the main path -- ``FleetFrontend()`` (``device="cuda"``,
    ``backend="hopper"``) serves 8 x 1080p requests, a ragged 4K/720p/480p/
    1080p flush, all nine library apps on the all-apps grid, and one
    named-channel flush through ``PixieFleet.submit``; every output equals
    the numpy oracles and ``backend="torch"`` on the card, and the launch
    counters show which kernels served it;
-4. times with CUDA events at the main path's shapes, beside each kernel's
-   bound and its plain version's time, and the end-to-end flush time.
+4. the chain path, driven with the counters reset just before it -- the
+   same front-end serves 8 x 1080p ``submit(["gauss3", "sobel_x",
+   "threshold"], img, grid=pipe_grid)`` and a mixed flush of two chain
+   radii groups and single-stage requests on ``sobel-5x9``; every output
+   equals the staged numpy oracle and ``backend="torch"``, and B3's launch
+   count equals the fleet's pipeline dispatches;
+5. times with CUDA events at the paths' shapes, beside each kernel's bound
+   and its plain version's time, the staged chain (three B1 launches with
+   the masked forward between them) beside B3, and the end-to-end flush
+   times.
 
 Then the kernel table line and, last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -49,10 +61,20 @@ SCALAR_OPS_PER_S = 67e12
 
 SOBEL_APPS = ["sobel_x", "sobel_y", "sharpen", "laplace", "threshold", "identity"]
 MAIN_APPS = SOBEL_APPS + ["sobel_x", "laplace"]
-KERNEL_SOURCE = "src/repro_torch/kernels/vcgra/csrc/vcgra.cu"
-REPLACES = {
-    "vcgra_fused_batched": "src/repro/kernels/vcgra/vcgra_kernel.py:348",
-    "vcgra_batched": "src/repro/kernels/vcgra/vcgra_kernel.py:229",
+CHAIN = ["gauss3", "sobel_x", "threshold"]
+#: B3's kernel-vs-plain chains as (app, stage radius).
+CHAINS = [
+    [("gauss3", 1), ("sobel_x", 1), ("threshold", 1)],
+    [("gauss3", 1), ("threshold", 0)],
+    [("threshold", 0), ("sobel_x", 1)],
+    [("gauss3", 1), ("threshold", 0), ("sobel_x", 1), ("threshold", 1)],
+]
+CSRC = "src/repro_torch/kernels/vcgra/csrc/"
+KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "vcgra_fused_batched": (CSRC + "vcgra.cu", "src/repro/kernels/vcgra/vcgra_kernel.py:348"),
+    "vcgra_batched": (CSRC + "vcgra.cu", "src/repro/kernels/vcgra/vcgra_kernel.py:229"),
+    "vcgra_pipeline_batched": (CSRC + "vcgra_pipeline.cu",
+                               "src/repro/kernels/vcgra/vcgra_kernel.py:566"),
 }
 
 
@@ -60,7 +82,7 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def shared_grid(names, name="all-apps"):
+def shared_grid(names, name="all-apps", num_outputs=1):
     """One grid that fits every named library app (per-level width = max
     demand + 1), built like the test suites' shared grid."""
     from repro_torch.core import applications as apps
@@ -72,7 +94,7 @@ def shared_grid(names, name="all-apps"):
     depth = max(len(d) for d in demands)
     demands = [list(d) + [1] * (depth - len(d)) for d in demands]
     widths = [max(d[lvl] for d in demands) + 1 for lvl in range(depth)]
-    return custom(name, max(len(g.inputs) for g in dfgs), widths, 1)
+    return custom(name, max(len(g.inputs) for g in dfgs), widths, num_outputs)
 
 
 def retyped(grid, dtype_name):
@@ -135,13 +157,15 @@ def phase_device_and_build():
     from repro_torch.kernels.vcgra import build
 
     t0 = time.perf_counter()
-    path = build.build_library(verbose=True)
+    paths = build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
-    build.load_library()
+    for name in paths:
+        build.load_library(name)
     emit({"phase": "device_and_build", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "library": str(path.relative_to(ROOT)), "build_s": build_s})
+          "libraries": {k: str(v.relative_to(ROOT)) for k, v in paths.items()},
+          "build_s": build_s})
     return card
 
 
@@ -192,6 +216,70 @@ def phase_kernels_vs_plain(device, all_grid):
     return errs, cases
 
 
+def chain_operands(grid, chain, hws, Hc, Wc, device, rng, images=None):
+    """B3's stage-stacked operands for ``len(hws)`` apps running ``chain``
+    (library settings re-planned at each stage's radius) on frames of
+    ``hws`` in a ``[Hc, Wc]`` canvas (random, or ``images``).  With K > 1
+    the output muxes and forwarded channels are random."""
+    import torch
+    from repro_torch.core import applications as apps
+    from repro_torch.core.bitstream import VCGRAConfig
+    from repro_torch.core.ingest import IngestPlan
+    from repro_torch.core.pixie import map_app
+    from repro_torch.kernels.vcgra import pack_settings_batched
+
+    n, K = len(hws), grid.num_outputs
+    stages = []
+    for name, radius in chain:
+        cfgs = []
+        for _ in range(n):
+            cfg = map_app(apps.ALL_APPS[name](), grid)
+            cfg = dataclasses.replace(cfg, ingest=cfg.ingest.at_radius(radius))
+            if K > 1:
+                cfg.out_sel = rng.integers(0, grid.pes_per_level[-1], K).astype(np.int32)
+            cfgs.append(cfg)
+        stages.append((pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=device)),
+                       IngestPlan.stack([c.ingest for c in cfgs], grid.dtype, device=device)))
+    settings = tuple(torch.stack([st[0][j] for st in stages]) for j in range(3))
+    ingests = tuple(torch.stack([st[1][j] for st in stages]) for j in range(2))
+    out_chs = torch.as_tensor(rng.integers(0, K, (len(chain), n)), dtype=torch.int32,
+                              device=device)
+    if images is None:
+        images = np.zeros((n, Hc, Wc), np.int32)
+        for i, (h, w) in enumerate(hws):
+            images[i, :h, :w] = rng.integers(0, 256, (h, w))
+    frames = torch.as_tensor(images, device=device).to(grid.dtype)
+    hw = torch.as_tensor(np.asarray(hws, np.int32), device=device)
+    return settings, ingests, out_chs, hw, frames
+
+
+def phase_pipeline_vs_plain(device, all_grid):
+    """B3 on the card vs its plain version, every case synchronized."""
+    from repro_torch.core.tiling import TILE_AUTO
+    from repro_torch.kernels.vcgra import vcgra_pipeline_batched, vcgra_pipeline_batched_ref
+
+    rng = np.random.default_rng(3)
+    err, cases = 0.0, 0
+    bases = (shared_grid(CHAIN, "pipe-shared"), all_grid,
+             shared_grid(CHAIN, "pipe-shared-k2", num_outputs=2))
+    for dtype_name in ("int32", "int16", "float32", "bfloat16"):
+        for base in bases:
+            grid = retyped(base, dtype_name)
+            for chain in CHAINS:
+                radii = tuple(r for _, r in chain)
+                for n, H, W in ((3, 37, 53), (11, 45, 29)):
+                    hws = [(1, 1), (H, W)] + [
+                        (int(rng.integers(1, H + 1)), int(rng.integers(1, W + 1)))
+                        for _ in range(n - 2)]
+                    args = chain_operands(grid, chain, hws, H, W, device, rng)
+                    want = vcgra_pipeline_batched_ref(grid, radii, *args)
+                    for tr in (None, 1, 3, TILE_AUTO):
+                        got = vcgra_pipeline_batched(grid, radii, *args, tile_rows=tr)
+                        err = max(err, compare(got, want, dtype_name))
+                        cases += 1
+    return err, cases
+
+
 def oracle(app, img):
     """The port's numpy oracle of one library app on one frame."""
     from repro_torch.core import applications as apps
@@ -209,6 +297,16 @@ def oracle(app, img):
     if app == "identity":
         return img
     raise KeyError(app)
+
+
+def staged_oracle(apps_, img):
+    """A chain's numpy oracle: :func:`oracle` composed stage by stage, each
+    stage on the previous stage's [h, w] output."""
+    if isinstance(apps_, str):
+        return oracle(apps_, img)
+    for app in apps_:
+        img = oracle(app, img)
+    return img
 
 
 def serve(svc, requests):
@@ -260,8 +358,8 @@ def phase_main_path(device, all_grid):
 
     stats = svc.stats
     fused, packed = stats.fused_dispatches, stats.dispatches - stats.fused_dispatches
-    if launches != {"vcgra_fused_batched": fused, "vcgra_batched": packed} \
-            or (fused, packed) != (3, 1):
+    if launches != {"vcgra_fused_batched": fused, "vcgra_batched": packed,
+                    "vcgra_pipeline_batched": 0} or (fused, packed) != (3, 1):
         raise AssertionError(f"launches {launches} vs dispatches fused={fused} packed={packed}")
     plans = {k.rsplit("|", 1)[0] for k in stats.dispatch_plans}
     if stats.overlay_builds != len(plans):
@@ -294,8 +392,70 @@ def phase_main_path(device, all_grid):
     return svc, flushes[0], channel_requests, launches
 
 
+def phase_chain_path(svc, pipe_grid):
+    """Chained requests through the same front-end, the launch counters
+    reset just before and read just after: 8 x 1080p depth-3 chains on the
+    pipe-shared grid, then a mixed flush on ``sobel-5x9`` of two chain
+    radii groups and single-stage requests at 720p-1080p."""
+    import torch
+    from repro_torch.kernels.vcgra import LAUNCHES, reset_launch_counts
+    from repro_torch.serve import FleetFrontend
+
+    rng = np.random.default_rng(4)
+
+    def frame(h, w):
+        return rng.integers(0, 256, (h, w)).astype(np.int32)
+
+    long_chain, short_chain = ["sharpen", "sobel_x", "threshold"], ["sobel_x", "threshold"]
+    flushes = [
+        [(CHAIN, frame(1080, 1920), pipe_grid) for _ in range(8)],
+        [(long_chain, frame(1080, 1920), None), (short_chain, frame(720, 1280), None),
+         ("laplace", frame(900, 1600), None), (long_chain, frame(720, 1280), None),
+         ("sobel_y", frame(1080, 1920), None), (short_chain, frame(1080, 1440), None)],
+    ]
+    stats = svc.stats
+    before = (stats.dispatches, stats.fused_dispatches, stats.pipeline_dispatches)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    served = [serve(svc, reqs) for reqs in flushes]
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+
+    pipe = stats.pipeline_dispatches - before[2]
+    fused = stats.fused_dispatches - before[1] - pipe
+    packed = stats.dispatches - before[0] - pipe - fused
+    if launches != {"vcgra_fused_batched": fused, "vcgra_batched": packed,
+                    "vcgra_pipeline_batched": pipe} or (pipe, fused, packed) != (3, 1, 0):
+        raise AssertionError(
+            f"launches {launches} vs dispatches pipeline={pipe} fused={fused} packed={packed}")
+    for reqs, outs in zip(flushes, served):
+        for (app, img, _), out in zip(reqs, outs):
+            if not np.array_equal(out, staged_oracle(app, img)):
+                raise AssertionError(f"{app} {img.shape} differs from the staged numpy oracle")
+    oracle_svc = FleetFrontend(backend="torch")
+    for reqs, outs in zip(flushes, served):
+        for got, want in zip(outs, serve(oracle_svc, reqs)):
+            if not np.array_equal(got, want):
+                raise AssertionError("hopper chain output differs from backend='torch'")
+        torch.cuda.empty_cache()
+    emit({"phase": "chain_path", "flushes": len(flushes),
+          "requests": sum(map(len, flushes)), "launches": launches,
+          "pipeline_dispatches": pipe,
+          "dispatch_plans": {k: v for k, v in stats.dispatch_plans.items() if "|pipe" in k},
+          "chain_path_s": chain_s,
+          "checked_against": ["staged numpy oracle", "backend='torch' on the card"]})
+    return flushes[0], launches
+
+
 def cuda_ms(fn, reps):
     """Median device time of ``fn`` over ``reps`` runs, by CUDA events."""
+    return statistics.median(cuda_times(fn, reps))
+
+
+def cuda_times(fn, reps):
+    """Device times (ms) of ``reps`` runs of ``fn`` after one warm-up, by
+    CUDA events."""
     import torch
 
     fn()
@@ -308,7 +468,7 @@ def cuda_ms(fn, reps):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
 
 
 def bound(bytes_moved, ops):
@@ -376,24 +536,89 @@ def phase_times(device, svc, main_reqs, channel_requests):
         ms=cuda_ms(run_b2, 20), plain_ms=cuda_ms(plain_b2, 3), bound_ms=b_ms, bound_by=b_by,
         shape=f"n8x{grid.num_inputs}x{B}", main_path_err=err)
 
-    flush_ms, runs = [], 5
-    before = dict(svc.timings)
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        serve(svc, main_reqs)
-        torch.cuda.synchronize()
-        flush_ms.append((time.perf_counter() - t0) * 1e3)
-    # The fleet's own split: host packing (canvas fill, copy to the card)
-    # vs dispatch (kernel launch and the outputs' copy back), per flush.
-    split = {f"{k}_ms_per_flush": (svc.timings[k] - before[k]) * 1e3 / runs
-             for k in ("pack_s", "dispatch_s")}
-    e2e = {"flush": "8 x 1080p int32, sobel-5x9", "median_ms": statistics.median(flush_ms),
-           "runs_ms": flush_ms, **split}
+    e2e = time_flushes(svc, main_reqs, "8 x 1080p int32, sobel-5x9")
     emit({"phase": "times", "kernels": rows, "end_to_end": e2e,
           "rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S, "scalar_ops_per_s": SCALAR_OPS_PER_S},
           "library_ms": None,
           "library_note": "no single PyTorch call computes a VCGRA overlay"})
     return rows, e2e
+
+
+def time_flushes(svc, reqs, label, runs=5):
+    """Host-clock flush times of ``reqs`` through ``svc``, each ending in a
+    synchronize, with the fleet's own split per flush: host packing
+    (canvas fill, copy to the card) vs dispatch (kernel launches and the
+    outputs' copy back)."""
+    import torch
+
+    flush_ms = []
+    before = dict(svc.timings)
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        serve(svc, reqs)
+        torch.cuda.synchronize()
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+    split = {f"{k}_ms_per_flush": (svc.timings[k] - before[k]) * 1e3 / runs
+             for k in ("pack_s", "dispatch_s")}
+    return {"flush": label, "median_ms": statistics.median(flush_ms), "runs_ms": flush_ms,
+            **split}
+
+
+def phase_chain_times(device, svc, chain_reqs, pipe_grid):
+    """B3 at the chain path's shape (the 8 x 1080p flush's n8x2048x2048
+    canvas, depth-3 chain, int32), its plain version, its bound, the staged
+    chain (three B1 launches with the masked forward between them) on the
+    same operands, and the chain flush end to end."""
+    from repro_torch.core.interpreter import forward_stage_output, valid_pixel_mask
+    from repro_torch.core.tiling import itemsize
+    from repro_torch.kernels.vcgra import (
+        vcgra_fused_batched, vcgra_pipeline_batched, vcgra_pipeline_batched_ref,
+    )
+
+    grid = pipe_grid
+    canvas = np.zeros((8, 2048, 2048), np.int32)
+    for i, (_, img, _) in enumerate(chain_reqs):
+        canvas[i, :img.shape[0], :img.shape[1]] = img
+    chain = [(app, 1) for app in CHAIN]
+    radii = tuple(r for _, r in chain)
+    hws = [img.shape for _, img, _ in chain_reqs]
+    args = chain_operands(grid, chain, hws, 2048, 2048, device, np.random.default_rng(5),
+                          images=canvas)
+    settings, ingests, out_chs, hw, frames = args
+
+    def run_b3():
+        return vcgra_pipeline_batched(grid, radii, *args, tile_rows="auto")
+
+    def plain_b3():
+        return vcgra_pipeline_batched_ref(grid, radii, *args)
+
+    def staged():
+        x, valid = frames, valid_pixel_mask(hw, 2048, 2048)
+        for si, r in enumerate(radii):
+            ys = vcgra_fused_batched(grid, r, tuple(t[si] for t in settings),
+                                     (ingests[0][si], ingests[1][si]), x, tile_rows="auto")
+            if si < len(radii) - 1:
+                x = forward_stage_output(ys, out_chs[si], valid)
+        return ys
+
+    got = run_b3()
+    err = compare(got, plain_b3(), "int32")
+    compare(staged(), got, "int32")
+    n, px, K = 8, 2048 * 2048, grid.num_outputs
+    b_ms, b_by = bound(n * px * itemsize(grid.dtype) * (1 + K),
+                       n * px * grid.num_pes * len(radii))
+    # 20 runs each, interleaved: staged, kernel, kernel, staged.
+    staged_ms = cuda_times(staged, 10)
+    ms = cuda_times(run_b3, 10) + cuda_times(run_b3, 10)
+    staged_ms += cuda_times(staged, 10)
+    row = dict(ms=statistics.median(ms), plain_ms=cuda_ms(plain_b3, 3),
+               bound_ms=b_ms, bound_by=b_by, shape=f"n{n}x2048x2048 depth-3 {grid.name}",
+               main_path_err=err, staged_ms=statistics.median(staged_ms),
+               ms_range=[min(ms), max(ms)], staged_ms_range=[min(staged_ms), max(staged_ms)])
+    row["faster"] = "B3" if row["ms"] < row["staged_ms"] else "staged"
+    e2e = time_flushes(svc, chain_reqs, f"8 x 1080p int32 chain {'+'.join(CHAIN)}, {grid.name}")
+    emit({"phase": "chain_times", "kernel": row, "end_to_end": e2e})
+    return row, e2e
 
 
 def main() -> int:
@@ -422,21 +647,40 @@ def main() -> int:
           "tolerance": "bitwise for int32/int16/float32; bf16 |d| <= 0.5 + 0.5|ref|",
           "seconds": time.perf_counter() - t0})
 
-    svc, main_reqs, channel_requests, launches = phase_main_path(device, all_grid)
-    rows, e2e = phase_times(device, svc, main_reqs, channel_requests)
+    t0 = time.perf_counter()
+    errs["vcgra_pipeline_batched"], cases["vcgra_pipeline_batched"] = \
+        phase_pipeline_vs_plain(device, all_grid)
+    emit({"phase": "pipeline_vs_plain", "cases": cases["vcgra_pipeline_batched"],
+          "max_abs_err": errs["vcgra_pipeline_batched"],
+          "tolerance": "bitwise for int32/int16/float32; bf16 |d| <= 0.5 + 0.5|ref|",
+          "seconds": time.perf_counter() - t0})
 
+    svc, main_reqs, channel_requests, main_launches = phase_main_path(device, all_grid)
+    pipe_grid = shared_grid(CHAIN, "pipe-shared")
+    chain_reqs, chain_launches = phase_chain_path(svc, pipe_grid)
+    rows, e2e = phase_times(device, svc, main_reqs, channel_requests)
+    rows["vcgra_pipeline_batched"], chain_e2e = phase_chain_times(
+        device, svc, chain_reqs, pipe_grid)
+
+    # Each kernel's launches come from the path it serves, counted from 0.
+    launches = {"vcgra_fused_batched": main_launches["vcgra_fused_batched"],
+                "vcgra_batched": main_launches["vcgra_batched"],
+                "vcgra_pipeline_batched": chain_launches["vcgra_pipeline_batched"]}
     kernels = []
-    for name in ("vcgra_fused_batched", "vcgra_batched"):
+    for name, (source, replaces) in KERNELS.items():
         r = rows[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(errs[name], r["main_path_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "shape": r["shape"],
         })
-    emit({"kernels": kernels, "launches": launches, "card": card,
-          "end_to_end_flush_ms": e2e["median_ms"]})
+    emit({"kernels": kernels, "launches": {"main_path": main_launches,
+                                           "chain_path": chain_launches},
+          "card": card, "end_to_end_flush_ms": e2e["median_ms"],
+          "chain_flush_ms": chain_e2e["median_ms"],
+          "staged_chain_ms": rows["vcgra_pipeline_batched"]["staged_ms"]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

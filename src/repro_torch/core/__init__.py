@@ -8,14 +8,18 @@ from repro_torch.core.ingest import IngestError, IngestPlan, plan_for, tap_offse
 from repro_torch.core.ops import Op
 from repro_torch.core.pixie import map_app
 from repro_torch.core.place import Placement, PlacementError, level_demand, place
-from repro_torch.core.plan import OverlayExecutable, OverlayPlan, compile_plan, register_executor
+from repro_torch.core.plan import (
+    OverlayExecutable, OverlayPlan, PipelineSpec, PipelineStage, compile_plan,
+    register_executor,
+)
 from repro_torch.core.route import Routing, RoutingError, route
 
 __all__ = [
     "DFG", "InRef", "NodeRef", "reference_eval",
     "GridSpec", "custom", "for_dfg", "paper_4x4", "rectangular", "sobel_grid",
     "IngestError", "IngestPlan", "plan_for", "tap_offsets",
-    "Op", "OverlayExecutable", "OverlayPlan", "compile_plan", "register_executor",
+    "Op", "OverlayExecutable", "OverlayPlan", "PipelineSpec", "PipelineStage",
+    "compile_plan", "register_executor",
     "map_app",
     "Placement", "PlacementError", "level_demand", "place",
     "Routing", "RoutingError", "route",

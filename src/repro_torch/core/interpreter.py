@@ -266,3 +266,59 @@ def tiled_batched_fused_overlay_step(
     # flattening makes each tile's pixels contiguous), minus the pad rows.
     y = ys.reshape(n, T, -1, tr * W).transpose(1, 2).reshape(n, -1, T * tr * W)
     return y[:, :, : H * W]
+
+
+# -- pipeline chains (stage i's output feeds stage i+1's taps) -----------------
+
+
+def valid_pixel_mask(hw: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """``[N, H, W]`` bool mask of each app's true frame region inside a
+    padded canvas: ``hw`` is int32 ``[N, 2]`` of per-app ``(rows, cols)``.
+
+    The chain executors zero everything outside it between stages: a
+    stage's output on canvas padding is not zero (its taps read real frame
+    pixels), but the next stage's border must read zeros, exactly what the
+    staged oracle sees when each intermediate is re-embedded into a fresh
+    zero canvas."""
+    hw = hw.to(torch.int32)
+    rows = torch.arange(H, dtype=torch.int32, device=hw.device)
+    cols = torch.arange(W, dtype=torch.int32, device=hw.device)
+    rows_in = rows[None, :, None] < hw[:, 0][:, None, None]
+    cols_in = cols[None, None, :] < hw[:, 1][:, None, None]
+    return rows_in & cols_in
+
+
+def forward_stage_output(ys: torch.Tensor, out_ch: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """Select each app's forwarded output channel from a stage's
+    ``[N, K, H*W]`` result (``ys[i, out_ch[i]]``) and zero it outside the
+    app's true frame region: the inter-stage hop of the chain.  ``out_ch``
+    is int32 ``[N]``; ``valid`` is :func:`valid_pixel_mask`'s ``[N, H, W]``."""
+    n, H, W = valid.shape
+    idx = out_ch.to(torch.int64)[:, None, None].expand(n, 1, ys.shape[-1])
+    y = torch.gather(ys, 1, idx)[:, 0].reshape(n, H, W)
+    return torch.where(valid, y, torch.zeros_like(y))
+
+
+def pipeline_batched_fused_step(
+    grid: GridSpec, radii, stage_fn, stage_settings, hw, images,
+) -> torch.Tensor:
+    """Operand-settings pipeline chain: N per-app stage chains on N raw
+    frames, every intermediate a device-resident ``[N, H, W]`` frame.
+
+    ``radii`` are the per-stage tap radii; ``stage_settings`` is one
+    ``(stacked_configs, stacked_ingests, out_ch)`` triple per stage, each
+    tensor with the leading app axis N.  ``stage_fn(radius, configs,
+    ingests, x)`` runs one stage (the plan supplies the batched fused step,
+    tiled or not); the last stage returns its full ``[N, K, H*W]`` output
+    and its ``out_ch`` entry is never read."""
+    x = images.to(grid.dtype)
+    n, H, W = x.shape
+    valid = valid_pixel_mask(hw, H, W)
+    ys = None
+    for si, r in enumerate(radii):
+        configs, ingests, out_ch = stage_settings[si]
+        ys = stage_fn(r, configs, ingests, x)
+        if si < len(radii) - 1:
+            x = forward_stage_output(ys, out_ch, valid)
+    return ys

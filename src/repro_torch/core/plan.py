@@ -1,13 +1,15 @@
 """OverlayPlan: the unified compile/dispatch pipeline for the overlay.
 
 Twin of the reference package's ``core/plan.py`` (single device, sync
-ingest, no pipeline axis yet):
+ingest):
 
   OverlayPlan        a frozen, hashable description of one dispatch: grid
                      structure, fused-vs-channel ingest (+ tap radius),
-                     single-vs-batched app axis, execution backend and the
-                     row-tile height.  It is THE cache key: the fleet's
-                     executable LRU and its stats name dispatches by plan.
+                     single-vs-batched app axis, execution backend, the
+                     row-tile height and the pipeline axis (a chain of
+                     stages per app slot).  It is THE cache key: the
+                     fleet's executable LRU and its stats name dispatches
+                     by plan.
   compile_plan       plan -> OverlayExecutable.  Looks the executor up in a
                      registry: the eager "torch" cells are registered here,
                      the "hopper" kernel cells register themselves from
@@ -21,12 +23,177 @@ Hopper kernels themselves are built once per process at first launch.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from functools import partial
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 from repro_torch.core import interpreter
+from repro_torch.core.bitstream import VCGRAConfig
 from repro_torch.core.grid import GridSpec
 from repro_torch.core.tiling import check_tile_rows
+
+
+# -- the pipeline axis ---------------------------------------------------------
+
+
+def _config_digest(cfg: VCGRAConfig) -> str:
+    """Canonical content digest of one stage's settings: grid name,
+    opcodes, mux selects, output taps, ingest production rules and const
+    coefficients.  sha1 over the reference's bytes in the reference's
+    order, so a port key equals the reference key but for the backend."""
+    h = hashlib.sha1()
+    h.update(cfg.grid_name.encode())
+    for ops_lvl in cfg.opcodes:
+        h.update(np.asarray(ops_lvl, np.int32).tobytes())
+    for sel_lvl in cfg.selects:
+        h.update(np.asarray(sel_lvl, np.int32).tobytes())
+    h.update(np.asarray(cfg.out_sel, np.int32).tobytes())
+    h.update(repr(tuple(cfg.input_order)).encode())
+    h.update(
+        repr(sorted((str(k), float(v)) for k, v in cfg.const_values.items()))
+        .encode()
+    )
+    ing = cfg.ingest
+    if ing is not None:
+        h.update(str(int(ing.radius)).encode())
+        h.update(np.asarray(ing.tap_sel, np.int32).tobytes())
+        h.update(np.asarray(ing.const_vals, np.float64).tobytes())
+    return h.hexdigest()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PipelineStage:
+    """One stage of a chain: a mapped app config plus which of its output
+    channels feeds the next stage's ingest taps.
+
+    ``config`` must carry an :class:`~repro_torch.core.ingest.IngestPlan`
+    (every stage eats a raw frame, the previous stage's intermediate); its
+    radius IS the stage's tap radius.  ``out_channel`` on the last stage
+    is never read: the chain returns that stage's full ``[K, H*W]``.
+    Hash and equality ride a content digest, so stages slot into frozen
+    plans without freezing ``VCGRAConfig``."""
+
+    config: VCGRAConfig
+    out_channel: int = 0
+
+    def __post_init__(self):
+        if self.config.ingest is None:
+            raise ValueError(
+                f"pipeline stage {self.config.app_name!r} has no ingest "
+                "plan (a channel is neither a stencil tap nor a const); "
+                "every stage must eat a raw frame"
+            )
+        object.__setattr__(self, "out_channel", int(self.out_channel))
+        if not 0 <= self.out_channel < len(self.config.out_sel):
+            raise ValueError(
+                f"out_channel={self.out_channel} out of range for "
+                f"{self.config.app_name!r} ({len(self.config.out_sel)} "
+                "output channels)"
+            )
+        object.__setattr__(
+            self, "_digest",
+            hashlib.sha1(
+                f"{_config_digest(self.config)}|out{self.out_channel}".encode()
+            ).hexdigest(),
+        )
+
+    @property
+    def digest(self) -> str:
+        return self._digest
+
+    @property
+    def radius(self) -> int:
+        return int(self.config.ingest.radius)
+
+    def at_radius(self, radius: int) -> "PipelineStage":
+        """The same stage re-planned against another tap-bank radius
+        (:meth:`IngestPlan.at_radius`).  The config's ``cache_key`` gets an
+        ``@r{radius}`` suffix so radius-keyed settings banks never alias
+        the original."""
+        if int(radius) == self.radius:
+            return self
+        cfg = dataclasses.replace(self.config, ingest=self.config.ingest.at_radius(radius))
+        if cfg.cache_key is not None:
+            cfg.cache_key = f"{cfg.cache_key}@r{int(radius)}"
+        return PipelineStage(cfg, self.out_channel)
+
+    def __hash__(self):
+        return hash(self._digest)
+
+    def __eq__(self, other):
+        return isinstance(other, PipelineStage) and self._digest == other._digest
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PipelineSpec:
+    """A frozen, hashable ordered chain of :class:`PipelineStage`: the
+    pipeline axis of ONE app slot.  Stage *i*'s selected output channel
+    feeds stage *i+1*'s ingest taps as a raw frame; intermediates never
+    leave the device."""
+
+    stages: Tuple[PipelineStage, ...]
+
+    def __post_init__(self):
+        stages = tuple(self.stages)
+        if not stages:
+            raise ValueError("a pipeline needs at least one stage")
+        gname = stages[0].config.grid_name
+        for s in stages[1:]:
+            if s.config.grid_name != gname:
+                raise ValueError(
+                    "every stage of a pipeline runs on ONE overlay grid "
+                    f"(reconfigured between stages): {s.config.grid_name!r} "
+                    f"!= {gname!r}"
+                )
+        object.__setattr__(self, "stages", stages)
+        object.__setattr__(self, "_digest", pipeline_digest(stages))
+
+    @property
+    def depth(self) -> int:
+        return len(self.stages)
+
+    @property
+    def radii(self) -> Tuple[int, ...]:
+        return tuple(s.radius for s in self.stages)
+
+    @property
+    def total_radius(self) -> int:
+        """Sum of stage radii: how far one output pixel's provenance
+        reaches back through the whole chain (the kernel's halo)."""
+        return sum(self.radii)
+
+    @property
+    def digest(self) -> str:
+        return self._digest
+
+    @staticmethod
+    def chain(configs: Sequence[VCGRAConfig],
+              out_channels: Optional[Sequence[int]] = None) -> "PipelineSpec":
+        """A linear chain from mapped configs (+ optional per-stage
+        forwarded output channels, default 0)."""
+        cfgs = list(configs)
+        chans = list(out_channels) if out_channels is not None else [0] * len(cfgs)
+        if len(chans) != len(cfgs):
+            raise ValueError(f"{len(chans)} out_channels for {len(cfgs)} stages")
+        return PipelineSpec(tuple(PipelineStage(c, ch) for c, ch in zip(cfgs, chans)))
+
+    def __hash__(self):
+        return hash(self._digest)
+
+    def __eq__(self, other):
+        return isinstance(other, PipelineSpec) and self._digest == other._digest
+
+
+def pipeline_digest(items: Sequence[Union[PipelineStage, PipelineSpec]]) -> str:
+    """sha1 over the digests of ``items`` in order: a spec's digest (over
+    its stages) and the ``pipe{...}`` key segment (over a dispatch's
+    per-app-slot specs)."""
+    h = hashlib.sha1()
+    for s in items:
+        h.update(s.digest.encode())
+    return h.hexdigest()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +210,13 @@ class OverlayPlan:
     * ``tile_rows``  row tiling of fused dispatches: None, an int or
       ``tiling.TILE_AUTO``.  All values are bitwise-identical; the eager
       twin forms its tap bank per slab, the Hopper kernel's output does
-      not depend on it.  Fused plans only.
+      not depend on it.  Fused plans only;
+    * ``pipeline``   one :class:`PipelineSpec` per app slot (all sharing
+      depth and per-stage radii, which are executable shape).  A chain
+      plan is a batched fused plan whose radius is the largest stage
+      radius; depth-1 chains canonicalize to ``pipeline=None`` and the
+      stage's radius, so they ARE the single-stage plan (same key, hash
+      and cache entry).
 
     Two dispatches with equal plans share one executable.
     """
@@ -54,9 +227,12 @@ class OverlayPlan:
     radius: Optional[int] = None     # tap-bank radius; fused plans only
     backend: str = "torch"
     tile_rows: Union[int, str, None] = None  # fused plans only
+    pipeline: Optional[Tuple[PipelineSpec, ...]] = None
 
     def __post_init__(self):
         interpreter.check_backend(self.backend)
+        if self.pipeline is not None:
+            self._canonicalize_pipeline()
         if self.fused:
             # Canonical key: a fused plan always names its radius.
             object.__setattr__(
@@ -78,6 +254,44 @@ class OverlayPlan:
                 )
             object.__setattr__(self, "tile_rows", check_tile_rows(self.tile_rows))
 
+    def _canonicalize_pipeline(self) -> None:
+        specs = tuple(self.pipeline)
+        if not specs or not all(isinstance(s, PipelineSpec) for s in specs):
+            raise ValueError(
+                "pipeline must be a non-empty sequence of PipelineSpec "
+                "(one per app slot)"
+            )
+        ref = specs[0]
+        for s in specs[1:]:
+            if s.radii != ref.radii:
+                raise ValueError(
+                    "every app slot of a pipeline dispatch must share "
+                    f"the stage structure: radii {s.radii} != {ref.radii} "
+                    "(depth and per-stage radii are executable shape)"
+                )
+        for s in specs:
+            for st in s.stages:
+                if st.config.grid_name != self.grid.name:
+                    raise ValueError(
+                        "pipeline stage mapped on grid "
+                        f"{st.config.grid_name!r} cannot run on plan "
+                        f"grid {self.grid.name!r}"
+                    )
+        if not self.batched:
+            raise ValueError(
+                "a pipeline plan is a batched fused dispatch (single "
+                "chains run as N=1); set batched=True"
+            )
+        if self.radius is not None:
+            raise ValueError(
+                "radius is derived from the pipeline's stages; don't pass both"
+            )
+        object.__setattr__(self, "fused", True)
+        # Depth 1 IS the single-stage batched fused plan; deeper chains
+        # name the largest stage radius, their identity rides pipe{...}.
+        object.__setattr__(self, "pipeline", specs if ref.depth > 1 else None)
+        object.__setattr__(self, "radius", max(ref.radii))
+
     def key(self) -> str:
         """Compact human-readable identity, in the reference's format with
         the port's backend name, e.g.
@@ -90,6 +304,8 @@ class OverlayPlan:
             self.backend,
             "dev1",
         ]
+        if self.pipeline is not None:
+            parts.append(f"pipe{pipeline_digest(self.pipeline)[:12]}")
         if self.tile_rows is not None:
             parts.append(f"tile:{self.tile_rows}")
         return "|".join(parts)
@@ -103,6 +319,12 @@ class OverlayExecutable:
       batched=False, fused=True    fn(config_arrays, ingest_arrays, image)
       batched=True,  fused=False   fn(stacked_configs, xs)
       batched=True,  fused=True    fn(stacked_configs, stacked_ingests, images)
+      pipeline (depth > 1)         fn(stage_settings, hw, images)
+
+    Pipeline operands: ``stage_settings`` is one ``(stacked_configs,
+    stacked_ingests, out_ch)`` triple per stage (``out_ch`` int32 [N]);
+    ``hw`` is int32 [N, 2] of per-app true ``(rows, cols)`` inside the
+    canvas, outside which every intermediate is zeroed.
     """
 
     def __init__(self, plan: OverlayPlan, fn: Callable):
@@ -116,10 +338,23 @@ class OverlayExecutable:
         return f"OverlayExecutable({self.plan.key()})"
 
 
+def replace_plan(plan: OverlayPlan, **overrides: Any) -> OverlayPlan:
+    """``dataclasses.replace`` that is safe for pipeline plans, whose
+    ``fused``/``radius`` derive from the stages (passing them back in, as
+    a plain ``replace`` does, raises)."""
+    if plan.pipeline is not None:
+        fields = dict(grid=plan.grid, batched=True, pipeline=plan.pipeline,
+                      backend=plan.backend, tile_rows=plan.tile_rows)
+        fields.update(overrides)
+        return OverlayPlan(**fields)
+    return dataclasses.replace(plan, **overrides)
+
+
 # -- executor registry ---------------------------------------------------------
 
 ExecutorBuilder = Callable[[OverlayPlan], Callable]
 _EXECUTOR_BUILDERS: Dict[Tuple[str, bool, bool], ExecutorBuilder] = {}
+_PIPELINE_BUILDERS: Dict[str, ExecutorBuilder] = {}
 
 
 def register_executor(backend: str, *, batched: bool, fused: bool):
@@ -129,6 +364,17 @@ def register_executor(backend: str, *, batched: bool, fused: bool):
 
     def deco(builder: ExecutorBuilder) -> ExecutorBuilder:
         _EXECUTOR_BUILDERS[(interpreter.check_backend(backend), batched, fused)] = builder
+        return builder
+
+    return deco
+
+
+def register_pipeline_executor(backend: str):
+    """Register the chain executor builder of one backend: it takes a
+    depth > 1 pipeline plan and returns ``fn(stage_settings, hw, images)``."""
+
+    def deco(builder: ExecutorBuilder) -> ExecutorBuilder:
+        _PIPELINE_BUILDERS[interpreter.check_backend(backend)] = builder
         return builder
 
     return deco
@@ -177,6 +423,22 @@ def _torch_batched_fused(plan: OverlayPlan) -> Callable:
     return partial(interpreter.batched_fused_overlay_step, plan.grid, plan.radius)
 
 
+@register_pipeline_executor("torch")
+def _torch_pipeline(plan: OverlayPlan) -> Callable:
+    """The operand-settings chain over the eager stage step (row-tiled
+    when the plan asks for it): the port's oracle for chains."""
+    grid = plan.grid
+
+    def stage(radius, configs, ingests, x):
+        if plan.tile_rows is not None:
+            return interpreter.tiled_batched_fused_overlay_step(
+                grid, radius, plan.tile_rows, configs, ingests, x)
+        return interpreter.batched_fused_overlay_step(grid, radius, configs, ingests, x)
+
+    return partial(interpreter.pipeline_batched_fused_step, grid,
+                   plan.pipeline[0].radii, stage)
+
+
 def compile_plan(plan: OverlayPlan) -> OverlayExecutable:
     """THE overlay entry point: plan -> executable.  Importing the kernel
     package (for ``backend="hopper"``) registers its cells; the CUDA
@@ -184,6 +446,8 @@ def compile_plan(plan: OverlayPlan) -> OverlayExecutable:
     if plan.backend == "hopper":
         import repro_torch.kernels.vcgra.ops  # noqa: F401
 
+    if plan.pipeline is not None:
+        return OverlayExecutable(plan, _PIPELINE_BUILDERS[plan.backend](plan))
     builder = _EXECUTOR_BUILDERS.get((plan.backend, plan.batched, plan.fused))
     if builder is None:  # pragma: no cover - registry covers the full matrix
         raise ValueError(f"no executor registered for plan {plan.key()}")

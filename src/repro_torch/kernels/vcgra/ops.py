@@ -1,8 +1,9 @@
 """Wrappers of the Hopper VCGRA kernels and their plan-registry cells.
 
-``vcgra_fused_batched`` and ``vcgra_batched`` check their operands,
-allocate the output and launch the CUDA kernel of ``csrc/vcgra.cu`` on
-PyTorch's current stream.  Each keeps a launch count in :data:`LAUNCHES`,
+``vcgra_fused_batched``, ``vcgra_batched`` (``csrc/vcgra.cu``) and
+``vcgra_pipeline_batched`` (``csrc/vcgra_pipeline.cu``) check their
+operands, allocate the output and launch their CUDA kernel on PyTorch's
+current stream.  Each keeps a launch count in :data:`LAUNCHES`,
 raised where (and only where) it launches, so a run can show that its main
 path went through the kernels.  A wrapper given CPU tensors computes its
 plain PyTorch version (``ref.py``) instead -- that is the only fallback:
@@ -10,7 +11,8 @@ for CUDA tensors it launches the kernel or raises.
 
 The module registers the ``backend="hopper"`` cells of the plan matrix:
 (batched, fused) runs ``vcgra_fused_batched``, (batched, unfused) runs
-``vcgra_batched``, and the single-app cells ride them with N=1.
+``vcgra_batched``, the single-app cells ride them with N=1, and depth > 1
+pipeline plans run ``vcgra_pipeline_batched``.
 """
 
 from __future__ import annotations
@@ -22,13 +24,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.grid import GridSpec
-from repro_torch.core.plan import OverlayPlan, lift_app_axis, register_executor
+from repro_torch.core.plan import (
+    OverlayPlan, lift_app_axis, register_executor, register_pipeline_executor,
+)
 from repro_torch.core.tiling import check_tile_rows, resolve_tile_rows
 from repro_torch.kernels.vcgra import ref
 from repro_torch.kernels.vcgra.build import load_library
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
-LAUNCHES: Dict[str, int] = {"vcgra_fused_batched": 0, "vcgra_batched": 0}
+LAUNCHES: Dict[str, int] = {
+    "vcgra_fused_batched": 0, "vcgra_batched": 0, "vcgra_pipeline_batched": 0,
+}
 
 _DTYPE_CODES = {torch.int32: 0, torch.int16: 1, torch.float32: 2, torch.bfloat16: 3}
 
@@ -61,10 +67,10 @@ def pack_settings_batched(grid: GridSpec, stacked_configs):
 
 
 @functools.lru_cache(maxsize=None)
-def _level_widths(pes_per_level: Tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """The grid's per-level PE counts as an int32 tensor on ``device``
-    (built once per grid and device, not per launch)."""
-    return torch.tensor(pes_per_level, dtype=torch.int32, device=device)
+def _int32_on(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """A small int32 tensor on ``device`` (a grid's per-level PE counts, a
+    chain's radii), built once per value tuple and device, not per launch."""
+    return torch.tensor(values, dtype=torch.int32, device=device)
 
 
 def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...],
@@ -87,16 +93,17 @@ def _check_settings(grid: GridSpec, n: int, settings, device) -> None:
     _check("out_sel", out_sel, (n, grid.num_outputs), torch.int32, device)
 
 
-def _launch_target(grid: GridSpec, n: int, device: torch.device):
+def _launch_target(grid: GridSpec, n: int, device: torch.device, library: str = "vcgra"):
     """The bound library, after the checks only a launch needs."""
     if device.type != "cuda":
         raise ValueError(f"the Hopper kernels run on CUDA tensors, got {device}")
-    lib = load_library()
+    lib = load_library(library)
     widest = max(grid.num_inputs, max(grid.pes_per_level))
-    if widest > lib.vcgra_max_vals():
+    limit = lib.vcgra_max_vals()
+    if widest > limit:
         raise ValueError(
             f"grid {grid.name!r} needs a {widest}-wide value vector; the "
-            f"kernels hold at most {lib.vcgra_max_vals()}"
+            f"kernels hold at most {limit}"
         )
     if n > _MAX_APPS:
         raise ValueError(f"{n} apps in one launch; at most {_MAX_APPS}")
@@ -140,7 +147,7 @@ def vcgra_fused_batched(grid: GridSpec, radius: int, settings, ingests,
     if out.numel() == 0:
         return out
     ops, sel, out_sel = settings
-    widths = _level_widths(grid.pes_per_level, device)
+    widths = _int32_on(grid.pes_per_level, device)
     with torch.cuda.device(device):
         rc = lib.vcgra_fused_batched(
             _DTYPE_CODES[grid.dtype], frames.data_ptr(), ops.data_ptr(),
@@ -171,7 +178,7 @@ def vcgra_batched(grid: GridSpec, settings, xs: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     ops, sel, out_sel = settings
-    widths = _level_widths(grid.pes_per_level, device)
+    widths = _int32_on(grid.pes_per_level, device)
     with torch.cuda.device(device):
         rc = lib.vcgra_batched(
             _DTYPE_CODES[grid.dtype], xs.data_ptr(), ops.data_ptr(), sel.data_ptr(),
@@ -181,6 +188,68 @@ def vcgra_batched(grid: GridSpec, settings, xs: torch.Tensor) -> torch.Tensor:
         )
     _raise_on_error("vcgra_batched", rc)
     LAUNCHES["vcgra_batched"] += 1
+    return out
+
+
+def vcgra_pipeline_batched(grid: GridSpec, radii, settings, ingests, out_chs: torch.Tensor,
+                           hw: torch.Tensor, images: torch.Tensor,
+                           tile_rows=None) -> torch.Tensor:
+    """N chained tenants on N raw frames, ONE launch: the Hopper twin of
+    the reference's Pallas ``vcgra_pipeline_batched``.
+
+    ``radii``: the S stage radii; ``settings``: stage-stacked dense banks
+    (ops int32 [S, N, L, max_w], sel [S, N, L, max_w, 2], out_sel
+    [S, N, K]); ``ingests``: (tap_sel int32 [S, N, C], const_vals
+    [S, N, C] in grid dtype); ``out_chs``: int32 [S, N], the output
+    channel stage *i* forwards (the last row is never read); ``hw``: int32
+    [N, 2] true (rows, cols) of each app's frame inside the canvas;
+    ``images``: [N, H, W], cast to the grid dtype.  Returns [N, K, H*W].
+    Stage *i* forwards ``ys[:, out_ch]`` (the output mux's pick), as the
+    reference's XLA oracle does.  ``tile_rows`` is validated and resolved
+    against the chain's total radius like the reference's; the kernel's
+    output does not depend on it."""
+    radii = tuple(int(r) for r in radii)
+    if not radii or min(radii) < 0:
+        raise ValueError(f"radii must be a non-empty sequence of ints >= 0, got {radii}")
+    frames = images.to(grid.dtype)
+    n, H, W = frames.shape
+    S, R = len(radii), sum(radii)
+    resolve_tile_rows(check_tile_rows(tile_rows), H, W, R, grid)
+    device = frames.device
+    ops, sel, out_sel = settings
+    tap_sel, consts = ingests
+    L, max_w, K, C = grid.num_levels, max(grid.pes_per_level), grid.num_outputs, grid.num_inputs
+    _check("ops", ops, (S, n, L, max_w), torch.int32, device)
+    _check("sel", sel, (S, n, L, max_w, 2), torch.int32, device)
+    _check("out_sel", out_sel, (S, n, K), torch.int32, device)
+    _check("tap_sel", tap_sel, (S, n, C), torch.int32, device)
+    _check("const_vals", consts, (S, n, C), grid.dtype, device)
+    _check("out_chs", out_chs, (S, n), torch.int32, device)
+    _check("hw", hw, (n, 2), torch.int32, device)
+    _check("images", frames, (n, H, W), grid.dtype, device)
+    if device.type == "cpu":
+        return ref.vcgra_pipeline_batched_ref(grid, radii, settings, ingests, out_chs, hw,
+                                              frames)
+    lib = _launch_target(grid, n, device, "vcgra_pipeline")
+    if R > lib.vcgra_max_radius():
+        raise ValueError(
+            f"chain radii {radii} reach {R} pixels; the kernel's halo holds at "
+            f"most {lib.vcgra_max_radius()}"
+        )
+    out = torch.empty((n, K, H * W), dtype=grid.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    widths = _int32_on(grid.pes_per_level, device)
+    radii_t = _int32_on(radii, device)
+    with torch.cuda.device(device):
+        rc = lib.vcgra_pipeline_batched(
+            _DTYPE_CODES[grid.dtype], frames.data_ptr(), ops.data_ptr(), sel.data_ptr(),
+            out_sel.data_ptr(), tap_sel.data_ptr(), consts.data_ptr(), out_chs.data_ptr(),
+            hw.data_ptr(), widths.data_ptr(), radii_t.data_ptr(), out.data_ptr(),
+            S, n, H, W, L, max_w, K, C, R, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error("vcgra_pipeline_batched", rc)
+    LAUNCHES["vcgra_pipeline_batched"] += 1
     return out
 
 
@@ -206,6 +275,32 @@ def _batched_fn(grid: GridSpec):
                              xs.to(grid.dtype))
 
     return fn
+
+
+def pipeline_fn(grid: GridSpec, radii, tile_rows=None):
+    """``fn(stage_settings, hw, images) -> [N, K, H*W]``: each stage's
+    ``(stacked_configs, stacked_ingests, out_ch)`` is dense-packed
+    (:func:`pack_settings_batched`) and stacked on a leading stage axis, so
+    the whole chain rides one launch of :func:`vcgra_pipeline_batched`."""
+    radii = tuple(int(r) for r in radii)
+
+    def fn(stage_settings, hw, images):
+        packed = [pack_settings_batched(grid, configs) for configs, _, _ in stage_settings]
+        settings = tuple(torch.stack([p[j] for p in packed]) for j in range(3))
+        ingests = (
+            torch.stack([ing[0].to(torch.int32) for _, ing, _ in stage_settings]),
+            torch.stack([ing[1].to(grid.dtype) for _, ing, _ in stage_settings]),
+        )
+        out_chs = torch.stack([oc.to(torch.int32) for _, _, oc in stage_settings])
+        return vcgra_pipeline_batched(grid, radii, settings, ingests, out_chs,
+                                      hw.to(torch.int32), images, tile_rows=tile_rows)
+
+    return fn
+
+
+@register_pipeline_executor("hopper")
+def _plan_pipeline(plan: OverlayPlan):
+    return pipeline_fn(plan.grid, plan.pipeline[0].radii, plan.tile_rows)
 
 
 @register_executor("hopper", batched=True, fused=True)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two Hopper VCGRA kernels.
+"""Plain PyTorch versions of the three Hopper VCGRA kernels.
 
 Same operands and results as the kernels (dense settings banks, see
 ``ops.pack_settings_batched``), written independently of
@@ -82,3 +82,30 @@ def vcgra_fused_batched_ref(grid: GridSpec, radius: int, settings: DenseSettings
                 chans.append(frames.new_zeros(H * W))
         outs.append(_levels(grid, ops[i], sel[i], out_sel[i], torch.stack(chans)))
     return torch.stack(outs)
+
+
+def vcgra_pipeline_batched_ref(grid: GridSpec, radii, settings: DenseSettings,
+                               ingests: Tuple[torch.Tensor, torch.Tensor],
+                               out_chs: torch.Tensor, hw: torch.Tensor,
+                               frames: torch.Tensor) -> torch.Tensor:
+    """A depth-S chain on raw frames ``[N, H, W]`` -> the last stage's
+    ``[N, K, H*W]``, with B3's stage-stacked operands (settings
+    ``[S, N, ...]``, ingests ``[S, N, C]``, ``out_chs [S, N]``,
+    ``hw [N, 2]``).  Each stage runs over the whole frame; between stages
+    app i forwards its output ``ys[i, out_chs[s, i]]`` (the output mux's
+    pick, not the raw PE slot) with every pixel outside its true
+    ``hw[i]`` region set to zero."""
+    x = frames.to(grid.dtype)
+    n, H, W = x.shape
+    h, w = hw[:, 0].tolist(), hw[:, 1].tolist()
+    chans = out_chs.tolist()
+    ys = None
+    for s, r in enumerate(radii):
+        ys = vcgra_fused_batched_ref(
+            grid, r, tuple(t[s] for t in settings), (ingests[0][s], ingests[1][s]), x)
+        if s < len(radii) - 1:
+            x = torch.zeros_like(x)
+            for i in range(n):
+                y = ys[i, chans[s][i]].reshape(H, W)
+                x[i, : h[i], : w[i]] = y[: h[i], : w[i]]
+    return ys

@@ -8,12 +8,15 @@ dispatch of a batched :class:`~repro_torch.core.plan.OverlayPlan`.
 Scheduling model (the reference's, rule for rule):
 
 * requests name an application (a :class:`DFG`, a mapped config or a
-  library app name) plus named channels or a whole image;
+  library app name) plus named channels or a whole image, or a chain of
+  applications (``pipeline=``) on an image;
 * requests are grouped by :class:`GridSpec`; image requests with an ingest
   plan take the **fused** path (the raw frame is embedded into a zero
   canvas and line-buffer formation happens inside the dispatch),
   named-channel requests and image apps without an ingest plan share the
-  flush through the pre-packed channel path;
+  flush through the pre-packed channel path; chains group by
+  ``(grid, "pipe", radii)`` and each group runs as ONE pipeline dispatch
+  whose intermediates never leave the device;
 * each group is padded to fixed tiles -- the app axis to ``batch_tile``
   (padded slots replay ``configs[0]`` on zero inputs), the canvas sides
   and flat pixel batches to power-of-two buckets -- and outputs are sliced
@@ -45,7 +48,9 @@ from repro_torch.core.dfg import DFG
 from repro_torch.core.grid import GridSpec
 from repro_torch.core.ingest import IngestPlan
 from repro_torch.core.pixie import map_app
-from repro_torch.core.plan import OverlayExecutable, OverlayPlan, compile_plan
+from repro_torch.core.plan import (
+    OverlayExecutable, OverlayPlan, PipelineSpec, compile_plan,
+)
 from repro_torch.core.tiling import (
     TILE_AUTO, check_tile_rows, pad_batches, pad_channels, pow2_bucket, round_up,
 )
@@ -104,12 +109,20 @@ class FleetRequest:
     (``repro_torch.core.applications.ALL_APPS``).  ``inputs``: named
     memory-VC channels, or ``image``: an [H, W] array fed through the
     stencil line buffers.  ``grid`` overrides the fleet's default overlay.
+
+    ``pipeline`` (instead of ``app``): an ordered chain of applications --
+    stage i's selected output (``out_channels[i]``, default channel 0)
+    feeds stage i+1's ingest taps, and the whole chain runs as ONE
+    device-resident dispatch.  A single-stage chain demotes to the plain
+    fused path at submit.  Pipeline requests take ``image=`` frames only.
     """
 
     app: Union[DFG, VCGRAConfig, str, None] = None
     inputs: Optional[Dict[str, Any]] = None
     image: Optional[Any] = None
     grid: Optional[GridSpec] = None
+    pipeline: Optional[Sequence[Union[DFG, VCGRAConfig, str]]] = None
+    out_channels: Optional[Sequence[int]] = None
 
 
 @dataclasses.dataclass
@@ -122,6 +135,7 @@ class FleetStats:
     executed: int = 0
     dispatches: int = 0          # batched overlay launches
     fused_dispatches: int = 0    # of which took the fused-ingest path
+    pipeline_dispatches: int = 0  # of which ran a depth > 1 chain
     partial_tile_dispatches: int = 0  # dispatches with fewer requests than the tile
     padded_app_slots: int = 0    # wasted N-axis slots from tile rounding
     map_calls: int = 0           # place/route runs (config-cache misses)
@@ -145,9 +159,12 @@ class _Prepared:
 
     grid: GridSpec
     cfg: VCGRAConfig
-    kind: str                    # "image" (fused ingest) | "channels"
+    kind: str                    # "image" (fused ingest) | "channels" | "pipeline"
     payload: Any                 # np [H, W] raw frame | tensor [C, batch]
     hw: Optional[Tuple[int, int]]
+    # The depth > 1 chain of kind="pipeline" (depth-1 chains demote to
+    # kind="image" at submit, so they share the single-stage plan cache).
+    spec: Optional[PipelineSpec] = None
 
 
 class PixieFleet:
@@ -247,10 +264,16 @@ class PixieFleet:
         return cfg
 
     def plan_for_dispatch(self, grid: GridSpec, *, fused: bool,
-                          radius: Optional[int] = None) -> OverlayPlan:
+                          radius: Optional[int] = None,
+                          pipeline: Optional[Tuple[PipelineSpec, ...]] = None,
+                          ) -> OverlayPlan:
         """The :class:`OverlayPlan` of one dispatch on this fleet: the
         fleet contributes backend and tiling, the request group grid,
-        fusion and radius."""
+        fusion and radius (or, for chained dispatches, the per-tenant
+        pipeline specs, from which the radius derives)."""
+        if pipeline is not None:
+            return OverlayPlan(grid=grid, batched=True, pipeline=pipeline,
+                               backend=self.backend, tile_rows=self.tile_rows)
         return OverlayPlan(
             grid=grid, batched=True, fused=fused, radius=radius,
             backend=self.backend,
@@ -277,9 +300,17 @@ class PixieFleet:
         Mapping and input packing happen HERE, so an unmappable app or a
         missing input raises to its own submitter and never poisons a
         batch of other tenants' work."""
-        if request.app is None:
-            raise ValueError("app= must be given")
-        if (request.inputs is None) == (request.image is None):
+        if request.pipeline is not None:
+            if request.app is not None:
+                raise ValueError("give app= or pipeline=, not both")
+            if request.image is None or request.inputs is not None:
+                raise ValueError(
+                    "pipeline requests take image= frames (every stage is "
+                    "fused ingest), not inputs="
+                )
+        elif request.app is None:
+            raise ValueError("exactly one of app= or pipeline= must be given")
+        elif (request.inputs is None) == (request.image is None):
             raise ValueError("exactly one of inputs= or image= must be given")
         prepared = self._prepare(request)
         ticket = self._next_ticket
@@ -351,6 +382,10 @@ class PixieFleet:
     def _prepare(self, request: FleetRequest) -> _Prepared:
         t0 = time.perf_counter()
         grid = request.grid or self.default_grid
+        if request.pipeline is not None:
+            prepared = self._prepare_pipeline(request, grid)
+            self.timings["pack_s"] += time.perf_counter() - t0
+            return prepared
         cfg = self.config_for(request.app, grid)
         if request.image is not None:
             image = np.asarray(request.image)
@@ -377,6 +412,31 @@ class PixieFleet:
         self.timings["pack_s"] += time.perf_counter() - t0
         return prepared
 
+    def _prepare_pipeline(self, request: FleetRequest, grid: GridSpec) -> _Prepared:
+        """Validate and map a chained request at submit time.  Every stage
+        needs an ingest plan (the chain is fused ingest end to end); a
+        depth-1 chain demotes to the plain "image" kind, so it batches and
+        caches exactly like an ``app=`` request."""
+        chain = list(request.pipeline)
+        if not chain:
+            raise ValueError("pipeline= must name at least one stage")
+        image = np.asarray(request.image)
+        if image.ndim != 2:
+            raise ValueError(f"image must be [H, W], got shape {image.shape}")
+        hw = tuple(image.shape)
+        cfgs = [self.config_for(app, grid) for app in chain]
+        for cfg in cfgs:
+            if cfg.ingest is None:
+                raise ValueError(
+                    f"pipeline stage {cfg.app_name!r} has no ingest plan "
+                    f"(a channel is neither stencil tap nor const); chains "
+                    f"need fused-ingest stages end to end"
+                )
+        spec = PipelineSpec.chain(cfgs, request.out_channels)
+        if spec.depth == 1:
+            return _Prepared(grid, cfgs[0], "image", image, hw)
+        return _Prepared(grid, cfgs[0], "pipeline", image, hw, spec=spec)
+
     # -- batched execution ----------------------------------------------------
 
     def _dispatch_fused(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
@@ -402,24 +462,81 @@ class PixieFleet:
         self.stats.padded_app_slots += n_tile - n
         self.stats.partial_tile_dispatches += 1 if n < n_tile else 0
         stacked, ingests = self._stacked_bank(grid, configs, fused=True)
-        canvas = self._canvas((n_tile, Hb, Wb), grid.dtype)
-        for i, (_, p) in enumerate(items):
-            H, W = p.hw
-            canvas[i, :H, :W] = torch.from_numpy(np.ascontiguousarray(p.payload))
-        # On a CPU fleet this is the canvas itself; outputs never alias it.
-        frames = canvas.to(self.device)
+        frames = self._ship_frames(items, n_tile, Hb, Wb, grid.dtype)
         self.timings["pack_s"] += time.perf_counter() - t0
 
         t0 = time.perf_counter()
         ys = fn(stacked, ingests, frames)
         self.stats.dispatches += 1
         self.stats.fused_dispatches += 1
-        self.stats.stamp_dispatch(fn.plan, f"n{n_tile}x{Hb}x{Wb}")
-        self.stats.executed += n
+        self._unpack_frames(fn.plan, items, ys, n_tile, Hb, Wb, out)
+        self.timings["dispatch_s"] += time.perf_counter() - t0
+
+    def _ship_frames(self, items: List[Tuple[int, _Prepared]], n_tile: int,
+                     Hb: int, Wb: int, dtype: torch.dtype) -> torch.Tensor:
+        """Embed the raw frames top-left into one pooled zero canvas
+        ``[n_tile, Hb, Wb]`` and copy it to the fleet's device (on a CPU
+        fleet the canvas itself; outputs never alias it)."""
+        canvas = self._canvas((n_tile, Hb, Wb), dtype)
+        for i, (_, p) in enumerate(items):
+            H, W = p.hw
+            canvas[i, :H, :W] = torch.from_numpy(np.ascontiguousarray(p.payload))
+        return canvas.to(self.device)
+
+    def _unpack_frames(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
+                       ys: torch.Tensor, n_tile: int, Hb: int, Wb: int,
+                       out: Dict[int, np.ndarray]) -> None:
+        """Stamp a frame dispatch and slice each request's ``[H, W]`` (or
+        ``[K, H, W]``) output back to the host."""
+        self.stats.stamp_dispatch(plan, f"n{n_tile}x{Hb}x{Wb}")
+        self.stats.executed += len(items)
         for i, (ticket, p) in enumerate(items):
             H, W = p.hw
             y = _to_host(ys[i].reshape(-1, Hb, Wb)[:, :H, :W])
             out[ticket] = y[0] if y.shape[0] == 1 else y
+
+    def _dispatch_pipeline(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
+                           out: Dict[int, np.ndarray]) -> None:
+        """One chained dispatch: raw frames -> final-stage outputs, every
+        intermediate on the device.
+
+        Frames embed, bucket and tile exactly like :meth:`_dispatch_fused`;
+        the chain changes the executable (a pipeline plan keyed
+        ``pipe{digest}``, whose spec tuple is already padded to the app
+        tile) and adds two operands: per-stage settings banks (through the
+        same bank cache) and the per-app true frame extents ``hw`` the
+        executor re-masks intermediates with.  Padded app slots replay item
+        0's chain on a zero frame with ``hw = (Hb, Wb)``."""
+        t0 = time.perf_counter()
+        fn = self.overlay_executable(plan)
+        grid = plan.grid
+        n = len(items)
+        specs = plan.pipeline
+        n_tile = len(specs)
+        Hb = pow2_bucket(max(p.hw[0] for _, p in items), self.min_image_side)
+        Wb = pow2_bucket(max(p.hw[1] for _, p in items), self.min_image_side)
+        self.stats.padded_app_slots += n_tile - n
+        self.stats.partial_tile_dispatches += 1 if n < n_tile else 0
+        stage_settings = []
+        for si in range(specs[0].depth):
+            stacked, ingests = self._stacked_bank(
+                grid, [s.stages[si].config for s in specs], fused=True)
+            out_ch = torch.tensor([s.stages[si].out_channel for s in specs],
+                                  dtype=torch.int32).to(self.device)
+            stage_settings.append((stacked, ingests, out_ch))
+        hw = np.full((n_tile, 2), (Hb, Wb), np.int32)
+        for i, (_, p) in enumerate(items):
+            hw[i] = p.hw
+        hw = torch.from_numpy(hw).to(self.device)
+        frames = self._ship_frames(items, n_tile, Hb, Wb, grid.dtype)
+        self.timings["pack_s"] += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        ys = fn(tuple(stage_settings), hw, frames)
+        self.stats.dispatches += 1
+        self.stats.fused_dispatches += 1
+        self.stats.pipeline_dispatches += 1
+        self._unpack_frames(fn.plan, items, ys, n_tile, Hb, Wb, out)
         self.timings["dispatch_s"] += time.perf_counter() - t0
 
     def _dispatch_packed(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
@@ -460,7 +577,8 @@ class PixieFleet:
 
     def flush(self, limit: Optional[int] = None) -> Dict[int, np.ndarray]:
         """Run pending requests: one dispatch per grid group (two when a
-        group mixes fused image requests with packed-channel requests).
+        group mixes fused image requests with packed-channel requests),
+        plus one per chain radii group.
 
         ``limit`` dispatches only the oldest ``limit`` pending requests and
         leaves the rest queued.  ``timings`` gets ``flush_started`` and
@@ -476,11 +594,15 @@ class PixieFleet:
                 raise ValueError(f"flush limit must be >= 1, got {limit}")
             pending, self._pending = self._pending[:limit], self._pending[limit:]
         # Group by (grid, path): fused image groups also key on the stencil
-        # radius, which fixes the tap-bank layout of the executable.
+        # radius, which fixes the tap-bank layout of the executable, and
+        # chains on their per-stage radii (depth and radii are executable
+        # shape; the specs ride the plan as per-tenant settings).
         groups: Dict[Tuple, List[Tuple[int, _Prepared]]] = {}
         for ticket, p in pending:
             if p.kind == "image":
                 key = (p.grid, "image", p.cfg.ingest.radius)
+            elif p.kind == "pipeline":
+                key = (p.grid, "pipe", p.spec.radii)
             else:
                 key = (p.grid, "channels")
             groups.setdefault(key, []).append((ticket, p))
@@ -492,6 +614,13 @@ class PixieFleet:
             if key[1] == "image":
                 plan = self.plan_for_dispatch(key[0], fused=True, radius=key[2])
                 self._dispatch_fused(plan, items, out)
+            elif key[1] == "pipe":
+                # The app-tile-padded spec tuple is executable shape, so it
+                # is part of the plan.
+                specs = [p.spec for _, p in items]
+                specs += [specs[0]] * (round_up(len(items), self.batch_tile) - len(items))
+                plan = self.plan_for_dispatch(key[0], fused=True, pipeline=tuple(specs))
+                self._dispatch_pipeline(plan, items, out)
             else:
                 self._dispatch_packed(self.plan_for_dispatch(key[0], fused=False),
                                       items, out)

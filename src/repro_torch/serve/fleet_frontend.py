@@ -5,7 +5,8 @@ for *named image operations* ("sobel_x on this frame"), the front-end
 queues them, and each flush drains the queue through
 :class:`repro_torch.runtime.fleet.PixieFleet` -- one batched overlay
 dispatch per grid group, whatever mix of applications is in flight.
-Frames ride the fused-ingest path end to end.
+Frames ride the fused-ingest path end to end; a list of stages runs as one
+device-resident chain.
 
 ``submit`` returns a :class:`~repro_torch.serve.service.JobHandle`, and
 ``result()`` on an undispatched handle drives the flush itself; there is
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import time
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,19 +86,32 @@ class FleetFrontend(ImageService):
         self.latency = LatencyStats()
         self._flush_seq = 0
 
+    def available_apps(self) -> List[str]:
+        return sorted(self.registry)
+
     def submit(
         self,
-        app: Union[str, DFG],
+        app: Union[str, DFG, Sequence[Union[str, DFG]]],
         image: np.ndarray,
         grid: Optional[GridSpec] = None,
         **kwargs,
     ) -> JobHandle:
         """Enqueue one frame; returns a :class:`JobHandle` whose
-        ``result()`` drives the flush if it has not happened yet."""
+        ``result()`` drives the flush if it has not happened yet.
+
+        ``app`` may be a list or tuple of stages: the chain runs as ONE
+        device-resident pipeline dispatch (stage i's output feeds stage
+        i+1's taps) and the job is named ``"a+b+c"``."""
         if kwargs:
             raise TypeError(f"unsupported submit options {sorted(kwargs)}")
-        name, work = resolve_app(self.registry, app)
-        ticket = self.fleet.submit(FleetRequest(app=work, image=image, grid=grid))
+        if isinstance(app, (list, tuple)):
+            resolved = [resolve_app(self.registry, a) for a in app]
+            name = "+".join(n for n, _ in resolved)
+            ticket = self.fleet.submit(FleetRequest(
+                pipeline=[w for _, w in resolved], image=image, grid=grid))
+        else:
+            name, work = resolve_app(self.registry, app)
+            ticket = self.fleet.submit(FleetRequest(app=work, image=image, grid=grid))
         handle = JobHandle(ticket, name, kick=self.flush)
         self._arrivals[ticket] = (name, time.perf_counter())
         self._handles[ticket] = handle

@@ -32,7 +32,7 @@ PORT_BACKENDS = ["torch", "hopper"]
 #: Counters both fleets keep under the same names.
 COUNTERS = (
     "submitted", "executed", "dispatches", "fused_dispatches",
-    "partial_tile_dispatches", "padded_app_slots", "map_calls",
+    "pipeline_dispatches", "partial_tile_dispatches", "padded_app_slots", "map_calls",
     "config_cache_hits", "overlay_builds", "overlay_cache_hits",
     "stack_bank_hits", "canvas_pool_hits",
 )
@@ -152,7 +152,7 @@ def test_flush_limit_and_ticket_redemption():
 
 def test_submit_validation_matches_reference_messages():
     fleet = TFleet(device="cpu")
-    with pytest.raises(ValueError, match="app= must be given"):
+    with pytest.raises(ValueError, match="app= or pipeline= must be given"):
         fleet.submit(TRequest(image=np.zeros((2, 2))))
     with pytest.raises(ValueError, match="exactly one of inputs= or image="):
         fleet.submit(TRequest(app="sobel_x"))

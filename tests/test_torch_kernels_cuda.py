@@ -1,6 +1,6 @@
-"""The Hopper VCGRA kernels on the card, held against their plain PyTorch
-versions on the same inputs (bitwise for int32, int16 and float32; bf16
-within the reference's 0.5).
+"""The Hopper VCGRA kernels (B1, B2 and the chain kernel B3) on the card,
+held against their plain PyTorch versions on the same inputs (bitwise for
+int32, int16 and float32; bf16 within the reference's 0.5).
 
 Every test needs a CUDA device and skips itself elsewhere; on a GPU host
 run ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
@@ -21,8 +21,10 @@ from repro_torch.core.pixie import map_app
 from repro_torch.core.place import level_demand
 from repro_torch.kernels.vcgra import (
     LAUNCHES, pack_settings_batched, vcgra_batched, vcgra_batched_ref,
-    vcgra_fused_batched, vcgra_fused_batched_ref,
+    vcgra_fused_batched, vcgra_fused_batched_ref, vcgra_pipeline_batched,
+    vcgra_pipeline_batched_ref,
 )
+from repro_torch.kernels.vcgra.build import load_library
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +112,88 @@ def test_wrapper_rejects_operands_on_two_devices(cuda):
     frames = torch.zeros((2, 8, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="expected cuda"):
         vcgra_fused_batched(grid, 1, settings, ingests, frames)
+
+
+def shared_grid(names, name, num_outputs=1):
+    demands = [level_demand(apps.ALL_APPS[n]()) for n in names]
+    depth = max(len(d) for d in demands)
+    demands = [list(d) + [1] * (depth - len(d)) for d in demands]
+    widths = [max(d[lvl] for d in demands) + 1 for lvl in range(depth)]
+    inputs = max(len(apps.ALL_APPS[n]().inputs) for n in names)
+    return custom(name, inputs, widths, num_outputs)
+
+
+CHAIN = ["gauss3", "sobel_x", "threshold"]
+#: (app, radius) chains: radii (1,1,1), (1,0), (0,1) and a depth-4 chain.
+CHAINS = [
+    [("gauss3", 1), ("sobel_x", 1), ("threshold", 1)],
+    [("gauss3", 1), ("threshold", 0)],
+    [("threshold", 0), ("sobel_x", 1)],
+    [("gauss3", 1), ("threshold", 0), ("sobel_x", 1), ("threshold", 1)],
+]
+
+
+def chain_operands(grid, chain, n, H, W, device, rng):
+    """B3's stage-stacked operands for ``n`` apps running ``chain``; with
+    K > 1 the output muxes and the forwarded channels are random."""
+    K = grid.num_outputs
+    stages = []
+    for name, radius in chain:
+        cfgs = []
+        for _ in range(n):
+            cfg = map_app(apps.ALL_APPS[name](), grid)
+            cfg = dataclasses.replace(cfg, ingest=cfg.ingest.at_radius(radius))
+            if K > 1:
+                cfg.out_sel = rng.integers(0, grid.pes_per_level[-1], K).astype(np.int32)
+            cfgs.append(cfg)
+        stages.append((pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=device)),
+                       IngestPlan.stack([c.ingest for c in cfgs], grid.dtype, device=device)))
+    settings = tuple(torch.stack([st[0][j] for st in stages]) for j in range(3))
+    ingests = tuple(torch.stack([st[1][j] for st in stages]) for j in range(2))
+    out_chs = torch.as_tensor(rng.integers(0, K, (len(chain), n)), dtype=torch.int32,
+                              device=device)
+    hw = np.stack([rng.integers(1, H + 1, n), rng.integers(1, W + 1, n)], axis=1)
+    hw[0] = (1, 1)
+    hw[-1] = (H, W)
+    frames = torch.as_tensor(rng.integers(0, 256, (n, H, W)), device=device).to(grid.dtype)
+    return (settings, ingests, out_chs,
+            torch.as_tensor(hw, dtype=torch.int32, device=device), frames)
+
+
+@pytest.mark.parametrize("num_outputs", [1, 2])
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_pipeline_kernel_matches_plain_version(cuda, dtype_name, num_outputs):
+    rng = np.random.default_rng(2)
+    bits, float_pe = DTYPES[dtype_name]
+    grid = dataclasses.replace(shared_grid(CHAIN, "pipe-shared", num_outputs),
+                               data_bits=bits, float_pe=float_pe)
+    for chain in CHAINS:
+        radii = tuple(r for _, r in chain)
+        for n, H, W in ((3, 37, 53), (11, 45, 33)):
+            args = chain_operands(grid, chain, n, H, W, cuda, rng)
+            want = vcgra_pipeline_batched_ref(grid, radii, *args)
+            for tile_rows in (None, 1, 3, "auto"):
+                before = LAUNCHES["vcgra_pipeline_batched"]
+                got = vcgra_pipeline_batched(grid, radii, *args, tile_rows=tile_rows)
+                assert LAUNCHES["vcgra_pipeline_batched"] == before + 1
+                assert_close(got, want, dtype_name)
+
+
+def test_pipeline_kernel_refuses_what_it_cannot_launch(cuda):
+    rng = np.random.default_rng(3)
+    grid = shared_grid(CHAIN, "pipe-shared")
+    chain = [("gauss3", 1)] * 2
+    settings, ingests, out_chs, hw, frames = chain_operands(grid, chain, 2, 8, 8, cuda, rng)
+    before = LAUNCHES["vcgra_pipeline_batched"]
+    lib = load_library("vcgra_pipeline")
+    too_far = (lib.vcgra_max_radius() + 1, 0)
+    with pytest.raises(ValueError, match="halo holds at most"):
+        vcgra_pipeline_batched(grid, too_far, settings, ingests, out_chs, hw, frames)
+    with pytest.raises(ValueError, match="expected cuda"):
+        vcgra_pipeline_batched(grid, (1, 1), settings, ingests, out_chs, hw.cpu(), frames)
+    # The C entry point itself refuses a bad dtype code without launching.
+    assert lib.vcgra_pipeline_batched(
+        9, *([frames.data_ptr()] * 11), 2, 2, 8, 8, grid.num_levels,
+        max(grid.pes_per_level), grid.num_outputs, grid.num_inputs, 2,
+        torch.cuda.current_stream().cuda_stream) != 0
+    assert LAUNCHES["vcgra_pipeline_batched"] == before
