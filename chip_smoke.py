@@ -6,8 +6,9 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing one JSON line (any failure raises, exit code != 0):
 
 1. device and build -- the card, its ``nvidia-smi`` name and power limit,
-   and the kernels built from ``src/repro_torch/kernels/vcgra/csrc/`` (one
-   ``nvcc`` per source, all at once);
+   the kernels built from ``src/repro_torch/kernels/*/csrc/`` (one ``nvcc``
+   per source, all at once: B1/B2/B4, B3, the NVRTC host shim of B5 and
+   B6) and one cold NVRTC compile of a generated B5 kernel;
 2. kernels vs their plain PyTorch versions on the card -- B1 and B2 over
    every grid dtype, the Sobel grid and the all-apps grid, radius 0 and 1,
    ragged N, odd non-square frames and every tile height; B3 (the chain
@@ -27,10 +28,27 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    radii groups and single-stage requests on ``sobel-5x9``; every output
    equals the staged numpy oracle and ``backend="torch"``, and B3's launch
    count equals the fleet's pipeline dispatches;
-5. times with CUDA events at the paths' shapes, beside each kernel's bound
+5. the single-app path, driven with the counters reset just before it --
+   ``Pixie(sobel_grid())`` on a 1080p ``sobel_x`` in both modes, ``Pixie``
+   on the ``sobel_mag`` exact grid (``run_image``, ``run_raw``,
+   ``run_many`` over three ragged apps, ``run_pipeline`` of a depth-3
+   chain, the parameterized mode on B5), ``vcgra_apply_image`` in both
+   modes (B5, B4), ``sobel_magnitude_fused`` (B6) and a
+   ``PixiePreprocessor`` cycling its four filters; every output equals the
+   numpy oracles and ``backend="torch"`` on the card;
+6. B4, B5 and B6 vs their plain versions -- B4 on every grid dtype, the
+   Sobel grid and every library app's exact grid, ragged N and three
+   ``block_n``; B5 on every one of those configs with and without baked
+   coefficients (one NVRTC compile each, in parallel threads); B6 for the
+   Sobel magnitude and every library filter in int32/float32/bf16 on odd
+   non-square frames and 1080p, three tile heights;
+7. times with CUDA events at the paths' shapes, beside each kernel's bound
    and its plain version's time, the staged chain (three B1 launches with
-   the masked forward between them) beside B3, and the end-to-end flush
-   times.
+   the masked forward between them) beside B3, the end-to-end flush
+   times, the paper's four Sobel magnitudes at 1080p int32 (``Pixie``
+   conventional and parameterized, ``vcgra_apply_image``, the fused
+   stencil) and the single-app ``Pixie.timings`` (map, reconfigure: a
+   settings copy, or B5's NVRTC compile and load).
 
 Then the kernel table line and, last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -75,11 +93,39 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "vcgra_batched": (CSRC + "vcgra.cu", "src/repro/kernels/vcgra/vcgra_kernel.py:229"),
     "vcgra_pipeline_batched": (CSRC + "vcgra_pipeline.cu",
                                "src/repro/kernels/vcgra/vcgra_kernel.py:566"),
+    "vcgra_conventional": (CSRC + "vcgra.cu", "src/repro/kernels/vcgra/vcgra_kernel.py:178"),
+    "vcgra_specialized": ("src/repro_torch/kernels/vcgra/specialized.py",
+                          "src/repro/kernels/vcgra/vcgra_kernel.py:87"),
+    "stencil_fused": ("src/repro_torch/kernels/stencil/csrc/stencil.cu",
+                      "src/repro/kernels/stencil/stencil_kernel.py:55"),
 }
+DTYPE_NAMES = ("int32", "int16", "float32", "bfloat16")
+#: Arithmetic ops per pixel of the fused Sobel magnitude: 12 products and
+#: 10 sums over the two filters' nonzero taps, two |.| and the final add.
+SOBEL_MAG_OPS = 25
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import stencil, vcgra
+
+    vcgra.reset_launch_counts()
+    stencil.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since :func:`reset_launches`."""
+    from repro_torch.kernels import stencil, vcgra
+
+    return {**vcgra.LAUNCHES, **stencil.LAUNCHES}
+
+
+def no_launches(**counts) -> dict:
+    """A launch table with ``counts`` and zero for every other kernel."""
+    return {**{name: 0 for name in KERNELS}, **counts}
 
 
 def shared_grid(names, name="all-apps", num_outputs=1):
@@ -154,18 +200,33 @@ def phase_device_and_build():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    from repro_torch.kernels.vcgra import build
+    from repro_torch.kernels import build
+
+    from repro_torch.core import applications as apps
+    from repro_torch.core.grid import sobel_grid
+    from repro_torch.core.pixie import map_app
+    from repro_torch.kernels.vcgra import specialized
 
     t0 = time.perf_counter()
     paths = build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
     for name in paths:
         build.load_library(name)
+    # One cold NVRTC compile + load + unload of a generated B5 kernel (the
+    # bf16 Sobel-grid sobel_y, which no later phase compiles).
+    grid = retyped(sobel_grid(), "bfloat16")
+    source = specialized.generate_source(grid, map_app(apps.sobel_y(), grid))
+    t0 = time.perf_counter()
+    handle = specialized.compile_module(source, torch.cuda.current_device())
+    nvrtc_s = time.perf_counter() - t0
+    if build.load_library("vcgra_specialize").vcgra_spec_free(handle) != 0:
+        raise RuntimeError("vcgra_spec_free failed")
     emit({"phase": "device_and_build", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in paths.items()},
-          "build_s": build_s})
+          "build_s": build_s, "nvrtc_compile_load_s": nvrtc_s,
+          "nvrtc_options": specialized.nvrtc_options()})
     return card
 
 
@@ -319,7 +380,6 @@ def serve(svc, requests):
 def phase_main_path(device, all_grid):
     import torch
     from repro_torch.core import applications as apps
-    from repro_torch.kernels.vcgra import LAUNCHES, reset_launch_counts
     from repro_torch.runtime.fleet import FleetRequest, PixieFleet
     from repro_torch.serve import FleetFrontend
 
@@ -348,18 +408,18 @@ def phase_main_path(device, all_grid):
     svc = FleetFrontend()
     if (svc.backend, svc.device.type) != ("hopper", "cuda"):
         raise AssertionError(f"FleetFrontend() defaults: {svc.backend}, {svc.device}")
-    reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     served = [serve(svc, reqs) for reqs in flushes]
     served_channels = svc.fleet.run_many(channel_requests())
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
 
     stats = svc.stats
     fused, packed = stats.fused_dispatches, stats.dispatches - stats.fused_dispatches
-    if launches != {"vcgra_fused_batched": fused, "vcgra_batched": packed,
-                    "vcgra_pipeline_batched": 0} or (fused, packed) != (3, 1):
+    if launches != no_launches(vcgra_fused_batched=fused, vcgra_batched=packed) \
+            or (fused, packed) != (3, 1):
         raise AssertionError(f"launches {launches} vs dispatches fused={fused} packed={packed}")
     plans = {k.rsplit("|", 1)[0] for k in stats.dispatch_plans}
     if stats.overlay_builds != len(plans):
@@ -398,7 +458,6 @@ def phase_chain_path(svc, pipe_grid):
     pipe-shared grid, then a mixed flush on ``sobel-5x9`` of two chain
     radii groups and single-stage requests at 720p-1080p."""
     import torch
-    from repro_torch.kernels.vcgra import LAUNCHES, reset_launch_counts
     from repro_torch.serve import FleetFrontend
 
     rng = np.random.default_rng(4)
@@ -415,18 +474,18 @@ def phase_chain_path(svc, pipe_grid):
     ]
     stats = svc.stats
     before = (stats.dispatches, stats.fused_dispatches, stats.pipeline_dispatches)
-    reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     served = [serve(svc, reqs) for reqs in flushes]
     torch.cuda.synchronize()
     chain_s = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = launch_counts()
 
     pipe = stats.pipeline_dispatches - before[2]
     fused = stats.fused_dispatches - before[1] - pipe
     packed = stats.dispatches - before[0] - pipe - fused
-    if launches != {"vcgra_fused_batched": fused, "vcgra_batched": packed,
-                    "vcgra_pipeline_batched": pipe} or (pipe, fused, packed) != (3, 1, 0):
+    if launches != no_launches(vcgra_fused_batched=fused, vcgra_batched=packed,
+                               vcgra_pipeline_batched=pipe) or (pipe, fused, packed) != (3, 1, 0):
         raise AssertionError(
             f"launches {launches} vs dispatches pipeline={pipe} fused={fused} packed={packed}")
     for reqs, outs in zip(flushes, served):
@@ -448,14 +507,24 @@ def phase_chain_path(svc, pipe_grid):
     return flushes[0], launches
 
 
-def cuda_ms(fn, reps):
+#: GPU cycles of the spin queued before each shielded timing (~1 ms on an
+#: H100): longer than any wrapper's host work, so that work overlaps it.
+SHIELD_CYCLES = 2_000_000
+
+
+def cuda_ms(fn, reps, shield=False):
     """Median device time of ``fn`` over ``reps`` runs, by CUDA events."""
-    return statistics.median(cuda_times(fn, reps))
+    return statistics.median(cuda_times(fn, reps, shield))
 
 
-def cuda_times(fn, reps):
+def cuda_times(fn, reps, shield=False):
     """Device times (ms) of ``reps`` runs of ``fn`` after one warm-up, by
-    CUDA events."""
+    CUDA events.  Unshielded, a run's interval also holds the host's time
+    to enqueue its launches whenever the stream is idle meanwhile (what a
+    caller waits for).  With ``shield`` a spin is queued on the stream just
+    before each start event, the host enqueues ``fn``'s launches while the
+    card spins, and the interval is the card's own time for them: a
+    kernel's time, without its Python wrapper's."""
     import torch
 
     fn()
@@ -463,6 +532,8 @@ def cuda_times(fn, reps):
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if shield:
+            torch.cuda._sleep(SHIELD_CYCLES)
         start.record()
         fn()
         end.record()
@@ -510,7 +581,8 @@ def phase_times(device, svc, main_reqs, channel_requests):
     err = compare(run_b1(), plain_b1(), "int32")
     b_ms, b_by = bound(n * hw * size * (1 + K), n * hw * grid.num_pes)
     rows["vcgra_fused_batched"] = dict(
-        ms=cuda_ms(run_b1, 20), plain_ms=cuda_ms(plain_b1, 3), bound_ms=b_ms, bound_by=b_by,
+        ms=cuda_ms(run_b1, 20, shield=True), plain_ms=cuda_ms(plain_b1, 3), bound_ms=b_ms,
+        bound_by=b_by,
         shape=f"n{n}x2048x2048", main_path_err=err)
 
     reqs = channel_requests()
@@ -533,7 +605,8 @@ def phase_times(device, svc, main_reqs, channel_requests):
     err = compare(run_b2(), plain_b2(), "int32")
     b_ms, b_by = bound(8 * B * size * (grid.num_inputs + K), 8 * B * grid.num_pes)
     rows["vcgra_batched"] = dict(
-        ms=cuda_ms(run_b2, 20), plain_ms=cuda_ms(plain_b2, 3), bound_ms=b_ms, bound_by=b_by,
+        ms=cuda_ms(run_b2, 20, shield=True), plain_ms=cuda_ms(plain_b2, 3), bound_ms=b_ms,
+        bound_by=b_by,
         shape=f"n8x{grid.num_inputs}x{B}", main_path_err=err)
 
     e2e = time_flushes(svc, main_reqs, "8 x 1080p int32, sobel-5x9")
@@ -608,9 +681,9 @@ def phase_chain_times(device, svc, chain_reqs, pipe_grid):
     b_ms, b_by = bound(n * px * itemsize(grid.dtype) * (1 + K),
                        n * px * grid.num_pes * len(radii))
     # 20 runs each, interleaved: staged, kernel, kernel, staged.
-    staged_ms = cuda_times(staged, 10)
-    ms = cuda_times(run_b3, 10) + cuda_times(run_b3, 10)
-    staged_ms += cuda_times(staged, 10)
+    staged_ms = cuda_times(staged, 10, shield=True)
+    ms = cuda_times(run_b3, 10, shield=True) + cuda_times(run_b3, 10, shield=True)
+    staged_ms += cuda_times(staged, 10, shield=True)
     row = dict(ms=statistics.median(ms), plain_ms=cuda_ms(plain_b3, 3),
                bound_ms=b_ms, bound_by=b_by, shape=f"n{n}x2048x2048 depth-3 {grid.name}",
                main_path_err=err, staged_ms=statistics.median(staged_ms),
@@ -619,6 +692,277 @@ def phase_chain_times(device, svc, chain_reqs, pipe_grid):
     e2e = time_flushes(svc, chain_reqs, f"8 x 1080p int32 chain {'+'.join(CHAIN)}, {grid.name}")
     emit({"phase": "chain_times", "kernel": row, "end_to_end": e2e})
     return row, e2e
+
+
+def single_app_cases(dtype_name):
+    """(grid, config) of every library app on its exact grid and of the
+    Sobel-grid apps on ``sobel_grid()``, in one grid dtype."""
+    from repro_torch.core import applications as apps
+    from repro_torch.core.grid import for_dfg, sobel_grid
+    from repro_torch.core.pixie import map_app
+
+    cases = []
+    for name in sorted(apps.ALL_APPS):
+        grid = retyped(for_dfg(apps.ALL_APPS[name](), shape="exact"), dtype_name)
+        cases.append((grid, map_app(apps.ALL_APPS[name](), grid)))
+    grid = retyped(sobel_grid(), dtype_name)
+    cases += [(grid, map_app(apps.ALL_APPS[n](), grid)) for n in SOBEL_APPS]
+    return cases
+
+
+def phase_single_app_path(device, frame):
+    """The single-app entry points at full width, the launch counters reset
+    just before and read just after: the paper's Fig. 5 ``sobel_x`` on
+    ``sobel_grid()`` in both modes; ``Pixie`` on the ``sobel_mag`` exact
+    grid (27 inputs, 43 PEs) through ``run_image``, ``run_raw``,
+    ``run_many`` over three ragged apps, ``run_pipeline`` of a depth-3
+    chain and the parameterized mode (B5); ``vcgra_apply_image`` in both
+    modes (B5, B4); the fused stencil (B6); and a ``PixiePreprocessor``
+    cycling its four filters on a 1080p float32 frame.  Every output is
+    checked against the numpy oracles and against ``backend="torch"`` on
+    the card."""
+    import torch
+    from repro_torch.core import Pixie
+    from repro_torch.core import applications as apps
+    from repro_torch.core.grid import for_dfg, sobel_grid
+    from repro_torch.data import PixiePreprocessor, synthetic_images
+    from repro_torch.kernels.stencil import sobel_magnitude_fused
+    from repro_torch.kernels.vcgra import vcgra_apply_image
+    from repro_torch.kernels.vcgra.ops import ingest_image
+
+    rng = np.random.default_rng(7)
+    mag_dfg = apps.sobel_magnitude()
+    mag_grid = for_dfg(mag_dfg, shape="exact")
+    many_apps = [("sobel_x", (720, 1280)), ("gauss3", (480, 640)), ("threshold", (1080, 1920))]
+    many_frames = [rng.integers(0, 256, hw).astype(np.int32) for _, hw in many_apps]
+    pre_frame = synthetic_images(1, (1080, 1920), seed=7)[0]
+    frame_t = torch.as_tensor(frame, device=device)
+
+    def many_requests(pix):
+        reqs = []
+        for (app, _), img in zip(many_apps, many_frames):
+            cfg = pix.map(apps.ALL_APPS[app]())
+            taps = apps.stencil_inputs(torch.as_tensor(img, device=device))
+            reqs.append((cfg, {k: v for k, v in taps.items() if k in cfg.input_order}))
+        return reqs
+
+    def drive(backend):
+        """Every entry point of the path on ``backend``; returns
+        ``{name: output}``, the Pixies, the ``sobel_mag`` config and the
+        paper's Sec. V-E stage times on this grid."""
+        out, pixies = {}, {}
+        for mode in ("conventional", "parameterized"):
+            pix = Pixie(sobel_grid(), mode=mode, backend=backend)
+            if mode == "conventional":
+                pix.compile_overlay(batch=frame.size)
+            pix.load(pix.map(apps.sobel_x()))
+            out[f"sobel-5x9 {mode} sobel_x"] = pix.run_image(frame)
+            pixies[f"sobel-5x9 {mode}"] = pix
+        conv = Pixie(mag_grid, backend=backend)
+        conv.compile_overlay(batch=frame.size)
+        cfg = conv.map(mag_dfg)
+        conv.load(cfg)
+        sec = {"map_s": conv.timings["map_s"],
+               "reconfig_conventional_s": conv.timings["reconfig_s"],
+               "overlay_compile_s": conv.timings["overlay_compile_s"]}
+        out["sobel_mag run_image"] = conv.run_image(frame)
+        out["sobel_mag run_raw"] = conv.run_raw(ingest_image(cfg.ingest, mag_grid.dtype, frame_t))
+        for (app, _), y in zip(many_apps, conv.run_many(many_requests(conv))):
+            out[f"run_many {app}"] = y
+        out["run_pipeline " + "+".join(CHAIN)] = conv.run_pipeline(CHAIN, frame)
+        par = Pixie(mag_grid, mode="parameterized", backend=backend)
+        sec["reconfig_parameterized_s"] = par.load(cfg)
+        out["sobel_mag parameterized"] = par.run_image(frame)
+        pixies.update({"sobel_mag conventional": conv, "sobel_mag parameterized": par})
+        pre = PixiePreprocessor(backend=backend)
+        for name in pre.filters:
+            pre.reconfigure(name)
+            out[f"preprocessor {name}"] = pre(pre_frame)
+        return out, pixies, cfg, sec
+
+    reset_launches()
+    t0 = time.perf_counter()
+    served, pixies, cfg, sec_v_e = drive("hopper")
+    for mode in ("specialized", "conventional"):
+        served[f"vcgra_apply_image {mode}"] = vcgra_apply_image(mag_grid, cfg, frame, mode=mode)
+    served["sobel_magnitude_fused"] = sobel_magnitude_fused(frame)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = launch_counts()
+    timings = {name: dict(pix.timings) for name, pix in pixies.items()}
+    spec_kernel = pixies["sobel_mag parameterized"]._spec_fn.args[0]
+
+    missing = [k for k in KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the single-app path never launched {missing}: {launches}")
+    mag = oracle("sobel_mag", frame)
+    want = {"sobel-5x9 conventional sobel_x": oracle("sobel_x", frame),
+            "sobel-5x9 parameterized sobel_x": oracle("sobel_x", frame),
+            "sobel_mag run_image": mag, "sobel_mag run_raw": mag.reshape(1, -1),
+            "run_pipeline " + "+".join(CHAIN): staged_oracle(CHAIN, frame),
+            "sobel_mag parameterized": mag, "vcgra_apply_image specialized": mag,
+            "vcgra_apply_image conventional": mag, "sobel_magnitude_fused": mag}
+    for (app, _), img in zip(many_apps, many_frames):
+        want[f"run_many {app}"] = oracle(app, img).reshape(1, -1)
+    for name, w in want.items():
+        if not np.array_equal(served[name].cpu().numpy(), w):
+            raise AssertionError(f"{name} differs from the numpy oracle")
+    pre_oracles = {"sobel_mag": apps.sobel_magnitude_reference(pre_frame),
+                   "gauss3": apps.conv2d_reference(pre_frame, apps.GAUSS3, 16.0),
+                   "sharpen": apps.conv2d_reference(pre_frame, apps.SHARPEN),
+                   "laplace": apps.conv2d_reference(pre_frame, apps.LAPLACE)}
+    for name, w in pre_oracles.items():
+        # float32 sums of nine terms up to ~2000 against numpy's float32 sums
+        # in another order.
+        np.testing.assert_allclose(served[f"preprocessor {name}"].cpu().numpy(), w,
+                                   rtol=1e-5, atol=1e-2)
+    on_torch = drive("torch")[0]
+    for name, w in on_torch.items():
+        if not torch.equal(served[name], w):
+            raise AssertionError(f"{name}: hopper differs from backend='torch' on the card")
+    del on_torch
+    torch.cuda.empty_cache()
+    emit({"phase": "single_app_path", "frame": "1080x1920 int32", "outputs": len(served),
+          "launches": launches, "single_app_path_s": path_s, "pixie_timings": timings,
+          "sec_v_e_s": sec_v_e, "b5_compile_s": spec_kernel.compile_s,
+          "b5_cached": spec_kernel.cached,
+          "checked_against": ["numpy oracles", "backend='torch' on the card"]})
+    return launches, pixies, cfg, sec_v_e
+
+
+def phase_single_vs_plain(device):
+    """B4, B5 and B6 on the card vs their plain versions, each case
+    synchronized.  The B5 kernels (one per config, dtype and bake_consts)
+    are compiled first, in parallel threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from repro_torch.core import applications as apps
+    from repro_torch.kernels import stencil
+    from repro_torch.kernels.vcgra import (
+        SpecializedKernel, vcgra_conventional, vcgra_conventional_ref, vcgra_specialized,
+        vcgra_specialized_ref,
+    )
+    from repro_torch.kernels.vcgra.ops import _pack_settings
+
+    rng = np.random.default_rng(8)
+    errs = {"vcgra_conventional": 0.0, "vcgra_specialized": 0.0, "stencil_fused": 0.0}
+    cases = dict.fromkeys(errs, 0)
+    jobs = [(dtype_name, grid, cfg, bake) for dtype_name in DTYPE_NAMES
+            for grid, cfg in single_app_cases(dtype_name) for bake in (False, True)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        kernels = list(pool.map(lambda j: SpecializedKernel(j[1], j[2], j[3], device), jobs))
+    compile_s = time.perf_counter() - t0
+    for (dtype_name, grid, cfg, bake), kernel in zip(jobs, kernels):
+        settings = _pack_settings(grid, cfg, device=device)[:3]
+        for n in (1, 45, 4099):
+            x = torch.as_tensor(rng.integers(-8, 256, (grid.num_inputs, n)),
+                                device=device).to(grid.dtype)
+            want = vcgra_specialized_ref(grid, cfg, x, bake)
+            for block_n in (128, 1024):
+                errs["vcgra_specialized"] = max(errs["vcgra_specialized"], compare(
+                    vcgra_specialized(kernel, x, block_n=block_n), want, dtype_name))
+                cases["vcgra_specialized"] += 1
+            if bake:
+                continue
+            want = vcgra_conventional_ref(grid, settings, x)
+            for block_n in (128, 256, 1024):
+                errs["vcgra_conventional"] = max(errs["vcgra_conventional"], compare(
+                    vcgra_conventional(grid, settings, x, block_n=block_n), want, dtype_name))
+                cases["vcgra_conventional"] += 1
+    forms = [(apps.SOBEL_X, apps.SOBEL_Y)] + [(k,) for k in stencil.ops.FILTERS.values()]
+    for dtype_name, dtype in (("int32", torch.int32), ("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        for H, W in ((37, 53), (1, 1), (131, 7), (1080, 1920)):
+            img = torch.as_tensor(rng.integers(0, 256, (H, W)), device=device).to(dtype)
+            for kernels_ in forms:
+                want = stencil.stencil_fused_ref(img, kernels_)
+                for block_h in (1, 8, 128):
+                    errs["stencil_fused"] = max(errs["stencil_fused"], compare(
+                        stencil.stencil_fused(img, kernels_, block_h=block_h), want,
+                        dtype_name))
+                    cases["stencil_fused"] += 1
+    return errs, cases, {"b5_kernels": len(jobs), "b5_compile_s": compile_s}
+
+
+def phase_single_times(device, frame, mag_cfg, pixies):
+    """B4, B5 and B6 at the single-app path's shapes (the ``sobel_mag``
+    exact grid's ``[27, 1080*1920]`` int32 channels; the 1080p int32 frame),
+    beside their bounds and plain versions; for B6 also one
+    ``torch.nn.functional.conv2d`` call (float32, one filter) as a
+    yardstick, beside B6's own float32 one-filter time.  Then the paper's
+    four Sobel magnitudes timed end to end on the card."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import applications as apps
+    from repro_torch.core.grid import for_dfg
+    from repro_torch.kernels import stencil
+    from repro_torch.kernels.vcgra import (
+        SpecializedKernel, vcgra_apply_image, vcgra_conventional, vcgra_conventional_ref,
+        vcgra_specialized, vcgra_specialized_ref,
+    )
+    from repro_torch.kernels.vcgra.ops import _pack_settings, ingest_image
+    from repro_torch.kernels.vcgra.specialized import live_inputs
+
+    grid = for_dfg(apps.sobel_magnitude(), shape="exact")
+    frame_t = torch.as_tensor(frame, device=device)
+    x = ingest_image(mag_cfg.ingest, grid.dtype, frame_t)
+    C, n = x.shape
+    K = grid.num_outputs
+    settings = _pack_settings(grid, mag_cfg, device=device)[:3]
+    kernel = SpecializedKernel(grid, mag_cfg, False, device)
+    live = len(live_inputs(grid, mag_cfg))
+    live_pes = kernel.source.count(" = pe(")
+    rows = {}
+
+    def row(name, run, plain, bytes_moved, ops, shape):
+        err = compare(run(), plain(), "int32")
+        b_ms, b_by = bound(bytes_moved, ops)
+        rows[name] = dict(ms=cuda_ms(run, 20, shield=True), plain_ms=cuda_ms(plain, 3),
+                          bound_ms=b_ms, bound_by=b_by, shape=shape, main_path_err=err)
+
+    row("vcgra_conventional", lambda: vcgra_conventional(grid, settings, x),
+        lambda: vcgra_conventional_ref(grid, settings, x), 4 * n * (C + K), n * grid.num_pes,
+        f"[{C}, {n}] {grid.name}")
+    row("vcgra_specialized", lambda: vcgra_specialized(kernel, x),
+        lambda: vcgra_specialized_ref(grid, mag_cfg, x), 4 * n * (live + K), n * live_pes,
+        f"[{C}, {n}] {grid.name}, {live} live rows, {live_pes} live PEs")
+    pair = (apps.SOBEL_X, apps.SOBEL_Y)
+    row("stencil_fused", lambda: stencil.stencil_fused(frame_t, pair),
+        lambda: stencil.stencil_fused_ref(frame_t, pair), 4 * 2 * n, n * SOBEL_MAG_OPS,
+        f"{frame.shape[0]}x{frame.shape[1]} int32 Sobel magnitude")
+    frame_f = frame_t.float()
+    weight = torch.tensor(apps.SOBEL_X, dtype=torch.float32, device=device)[None, None]
+    lib_out = F.conv2d(frame_f[None, None], weight, padding=1)[0, 0]
+    # Integer-valued frame: every float32 product and sum is exact, so the
+    # library call and B6 agree bitwise whatever their summation order.
+    compare(stencil.stencil_fused(frame_f, (apps.SOBEL_X,)), lib_out, "float32")
+    rows["stencil_fused"].update(
+        library_ms=cuda_ms(lambda: F.conv2d(frame_f[None, None], weight, padding=1), 20,
+                           shield=True),
+        library_call="torch.nn.functional.conv2d float32, one 3x3 filter, padding=1",
+        single_filter_ms=cuda_ms(lambda: stencil.stencil_fused(frame_f, (apps.SOBEL_X,)), 20,
+                                 shield=True))
+
+    conv, par = pixies["sobel_mag conventional"], pixies["sobel_mag parameterized"]
+    four = {
+        "pixie_conventional": lambda: conv.run_image(frame_t),
+        "pixie_parameterized": lambda: par.run_image(frame_t),
+        "vcgra_apply_image": lambda: vcgra_apply_image(grid, mag_cfg, frame_t),
+        "sobel_magnitude_fused": lambda: stencil.sobel_magnitude_fused(frame_t),
+    }
+    outs = {name: fn() for name, fn in four.items()}
+    first = outs["sobel_magnitude_fused"]
+    for name, y in outs.items():
+        if not torch.equal(y, first):
+            raise AssertionError(f"sobel four-way: {name} differs from the fused stencil")
+    # Unshielded: each way's time includes the host work a caller waits for.
+    four_ms = {name: cuda_ms(fn, 10) for name, fn in four.items()}
+    emit({"phase": "single_times", "kernels": rows, "sobel_four_way_ms": four_ms,
+          "sobel_four_way": "1080x1920 int32, sobel_mag exact grid, identical outputs",
+          "x_bytes": x.numel() * x.element_size()})
+    return rows, four_ms
 
 
 def main() -> int:
@@ -658,14 +1002,28 @@ def main() -> int:
     svc, main_reqs, channel_requests, main_launches = phase_main_path(device, all_grid)
     pipe_grid = shared_grid(CHAIN, "pipe-shared")
     chain_reqs, chain_launches = phase_chain_path(svc, pipe_grid)
+    frame = np.random.default_rng(6).integers(0, 256, (1080, 1920)).astype(np.int32)
+    single_launches, pixies, mag_cfg, sec_v_e = phase_single_app_path(device, frame)
+
+    t0 = time.perf_counter()
+    single_errs, single_cases, compiles = phase_single_vs_plain(device)
+    errs.update(single_errs)
+    emit({"phase": "single_vs_plain", "cases": single_cases, "max_abs_err": single_errs,
+          **compiles, "tolerance": "bitwise for int32/int16/float32; bf16 |d| <= 0.5 + 0.5|ref|",
+          "seconds": time.perf_counter() - t0})
+
     rows, e2e = phase_times(device, svc, main_reqs, channel_requests)
     rows["vcgra_pipeline_batched"], chain_e2e = phase_chain_times(
         device, svc, chain_reqs, pipe_grid)
+    single_rows, four_ms = phase_single_times(device, frame, mag_cfg, pixies)
+    rows.update(single_rows)
 
     # Each kernel's launches come from the path it serves, counted from 0.
     launches = {"vcgra_fused_batched": main_launches["vcgra_fused_batched"],
                 "vcgra_batched": main_launches["vcgra_batched"],
-                "vcgra_pipeline_batched": chain_launches["vcgra_pipeline_batched"]}
+                "vcgra_pipeline_batched": chain_launches["vcgra_pipeline_batched"],
+                **{k: single_launches[k] for k in
+                   ("vcgra_conventional", "vcgra_specialized", "stencil_fused")}}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
@@ -674,13 +1032,15 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(errs[name], r["main_path_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None, "shape": r["shape"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "shape": r["shape"],
         })
     emit({"kernels": kernels, "launches": {"main_path": main_launches,
-                                           "chain_path": chain_launches},
+                                           "chain_path": chain_launches,
+                                           "single_app_path": single_launches},
           "card": card, "end_to_end_flush_ms": e2e["median_ms"],
           "chain_flush_ms": chain_e2e["median_ms"],
-          "staged_chain_ms": rows["vcgra_pipeline_batched"]["staged_ms"]})
+          "staged_chain_ms": rows["vcgra_pipeline_batched"]["staged_ms"],
+          "sobel_four_way_ms": four_ms, "sec_v_e_s": sec_v_e})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,12 +1,13 @@
 """The Pixie overlay core: graph IR, grid generator, mapper, settings,
-eager interpreter and the plan layer."""
+eager interpreter, specialization, the plan layer and the ``Pixie``
+facade."""
 
 from repro_torch.core.bitstream import VCGRAConfig, assemble, from_reference
 from repro_torch.core.dfg import DFG, InRef, NodeRef, reference_eval
 from repro_torch.core.grid import GridSpec, custom, for_dfg, paper_4x4, rectangular, sobel_grid
 from repro_torch.core.ingest import IngestError, IngestPlan, plan_for, tap_offsets
 from repro_torch.core.ops import Op
-from repro_torch.core.pixie import map_app
+from repro_torch.core.pixie import Pixie, map_app, sobel_pixie
 from repro_torch.core.place import Placement, PlacementError, level_demand, place
 from repro_torch.core.plan import (
     OverlayExecutable, OverlayPlan, PipelineSpec, PipelineStage, compile_plan,
@@ -20,7 +21,7 @@ __all__ = [
     "IngestError", "IngestPlan", "plan_for", "tap_offsets",
     "Op", "OverlayExecutable", "OverlayPlan", "PipelineSpec", "PipelineStage",
     "compile_plan", "register_executor",
-    "map_app",
+    "Pixie", "map_app", "sobel_pixie",
     "Placement", "PlacementError", "level_demand", "place",
     "Routing", "RoutingError", "route",
     "VCGRAConfig", "assemble", "from_reference",

@@ -27,6 +27,7 @@ from repro_torch.core.ingest import tap_offsets
 from repro_torch.core.tiling import (
     halo_row_slabs,
     num_row_tiles,
+    pad_batches,
     resolve_tile_rows,
 )
 
@@ -113,6 +114,21 @@ def overlay_step(
         b = x.index_select(0, selects[lvl][:, 1])
         x = pe_ops.apply_generic(opcodes[lvl], a, b)
     return x.index_select(0, out_sel)
+
+
+def stack_for_dispatch(configs, xs, batch_pad=None):
+    """Pad-and-stack step of a multi-tenant dispatch (``Pixie.run_many``):
+    zero-pad ragged pixel batches to one length, stack configs and inputs
+    along the app axis (on the inputs' device).
+
+    Returns ``(stacked_configs, xstack, batches)`` where ``batches`` are
+    the original per-app batch lengths for slicing the outputs back."""
+    batches = [x.shape[-1] for x in xs]
+    pad_to = batch_pad if batch_pad is not None else max(batches)
+    if pad_to < max(batches):
+        raise ValueError(f"batch_pad={pad_to} < largest request {max(batches)}")
+    stacked = VCGRAConfig.stack(configs, device=xs[0].device)
+    return stacked, torch.stack(pad_batches(xs, pad_to)), batches
 
 
 def _flat_gather(x: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:

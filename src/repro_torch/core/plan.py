@@ -11,8 +11,9 @@ ingest):
                      fleet's executable LRU and its stats name dispatches
                      by plan.
   compile_plan       plan -> OverlayExecutable.  Looks the executor up in a
-                     registry: the eager "torch" cells are registered here,
-                     the "hopper" kernel cells register themselves from
+                     registry: the eager "torch" cells are registered here
+                     (the chain cell specialized per app and stage), the
+                     "hopper" kernel cells register themselves from
                      ``repro_torch.kernels.vcgra.ops``.
   OverlayExecutable  the callable artifact, carrying its plan.
 
@@ -28,10 +29,12 @@ from functools import partial
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core import interpreter
 from repro_torch.core.bitstream import VCGRAConfig
 from repro_torch.core.grid import GridSpec
+from repro_torch.core.specialize import build_specialized_fn, const_value
 from repro_torch.core.tiling import check_tile_rows
 
 
@@ -423,20 +426,74 @@ def _torch_batched_fused(plan: OverlayPlan) -> Callable:
     return partial(interpreter.batched_fused_overlay_step, plan.grid, plan.radius)
 
 
+class _BankChannels:
+    """Duck-typed ``[C, pixels]`` channel input for
+    :func:`repro_torch.core.specialize.build_specialized_fn`: channels are
+    produced lazily from ONE app's tap bank by the stage's *static* ingest
+    plan, so only channels the specialized executor fetches are formed --
+    dead taps cost nothing, like the dead functional units the specializer
+    folds away."""
+
+    def __init__(self, bank: torch.Tensor, ingest, dtype: torch.dtype):
+        self._bank = bank            # [T+1, pixels]
+        self._ingest = ingest
+        self.shape = (int(ingest.tap_sel.shape[0]),) + tuple(bank.shape[1:])
+        self.dtype = dtype
+        self.device = bank.device
+
+    def __getitem__(self, c: int) -> torch.Tensor:
+        t = int(self._ingest.tap_sel[c])
+        if t == self._ingest.zero_row:
+            # Const (or zero-pad) channel: a 0-d value; the PE ops broadcast
+            # it and the specializer's final broadcast widens it.
+            return const_value(self._ingest.const_vals[c], self.dtype, self.device)
+        return self._bank[t]
+
+
 @register_pipeline_executor("torch")
-def _torch_pipeline(plan: OverlayPlan) -> Callable:
-    """The operand-settings chain over the eager stage step (row-tiled
-    when the plan asks for it): the port's oracle for chains."""
+def _pipeline_specialized_fn(plan: OverlayPlan) -> Callable:
+    """The "torch" chain executor, specialized per (app, stage).
+
+    The plan's :class:`PipelineSpec`s are static, so each (app, stage)
+    pair runs through ``specialize.build_specialized_fn``: only the
+    configured unit of each live PE, every VC select folded to direct
+    wiring -- the reference's single-device XLA chain.  The inter-stage hop
+    is a view and a mask; intermediates never leave the device.  Bitwise
+    equal to the operand-settings chain
+    (``interpreter.pipeline_batched_fused_step``, kept for the mesh): per
+    live PE both compute the same unit on the same operands.  The
+    executable ignores ``stage_settings`` (its identity lives in the plan)
+    and the row tile height."""
     grid = plan.grid
+    specs = plan.pipeline
+    radii = specs[0].radii
+    depth = len(radii)
+    stage_fns = [[build_specialized_fn(grid, spec.stages[si].config) for spec in specs]
+                 for si in range(depth)]
 
-    def stage(radius, configs, ingests, x):
-        if plan.tile_rows is not None:
-            return interpreter.tiled_batched_fused_overlay_step(
-                grid, radius, plan.tile_rows, configs, ingests, x)
-        return interpreter.batched_fused_overlay_step(grid, radius, configs, ingests, x)
+    def fn(stage_settings, hw, images):
+        del stage_settings
+        x = images.to(grid.dtype)
+        n, H, W = x.shape
+        if n != len(specs):
+            raise ValueError(
+                f"pipeline plan carries {len(specs)} app slots, dispatch has {n} frames")
+        valid = interpreter.valid_pixel_mask(hw, H, W)
+        ys = None
+        for si in range(depth):
+            bank = interpreter.form_tap_bank(x, radii[si], grid.dtype)
+            ys = torch.stack([
+                stage_fns[si][a](_BankChannels(bank[a], specs[a].stages[si].config.ingest,
+                                               grid.dtype))
+                for a in range(n)
+            ])
+            del bank
+            if si < depth - 1:
+                y = torch.stack([ys[a, specs[a].stages[si].out_channel] for a in range(n)])
+                x = torch.where(valid, y.reshape(n, H, W), torch.zeros_like(x))
+        return ys
 
-    return partial(interpreter.pipeline_batched_fused_step, grid,
-                   plan.pipeline[0].radii, stage)
+    return fn
 
 
 def compile_plan(plan: OverlayPlan) -> OverlayExecutable:

@@ -1,14 +1,17 @@
-"""Build and bind the Hopper VCGRA kernels (``csrc/*.cu``).
+"""Build and bind the port's Hopper kernels (``*/csrc/*.cu``).
 
 ``nvcc`` compiles each source into a shared library with a plain C
-interface, loaded with ``ctypes``: ``vcgra.cu`` holds B1/B2 and
-``vcgra_pipeline.cu`` holds B3; both include ``vcgra_pe.cuh``, the PE
-semantics.  The libraries are built at first use from the repository's
-own sources into ``build/repro_torch_kernels/`` (listed in
-``.gitignore``), each named by a digest of its source, the shared header
-and the flags, so an edit rebuilds it.  :func:`build_all` starts one
-``nvcc`` per source at once.  Nothing here runs on import: machines
-without ``nvcc`` (the CPU test hosts) import the package freely.
+interface, loaded with ``ctypes``: ``vcgra/csrc/vcgra.cu`` holds B1, B2 and
+B4, ``vcgra/csrc/vcgra_pipeline.cu`` holds B3 (both include
+``vcgra_pe.cuh``, the PE semantics), ``vcgra/csrc/vcgra_specialize.cu`` is
+the host shim that NVRTC-compiles and launches the per-app B5 kernels, and
+``stencil/csrc/stencil.cu`` holds B6.  The libraries are built at first
+use from the repository's own sources into ``build/repro_torch_kernels/``
+(listed in ``.gitignore``), each named by a digest of its source, the
+shared header, the flags and the libraries it links, so an edit rebuilds
+it.  :func:`build_all` starts one ``nvcc`` per source at once.  Nothing
+here runs on import: machines without ``nvcc`` (the CPU test hosts)
+import the package freely.
 """
 
 from __future__ import annotations
@@ -22,14 +25,25 @@ import sys
 from pathlib import Path
 from typing import Dict, List, Optional
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"vcgra": CSRC / "vcgra.cu", "vcgra_pipeline": CSRC / "vcgra_pipeline.cu"}
-HEADERS = (CSRC / "vcgra_pe.cuh",)
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
+KERNELS = Path(__file__).resolve().parent
+VCGRA_CSRC = KERNELS / "vcgra" / "csrc"
+SOURCES = {
+    "vcgra": VCGRA_CSRC / "vcgra.cu",
+    "vcgra_pipeline": VCGRA_CSRC / "vcgra_pipeline.cu",
+    "vcgra_specialize": VCGRA_CSRC / "vcgra_specialize.cu",
+    "stencil": KERNELS / "stencil" / "csrc" / "stencil.cu",
+}
+PE_HEADER = VCGRA_CSRC / "vcgra_pe.cuh"
+HEADERS = (PE_HEADER,)
+BUILD_DIR = KERNELS.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
+#: Toolkit libraries a source links (the B5 shim: NVRTC and libcuda's cu*
+#: API, the latter against the toolkit's link stub; the system's
+#: libcuda.so.1 is what loads at run time).
+LINK_LIBS = {"vcgra_specialize": ("nvrtc", "cuda")}
 
 _VOID_P, _INT, _INT64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -38,12 +52,26 @@ SIGNATURES = {
     "vcgra": (
         ("vcgra_fused_batched", [_INT] + [_VOID_P] * 8 + [_INT] * 8 + [_VOID_P]),
         ("vcgra_batched", [_INT] + [_VOID_P] * 6 + [_INT, _INT64] + [_INT] * 4 + [_VOID_P]),
+        ("vcgra_conventional",
+         [_INT] + [_VOID_P] * 6 + [_INT64, _INT64] + [_INT] * 4 + [_VOID_P]),
         ("vcgra_max_vals", []),
     ),
     "vcgra_pipeline": (
         ("vcgra_pipeline_batched", [_INT] + [_VOID_P] * 11 + [_INT] * 9 + [_VOID_P]),
         ("vcgra_max_vals", []),
         ("vcgra_max_radius", []),
+    ),
+    "vcgra_specialize": (
+        ("vcgra_spec_compile",
+         [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_char_p),
+          _INT, ctypes.c_char_p, _INT, ctypes.POINTER(_VOID_P), ctypes.c_char_p,
+          ctypes.c_size_t]),
+        ("vcgra_spec_launch", [_VOID_P] * 3 + [_INT64] * 3 + [_INT, _VOID_P]),
+        ("vcgra_spec_free", [_VOID_P]),
+    ),
+    "stencil": (
+        ("stencil_fused", [_INT] * 3 + [_VOID_P] * 2 + [_INT] * 3 + [_VOID_P]),
+        ("stencil_max_block_h", []),
     ),
 }
 
@@ -61,11 +89,26 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def cuda_home() -> Path:
+    """The CUDA toolkit that ``nvcc`` belongs to (its ``include/`` and
+    ``lib64/``)."""
+    return Path(find_nvcc()).resolve().parents[1]
+
+
+def _link_flags(name: str) -> List[str]:
+    libs = LINK_LIBS.get(name, ())
+    if not libs:
+        return []
+    lib64 = cuda_home() / "lib64"
+    return [f"-L{lib64}", f"-L{lib64 / 'stubs'}", "-Xlinker", f"-rpath={lib64}",
+            *(f"-l{lib}" for lib in libs)]
+
+
 def library_path(name: str, build_dir: Path = BUILD_DIR) -> Path:
     digest = hashlib.sha256(SOURCES[name].read_bytes())
     for header in HEADERS:
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + LINK_LIBS.get(name, ())).encode())
     return build_dir / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -87,7 +130,7 @@ def build_all(build_dir: Path = BUILD_DIR, verbose: bool = False,
     for name in todo:
         tmp = paths[name].with_name(f"{paths[name].name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(SOURCES[name])]
+               "-o", str(tmp), str(SOURCES[name]), *_link_flags(name)]
         procs[name] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failures = []
@@ -109,7 +152,15 @@ def load_library(name: str) -> ctypes.CDLL:
     for the life of the process, like any loaded shared object)."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all(names=[name])[name]))
+        path = build_all(names=[name])[name]
+        if "nvrtc" in LINK_LIBS.get(name, ()):
+            # libnvrtc opens its builtins library by soname when it compiles;
+            # loading the toolkit's copy first lets that lookup find it
+            # whatever the dynamic linker's search path.
+            builtins = cuda_home() / "lib64" / "libnvrtc-builtins.so"
+            if builtins.exists():
+                ctypes.CDLL(str(builtins), mode=ctypes.RTLD_GLOBAL)
+        lib = ctypes.CDLL(str(path))
         for fn, argtypes in SIGNATURES[name]:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = _INT

@@ -1,13 +1,19 @@
-// Hand-written Hopper (sm_90a) kernels for the batched VCGRA overlay.
+// Hand-written Hopper (sm_90a) kernels for the conventional VCGRA overlay
+// (settings as runtime data).
 //
-// Replaces the two Pallas TPU megakernels of the JAX reference package:
+// Replaces three Pallas TPU kernels of the JAX reference package:
 //   * vcgra_fused_batched_kernel  <- src/repro/kernels/vcgra/vcgra_kernel.py:
 //     vcgra_fused_batched (body _fused_batched_body): N raw frames, N tenants'
 //     settings banks, tap bank + channel select + L PE levels + K output muxes
 //     in one launch;
 //   * vcgra_batched_kernel        <- src/repro/kernels/vcgra/vcgra_kernel.py:
 //     vcgra_batched (body _batched_body): the same level pipeline over
-//     pre-packed channels [N, C, B].
+//     pre-packed channels [N, C, B];
+//   * vcgra_conventional_kernel   <- src/repro/kernels/vcgra/vcgra_kernel.py:
+//     vcgra_conventional (body _conventional_body, _level_pipeline): one app,
+//     one settings bank, channel-major [C, N] -- B2's pipeline with block_n
+//     pixels per block, so a block stages its bank once for block_n / 128
+//     passes of its threads.
 //
 // What bounds it on the H100: memory bytes.  Each pixel reads one frame value
 // per tap (served from L1/L2: neighbouring threads share taps) and writes K
@@ -169,6 +175,33 @@ vcgra_batched_kernel(const T* __restrict__ xs, const int* __restrict__ ops,
                     active);
 }
 
+// --- B4: one app over channel-major [C, N] ---------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+vcgra_conventional_kernel(const T* __restrict__ x, const int* __restrict__ ops,
+                          const int* __restrict__ sel, const int* __restrict__ out_sel,
+                          const int* __restrict__ widths, T* __restrict__ out, int64_t N,
+                          int64_t block_n, int L, int max_w, int K, int C) {
+  extern __shared__ int smem[];
+  __shared__ __align__(16) unsigned char vals_raw[2 * kMaxVals * kBlock * sizeof(T)];
+  auto vals = reinterpret_cast<T (*)[kMaxVals][kBlock]>(vals_raw);
+  const Settings s = stage_settings<T>(smem, ops, sel, out_sel, widths, nullptr,
+                                       static_cast<const T*>(nullptr), nullptr,
+                                       0, L, max_w, K, C);
+  const int64_t start = static_cast<int64_t>(blockIdx.x) * block_n;
+  const int64_t end = start + block_n < N ? start + block_n : N;
+  // Each pass is independent per thread (its own value column), so passes
+  // need no barrier between them.
+  for (int64_t base = start; base < end; base += kBlock) {
+    const int64_t p = base + threadIdx.x;
+    const bool active = p < end;
+    for (int c = 0; c < C; ++c)
+      vals[0][c][threadIdx.x] = active ? x[c * N + p] : zero_value<T>();
+    level_pipeline<T>(s, vals, L, max_w, K, out, p, N, active);
+  }
+}
+
 size_t settings_smem_bytes(int L, int max_w, int K, int C) {
   return sizeof(int) * (static_cast<size_t>(3) * L * max_w + K + L + C);
 }
@@ -195,6 +228,17 @@ int launch_batched(const void* xs, const int* ops, const int* sel, const int* ou
   vcgra_batched_kernel<T><<<grid, kBlock, settings_smem_bytes(L, max_w, K, 0), stream>>>(
       static_cast<const T*>(xs), ops, sel, out_sel, widths, static_cast<T*>(out), B, L,
       max_w, K, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_conventional(const void* x, const int* ops, const int* sel, const int* out_sel,
+                        const int* widths, void* out, int64_t N, int64_t block_n, int L,
+                        int max_w, int K, int C, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>((N + block_n - 1) / block_n));
+  vcgra_conventional_kernel<T><<<grid, kBlock, settings_smem_bytes(L, max_w, K, 0), stream>>>(
+      static_cast<const T*>(x), ops, sel, out_sel, widths, static_cast<T*>(out), N, block_n,
+      L, max_w, K, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -237,6 +281,27 @@ extern "C" int vcgra_batched(int dtype, const void* xs, const int* ops, const in
                                          K, C, st);
     case 3: return launch_batched<__nv_bfloat16>(xs, ops, sel, out_sel, widths, out, N, B,
                                                  L, max_w, K, C, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// block_n: pixels per block, a positive multiple of the block's 128 threads
+// (the wrapper checks it); any other value returns cudaErrorInvalidValue.
+extern "C" int vcgra_conventional(int dtype, const void* x, const int* ops, const int* sel,
+                                  const int* out_sel, const int* widths, void* out,
+                                  int64_t N, int64_t block_n, int L, int max_w, int K, int C,
+                                  void* stream) {
+  if (block_n <= 0 || block_n % kBlock != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_conventional<int32_t>(x, ops, sel, out_sel, widths, out, N, block_n,
+                                                L, max_w, K, C, st);
+    case 1: return launch_conventional<int16_t>(x, ops, sel, out_sel, widths, out, N, block_n,
+                                                L, max_w, K, C, st);
+    case 2: return launch_conventional<float>(x, ops, sel, out_sel, widths, out, N, block_n,
+                                              L, max_w, K, C, st);
+    case 3: return launch_conventional<__nv_bfloat16>(x, ops, sel, out_sel, widths, out, N,
+                                                      block_n, L, max_w, K, C, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,6 @@
 // PE semantics of the VCGRA overlay, shared by the Hopper kernels
-// (vcgra.cu: B1/B2, vcgra_pipeline.cu: B3).
+// (vcgra.cu: B1/B2/B4, vcgra_pipeline.cu: B3, and every per-app B5 kernel
+// that kernels/vcgra/specialized.py generates and NVRTC compiles).
 //
 // Bit for bit the JAX reference's core/ops.py: floor division with a
 // guarded divisor (and INT_MIN / -1 == INT_MIN as XLA defines it), wrapping
@@ -10,9 +11,18 @@
 
 #pragma once
 
+#ifdef __CUDACC_RTC__
+// NVRTC has no system headers: the fixed-width types from built-ins.
+typedef int int32_t;
+typedef short int16_t;
+typedef unsigned int uint32_t;
+typedef long long int64_t;
+#define INT32_MIN (-2147483647 - 1)
+#else
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
+#endif
+#include <cuda_bf16.h>
 
 namespace {
 

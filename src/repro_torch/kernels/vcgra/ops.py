@@ -1,18 +1,28 @@
-"""Wrappers of the Hopper VCGRA kernels and their plan-registry cells.
+"""Wrappers of the Hopper VCGRA kernels, their plan-registry cells and the
+single-app entry points ``vcgra_apply`` / ``vcgra_apply_image``.
 
-``vcgra_fused_batched``, ``vcgra_batched`` (``csrc/vcgra.cu``) and
-``vcgra_pipeline_batched`` (``csrc/vcgra_pipeline.cu``) check their
-operands, allocate the output and launch their CUDA kernel on PyTorch's
-current stream.  Each keeps a launch count in :data:`LAUNCHES`,
-raised where (and only where) it launches, so a run can show that its main
-path went through the kernels.  A wrapper given CPU tensors computes its
-plain PyTorch version (``ref.py``) instead -- that is the only fallback:
-for CUDA tensors it launches the kernel or raises.
+The kernels:
+
+* ``vcgra_fused_batched`` (B1), ``vcgra_batched`` (B2) and
+  ``vcgra_conventional`` (B4), in ``csrc/vcgra.cu``: settings as runtime
+  data, one executable for every app mapped on a grid;
+* ``vcgra_pipeline_batched`` (B3), in ``csrc/vcgra_pipeline.cu``;
+* ``vcgra_specialized`` (B5): one kernel generated per app and compiled
+  with NVRTC at load (``specialized.py``, ``csrc/vcgra_specialize.cu``).
+
+Each wrapper checks its operands, allocates the output and launches its
+CUDA kernel on PyTorch's current stream, and keeps a launch count in
+:data:`LAUNCHES`, raised where (and only where) it launches, so a run can
+show that its path went through the kernels.  A wrapper given CPU tensors
+computes its plain PyTorch version (``ref.py``) instead -- that is the only
+fallback: for CUDA tensors it launches the kernel or raises.
 
 The module registers the ``backend="hopper"`` cells of the plan matrix:
-(batched, fused) runs ``vcgra_fused_batched``, (batched, unfused) runs
-``vcgra_batched``, the single-app cells ride them with N=1, and depth > 1
-pipeline plans run ``vcgra_pipeline_batched``.
+(batched, fused) runs B1, (batched, unfused) runs B2, the single-app cells
+ride them with N=1 (as the reference's Pallas cells do), and depth > 1
+pipeline plans run B3.  ``vcgra_apply`` runs one app over channel-major
+``[C, N]`` through B5 (``mode="specialized"``) or B4
+(``mode="conventional"``).
 """
 
 from __future__ import annotations
@@ -20,26 +30,38 @@ from __future__ import annotations
 import functools
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import applications as apps
+from repro_torch.core.bitstream import VCGRAConfig
 from repro_torch.core.grid import GridSpec
+from repro_torch.core.ingest import IngestPlan
+from repro_torch.core.interpreter import apply_ingest, check_device, form_tap_bank, pack_inputs
 from repro_torch.core.plan import (
     OverlayPlan, lift_app_axis, register_executor, register_pipeline_executor,
 )
-from repro_torch.core.tiling import check_tile_rows, resolve_tile_rows
+from repro_torch.core.tiling import check_tile_rows, pad_channels, resolve_tile_rows
+from repro_torch.kernels.build import load_library
 from repro_torch.kernels.vcgra import ref
-from repro_torch.kernels.vcgra.build import load_library
+from repro_torch.kernels.vcgra.specialized import THREADS, SpecializedKernel
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
 LAUNCHES: Dict[str, int] = {
     "vcgra_fused_batched": 0, "vcgra_batched": 0, "vcgra_pipeline_batched": 0,
+    "vcgra_conventional": 0, "vcgra_specialized": 0,
 }
 
 _DTYPE_CODES = {torch.int32: 0, torch.int16: 1, torch.float32: 2, torch.bfloat16: 3}
 
 #: Grid-axis limit of the launch: the app axis rides ``gridDim.y``.
 _MAX_APPS = 65535
+
+#: ``block_n`` of the single-app kernels (B4, B5) is a positive multiple of
+#: this, as the reference's lane-aligned blocks are; B4's blocks have this
+#: many threads.
+LANE = 128
 
 
 def reset_launch_counts() -> None:
@@ -251,6 +273,141 @@ def vcgra_pipeline_batched(grid: GridSpec, radii, settings, ingests, out_chs: to
     _raise_on_error("vcgra_pipeline_batched", rc)
     LAUNCHES["vcgra_pipeline_batched"] += 1
     return out
+
+
+def _check_block_n(block_n) -> int:
+    if isinstance(block_n, bool) or not isinstance(block_n, (int, np.integer)) \
+            or block_n < LANE or block_n % LANE:
+        raise ValueError(f"block_n must be a positive multiple of {LANE}, got {block_n!r}")
+    return int(block_n)
+
+
+def vcgra_conventional(grid: GridSpec, settings, x: torch.Tensor,
+                       block_n: int = 1024) -> torch.Tensor:
+    """One app over channel-major ``x [num_inputs, N]`` -> ``[K, N]`` with
+    its settings as runtime operands: the Hopper twin of the reference's
+    Pallas ``vcgra_conventional``.  ``settings``: one dense bank
+    ``(ops int32 [L, max_w], sel int32 [L, max_w, 2], out_sel int32 [K])``
+    (:func:`_pack_settings`).  ``block_n`` pixels per block (validated like
+    the reference's); N needs no padding and the output does not depend on
+    ``block_n``."""
+    block_n = _check_block_n(block_n)
+    if x.dim() != 2:
+        raise ValueError(f"x must be [channels, N], got shape {tuple(x.shape)}")
+    C, N = x.shape
+    device = x.device
+    ops, sel, out_sel = settings
+    L, max_w, K = grid.num_levels, max(grid.pes_per_level), grid.num_outputs
+    _check("ops", ops, (L, max_w), torch.int32, device)
+    _check("sel", sel, (L, max_w, 2), torch.int32, device)
+    _check("out_sel", out_sel, (K,), torch.int32, device)
+    _check("x", x, (grid.num_inputs, N), grid.dtype, device)
+    if device.type == "cpu":
+        return ref.vcgra_conventional_ref(grid, settings, x)
+    lib = _launch_target(grid, 1, device)
+    out = torch.empty((K, N), dtype=grid.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    widths = _int32_on(grid.pes_per_level, device)
+    with torch.cuda.device(device):
+        rc = lib.vcgra_conventional(
+            _DTYPE_CODES[grid.dtype], x.data_ptr(), ops.data_ptr(), sel.data_ptr(),
+            out_sel.data_ptr(), widths.data_ptr(), out.data_ptr(), N, block_n,
+            L, max_w, K, C, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error("vcgra_conventional", rc)
+    LAUNCHES["vcgra_conventional"] += 1
+    return out
+
+
+def vcgra_specialized(kernel: SpecializedKernel, x: torch.Tensor,
+                      block_n: int = 1024) -> torch.Tensor:
+    """Run one app's loaded B5 kernel (:class:`SpecializedKernel`) over
+    channel-major ``x [C, N]`` -> ``[K, N]``: the Hopper twin of the
+    reference's Pallas ``vcgra_specialized``.  Only the live input rows are
+    read; ``block_n`` pixels per block, and the output does not depend on
+    it."""
+    block_n = _check_block_n(block_n)
+    grid = kernel.grid
+    if x.dim() != 2:
+        raise ValueError(f"x must be [channels, N], got shape {tuple(x.shape)}")
+    C, N = x.shape
+    _check("x", x, (C, N), grid.dtype, kernel.device)
+    if C < kernel.num_channels:
+        raise ValueError(f"x has {C} channels; {kernel.config.app_name!r} reads "
+                         f"{kernel.num_channels}")
+    if kernel.device.type == "cpu":
+        return ref.vcgra_specialized_ref(grid, kernel.config, x, kernel.bake_consts)
+    out = torch.empty((grid.num_outputs, N), dtype=grid.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library("vcgra_specialize")
+    with torch.cuda.device(x.device):
+        rc = lib.vcgra_spec_launch(kernel.handle, x.data_ptr(), out.data_ptr(), N, N,
+                                   block_n, THREADS, torch.cuda.current_stream().cuda_stream)
+    _raise_on_error("vcgra_specialized", rc)
+    LAUNCHES["vcgra_specialized"] += 1
+    return out
+
+
+def _pack_settings(grid: GridSpec, config: VCGRAConfig, device=None):
+    """One app's settings as B4's dense bank: ``(ops int32 [L, max_w],
+    sel int32 [L, max_w, 2], out_sel int32 [K], max_w)``; pad slots hold
+    Op.NONE / select 0 and are never read."""
+    max_w = max(grid.pes_per_level)
+    ops_arr = np.zeros((grid.num_levels, max_w), np.int32)
+    sel_arr = np.zeros((grid.num_levels, max_w, 2), np.int32)
+    for lvl in range(grid.num_levels):
+        w = grid.pes_per_level[lvl]
+        ops_arr[lvl, :w] = config.opcodes[lvl]
+        sel_arr[lvl, :w] = config.selects[lvl]
+    return (torch.as_tensor(ops_arr, device=device), torch.as_tensor(sel_arr, device=device),
+            torch.as_tensor(np.asarray(config.out_sel, np.int32), device=device), max_w)
+
+
+def ingest_image(plan: IngestPlan, dtype: torch.dtype, image: torch.Tensor) -> torch.Tensor:
+    """Fused frame ingest: ``[H, W]`` raw image -> ``[C, H*W]`` channels
+    (the tap bank and each channel's producer, on the image's device)."""
+    bank = form_tap_bank(image[None], plan.radius, dtype)[0]
+    return apply_ingest(bank, plan.to_torch(dtype, device=image.device))
+
+
+def vcgra_apply(grid: GridSpec, config: VCGRAConfig, x: torch.Tensor,
+                mode: str = "specialized", block_n: int = 1024) -> torch.Tensor:
+    """Run a mapped application over a channel-major batch
+    ``[num_inputs, N]`` (on ``x``'s device): B5 for ``mode="specialized"``
+    (compiled for this config, coefficients read from ``x`` as the
+    reference's Pallas body does), B4 for ``mode="conventional"``."""
+    _check_block_n(block_n)
+    if mode == "specialized":
+        kernel = SpecializedKernel(grid, config, bake_consts=False, device=x.device)
+        return vcgra_specialized(kernel, x, block_n=block_n)
+    if mode == "conventional":
+        ops_arr, sel_arr, out_sel, _ = _pack_settings(grid, config, device=x.device)
+        return vcgra_conventional(grid, (ops_arr, sel_arr, out_sel),
+                                  pad_channels(x, grid.num_inputs), block_n=block_n)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def vcgra_apply_image(grid: GridSpec, config: VCGRAConfig, image, mode: str = "specialized",
+                      block_n: int = 1024, device="cuda") -> torch.Tensor:
+    """Stencil-app convenience: ``[H, W]`` image -> ``[H, W]`` (or
+    ``[K, H, W]``) output, on ``device``.
+
+    Takes the fused ingest (tap bank + channel select on the device)
+    whenever the config carries an :class:`IngestPlan`; the host-side
+    two-step oracle (``stencil_inputs`` + ``pack_inputs``) otherwise."""
+    dev = check_device(device)
+    img = torch.as_tensor(image, device=dev)
+    H, W = img.shape
+    if config.ingest is not None:
+        x = ingest_image(config.ingest, grid.dtype, img)
+    else:
+        taps = apps.stencil_inputs(img)
+        feed = {k: v for k, v in taps.items() if k in config.input_order}
+        x = pack_inputs(config, feed, grid.dtype, device=dev)
+    y = vcgra_apply(grid, config, x, mode=mode, block_n=block_n).reshape(-1, H, W)
+    return y[0] if y.shape[0] == 1 else y
 
 
 # -- plan executors ------------------------------------------------------------

@@ -1,13 +1,18 @@
-"""Plain PyTorch versions of the three Hopper VCGRA kernels.
+"""Plain PyTorch versions of the Hopper VCGRA kernels, and ``vcgra_ref``.
 
 Same operands and results as the kernels (dense settings banks, see
 ``ops.pack_settings_batched``), written independently of
 ``core/interpreter.py`` so the two oracles check each other: the
 interpreter gathers through flat offset banks and muxes every unit per
 lane, while these loop over apps and PE slots and apply each slot's one
-configured unit (``core.ops.apply_op``).  The kernel wrappers take these
-only for tensors on the CPU; on the card the tests and ``chip_smoke.py``
-hold each kernel against them.
+configured unit (``core.ops.apply_op``).  The specialized kernel's plain
+version runs the same slot loop with every dead slot idle and, with
+``bake_consts``, the coefficient rows replaced by their baked values.  The
+kernel wrappers take these only for tensors on the CPU; on the card the
+tests and ``chip_smoke.py`` hold each kernel against them.
+
+``vcgra_ref`` is the twin of the reference's oracle: the eager
+interpreter (``overlay_step``) over one app's settings.
 """
 
 from __future__ import annotations
@@ -17,8 +22,11 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.bitstream import VCGRAConfig
 from repro_torch.core.grid import GridSpec
+from repro_torch.core.interpreter import overlay_step
 from repro_torch.core.ops import Op, apply_op
+from repro_torch.core.specialize import _live_slots, baked_consts, const_value
 
 DenseSettings = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -45,6 +53,37 @@ def _levels(grid: GridSpec, ops: list, sel: list, out_sel: list,
             for s in range(width)
         ])
     return torch.stack([x[k] for k in out_sel])
+
+
+def vcgra_ref(grid: GridSpec, config: VCGRAConfig, x: torch.Tensor) -> torch.Tensor:
+    """``x: [num_inputs, batch] -> y: [num_outputs, batch]`` through the
+    eager interpreter."""
+    return overlay_step(grid, config.to_torch(device=x.device), x)
+
+
+def vcgra_conventional_ref(grid: GridSpec, settings: DenseSettings,
+                           x: torch.Tensor) -> torch.Tensor:
+    """One app's dense settings ``(ops [L, max_w], sel [L, max_w, 2],
+    out_sel [K])`` over channel-major ``x [C, N]`` -> ``[K, N]``."""
+    ops, sel, out_sel = (t.tolist() for t in settings)
+    return _levels(grid, ops, sel, out_sel, x)
+
+
+def vcgra_specialized_ref(grid: GridSpec, config: VCGRAConfig, x: torch.Tensor,
+                          bake_consts: bool = False) -> torch.Tensor:
+    """One app with its settings fixed, over ``x [C, N]`` -> ``[K, N]``:
+    only live slots compute (dead ones idle), and with ``bake_consts``
+    each coefficient channel holds its baked value whatever ``x`` has."""
+    live = _live_slots(grid, config)
+    ops = [[int(o) if s in live[lvl] else int(Op.NONE) for s, o in enumerate(config.opcodes[lvl])]
+           for lvl in range(grid.num_levels)]
+    sel = [s.tolist() for s in config.selects]
+    consts = baked_consts(config) if bake_consts else {}
+    if consts:
+        x = x.clone()
+        for i, value in consts.items():
+            x[i] = const_value(value, x.dtype, x.device)
+    return _levels(grid, ops, sel, [int(s) for s in config.out_sel], x)
 
 
 def vcgra_batched_ref(grid: GridSpec, settings: DenseSettings,

@@ -1,6 +1,8 @@
 """The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py`` import
-neither JAX nor the reference package, and importing the serving entry
-point pulls no JAX into the process.  (Only the tests import both.)"""
+neither JAX nor the reference package, and importing the entry points (the
+serving front-end, the ``Pixie`` facade, the kernel packages and the
+preprocessor) pulls no JAX into the process.  (Only the tests import
+both.)"""
 
 import os
 import re
@@ -34,6 +36,9 @@ def test_serving_entry_point_imports_without_jax():
         "import sys\n"
         "import repro_torch.serve.fleet_frontend\n"
         "import repro_torch.kernels.vcgra\n"
+        "import repro_torch.core.pixie\n"
+        "import repro_torch.kernels.stencil\n"
+        "import repro_torch.data\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

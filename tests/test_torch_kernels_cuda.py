@@ -1,6 +1,8 @@
-"""The Hopper VCGRA kernels (B1, B2 and the chain kernel B3) on the card,
-held against their plain PyTorch versions on the same inputs (bitwise for
-int32, int16 and float32; bf16 within the reference's 0.5).
+"""The Hopper kernels on the card -- B1, B2, the chain kernel B3, the
+single-app kernels B4 (conventional) and B5 (specialized, NVRTC-compiled
+per app) and the fused stencil B6 -- held against their plain PyTorch
+versions on the same inputs (bitwise for int32, int16 and float32; bf16
+within the reference's 0.5).
 
 Every test needs a CUDA device and skips itself elsewhere; on a GPU host
 run ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
@@ -15,16 +17,20 @@ import torch
 
 from repro_torch.core import applications as apps
 from repro_torch.core.bitstream import VCGRAConfig
-from repro_torch.core.grid import custom, sobel_grid
+from repro_torch.core.grid import custom, for_dfg, sobel_grid
 from repro_torch.core.ingest import IngestPlan
 from repro_torch.core.pixie import map_app
 from repro_torch.core.place import level_demand
+from repro_torch.kernels import stencil
+from repro_torch.kernels.build import load_library
 from repro_torch.kernels.vcgra import (
-    LAUNCHES, pack_settings_batched, vcgra_batched, vcgra_batched_ref,
-    vcgra_fused_batched, vcgra_fused_batched_ref, vcgra_pipeline_batched,
-    vcgra_pipeline_batched_ref,
+    LAUNCHES, SpecializedKernel, pack_settings_batched, vcgra_batched, vcgra_batched_ref,
+    vcgra_conventional, vcgra_conventional_ref, vcgra_fused_batched,
+    vcgra_fused_batched_ref, vcgra_pipeline_batched, vcgra_pipeline_batched_ref,
+    vcgra_specialized, vcgra_specialized_ref,
 )
-from repro_torch.kernels.vcgra.build import load_library
+from repro_torch.kernels.vcgra.ops import _pack_settings
+from repro_torch.kernels.vcgra.specialized import compile_module
 
 pytestmark = pytest.mark.cuda
 
@@ -197,3 +203,88 @@ def test_pipeline_kernel_refuses_what_it_cannot_launch(cuda):
         max(grid.pes_per_level), grid.num_outputs, grid.num_inputs, 2,
         torch.cuda.current_stream().cuda_stream) != 0
     assert LAUNCHES["vcgra_pipeline_batched"] == before
+
+
+def single_app_cases(dtype_name):
+    """(grid, config) of every library app on its exact grid and of the
+    Sobel-grid apps on ``sobel_grid()``, in one grid dtype."""
+    bits, float_pe = DTYPES[dtype_name]
+    cases = []
+    for name in ALL_APPS:
+        dfg = apps.ALL_APPS[name]()
+        grid = for_dfg(dfg, shape="exact", data_bits=bits, float_pe=float_pe)
+        cases.append((grid, map_app(dfg, grid)))
+    grid = sobel_grid(data_bits=bits, float_pe=float_pe)
+    cases += [(grid, map_app(apps.ALL_APPS[n](), grid)) for n in SOBEL_APPS]
+    return cases
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_conventional_kernel_matches_plain_version(cuda, dtype_name):
+    rng = np.random.default_rng(4)
+    for grid, cfg in single_app_cases(dtype_name):
+        ops, sel, out_sel, _ = _pack_settings(grid, cfg, device=cuda)
+        for N in (1, 45, 1000, 4099):
+            x = torch.as_tensor(rng.integers(0, 256, (grid.num_inputs, N)),
+                                device=cuda).to(grid.dtype)
+            want = vcgra_conventional_ref(grid, (ops, sel, out_sel), x)
+            for block_n in (128, 256, 1024):
+                before = LAUNCHES["vcgra_conventional"]
+                got = vcgra_conventional(grid, (ops, sel, out_sel), x, block_n=block_n)
+                assert LAUNCHES["vcgra_conventional"] == before + 1
+                assert_close(got, want, dtype_name)
+
+
+@pytest.mark.parametrize("bake_consts", [False, True])
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_specialized_kernel_matches_plain_version(cuda, dtype_name, bake_consts):
+    rng = np.random.default_rng(5)
+    for grid, cfg in single_app_cases(dtype_name):
+        kernel = SpecializedKernel(grid, cfg, bake_consts, device=cuda)
+        assert kernel.handle is not None
+        for N in (1, 45, 4099):
+            x = torch.as_tensor(rng.integers(-8, 256, (grid.num_inputs, N)),
+                                device=cuda).to(grid.dtype)
+            want = vcgra_specialized_ref(grid, cfg, x, bake_consts)
+            for block_n in (128, 1024):
+                before = LAUNCHES["vcgra_specialized"]
+                got = vcgra_specialized(kernel, x, block_n=block_n)
+                assert LAUNCHES["vcgra_specialized"] == before + 1
+                assert_close(got, want, dtype_name)
+
+
+def test_specialized_compile_error_raises_with_the_log(cuda):
+    with pytest.raises(RuntimeError, match="NVRTC refused the source") as info:
+        compile_module('#include "vcgra_pe.cuh"\nextern "C" __global__ void '
+                       'vcgra_specialized() { undeclared_name = 1; }\n', cuda.index or 0)
+    assert "undeclared_name" in str(info.value)
+
+
+@pytest.mark.parametrize("dtype_name", ["int32", "float32", "bfloat16"])
+def test_stencil_kernel_matches_plain_version(cuda, dtype_name):
+    rng = np.random.default_rng(6)
+    dtype = {"int32": torch.int32, "float32": torch.float32, "bfloat16": torch.bfloat16}
+    forms = [(apps.SOBEL_X, apps.SOBEL_Y)] + [(k,) for k in stencil.ops.FILTERS.values()]
+    for H, W in ((37, 53), (1, 1), (130, 7), (1080, 1920)):
+        img = torch.as_tensor(rng.integers(0, 256, (H, W)), device=cuda).to(dtype[dtype_name])
+        for kernels in forms:
+            want = stencil.stencil_fused_ref(img, kernels)
+            for block_h in (1, 8, 128):
+                before = stencil.LAUNCHES["stencil_fused"]
+                got = stencil.stencil_fused(img, kernels, block_h=block_h)
+                assert stencil.LAUNCHES["stencil_fused"] == before + 1
+                assert got.dtype == img.dtype
+                assert_close(got, want, dtype_name)
+
+
+def test_stencil_kernel_refuses_what_it_cannot_launch(cuda):
+    img = torch.zeros((8, 8), dtype=torch.int32, device=cuda)
+    limit = load_library("stencil").stencil_max_block_h()
+    with pytest.raises(ValueError, match="at most"):
+        stencil.stencil_fused(img, (apps.SOBEL_X,), block_h=limit + 1)
+    with pytest.raises(ValueError, match="compiled filters"):
+        stencil.stencil_fused(img, (((1, 1, 1), (1, 0, 1), (1, 1, 1)),))
+    with pytest.raises(ValueError, match="Sobel pair"):
+        stencil.stencil_fused(img, (apps.GAUSS3, apps.BOX3))
+    with pytest.raises(TypeError, match="int32, float32"):
+        stencil.stencil_fused(img.to(torch.int16), (apps.SOBEL_X,))

@@ -149,7 +149,8 @@ def test_wrappers_check_operands_and_count_no_cpu_launch():
     reset_launch_counts()
     vcgra_fused_batched(t_grid, 1, settings, ingests, frames)
     assert LAUNCHES == {"vcgra_fused_batched": 0, "vcgra_batched": 0,
-                        "vcgra_pipeline_batched": 0}
+                        "vcgra_pipeline_batched": 0, "vcgra_conventional": 0,
+                        "vcgra_specialized": 0}
     ops, sel, out_sel = settings
     with pytest.raises(TypeError, match="dtype"):
         vcgra_fused_batched(t_grid, 1, (ops.long(), sel, out_sel), ingests, frames)
