@@ -48,7 +48,29 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    times, the paper's four Sobel magnitudes at 1080p int32 (``Pixie``
    conventional and parameterized, ``vcgra_apply_image``, the fused
    stencil) and the single-app ``Pixie.timings`` (map, reconfigure: a
-   settings copy, or B5's NVRTC compile and load).
+   settings copy, or B5's NVRTC compile and load);
+8. B7 (flash decode) vs its plain version -- the case table of
+   ``repro_torch.kernels.flash_attention.parity`` (the reference flash
+   suite's MHA, GQA 4:1, MQA, ragged 25/5 heads and chunk sweep, and
+   gemma-2b's MQA head, H 8, G 1, D 256), in float32, bf16 and float32 q
+   over a bf16 cache, lengths 0, 1, ragged and S, and a poisoned tail past
+   the lengths; float32 outputs at the reference's 2e-5, bf16 outputs
+   within one bf16 unit;
+9. the LM serving path, driven with the counters reset just before it --
+   gemma-2b at full width (2.5 B parameters from a seeded generator on the
+   card): ``ServeEngine(max_batch=8, max_seq=4096)`` generates 32 tokens
+   from 8 prompts of 128, then a ``SlotServer`` serves 3 requests, one
+   arriving mid-decode; B7 must have launched 18 times per decode step and
+   nothing else; each ``SlotServer`` token equals the engine's up to a
+   tie; then teacher-forced decode-step logits (through B7) are held
+   against last-position ``prefill`` logits (plain attention) of the same
+   token sequences, from the 128-token prompts and from a 1-token prefix,
+   and the same check must fail with B7's lengths planted off by one;
+10. B7's times at the engine's shape and at the ``decode_32k`` shape of one
+   gemma-2b layer, beside its bound, its plain version and one
+   ``scaled_dot_product_attention`` call, and the LM's prefill, decode
+   step and generate times, with a ``torch.profiler`` view of two decode
+   steps (the device's busy time, launches, the costliest kernels).
 
 Then the kernel table line and, last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -98,7 +120,11 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                           "src/repro/kernels/vcgra/vcgra_kernel.py:87"),
     "stencil_fused": ("src/repro_torch/kernels/stencil/csrc/stencil.cu",
                       "src/repro/kernels/stencil/stencil_kernel.py:55"),
+    "flash_decode": ("src/repro_torch/kernels/flash_attention/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_attention/flash_kernel.py:81"),
 }
+#: Kernels of the image paths (every one but B7, which the LM path runs).
+IMAGE_KERNELS = [k for k in KERNELS if k != "flash_decode"]
 DTYPE_NAMES = ("int32", "int16", "float32", "bfloat16")
 #: Arithmetic ops per pixel of the fused Sobel magnitude: 12 products and
 #: 10 sums over the two filters' nonzero taps, two |.| and the final add.
@@ -110,17 +136,18 @@ def emit(obj) -> None:
 
 
 def reset_launches() -> None:
-    from repro_torch.kernels import stencil, vcgra
+    from repro_torch.kernels import flash_attention, stencil, vcgra
 
     vcgra.reset_launch_counts()
     stencil.reset_launch_counts()
+    flash_attention.reset_launch_counts()
 
 
 def launch_counts() -> dict:
     """Every kernel's launches since :func:`reset_launches`."""
-    from repro_torch.kernels import stencil, vcgra
+    from repro_torch.kernels import flash_attention, stencil, vcgra
 
-    return {**vcgra.LAUNCHES, **stencil.LAUNCHES}
+    return {**vcgra.LAUNCHES, **stencil.LAUNCHES, **flash_attention.LAUNCHES}
 
 
 def no_launches(**counts) -> dict:
@@ -792,9 +819,10 @@ def phase_single_app_path(device, frame):
     timings = {name: dict(pix.timings) for name, pix in pixies.items()}
     spec_kernel = pixies["sobel_mag parameterized"]._spec_fn.args[0]
 
-    missing = [k for k in KERNELS if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"the single-app path never launched {missing}: {launches}")
+    missing = [k for k in IMAGE_KERNELS if launches[k] == 0]
+    if missing or launches["flash_decode"]:
+        raise AssertionError(f"the single-app path launched {launches}: every image kernel "
+                             f"expected (missing {missing}), and no B7")
     mag = oracle("sobel_mag", frame)
     want = {"sobel-5x9 conventional sobel_x": oracle("sobel_x", frame),
             "sobel-5x9 parameterized sobel_x": oracle("sobel_x", frame),
@@ -964,6 +992,394 @@ def phase_single_times(device, frame, mag_cfg, pixies):
           "x_bytes": x.numel() * x.element_size()})
     return rows, four_ms
 
+LM_ARCH = "gemma-2b"
+#: The LM path's sizes: the engine's batch and cache, prompts, tokens.
+LM_BATCH, LM_MAX_SEQ, LM_PROMPT, LM_GEN = 8, 4096, 128, 32
+#: Teacher-forced decode steps held against prefill.
+LM_CHECK_STEPS = 8
+#: Decode logits (B7, float32 softmax weights) against prefill logits
+#: (plain attention, softmax weights rounded to bf16) of the same tokens:
+#: the largest |difference| over the largest |logit|.  Set between the two
+#: readings that :func:`decode_vs_prefill` prints on the H100 (PERF.md,
+#: section 6): the sound runs' largest gap, under 1%, and the planted
+#: faults' smallest from a 1-token prefix, over 30%; 2% keeps a factor of
+#: two or more from the sound runs and over ten from the faults.
+LM_LOGIT_REL_TOL = 0.02
+#: Faults planted in B7's lengths to show the check sees them: the current
+#: token's own row left out (lengths for lengths + 1), one unwritten row
+#: read (lengths + 2).  From 128 prompt tokens one row among 129 moves the
+#: logits about as little as rounding does, under any limit the sound runs
+#: clear, so the faults are held to the limit from a 1-token prefix, where
+#: they are large, and only reported from 128.
+LM_PLANTS = {"drops_current_row": -1, "reads_one_row_past": 1}
+#: (B, S) of the ``decode_32k`` shape (SHAPES in configs/base.py).
+DECODE_32K = (128, 32768)
+
+
+def flash_inputs(rng, B, H, G, D, S, q_dtype, kv_dtype, device):
+    import torch
+
+    q = torch.as_tensor(rng.standard_normal((B, H, D)), dtype=torch.float32, device=device)
+    k, v = (torch.as_tensor(rng.standard_normal((B, S, G, D)), dtype=torch.float32,
+                            device=device) for _ in range(2))
+    return q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype)
+
+
+def phase_flash_vs_plain(device):
+    """B7 on the card vs its plain version, each case synchronized: the
+    case table of ``flash_attention.parity`` in float32, bf16 and float32
+    q over a bf16 cache, lengths 0, 1, ragged and S (and all S), at that
+    module's tolerance; plus a tail past the lengths poisoned with 1e9
+    that must change nothing.  Returns, per dtype pair, the largest error
+    and its largest share of the tolerance."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import parity
+
+    rng = np.random.default_rng(11)
+    by_dtype, cases = {}, 0
+    for q_dtype, kv_dtype in parity.DTYPES:
+        err = share = 0.0
+        for B, H, G, D, S, chunk in parity.CASES:
+            q, k, v = flash_inputs(rng, B, H, G, D, S, q_dtype, kv_dtype, device)
+            for lengths in (parity.lengths(rng, B, S), [S] * B):
+                lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+                got = flash_attention.decode_attention(q, k, v, lens, chunk=chunk)
+                want = flash_attention.decode_ref(q, k, v, lens)
+                torch.cuda.synchronize()
+                e, s = parity.check(got, want, lengths, f"B7 {(B, H, G, D, S, chunk)} "
+                                    f"{q_dtype}/{kv_dtype} lengths {lengths}")
+                err, share = max(err, e), max(share, s)
+                cases += 1
+        by_dtype[f"{str(q_dtype)[6:]} q / {str(kv_dtype)[6:]} cache"] = {
+            "max_abs_err": err, "max_share_of_tolerance": share}
+    q, k, v = flash_inputs(rng, 2, 4, 2, 64, 512, torch.float32, torch.float32, device)
+    lens = torch.tensor([100, 257], dtype=torch.int32, device=device)
+    tail = torch.arange(512, device=device)[None, :, None, None] >= lens[:, None, None, None]
+    clean = flash_attention.decode_attention(q, k, v, lens, chunk=128)
+    poisoned = flash_attention.decode_attention(q, k.masked_fill(tail, 1e9),
+                                                v.masked_fill(tail, 1e9), lens, chunk=128)
+    if not torch.equal(clean, poisoned):
+        raise AssertionError("B7 read rows past the lengths")
+    return by_dtype, cases + 1
+
+
+def lm_setup(device):
+    """gemma-2b at full width, f32 master weights from a seeded generator on
+    the card; returns the LM, the engine (bf16 weights) and the prompts."""
+    import torch
+    from repro_torch.configs import get_arch, param_count
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_arch(LM_ARCH)
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=device).manual_seed(0))
+    engine = ServeEngine(lm, params, ServeConfig(max_batch=LM_BATCH, max_seq=LM_MAX_SEQ))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    # param_count's closed form leaves out the final norm's d_model scales.
+    if n_params != int(param_count(cfg)["total"]) + cfg.d_model:
+        raise AssertionError(f"{n_params} parameters, param_count says "
+                             f"{param_count(cfg)['total']}")
+    del params  # the engine keeps its bf16 copy
+    torch.cuda.empty_cache()
+    prompts = np.random.default_rng(12).integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    return cfg, lm, engine, prompts, {"init_and_cast_s": time.perf_counter() - t0,
+                                      "parameters": n_params}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_lm_serve_path(device):
+    """The LM serving entry points at full width, the launch counters reset
+    just before and read just after: ``ServeEngine.generate`` (8 prompts of
+    128 tokens, 32 tokens each) and a ``SlotServer`` serving 3 requests, the
+    third arriving mid-decode.  B7 must have launched 18 times (one per
+    layer) per decode step, and no other kernel.  Then the decode path is
+    held against the prefill path on the same tokens."""
+    import torch
+    from repro_torch.serve import ServeConfig, SlotServer
+
+    cfg, lm, engine, prompts, setup = lm_setup(device)
+    layers = cfg.num_layers
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, LM_GEN)
+    generate_s = time.perf_counter() - t0
+    srv = SlotServer(lm, engine.params, ServeConfig(max_batch=LM_BATCH, max_seq=LM_MAX_SEQ))
+    srv.add_request(0, prompts[0])
+    srv.add_request(1, prompts[1])
+    ticks = 0
+    for _ in range(4):
+        srv.tick()
+        ticks += 1
+    srv.add_request(2, prompts[2])   # arrives mid-decode
+    for _ in range(4):
+        srv.tick()
+        ticks += 1
+    served = [srv.finish(slot) for slot in (0, 1, 2)]
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = launch_counts()
+    steps = (LM_GEN - 1) + ticks
+    if launches != no_launches(flash_decode=layers * steps):
+        raise AssertionError(f"launches {launches}: expected flash_decode = {layers} layers x "
+                             f"{steps} decode steps and nothing else")
+    if tokens.shape != (LM_BATCH, LM_GEN) or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"generate returned {tokens.shape} / out-of-range tokens")
+    if [len(s) for s in served] != [1 + ticks, 1 + ticks, 1 + 4]:
+        raise AssertionError(f"slot outputs of lengths {[len(s) for s in served]}")
+    slot_equal, slot_compared = slot_tokens_vs_engine(lm, engine.params, prompts, tokens,
+                                                      served, device)
+    check = decode_vs_prefill(lm, engine.params, prompts, tokens, device)
+    del srv
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_serve_path", "arch": LM_ARCH, **setup,
+          "engine": {"max_batch": LM_BATCH, "max_seq": LM_MAX_SEQ, "prompt": LM_PROMPT,
+                     "generated": LM_GEN},
+          "slot_server": {"requests": 3, "ticks": ticks,
+                          "tokens_equal_to_engine": slot_equal,
+                          "tokens_compared": slot_compared,
+                          "tokens": sum(len(s) for s in served)},
+          "decode_steps": steps, "launches": launches, "generate_first_s": generate_s,
+          "lm_path_s": path_s, "decode_vs_prefill": check})
+    return lm, engine, prompts, launches
+
+
+def decode_gaps(lm, params, seq, start, steps, shift=0):
+    """Teacher-forced: prefill ``seq[:, :start]``, feed ``seq`` one decode
+    step at a time (B7), and hold each step's logits against the
+    last-position logits of a prefill of the same tokens (plain attention,
+    no B7).  ``shift`` plants a fault: B7 is handed the lengths moved by
+    ``shift`` rows.  Returns each step's max |decode - prefill| over max
+    |prefill logit|, and the greedy tokens that agree."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import attention
+
+    real = attention.decode_attention
+    if shift:
+        attention.decode_attention = (lambda q, k, v, lengths, chunk=512:
+                                      real(q, k, v, lengths + shift, chunk=chunk))
+    try:
+        _, cache, lengths = lm.prefill(params, seq[:, :start], cache_len=LM_MAX_SEQ)
+        gaps, agree = [], 0
+        for j in range(steps):
+            before = flash_attention.LAUNCHES["flash_decode"]
+            dec, cache, lengths = lm.decode_step(params, seq[:, start + j:start + j + 1],
+                                                 cache, lengths)
+            if flash_attention.LAUNCHES["flash_decode"] != before + lm.cfg.num_layers:
+                raise AssertionError("a decode step did not run B7 in every layer")
+            pre, _, _ = lm.prefill(params, seq[:, :start + j + 1], cache_len=start + j + 1)
+            if not bool(torch.isfinite(dec).all()) or dec.shape != pre.shape:
+                raise AssertionError("decode logits are not finite or not of the prefill's "
+                                     "shape")
+            gaps.append(float((dec - pre).abs().max()) / float(pre.abs().max()))
+            agree += int((dec.argmax(-1) == pre.argmax(-1)).sum())
+        del cache
+    finally:
+        attention.decode_attention = real
+    return gaps, agree
+
+
+def decode_vs_prefill(lm, params, prompts, tokens, device):
+    """The decode path against the prefill path on the engine's token
+    sequences, from the engine's 128-token prompts and from their first
+    token alone, sound and with each fault of :data:`LM_PLANTS` planted.
+    Every sound gap must lie within :data:`LM_LOGIT_REL_TOL`, and every
+    planted fault must show a gap above it from the 1-token prefix."""
+    import torch
+
+    seq = torch.as_tensor(np.concatenate([prompts, tokens], axis=1), device=device)
+    out = {}
+    for start in (LM_PROMPT, 1):
+        gaps, agree = decode_gaps(lm, params, seq, start, LM_CHECK_STEPS)
+        if max(gaps) > LM_LOGIT_REL_TOL:
+            raise AssertionError(f"decode from {start} tokens: max |decode - prefill| = "
+                                 f"{max(gaps)} x max |logit|, over {LM_LOGIT_REL_TOL}")
+        planted = {name: max(decode_gaps(lm, params, seq, start, LM_CHECK_STEPS, shift)[0])
+                   for name, shift in LM_PLANTS.items()}
+        missed = [name for name, gap in planted.items() if gap <= LM_LOGIT_REL_TOL]
+        if start == 1 and missed:
+            raise AssertionError(f"decode from {start} tokens: planted {missed} stay within "
+                                 f"{LM_LOGIT_REL_TOL} ({planted}); the check cannot see them")
+        out[f"from_{start}_tokens"] = {
+            "steps": LM_CHECK_STEPS, "max_rel_to_max_logit": max(gaps), "per_step": gaps,
+            "greedy_agree": agree, "greedy_total": LM_CHECK_STEPS * seq.shape[0],
+            "planted_max_rel_to_max_logit": planted}
+    return {"tolerance_rel": LM_LOGIT_REL_TOL, **out}
+
+
+def slot_tokens_vs_engine(lm, params, prompts, tokens, served, device):
+    """Each ``SlotServer`` output equals the engine's tokens up to the
+    first step where they part; there the engine's two candidates must tie
+    within twice the decode tolerance on the prefill logits of that
+    sequence, and after it the sequences differ and are not compared.
+    Returns (tokens compared and equal, tokens compared)."""
+    import torch
+
+    equal = compared = 0
+    for slot, got in enumerate(served):
+        for t, tok in enumerate(got):
+            compared += 1
+            want = int(tokens[slot, t])
+            if tok == want:
+                equal += 1
+                continue
+            seq = torch.as_tensor(np.concatenate([prompts[slot], tokens[slot, :t]])[None],
+                                  device=device)
+            logits = lm.prefill(params, seq, cache_len=seq.shape[1])[0][0].float()
+            tie = 2 * LM_LOGIT_REL_TOL * float(logits.abs().max())
+            if abs(float(logits[tok] - logits[want])) > tie:
+                raise AssertionError(f"SlotServer slot {slot} step {t}: token {tok}, the "
+                                     f"engine's {want}, and their logits do not tie")
+            break
+    return equal, compared
+
+
+def flash_bound(B, H, G, D, lengths, itemsize):
+    """B7's least time, by :func:`bound`: q, the k/v rows up to each length
+    and the output moved once (and the int32 lengths), or 4 D float32
+    operations (a multiply-add each for the score and the weighted sum) per
+    valid row and query head."""
+    rows = sum(lengths)
+    bytes_moved = 2 * B * H * D * itemsize + 2 * rows * G * D * itemsize + 4 * B
+    return (*bound(bytes_moved, 4 * D * H * rows), bytes_moved)
+
+
+def profile_decode_steps(step, steps=2, top=8):
+    """``torch.profiler`` over ``steps`` decode steps: the device's busy
+    time and the kernel launches per step, and the kernels that take the
+    most device time (ms per step).  The host's times under the profiler
+    are inflated and not reported."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in events if getattr(e, "device_type", None) is not None
+               and "CUDA" in str(e.device_type) and device_us(e) > 0]
+    busy_us = sum(device_us(e) for e in kernels)
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
+    kernels.sort(key=device_us, reverse=True)
+    return {
+        "device_ms_per_step": busy_us / 1e3 / steps if busy_us else None,
+        "kernel_launches_per_step": launches / steps,
+        "top_kernels_ms_per_step": {e.key[:80]: device_us(e) / 1e3 / steps
+                                    for e in kernels[:top]},
+    }
+
+
+def phase_lm_times(device, lm, engine, prompts):
+    """B7 at the engine's shape (8 sequences of a 4096-row cache, 160 valid
+    rows each: 128 prompt + 32 generated) and at the ``decode_32k`` shape of
+    one gemma-2b layer (B 128, S 32768, all rows valid), bf16: kernel,
+    plain, one ``scaled_dot_product_attention`` call with a boolean length
+    mask and ``enable_gqa`` (the yardstick, never called by the port),
+    bound.  Then prefill, decode step and generate on the card."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import parity
+
+    cfg = lm.cfg
+    H, G, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(13)
+    rows = {}
+    for label, B, S, n in (("engine", LM_BATCH, LM_MAX_SEQ, LM_PROMPT + LM_GEN),
+                           ("decode_32k", *DECODE_32K, DECODE_32K[1])):
+        q, k, v = flash_inputs(rng, B, H, G, D, S, torch.bfloat16, torch.bfloat16, device)
+        lens = torch.full((B,), n, dtype=torch.int32, device=device)
+        mask = (torch.arange(S, device=device)[None, :] < lens[:, None])[:, None, None, :]
+
+        def run():
+            return flash_attention.decode_attention(q, k, v, lens, chunk=512)
+
+        def plain():
+            return flash_attention.decode_ref(q, k, v, lens)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                enable_gqa=True)[:, :, 0, :]
+
+        want = plain()
+        got = run()
+        lib = library()
+        torch.cuda.synchronize()
+        err, share = parity.check(got, want, [n] * B, f"B7 at the {label} shape")
+        lib_err = float((lib.float() - want.float()).abs().max())
+        b_ms, b_by, b_bytes = flash_bound(B, H, G, D, [n] * B, 2)
+        ms = cuda_times(run, 20, shield=True)
+        rows[label] = dict(
+            ms=statistics.median(ms), ms_range=[min(ms), max(ms)],
+            plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20, shield=True),
+            bound_ms=b_ms, bound_by=b_by, bytes=b_bytes, main_path_err=err,
+            err_share_of_tolerance=share, library_err=lib_err,
+            shape=f"q [{B}, {H}, {D}], k/v [{B}, {S}, {G}, {D}] bf16, lengths {n}")
+        del q, k, v, want, got, lib
+        torch.cuda.empty_cache()
+
+    prompts_t = torch.as_tensor(prompts, device=device)
+
+    def host_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    prefill_ms = host_ms(lambda: lm.prefill(engine.params, prompts_t, cache_len=LM_MAX_SEQ), 5)
+    _, cache, lengths = lm.prefill(engine.params, prompts_t, cache_len=LM_MAX_SEQ)
+    tok = prompts_t[:, -1:]
+    # the same position each time: the step rewrites one cache row in place
+    decode_ms = host_ms(lambda: lm.decode_step(engine.params, tok, cache, lengths), 10)
+    decode_event_ms = cuda_times(lambda: lm.decode_step(engine.params, tok, cache, lengths), 10)
+    profiled = profile_decode_steps(lambda: lm.decode_step(engine.params, tok, cache, lengths))
+    del cache
+    t0 = time.perf_counter()
+    engine.generate(prompts, LM_GEN)
+    generate_s = time.perf_counter() - t0
+    step_ms = statistics.median(decode_ms)
+    out = {
+        "prefill_ms": statistics.median(prefill_ms), "prefill_runs_ms": prefill_ms,
+        "decode_step_ms": step_ms, "decode_step_runs_ms": decode_ms,
+        "decode_step_event_ms": statistics.median(decode_event_ms),
+        "b7_share_of_decode_step": cfg.num_layers * rows["engine"]["ms"] / step_ms,
+        "decode_step_profile": profiled,
+        "device_idle_share": (None if profiled["device_ms_per_step"] is None
+                              else 1.0 - profiled["device_ms_per_step"] / step_ms),
+        "generate_s": generate_s,
+        "generate_tokens_per_s": LM_BATCH * LM_GEN / generate_s,
+        "shape": f"{LM_ARCH} full width, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+                 f"cache {LM_MAX_SEQ}, bf16",
+    }
+    emit({"phase": "lm_times", "flash_decode": rows, "lm": out,
+          "library_call": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True, "
+                          "boolean length mask)",
+          "rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S, "f32_ops_per_s": SCALAR_OPS_PER_S}})
+    return rows, out
+
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
@@ -1017,13 +1433,28 @@ def main() -> int:
         device, svc, chain_reqs, pipe_grid)
     single_rows, four_ms = phase_single_times(device, frame, mag_cfg, pixies)
     rows.update(single_rows)
+    del pixies
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    flash_errs, flash_cases = phase_flash_vs_plain(device)
+    errs["flash_decode"] = max(e["max_abs_err"] for e in flash_errs.values())
+    emit({"phase": "flash_vs_plain", "cases": flash_cases, "by_dtype": flash_errs,
+          "tolerance": "float32 outputs |d| <= 2e-5 (1 + |ref|) (the reference's); bf16 "
+                       "outputs |d| <= 2^-7 |ref| + 1e-3 max|ref| (one bf16 unit); exactly 0 "
+                       "at length 0; poisoned tail bitwise",
+          "seconds": time.perf_counter() - t0})
+    lm, engine, prompts, lm_launches = phase_lm_serve_path(device)
+    flash_rows, lm_times = phase_lm_times(device, lm, engine, prompts)
+    rows["flash_decode"] = flash_rows["engine"]
 
     # Each kernel's launches come from the path it serves, counted from 0.
     launches = {"vcgra_fused_batched": main_launches["vcgra_fused_batched"],
                 "vcgra_batched": main_launches["vcgra_batched"],
                 "vcgra_pipeline_batched": chain_launches["vcgra_pipeline_batched"],
                 **{k: single_launches[k] for k in
-                   ("vcgra_conventional", "vcgra_specialized", "stencil_fused")}}
+                   ("vcgra_conventional", "vcgra_specialized", "stencil_fused")},
+                "flash_decode": lm_launches["flash_decode"]}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
@@ -1036,11 +1467,15 @@ def main() -> int:
         })
     emit({"kernels": kernels, "launches": {"main_path": main_launches,
                                            "chain_path": chain_launches,
-                                           "single_app_path": single_launches},
+                                           "single_app_path": single_launches,
+                                           "lm_path": lm_launches},
           "card": card, "end_to_end_flush_ms": e2e["median_ms"],
           "chain_flush_ms": chain_e2e["median_ms"],
           "staged_chain_ms": rows["vcgra_pipeline_batched"]["staged_ms"],
-          "sobel_four_way_ms": four_ms, "sec_v_e_s": sec_v_e})
+          "sobel_four_way_ms": four_ms, "sec_v_e_s": sec_v_e,
+          "flash_decode_32k_ms": flash_rows["decode_32k"]["ms"],
+          "lm_decode_step_ms": lm_times["decode_step_ms"],
+          "lm_generate_tokens_per_s": lm_times["generate_tokens_per_s"]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -4,6 +4,7 @@
             data), B3 (chains) and B5 (one kernel generated per app,
             NVRTC-compiled at load)
   stencil/  the fused 3x3 stencil, B6
+  flash_attention/  GQA flash decode attention, B7 (the LM serving path)
 
 Each package: ``csrc/*.cu`` (built by ``build.py``), ``ops.py`` (wrappers
 with launch counters) and ``ref.py`` (plain PyTorch versions).

@@ -4,14 +4,15 @@
 interface, loaded with ``ctypes``: ``vcgra/csrc/vcgra.cu`` holds B1, B2 and
 B4, ``vcgra/csrc/vcgra_pipeline.cu`` holds B3 (both include
 ``vcgra_pe.cuh``, the PE semantics), ``vcgra/csrc/vcgra_specialize.cu`` is
-the host shim that NVRTC-compiles and launches the per-app B5 kernels, and
-``stencil/csrc/stencil.cu`` holds B6.  The libraries are built at first
-use from the repository's own sources into ``build/repro_torch_kernels/``
-(listed in ``.gitignore``), each named by a digest of its source, the
-shared header, the flags and the libraries it links, so an edit rebuilds
-it.  :func:`build_all` starts one ``nvcc`` per source at once.  Nothing
-here runs on import: machines without ``nvcc`` (the CPU test hosts)
-import the package freely.
+the host shim that NVRTC-compiles and launches the per-app B5 kernels,
+``stencil/csrc/stencil.cu`` holds B6 and
+``flash_attention/csrc/flash_decode.cu`` holds B7.  The libraries are
+built at first use from the repository's own sources into
+``build/repro_torch_kernels/`` (listed in ``.gitignore``), each named by
+a digest of its source, the shared header, the flags and the libraries it
+links, so an edit rebuilds it.  :func:`build_all` starts one ``nvcc``
+per source at once.  Nothing here runs on import: machines without
+``nvcc`` (the CPU test hosts) import the package freely.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ SOURCES = {
     "vcgra_pipeline": VCGRA_CSRC / "vcgra_pipeline.cu",
     "vcgra_specialize": VCGRA_CSRC / "vcgra_specialize.cu",
     "stencil": KERNELS / "stencil" / "csrc" / "stencil.cu",
+    "flash_decode": KERNELS / "flash_attention" / "csrc" / "flash_decode.cu",
 }
 PE_HEADER = VCGRA_CSRC / "vcgra_pe.cuh"
 HEADERS = (PE_HEADER,)
@@ -72,6 +74,11 @@ SIGNATURES = {
     "stencil": (
         ("stencil_fused", [_INT] * 3 + [_VOID_P] * 2 + [_INT] * 3 + [_VOID_P]),
         ("stencil_max_block_h", []),
+    ),
+    "flash_decode": (
+        ("flash_decode", [_INT] * 3 + [_VOID_P] * 8 + [_INT] * 7 + [ctypes.c_float, _VOID_P]),
+        ("flash_decode_supported", [_INT, _INT]),
+        ("flash_decode_max_splits", []),
     ),
 }
 

@@ -1,0 +1,130 @@
+"""Wrapper of the Hopper flash decode kernel (B7).
+
+``decode_attention`` keeps the reference's signature and layout
+(``repro/kernels/flash_attention/ops.py``): q ``[B, H, D]`` over a k/v
+cache ``[B, S, G, D]`` with per-sequence valid ``lengths``, returned as
+``[B, H, D]`` in q's dtype.  Given CPU tensors it computes the plain
+version (``ref.decode_ref``); for CUDA tensors it launches
+``csrc/flash_decode.cu`` on PyTorch's current stream or raises, counting
+each launch in :data:`LAUNCHES`.
+
+``chunk`` is the reference's VMEM tile along S and keeps its contract
+(``S % chunk == 0``).  The Hopper kernel cuts S into splits of its own,
+one block each, sized from the shape so the card holds enough blocks
+(:func:`split_length`); neither length changes the function, only the
+float32 summation order.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels.build import load_library
+from repro_torch.kernels.flash_attention import ref
+
+#: Launches of the kernel since the last :func:`reset_launch_counts`.
+LAUNCHES: Dict[str, int] = {"flash_decode": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: Rows per split never below this, so a block's warps have rows to share.
+MIN_SPLIT = 64
+#: Blocks to aim for on each SM of the card.
+BLOCKS_PER_SM = 16
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(q, k, v, lengths, chunk) -> Tuple[int, int, int, int, int]:
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be [B, H, D] and k, v [B, S, G, D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, D = q.shape
+    _, S, G, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if lengths.shape != (B,):
+        raise ValueError(f"lengths must be [B] = [{B}], got {tuple(lengths.shape)}")
+    if H % G:
+        raise ValueError(f"{H} query heads not divisible into {G} KV groups")
+    if S < 1:
+        raise ValueError("the cache has no rows (S = 0)")
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"cache len {S} not a multiple of chunk {chunk}")
+    return B, H, D, S, G
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_length(B: int, S: int, G: int, sm_count: int, max_splits: int) -> int:
+    """Rows of S per block: a power of two, at least :data:`MIN_SPLIT`,
+    small enough that ``B * G * ceil(S / split)`` fills
+    :data:`BLOCKS_PER_SM` blocks per SM where the shape allows, and large
+    enough for at most ``max_splits`` splits."""
+    rows_per_block = -(-B * G * S // (BLOCKS_PER_SM * sm_count))
+    split = MIN_SPLIT
+    while (split < rows_per_block and split < S) or -(-S // split) > max_splits:
+        split *= 2
+    return split
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """GQA decode attention: q ``[B, H, D]`` over cache k/v ``[B, S, G, D]``
+    masked to each sequence's first ``lengths[b]`` rows."""
+    B, H, D, S, G = _check(q, k, v, lengths, chunk)
+    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+        return ref.decode_ref(q, k, v, lengths)
+    if {q.device, k.device, v.device, lengths.device} != {q.device} or q.device.type != "cuda":
+        raise ValueError("the Hopper kernel runs on CUDA tensors on one device; got q "
+                         f"{q.device}, k {k.device}, v {v.device}, lengths {lengths.device}")
+    if (q.dtype not in _DTYPE_CODES or k.dtype not in _DTYPE_CODES or v.dtype != k.dtype
+            or (q.dtype == torch.bfloat16 and k.dtype != torch.bfloat16)):
+        raise TypeError(f"q {q.dtype}, k {k.dtype}, v {v.dtype}; the kernel takes a float32 or "
+                        "bfloat16 cache (k and v alike) with float32 q, or bfloat16 q over a "
+                        "bfloat16 cache")
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+            and lengths.is_contiguous()):
+        raise ValueError("q, k, v and lengths must be contiguous")
+    vec = 1 if D <= 32 else D // 32
+    if vec * 32 != max(D, 32) or vec not in (1, 2, 4, 8):
+        raise ValueError(f"head dim {D}; the kernel takes D <= 32, 64, 128 or 256")
+    Hg = H // G
+    lib = load_library("flash_decode")
+    if not lib.flash_decode_supported(Hg, vec):
+        raise ValueError(f"{Hg} query heads per KV group at D={D}: the kernel takes at most "
+                         "16 heads a group, rounded up to a power of two, times D <= 2048")
+    if B > 65535 or G > 65535:
+        raise ValueError(f"B={B}, G={G}: the launch grid takes at most 65535 of each")
+    align = vec * k.element_size()
+    if k.data_ptr() % align or v.data_ptr() % align:
+        raise ValueError(f"k and v must be {align}-byte aligned for the kernel's vector loads")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    split = split_length(B, S, G, _sm_count(q.device.index or 0),
+                         lib.flash_decode_max_splits())
+    n_splits = -(-S // split)
+    part_m = torch.empty((B, G, n_splits, Hg), dtype=torch.float32, device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((B, G, n_splits, Hg, D), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_decode(
+            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], vec, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            part_acc.data_ptr(), out.data_ptr(), B, S, G, Hg, D, split, n_splits,
+            float(D ** -0.5), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_decode launch failed: cudaError {rc}")
+    LAUNCHES["flash_decode"] += 1
+    return out

@@ -1,5 +1,7 @@
-"""Serving surface: the futures API and the synchronous fleet front-end."""
+"""Serving surface: the futures API, the synchronous fleet front-end and
+the LM serving engine."""
 
+from repro_torch.serve.engine import ServeConfig, ServeEngine, SlotServer
 from repro_torch.serve.fleet_frontend import FleetFrontend
 from repro_torch.serve.service import (
     AdmissionError, DispatchError, ImageJob, ImageService, JobHandle,
@@ -7,6 +9,7 @@ from repro_torch.serve.service import (
 )
 
 __all__ = [
+    "ServeConfig", "ServeEngine", "SlotServer",
     "FleetFrontend",
     "ImageService", "ImageJob", "JobHandle",
     "LatencyStats", "AdmissionError",

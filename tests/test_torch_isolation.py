@@ -1,7 +1,8 @@
 """The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py`` import
 neither JAX nor the reference package, and importing the entry points (the
-serving front-end, the ``Pixie`` facade, the kernel packages and the
-preprocessor) pulls no JAX into the process.  (Only the tests import
+serving front-end, the ``Pixie`` facade, the kernel packages, the
+preprocessor, the LM serving engine, the models and the serving CLI) pulls
+no JAX into the process.  (Only the tests import
 both.)"""
 
 import os
@@ -39,6 +40,11 @@ def test_serving_entry_point_imports_without_jax():
         "import repro_torch.core.pixie\n"
         "import repro_torch.kernels.stencil\n"
         "import repro_torch.data\n"
+        "import repro_torch.serve.engine\n"
+        "import repro_torch.models\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.flash_attention.parity\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -1,8 +1,9 @@
 """The Hopper kernels on the card -- B1, B2, the chain kernel B3, the
 single-app kernels B4 (conventional) and B5 (specialized, NVRTC-compiled
-per app) and the fused stencil B6 -- held against their plain PyTorch
-versions on the same inputs (bitwise for int32, int16 and float32; bf16
-within the reference's 0.5).
+per app), the fused stencil B6 and the flash decode kernel B7 -- held
+against their plain PyTorch versions on the same inputs (B1-B6 bitwise for
+int32, int16 and float32, bf16 within the reference's 0.5; B7's float32
+outputs at the reference's 2e-5, its bf16 outputs within one bf16 unit).
 
 Every test needs a CUDA device and skips itself elsewhere; on a GPU host
 run ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
@@ -21,7 +22,8 @@ from repro_torch.core.grid import custom, for_dfg, sobel_grid
 from repro_torch.core.ingest import IngestPlan
 from repro_torch.core.pixie import map_app
 from repro_torch.core.place import level_demand
-from repro_torch.kernels import stencil
+from repro_torch.kernels import flash_attention, stencil
+from repro_torch.kernels.flash_attention import parity
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.vcgra import (
     LAUNCHES, SpecializedKernel, pack_settings_batched, vcgra_batched, vcgra_batched_ref,
@@ -288,3 +290,55 @@ def test_stencil_kernel_refuses_what_it_cannot_launch(cuda):
         stencil.stencil_fused(img, (apps.GAUSS3, apps.BOX3))
     with pytest.raises(TypeError, match="int32, float32"):
         stencil.stencil_fused(img.to(torch.int16), (apps.SOBEL_X,))
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", parity.DTYPES)
+def test_flash_decode_matches_plain_version(cuda, q_dtype, kv_dtype):
+    """B7 over the shared case table (``flash_attention.parity``), held to
+    its tolerance: float32 outputs 2e-5, bf16 outputs one bf16 unit."""
+    rng = np.random.default_rng(9)
+    for B, H, G, D, S, chunk in parity.CASES:
+        q = torch.as_tensor(rng.standard_normal((B, H, D)), dtype=torch.float32,
+                            device=cuda).to(q_dtype)
+        k, v = (torch.as_tensor(rng.standard_normal((B, S, G, D)), dtype=torch.float32,
+                                device=cuda).to(kv_dtype) for _ in range(2))
+        for lengths in (parity.lengths(rng, B, S), [S] * B):
+            lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+            before = flash_attention.LAUNCHES["flash_decode"]
+            got = flash_attention.decode_attention(q, k, v, lens, chunk=chunk)
+            assert flash_attention.LAUNCHES["flash_decode"] == before + 1
+            want = flash_attention.decode_ref(q, k, v, lens)
+            torch.cuda.synchronize()
+            assert got.dtype == q_dtype and got.shape == (B, H, D)
+            parity.check(got, want, lengths, f"B7 {(B, H, G, D, S, chunk)} lengths {lengths}")
+
+
+def test_flash_decode_never_reads_past_the_lengths(cuda):
+    """Rows past each sequence's length, poisoned with 1e9, change nothing."""
+    rng = np.random.default_rng(10)
+    B, H, G, D, S = 2, 4, 2, 64, 512
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32, device=cuda)
+               for s in ((B, H, D), (B, S, G, D), (B, S, G, D)))
+    lens = torch.tensor([100, 257], dtype=torch.int32, device=cuda)
+    out1 = flash_attention.decode_attention(q, k, v, lens, chunk=128)
+    tail = torch.arange(S, device=cuda)[None, :, None, None] >= lens[:, None, None, None]
+    out2 = flash_attention.decode_attention(q, k.masked_fill(tail, 1e9),
+                                            v.masked_fill(tail, 1e9), lens, chunk=128)
+    torch.testing.assert_close(out1, out2, rtol=0, atol=0)
+
+
+def test_flash_decode_refuses_what_it_cannot_launch(cuda):
+    q = torch.zeros((1, 2, 48), device=cuda)
+    kv = torch.zeros((1, 64, 1, 48), device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.decode_attention(q, kv, kv, lens, chunk=64)
+    q, kv = torch.zeros((1, 16, 256), device=cuda), torch.zeros((1, 64, 1, 256), device=cuda)
+    with pytest.raises(ValueError, match="heads a group"):
+        flash_attention.decode_attention(q, kv, kv, lens, chunk=64)
+    with pytest.raises(TypeError, match="bfloat16 cache"):
+        flash_attention.decode_attention(q[:, :8].bfloat16(), kv, kv, lens, chunk=64)
+    with pytest.raises(TypeError, match="int32"):
+        flash_attention.decode_attention(q[:, :8], kv, kv, lens.long(), chunk=64)
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention.decode_attention(q[:, :8], kv.cpu(), kv.cpu(), lens, chunk=64)
