@@ -15,7 +15,9 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    kernel) over every grid dtype, the pipe-shared and all-apps grids (and a
    two-output pipe-shared grid with random output muxes and forwarded
    channels), chains of radii (1,1,1), (1,0), (0,1) and (1,0,1,1), N = 3
-   and 11, ragged ``hw`` down to (1, 1) and every tile height;
+   and 11, ragged ``hw`` down to (1, 1) and every tile height, and frames
+   of several of the kernel's output tiles (2 x 200 x 331, 3 x 130 x 67),
+   ragged in both directions;
 3. the main path -- ``FleetFrontend()`` (``device="cuda"``,
    ``backend="hopper"``) serves 8 x 1080p requests, a ragged 4K/720p/480p/
    1080p flush, all nine library apps on the all-apps grid, and one
@@ -52,10 +54,12 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 8. B7 (flash decode) vs its plain version -- the case table of
    ``repro_torch.kernels.flash_attention.parity`` (the reference flash
    suite's MHA, GQA 4:1, MQA, ragged 25/5 heads and chunk sweep, and
-   gemma-2b's MQA head, H 8, G 1, D 256), in float32, bf16 and float32 q
-   over a bf16 cache, lengths 0, 1, ragged and S, and a poisoned tail past
-   the lengths; float32 outputs at the reference's 2e-5, bf16 outputs
-   within one bf16 unit;
+   gemma-2b's MQA head, H 8, G 1, D 256, a 200-row cache and one head a
+   group at D 256), in float32, bf16 and float32 q over a bf16 cache (the
+   bf16 caches on the tensor-core body, the float32 ones on the CUDA-core
+   body), lengths 0, 1, ragged and S, and a poisoned tail past the
+   lengths; float32 outputs at the reference's 2e-5, bf16 outputs within
+   one bf16 unit;
 9. the LM serving path, driven with the counters reset just before it --
    gemma-2b at full width (2.5 B parameters from a seeded generator on the
    card): ``ServeEngine(max_batch=8, max_seq=4096)`` generates 32 tokens
@@ -68,7 +72,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    and the same check must fail with B7's lengths planted off by one;
 10. B7's times at the engine's shape and at the ``decode_32k`` shape of one
    gemma-2b layer, beside its bound, its plain version and one
-   ``scaled_dot_product_attention`` call, and the LM's prefill, decode
+   ``scaled_dot_product_attention`` call, with its block's registers and
+   shared memory (B3's are in the chain times of phase 7), and the LM's prefill, decode
    step and generate times, with a ``torch.profiler`` view of two decode
    steps (the device's busy time, launches, the costliest kernels).
 
@@ -109,6 +114,8 @@ CHAINS = [
     [("threshold", 0), ("sobel_x", 1)],
     [("gauss3", 1), ("threshold", 0), ("sobel_x", 1), ("threshold", 1)],
 ]
+#: B3's kernel-vs-plain frames that span several of its output tiles.
+MULTI_TILE_FRAMES = [(2, 200, 331), (3, 130, 67)]
 CSRC = "src/repro_torch/kernels/vcgra/csrc/"
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "vcgra_fused_batched": (CSRC + "vcgra.cu", "src/repro/kernels/vcgra/vcgra_kernel.py:348"),
@@ -365,6 +372,20 @@ def phase_pipeline_vs_plain(device, all_grid):
                         got = vcgra_pipeline_batched(grid, radii, *args, tile_rows=tr)
                         err = max(err, compare(got, want, dtype_name))
                         cases += 1
+        # Frames of several of the kernel's 32 x 32P output tiles, ragged in
+        # both directions.
+        grid = retyped(bases[2], dtype_name)
+        for chain in (CHAINS[0], CHAINS[3]):
+            radii = tuple(r for _, r in chain)
+            for n, H, W in MULTI_TILE_FRAMES:
+                hws = [(H, W), (1, 1)] + [
+                    (int(rng.integers(1, H + 1)), int(rng.integers(1, W + 1)))
+                    for _ in range(n - 2)]
+                args = chain_operands(grid, chain, hws, H, W, device, rng)
+                want = vcgra_pipeline_batched_ref(grid, radii, *args)
+                got = vcgra_pipeline_batched(grid, radii, *args)
+                err = max(err, compare(got, want, dtype_name))
+                cases += 1
     return err, cases
 
 
@@ -716,9 +737,23 @@ def phase_chain_times(device, svc, chain_reqs, pipe_grid):
                main_path_err=err, staged_ms=statistics.median(staged_ms),
                ms_range=[min(ms), max(ms)], staged_ms_range=[min(staged_ms), max(staged_ms)])
     row["faster"] = "B3" if row["ms"] < row["staged_ms"] else "staged"
+    row["block"] = pipeline_block(grid, sum(radii))
     e2e = time_flushes(svc, chain_reqs, f"8 x 1080p int32 chain {'+'.join(CHAIN)}, {grid.name}")
     emit({"phase": "chain_times", "kernel": row, "end_to_end": e2e})
     return row, e2e
+
+
+def pipeline_block(grid, R):
+    """B3's block at this grid and chain: threads, registers a thread (the
+    compiler's, read from the built kernel) and dynamic shared memory."""
+    from repro_torch.core.tiling import itemsize
+    from repro_torch.kernels.build import load_library
+    from repro_torch.kernels.vcgra.ops import _DTYPE_CODES, pipeline_launch
+
+    threads, smem = pipeline_launch(itemsize(grid.dtype), R, grid.num_inputs,
+                                    grid.pes_per_level, grid.num_outputs)
+    regs = load_library("vcgra_pipeline").vcgra_pipeline_regs(_DTYPE_CODES[grid.dtype])
+    return {"threads": threads, "registers_per_thread": regs, "smem_bytes": smem}
 
 
 def single_app_cases(dtype_name):
@@ -1298,6 +1333,7 @@ def phase_lm_times(device, lm, engine, prompts):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.build import load_library
     from repro_torch.kernels.flash_attention import parity
 
     cfg = lm.cfg
@@ -1329,8 +1365,14 @@ def phase_lm_times(device, lm, engine, prompts):
         lib_err = float((lib.float() - want.float()).abs().max())
         b_ms, b_by, b_bytes = flash_bound(B, H, G, D, [n] * B, 2)
         ms = cuda_times(run, 20, shield=True)
+        route = flash_attention.ops.tensor_core_route(k.dtype, H // G, D)
+        lib = load_library("flash_decode")
+        block = ({"body": "tensor cores", "threads": 128,
+                  "registers_per_thread": lib.flash_decode_tc_regs(1, H // G, D),
+                  "smem_bytes": flash_attention.ops.tc_smem_bytes(q.dtype, H // G, D)}
+                 if route else {"body": "CUDA cores"})
         rows[label] = dict(
-            ms=statistics.median(ms), ms_range=[min(ms), max(ms)],
+            ms=statistics.median(ms), ms_range=[min(ms), max(ms)], block=block,
             plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20, shield=True),
             bound_ms=b_ms, bound_by=b_by, bytes=b_bytes, main_path_err=err,
             err_share_of_tolerance=share, library_err=lib_err,

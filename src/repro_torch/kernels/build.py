@@ -59,7 +59,10 @@ SIGNATURES = {
         ("vcgra_max_vals", []),
     ),
     "vcgra_pipeline": (
-        ("vcgra_pipeline_batched", [_INT] + [_VOID_P] * 11 + [_INT] * 9 + [_VOID_P]),
+        ("vcgra_pipeline_batched", [_INT] + [_VOID_P] * 13 + [_INT] * 12 + [_VOID_P]),
+        ("vcgra_pipeline_record_ints", [_INT] * 4),
+        ("vcgra_pipeline_smem", [_INT] * 9),
+        ("vcgra_pipeline_regs", [_INT]),
         ("vcgra_max_vals", []),
         ("vcgra_max_radius", []),
     ),
@@ -76,9 +79,12 @@ SIGNATURES = {
         ("stencil_max_block_h", []),
     ),
     "flash_decode": (
-        ("flash_decode", [_INT] * 3 + [_VOID_P] * 8 + [_INT] * 7 + [ctypes.c_float, _VOID_P]),
+        ("flash_decode", [_INT] * 4 + [_VOID_P] * 8 + [_INT] * 7 + [ctypes.c_float, _VOID_P]),
         ("flash_decode_supported", [_INT, _INT]),
         ("flash_decode_max_splits", []),
+        ("flash_decode_tc_rows", []),
+        ("flash_decode_tc_smem", [_INT] * 3),
+        ("flash_decode_tc_regs", [_INT] * 3),
     ),
 }
 

@@ -13,6 +13,12 @@ each launch in :data:`LAUNCHES`.
 one block each, sized from the shape so the card holds enough blocks
 (:func:`split_length`); neither length changes the function, only the
 float32 summation order.
+
+Two bodies compute a split (``csrc/flash_decode.cu``), picked by
+:func:`tensor_core_route` from the cache's dtype, the heads a group and
+the head dim: the tensor-core body (a bf16 cache) or the CUDA-core body (a
+float32 cache, or a head dim the tensor cores do not take).  The choice is
+explicit; a launch failure of either raises.
 """
 
 from __future__ import annotations
@@ -33,6 +39,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MIN_SPLIT = 64
 #: Blocks to aim for on each SM of the card.
 BLOCKS_PER_SM = 16
+#: Rows of one ring stage of the tensor-core body (16 for each of its 4
+#: warps); :data:`MIN_SPLIT` and every split are multiples of it.
+TC_ROWS = 64
+#: Head dims and most heads a group the tensor-core body takes.
+TC_HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_MAX_HEADS = 16
+#: Shared memory one block may take on the H100 (bytes).
+MAX_SMEM_BYTES = 232_448
 
 
 def reset_launch_counts() -> None:
@@ -62,6 +76,23 @@ def _check(q, k, v, lengths, chunk) -> Tuple[int, int, int, int, int]:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tensor_core_route(kv_dtype: torch.dtype, Hg: int, D: int) -> bool:
+    """True where the tensor-core body computes the split: a bf16 cache,
+    ``D`` in :data:`TC_HEAD_DIMS` and at most :data:`TC_MAX_HEADS` query
+    heads a group; else the CUDA-core body does."""
+    return kv_dtype == torch.bfloat16 and D in TC_HEAD_DIMS and 1 <= Hg <= TC_MAX_HEADS
+
+
+def tc_smem_bytes(q_dtype: torch.dtype, Hg: int, D: int) -> int:
+    """Dynamic shared memory of one tensor-core block: a ring of 3 stages
+    of :data:`TC_ROWS` k and v rows of ``D`` bf16, then q's mma fragments
+    (three bf16 parts of a float32 q, one of a bf16 q, for each group of 8
+    heads)."""
+    q_parts = 3 if q_dtype == torch.float32 else 1
+    head_tiles = -(-Hg // 8)
+    return 3 * 2 * TC_ROWS * D * 2 + q_parts * head_tiles * (D // 16) * 32 * 8
 
 
 def split_length(B: int, S: int, G: int, sm_count: int, max_splits: int) -> int:
@@ -101,12 +132,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {D}; the kernel takes D <= 32, 64, 128 or 256")
     Hg = H // G
     lib = load_library("flash_decode")
-    if not lib.flash_decode_supported(Hg, vec):
+    tensor_cores = tensor_core_route(k.dtype, Hg, D)
+    if not tensor_cores and not lib.flash_decode_supported(Hg, vec):
         raise ValueError(f"{Hg} query heads per KV group at D={D}: the kernel takes at most "
                          "16 heads a group, rounded up to a power of two, times D <= 2048")
     if B > 65535 or G > 65535:
         raise ValueError(f"B={B}, G={G}: the launch grid takes at most 65535 of each")
-    align = vec * k.element_size()
+    align = 16 if tensor_cores else vec * k.element_size()
     if k.data_ptr() % align or v.data_ptr() % align:
         raise ValueError(f"k and v must be {align}-byte aligned for the kernel's vector loads")
     out = torch.empty_like(q)
@@ -120,8 +152,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part_acc = torch.empty((B, G, n_splits, Hg, D), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.flash_decode(
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], vec, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            int(tensor_cores), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], vec, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), out.data_ptr(), B, S, G, Hg, D, split, n_splits,
             float(D ** -0.5), torch.cuda.current_stream().cuda_stream)
     if rc != 0:

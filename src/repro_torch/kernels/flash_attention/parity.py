@@ -24,14 +24,16 @@ import torch
 #: (tests/test_kernels_flash.py: MHA, GQA 4:1, MQA, the ragged 25/5 heads,
 #: the chunk sweep, one chunk), gemma-2b's MQA head (H 8, G 1, D 256) at
 #: the engine's cache length and at a cache length that is no power of two,
-#: glm4-9b's and starcoder2-7b's groups (16 and 9 heads, D 128), and the
-#: reduced LM's D 16.
+#: glm4-9b's and starcoder2-7b's groups (16 and 9 heads, D 128), the
+#: reduced LM's D 16, a cache of 200 rows (no multiple of the tensor-core
+#: body's 64-row tiles, so its lengths end inside a tile) and one head a
+#: group at D 256.
 CASES: List[Tuple[int, int, int, int, int, int]] = [
     (2, 8, 8, 64, 512, 256), (2, 8, 2, 64, 512, 256), (1, 8, 1, 128, 1024, 256),
     (3, 25, 5, 64, 512, 256), (2, 4, 2, 64, 1024, 128), (2, 4, 2, 64, 1024, 256),
     (2, 4, 2, 64, 1024, 512), (1, 2, 2, 32, 128, 128), (8, 8, 1, 256, 4096, 512),
     (5, 8, 1, 256, 1000, 8), (2, 32, 2, 128, 512, 256), (2, 36, 4, 128, 512, 256),
-    (3, 4, 2, 16, 64, 64),
+    (3, 4, 2, 16, 64, 64), (3, 16, 2, 128, 200, 8), (2, 4, 4, 256, 320, 64),
 ]
 #: (q dtype, cache dtype) pairs the kernel takes.
 DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),

@@ -213,11 +213,69 @@ def vcgra_batched(grid: GridSpec, settings, xs: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: B3's limits: the sum of the stage radii, the widest value vector
+#: (max(C, PEs a level)), and the shared memory one block may take on the
+#: H100.
+PIPELINE_MAX_RADIUS = 16
+PIPELINE_MAX_VALS = 64
+MAX_SMEM_BYTES = 232_448
+
+
+def pipeline_slots(num_inputs: int, widths) -> Tuple[int, int]:
+    """B3's two value banks, in 16-byte slots a thread: bank A holds the
+    input channels and the outputs of levels 1, 3, ...; bank B those of
+    levels 0, 2, ...."""
+    widths = list(widths)
+    return max([num_inputs] + widths[1::2]), max(widths[0::2])
+
+
+def pipeline_record_ints(num_inputs: int, widths, K: int) -> int:
+    """Ints of one (stage, app) settings record of B3: the kept PEs
+    (two ints each, a row of the widest level per level), the kept taps
+    (two ints each), each level's count, the kept consts' and zeros'
+    destinations, the K output offsets, three channel counts and the
+    forwarded offset, rounded up to 4 ints (16 bytes)."""
+    L = len(widths)
+    return -(-(2 * L * max(widths) + L + 4 * num_inputs + K + 4) // 4) * 4
+
+
+def pipeline_launch(itemsize: int, R: int, num_inputs: int, widths,
+                    K: int) -> Tuple[int, int]:
+    """B3's block: ``(threads, dynamic shared memory bytes)``, the most
+    threads of 128, 64, 32 whose block fits :data:`MAX_SMEM_BYTES` (the
+    mirror of ``smem_layout`` in ``csrc/vcgra_pipeline.cu``: two region
+    buffers of ``(32 + 2R) x (32P + 2Rp + 2P)`` elements, P = 16 /
+    itemsize pixels a thread and Rp = R rounded up to P, the value banks,
+    the consts and a settings record).  Refuses a chain reaching past
+    :data:`PIPELINE_MAX_RADIUS` or a value vector wider than
+    :data:`PIPELINE_MAX_VALS`."""
+    widths = list(widths)
+    if R > PIPELINE_MAX_RADIUS:
+        raise ValueError(f"chain radii reach {R} pixels; the kernel's halo holds at most "
+                         f"{PIPELINE_MAX_RADIUS}")
+    if max([num_inputs] + widths) > PIPELINE_MAX_VALS:
+        raise ValueError(f"value vector of {max([num_inputs] + widths)} (inputs {num_inputs}, "
+                         f"levels {widths}); the kernel takes at most {PIPELINE_MAX_VALS}")
+    P = 16 // itemsize
+    Rp = -(-R // P) * P
+    rows, cols = 32 + 2 * R, 32 * P + 2 * Rp + 2 * P
+    buf = -(-rows * cols * itemsize // 16) * 16
+    slots = sum(pipeline_slots(num_inputs, widths))
+    fixed = (2 * buf + -(-num_inputs * itemsize // 16) * 16
+             + 4 * pipeline_record_ints(num_inputs, widths, K))
+    for threads in (128, 64, 32):
+        smem = fixed + slots * threads * 16
+        if smem <= MAX_SMEM_BYTES:
+            return threads, smem
+    raise ValueError(f"the chain kernel's block does not fit {MAX_SMEM_BYTES} bytes")
+
+
 def vcgra_pipeline_batched(grid: GridSpec, radii, settings, ingests, out_chs: torch.Tensor,
                            hw: torch.Tensor, images: torch.Tensor,
                            tile_rows=None) -> torch.Tensor:
-    """N chained tenants on N raw frames, ONE launch: the Hopper twin of
-    the reference's Pallas ``vcgra_pipeline_batched``.
+    """N chained tenants on N raw frames in one call (a small launch that
+    packs each (stage, app)'s live settings, then the chain kernel): the
+    Hopper twin of the reference's Pallas ``vcgra_pipeline_batched``.
 
     ``radii``: the S stage radii; ``settings``: stage-stacked dense banks
     (ops int32 [S, N, L, max_w], sel [S, N, L, max_w, 2], out_sel
@@ -253,22 +311,24 @@ def vcgra_pipeline_batched(grid: GridSpec, radii, settings, ingests, out_chs: to
         return ref.vcgra_pipeline_batched_ref(grid, radii, settings, ingests, out_chs, hw,
                                               frames)
     lib = _launch_target(grid, n, device, "vcgra_pipeline")
-    if R > lib.vcgra_max_radius():
-        raise ValueError(
-            f"chain radii {radii} reach {R} pixels; the kernel's halo holds at "
-            f"most {lib.vcgra_max_radius()}"
-        )
+    threads, _ = pipeline_launch(frames.element_size(), R, C, grid.pes_per_level, K)
+    slots_a, slots_b = pipeline_slots(C, grid.pes_per_level)
     out = torch.empty((n, K, H * W), dtype=grid.dtype, device=device)
     if out.numel() == 0:
         return out
     widths = _int32_on(grid.pes_per_level, device)
     radii_t = _int32_on(radii, device)
+    records = torch.empty((S * n, pipeline_record_ints(C, grid.pes_per_level, K)),
+                          dtype=torch.int32, device=device)
+    rec_consts = torch.empty((S * n, C), dtype=grid.dtype, device=device)
     with torch.cuda.device(device):
         rc = lib.vcgra_pipeline_batched(
             _DTYPE_CODES[grid.dtype], frames.data_ptr(), ops.data_ptr(), sel.data_ptr(),
             out_sel.data_ptr(), tap_sel.data_ptr(), consts.data_ptr(), out_chs.data_ptr(),
-            hw.data_ptr(), widths.data_ptr(), radii_t.data_ptr(), out.data_ptr(),
-            S, n, H, W, L, max_w, K, C, R, torch.cuda.current_stream().cuda_stream,
+            hw.data_ptr(), widths.data_ptr(), radii_t.data_ptr(), records.data_ptr(),
+            rec_consts.data_ptr(), out.data_ptr(),
+            S, n, H, W, L, max_w, K, C, R, threads, slots_a, slots_b,
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("vcgra_pipeline_batched", rc)
     LAUNCHES["vcgra_pipeline_batched"] += 1

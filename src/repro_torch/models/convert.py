@@ -3,7 +3,8 @@ port's dicts of tensors, leaf by leaf (both packages keep one layout).
 
 Hand it ``jax.tree_util.tree_map(np.asarray, params)``: dicts stay dicts,
 tuples and lists stay tuples and lists, every array becomes a tensor on
-``device`` with its dtype (bfloat16 arrays included, which numpy holds
+``device`` (the card unless the caller asks for the CPU, as the port's
+entry points do) with its dtype (bfloat16 arrays included, which numpy holds
 through the ``ml_dtypes`` extension type and ``torch.from_numpy`` does not
 take).
 """
@@ -35,14 +36,14 @@ def _require(tree, keys, what):
         raise ValueError(f"not a {what} tree: missing {missing}")
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device="cuda"):
     """The reference LM's parameters (``embed``, ``final_norm``, ``blocks``)
     as the port's."""
     _require(tree, ("embed", "final_norm", "blocks"), "parameter")
     return _tree(tree, device)
 
 
-def cache_from_numpy(tree, device="cpu"):
+def cache_from_numpy(tree, device="cuda"):
     """The reference LM's decode cache (``blocks``) as the port's."""
     _require(tree, ("blocks",), "cache")
     return _tree(tree, device)

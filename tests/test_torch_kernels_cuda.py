@@ -31,7 +31,9 @@ from repro_torch.kernels.vcgra import (
     vcgra_fused_batched_ref, vcgra_pipeline_batched, vcgra_pipeline_batched_ref,
     vcgra_specialized, vcgra_specialized_ref,
 )
-from repro_torch.kernels.vcgra.ops import _pack_settings
+from repro_torch.kernels.vcgra.ops import (
+    _pack_settings, pipeline_launch, pipeline_record_ints, pipeline_slots,
+)
 from repro_torch.kernels.vcgra.specialized import compile_module
 
 pytestmark = pytest.mark.cuda
@@ -187,6 +189,35 @@ def test_pipeline_kernel_matches_plain_version(cuda, dtype_name, num_outputs):
                 assert_close(got, want, dtype_name)
 
 
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_pipeline_kernel_spans_several_tiles_with_ragged_edges(cuda, dtype_name):
+    """Frames of several 32 x 32P output tiles, ragged in both directions."""
+    rng = np.random.default_rng(11)
+    bits, float_pe = DTYPES[dtype_name]
+    grid = dataclasses.replace(shared_grid(CHAIN, "pipe-shared", 2), data_bits=bits,
+                               float_pe=float_pe)
+    for chain in (CHAINS[0], CHAINS[3]):
+        radii = tuple(r for _, r in chain)
+        for n, H, W in ((2, 200, 331), (3, 130, 67)):
+            args = chain_operands(grid, chain, n, H, W, cuda, rng)
+            want = vcgra_pipeline_batched_ref(grid, radii, *args)
+            assert_close(vcgra_pipeline_batched(grid, radii, *args), want, dtype_name)
+
+
+def test_pipeline_kernel_launch_shape_matches_its_mirror(cuda):
+    """The wrapper's shared-memory mirror equals the kernel's layout."""
+    lib = load_library("vcgra_pipeline")
+    for itemsize in (4, 2):
+        for R, C, widths in ((3, 19, [11, 7, 5, 4, 3, 2]), (16, 64, [64] * 3), (0, 1, [1])):
+            threads, smem = pipeline_launch(itemsize, R, C, widths, 2)
+            slots_a, slots_b = pipeline_slots(C, widths)
+            assert lib.vcgra_pipeline_smem(itemsize, R, slots_a, slots_b, threads, C,
+                                           len(widths), max(widths), 2) == smem
+            assert lib.vcgra_pipeline_record_ints(C, len(widths), max(widths), 2) == \
+                pipeline_record_ints(C, widths, 2)
+    assert all(lib.vcgra_pipeline_regs(code) > 0 for code in range(4))
+
+
 def test_pipeline_kernel_refuses_what_it_cannot_launch(cuda):
     rng = np.random.default_rng(3)
     grid = shared_grid(CHAIN, "pipe-shared")
@@ -201,8 +232,9 @@ def test_pipeline_kernel_refuses_what_it_cannot_launch(cuda):
         vcgra_pipeline_batched(grid, (1, 1), settings, ingests, out_chs, hw.cpu(), frames)
     # The C entry point itself refuses a bad dtype code without launching.
     assert lib.vcgra_pipeline_batched(
-        9, *([frames.data_ptr()] * 11), 2, 2, 8, 8, grid.num_levels,
-        max(grid.pes_per_level), grid.num_outputs, grid.num_inputs, 2,
+        9, *([frames.data_ptr()] * 13), 2, 2, 8, 8, grid.num_levels,
+        max(grid.pes_per_level), grid.num_outputs, grid.num_inputs, 2, 128,
+        *pipeline_slots(grid.num_inputs, grid.pes_per_level),
         torch.cuda.current_stream().cuda_stream) != 0
     assert LAUNCHES["vcgra_pipeline_batched"] == before
 
@@ -325,6 +357,17 @@ def test_flash_decode_never_reads_past_the_lengths(cuda):
     out2 = flash_attention.decode_attention(q, k.masked_fill(tail, 1e9),
                                             v.masked_fill(tail, 1e9), lens, chunk=128)
     torch.testing.assert_close(out1, out2, rtol=0, atol=0)
+
+
+def test_flash_decode_tensor_core_shape_matches_its_mirror(cuda):
+    lib = load_library("flash_decode")
+    assert lib.flash_decode_tc_rows() == flash_attention.ops.TC_ROWS
+    for q_dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for Hg in (1, 8, 9, 16):
+            for D in flash_attention.ops.TC_HEAD_DIMS:
+                assert lib.flash_decode_tc_smem(code, Hg, D) == \
+                    flash_attention.ops.tc_smem_bytes(q_dtype, Hg, D)
+                assert lib.flash_decode_tc_regs(code, Hg, D) > 0
 
 
 def test_flash_decode_refuses_what_it_cannot_launch(cuda):

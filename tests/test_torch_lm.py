@@ -61,7 +61,7 @@ def _both(a, dtype_name="float32"):
 
 
 def _tree_to_torch(tree):
-    return params_from_numpy(jax.tree_util.tree_map(np.asarray, tree))
+    return params_from_numpy(jax.tree_util.tree_map(np.asarray, tree), device="cpu")
 
 
 def _assert_close(got, want, dtype_name, rel_units=1.0):
@@ -272,7 +272,7 @@ def test_prefill_and_teacher_forced_decode(name, dtype_name):
                                        atol=2 * BF16_EPS * max(1.0, float(np.abs(w).max())))
 
     # teacher-forced: both sides decode the same tokens from the reference's cache
-    tcache = cache_from_numpy(jax.tree_util.tree_map(np.asarray, jcache))
+    tcache = cache_from_numpy(jax.tree_util.tree_map(np.asarray, jcache), device="cpu")
     r_decode = jax.jit(r_lm.decode_step)
     agree = total = 0
     for t in range(steps):

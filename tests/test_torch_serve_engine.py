@@ -155,7 +155,7 @@ def test_engine_tokens_follow_the_reference_engine(name):
     want = RServeEngine(r_lm, jparams, RServeConfig(max_batch=2, max_seq=64)).generate(
         jnp.asarray(prompts), steps)
     t_lm = LM(reduced(ARCHS[name]), chunk_q=16)
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     got = _engine(t_lm, tparams, max_batch=2, max_seq=64).generate(prompts, steps)
     assert got.shape == want.shape
     for b in range(2):
