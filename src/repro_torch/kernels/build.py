@@ -3,13 +3,14 @@
 ``nvcc`` compiles each source into a shared library with a plain C
 interface, loaded with ``ctypes``: ``vcgra/csrc/vcgra.cu`` holds B1, B2 and
 B4, ``vcgra/csrc/vcgra_pipeline.cu`` holds B3 (both include
-``vcgra_pe.cuh``, the PE semantics), ``vcgra/csrc/vcgra_specialize.cu`` is
+``vcgra_vec.cuh``, the vectorised pipeline of B1, B2 and B3, which
+includes ``vcgra_pe.cuh``, the PE semantics), ``vcgra/csrc/vcgra_specialize.cu`` is
 the host shim that NVRTC-compiles and launches the per-app B5 kernels,
 ``stencil/csrc/stencil.cu`` holds B6 and
 ``flash_attention/csrc/flash_decode.cu`` holds B7.  The libraries are
 built at first use from the repository's own sources into
 ``build/repro_torch_kernels/`` (listed in ``.gitignore``), each named by
-a digest of its source, the shared header, the flags and the libraries it
+a digest of its source, the shared headers, the flags and the libraries it
 links, so an edit rebuilds it.  :func:`build_all` starts one ``nvcc``
 per source at once.  Nothing here runs on import: machines without
 ``nvcc`` (the CPU test hosts) import the package freely.
@@ -36,7 +37,8 @@ SOURCES = {
     "flash_decode": KERNELS / "flash_attention" / "csrc" / "flash_decode.cu",
 }
 PE_HEADER = VCGRA_CSRC / "vcgra_pe.cuh"
-HEADERS = (PE_HEADER,)
+#: Every header a source includes: each library's digest covers them all.
+HEADERS = (PE_HEADER, VCGRA_CSRC / "vcgra_vec.cuh")
 BUILD_DIR = KERNELS.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,11 +54,18 @@ _VOID_P, _INT, _INT64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: ``(name, argtypes)`` of every entry point, per library; all return int.
 SIGNATURES = {
     "vcgra": (
-        ("vcgra_fused_batched", [_INT] + [_VOID_P] * 8 + [_INT] * 8 + [_VOID_P]),
-        ("vcgra_batched", [_INT] + [_VOID_P] * 6 + [_INT, _INT64] + [_INT] * 4 + [_VOID_P]),
+        ("vcgra_fused_batched", [_INT] + [_VOID_P] * 11 + [_INT] * 11 + [_VOID_P]),
+        ("vcgra_batched", [_INT] + [_VOID_P] * 7 + [_INT, _INT64] + [_INT] * 7 + [_VOID_P]),
         ("vcgra_conventional",
          [_INT] + [_VOID_P] * 6 + [_INT64, _INT64] + [_INT] * 4 + [_VOID_P]),
         ("vcgra_max_vals", []),
+        ("vcgra_conventional_max_vals", []),
+        ("vcgra_window_max_radius", []),
+        ("vcgra_fused_max_radius", []),
+        ("vcgra_record_ints", [_INT] * 4),
+        ("vcgra_fused_smem", [_INT] * 9),
+        ("vcgra_batched_smem", [_INT] * 8),
+        ("vcgra_kernel_regs", [_INT] * 2),
     ),
     "vcgra_pipeline": (
         ("vcgra_pipeline_batched", [_INT] + [_VOID_P] * 13 + [_INT] * 12 + [_VOID_P]),

@@ -2,87 +2,193 @@
 // (settings as runtime data).
 //
 // Replaces three Pallas TPU kernels of the JAX reference package:
-//   * vcgra_fused_batched_kernel  <- src/repro/kernels/vcgra/vcgra_kernel.py:
+//   * B1 vcgra_fused_batched  <- src/repro/kernels/vcgra/vcgra_kernel.py:
 //     vcgra_fused_batched (body _fused_batched_body): N raw frames, N tenants'
 //     settings banks, tap bank + channel select + L PE levels + K output muxes
-//     in one launch;
-//   * vcgra_batched_kernel        <- src/repro/kernels/vcgra/vcgra_kernel.py:
+//     in one call;
+//   * B2 vcgra_batched        <- src/repro/kernels/vcgra/vcgra_kernel.py:
 //     vcgra_batched (body _batched_body): the same level pipeline over
 //     pre-packed channels [N, C, B];
-//   * vcgra_conventional_kernel   <- src/repro/kernels/vcgra/vcgra_kernel.py:
+//   * B4 vcgra_conventional   <- src/repro/kernels/vcgra/vcgra_kernel.py:
 //     vcgra_conventional (body _conventional_body, _level_pipeline): one app,
-//     one settings bank, channel-major [C, N] -- B2's pipeline with block_n
-//     pixels per block, so a block stages its bank once for block_n / 128
-//     passes of its threads.
+//     one settings bank, channel-major [C, N].
 //
-// What bounds it on the H100: memory bytes.  Each pixel reads one frame value
-// per tap (served from L1/L2: neighbouring threads share taps) and writes K
-// outputs; the PE work is sum(pes_per_level) scalar ops per pixel, far below
-// the card's scalar rate at 3.35 TB/s.  The mux is a data-dependent gather
-// over the pixel's value vector, which a register file cannot index, so the
-// design keeps each thread's value vector in a shared-memory column
-// (vals[slot][threadIdx.x]): a VC mux select becomes one shared-memory read,
-// conflict-free because the threads of a warp read consecutive words.
+// What bounds them on the H100.  B1: instruction issue, not bytes -- each
+// pixel reads its frame once and writes K outputs, ~0.08 ms of bytes at
+// the main path's shape, but every live PE at every pixel is a
+// runtime-selected op on two runtime-selected values, which a register
+// file cannot index.  B2 reads a channel row per live channel a pixel, so
+// its bytes weigh more: it runs near them.  Both take the vectorised
+// design of vcgra_vec.cuh (shared with B3): P = 16 / sizeof(T)
+// pixels a thread in 16-byte shared-memory value columns; settings decoded
+// once per app by a first one-warp launch (vcgra_pack_settings) into a
+// record of the live PEs and live channels only; one pe_vec call site with
+// the next PE prefetched; no division or modulo per pixel.
+//   * B1 is the tile kernel's one-stage instance: one block per (app,
+//     32 x 32P output tile) with the (32 + 2r) x (32P + 2r) frame window in
+//     shared memory and taps at precomputed offsets dy * row + dx, for r up
+//     to kMaxWindowRadius (16).  A larger radius takes the same kernel
+//     without the window (vcgra_tile_kernel<T, false, false>): each tap is
+//     read from the frame in device memory, still P pixels a thread.  The
+//     wrapper (ops.fused_launch) picks the path from the radius.
+//   * B2: each block stages its app's record once and then takes
+//     kBatchedPasses groups of P pixels a thread, reading each live
+//     channel's row x[c * B + p ...] with one 16-byte load where the rows
+//     are 16-byte aligned (B a multiple of P), P scalar loads otherwise.
 //
-// Design (right before fast):
-//   * grid (pixel blocks, N apps); each block stages its app's settings rows
-//     (ops, sel, out_sel, tap_sel, const, level widths) in shared memory, the
-//     counterpart of the TPU kernel's scalar-prefetched SMEM banks;
-//   * one thread per pixel: channels are read straight from the canvas (tap
-//     t -> (dj, di) in tap_offsets row-major order; reads outside
-//     [0,H) x [0,W) are 0), so the output does not depend on the plan's row
-//     tile height and no halo tensor is ever materialized;
-//   * 64-bit index math for N*K*H*W;
-//   * PE semantics are the reference's bit for bit (vcgra_pe.cuh).
-// wgmma, TMA and occupancy work are left for later.
+// B4 keeps its first design (right before fast): one pixel a thread, 128 a
+// pass, each block staging its app's dense settings rows in shared memory
+// and running every PE of every level (level_pipeline) through a value
+// column of at most kMaxVals (32) values; block_n pixels per block, so a
+// block stages its bank once for block_n / 128 passes.
+//
+// PE semantics are vcgra_pe.cuh's (bit for bit the reference's).  64-bit
+// index math for N*K*H*W.
 //
 // C interface (bound with ctypes): every entry point launches on the given
-// stream, allocates nothing and returns cudaGetLastError().
+// stream, allocates nothing and returns cudaGetLastError() (or the error of
+// the shared-memory attribute call).
 
-#include "vcgra_pe.cuh"
+#include "vcgra_vec.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;   // threads (= pixels) per block
-constexpr int kMaxVals = 32;  // widest value vector: max(C, pes per level)
+constexpr int kBlock = 128;          // B4: threads (= pixels) per block
+constexpr int kMaxVals = 32;         // B4: widest value vector: max(C, pes per level)
+constexpr int kBatchedPasses = 8;    // B2: groups of P pixels a thread takes
+// B1's largest radius: its (2r + 1)^2 + 1 tap-bank rows are indexed by the
+// int32 tap_sel.
+constexpr int kMaxFusedRadius = 23169;
 
-// --- settings staging ------------------------------------------------------
+// --- B1: fused-ingest kernel ------------------------------------------------
+
+template <typename T>
+int launch_fused(const void* frames, const int* ops, const int* sel, const int* out_sel,
+                 const int* tap_sel, const void* consts, const int* radii, const int* widths,
+                 int* records, void* rec_consts, void* out, int N, int H, int W, int L,
+                 int max_w, int K, int C, int radius, int threads, int slots_a, int slots_b,
+                 cudaStream_t stream) {
+  const bool window = radius <= kMaxWindowRadius;
+  const int R = window ? radius : 0;
+  const Layout lay =
+      smem_layout(sizeof(T), R, window ? 1 : 0, slots_a, slots_b, threads, C, L, max_w, K);
+  if (lay.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = window ? vcgra_tile_kernel<T, false, true> : vcgra_tile_kernel<T, false, false>;
+  cudaError_t err = allow_smem(kernel, lay.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vcgra_pack_settings<T><<<N, 32, 0, stream>>>(
+      ops, sel, out_sel, tap_sel, static_cast<const T*>(consts), nullptr, widths, radii,
+      records, static_cast<T*>(rec_consts), 1, N, L, max_w, K, C,
+      window ? kWindowTaps : kGlobalTaps, lay.cols, threads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int tile_cols = kTileRows * Vec<T>::N;
+  const dim3 grid((W + tile_cols - 1) / tile_cols, (H + kTileRows - 1) / kTileRows, N);
+  kernel<<<grid, threads, lay.total, stream>>>(
+      static_cast<const T*>(frames), records, static_cast<const T*>(rec_consts), nullptr,
+      radii, static_cast<T*>(out), 1, N, H, W, L, max_w, K, C, R, slots_a, slots_b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// --- B2: pre-packed channels ------------------------------------------------
+
+// grid (ceil(groups / (threads * kBatchedPasses)), N apps); block b of app n
+// takes groups [b * threads * kBatchedPasses, ...), pass by pass, so that a
+// warp's threads read neighbouring 16 bytes in every pass.
+template <typename T>
+__global__ void __launch_bounds__(128)
+vcgra_batched_kernel(const T* __restrict__ xs, const int* __restrict__ records,
+                     T* __restrict__ out, int64_t B, int L, int max_w, int K, int C,
+                     int slots_a, int slots_b, bool aligned) {
+  using V = Vec<T>;
+  constexpr int P = V::N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int threads = blockDim.x, tid = threadIdx.x;
+  const Layout lay = smem_layout(sizeof(T), 0, 0, slots_a, slots_b, threads, C, L, max_w, K);
+  const int n_rec = record_ints(C, L, max_w, K);
+  V* col_a = reinterpret_cast<V*>(smem + lay.vals_a) + tid;  // stride: threads
+  V* col_b = reinterpret_cast<V*>(smem + lay.vals_b) + tid;
+  int* s_rec = reinterpret_cast<int*>(smem + lay.ints);
+  const int n = blockIdx.y;
+  for (int i = tid; i < n_rec; i += threads) s_rec[i] = records[static_cast<int64_t>(n) * n_rec + i];
+  __syncthreads();
+  const Record rec = record_at(s_rec, C, L, max_w, K);
+  const int n_tap = rec.counts[0];
+  const T* x = xs + static_cast<int64_t>(n) * C * B;
+  T* o = out + static_cast<int64_t>(n) * K * B;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kBatchedPasses * threads + tid;
+  for (int pass = 0; pass < kBatchedPasses; ++pass) {
+    const int64_t p = (first + static_cast<int64_t>(pass) * threads) * P;
+    if (p >= B) return;
+    auto fetch = [&](int2 t) {
+      const T* row = x + t.x * B + p;
+      if (aligned) return *reinterpret_cast<const V*>(row);
+      V v;
+#pragma unroll
+      for (int e = 0; e < P; ++e) v.v[e] = p + e < B ? row[e] : zero_value<T>();
+      return v;
+    };
+    const V* src = eval_group<T>(col_a, col_b, rec, nullptr, n_tap, 0, 0, L, max_w, fetch);
+    store_outputs<T>(o + p, B, src, rec.out, K, aligned, B - p);
+  }
+}
+
+template <typename T>
+int launch_batched(const void* xs, const int* ops, const int* sel, const int* out_sel,
+                   const int* widths, int* records, void* out, int N, int64_t B, int L,
+                   int max_w, int K, int C, int threads, int slots_a, int slots_b,
+                   cudaStream_t stream) {
+  const Layout lay = smem_layout(sizeof(T), 0, 0, slots_a, slots_b, threads, C, L, max_w, K);
+  if (lay.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(vcgra_batched_kernel<T>, lay.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vcgra_pack_settings<T><<<N, 32, 0, stream>>>(
+      ops, sel, out_sel, nullptr, nullptr, nullptr, widths, nullptr, records, nullptr, 1, N,
+      L, max_w, K, C, kChannelTaps, 0, threads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int P = Vec<T>::N;
+  const int64_t per_block = static_cast<int64_t>(threads) * kBatchedPasses * P;
+  const bool aligned = B % P == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid(static_cast<unsigned>((B + per_block - 1) / per_block), N);
+  vcgra_batched_kernel<T><<<grid, threads, lay.total, stream>>>(
+      static_cast<const T*>(xs), records, static_cast<T*>(out), B, L, max_w, K, C, slots_a,
+      slots_b, aligned);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool valid_vec_launch(int C, int max_w, int threads, int slots_a, int slots_b) {
+  return C <= kVecMaxVals && max_w <= kVecMaxVals && slots_a >= C && slots_a >= 1 &&
+         slots_a <= kVecMaxVals && slots_b >= 1 && slots_b <= kVecMaxVals &&
+         (threads == 32 || threads == 64 || threads == 128);
+}
+
+// --- B4: one app over channel-major [C, N] ---------------------------------
 
 struct Settings {
   const int* ops;      // [L, max_w]
   const int* sel;      // [L, max_w, 2]
   const int* out_sel;  // [K]
   const int* widths;   // [L]
-  const int* tap_sel;  // [C] (fused only)
 };
 
-// Copy app n's settings rows into shared memory: one bank per block, read by
-// every thread's mux selects.
-template <typename T>
+// Copy the app's settings rows into shared memory: one bank per block, read
+// by every thread's mux selects.
 __device__ Settings stage_settings(int* smem, const int* ops, const int* sel,
-                                   const int* out_sel, const int* widths,
-                                   const int* tap_sel, const T* consts,
-                                   T* s_consts, int n, int L, int max_w, int K, int C) {
+                                   const int* out_sel, const int* widths, int L, int max_w,
+                                   int K) {
   const int n_ops = L * max_w;
   int* s_ops = smem;
   int* s_sel = s_ops + n_ops;
   int* s_out = s_sel + 2 * n_ops;
   int* s_w = s_out + K;
-  int* s_tap = s_w + L;
-  const int64_t app = n;
-  for (int i = threadIdx.x; i < n_ops; i += blockDim.x) s_ops[i] = ops[app * n_ops + i];
-  for (int i = threadIdx.x; i < 2 * n_ops; i += blockDim.x)
-    s_sel[i] = sel[app * 2 * n_ops + i];
-  for (int i = threadIdx.x; i < K; i += blockDim.x) s_out[i] = out_sel[app * K + i];
+  for (int i = threadIdx.x; i < n_ops; i += blockDim.x) s_ops[i] = ops[i];
+  for (int i = threadIdx.x; i < 2 * n_ops; i += blockDim.x) s_sel[i] = sel[i];
+  for (int i = threadIdx.x; i < K; i += blockDim.x) s_out[i] = out_sel[i];
   for (int i = threadIdx.x; i < L; i += blockDim.x) s_w[i] = widths[i];
-  if (tap_sel != nullptr) {
-    for (int i = threadIdx.x; i < C; i += blockDim.x) {
-      s_tap[i] = tap_sel[app * C + i];
-      s_consts[i] = consts[app * C + i];
-    }
-  }
   __syncthreads();
-  return Settings{s_ops, s_sel, s_out, s_w, s_tap};
+  return Settings{s_ops, s_sel, s_out, s_w};
 }
 
 // Run the L PE levels over this thread's value column (vals[0] holds the C
@@ -108,87 +214,17 @@ __device__ void level_pipeline(const Settings& s, T (*vals)[kMaxVals][kBlock],
   for (int k = 0; k < K; ++k) out[out_base + k * stride] = vals[cur][s.out_sel[k]][tid];
 }
 
-// --- B1: fused-ingest megakernel ------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
-vcgra_fused_batched_kernel(const T* __restrict__ frames, const int* __restrict__ ops,
-                           const int* __restrict__ sel, const int* __restrict__ out_sel,
-                           const int* __restrict__ tap_sel, const T* __restrict__ consts,
-                           const int* __restrict__ widths, T* __restrict__ out,
-                           int H, int W, int L, int max_w, int K, int C, int radius) {
-  extern __shared__ int smem[];
-  // Raw storage: a __shared__ array may not have a constructor (bf16).
-  __shared__ __align__(16) unsigned char vals_raw[2 * kMaxVals * kBlock * sizeof(T)];
-  __shared__ __align__(16) unsigned char consts_raw[kMaxVals * sizeof(T)];
-  auto vals = reinterpret_cast<T (*)[kMaxVals][kBlock]>(vals_raw);
-  T* s_consts = reinterpret_cast<T*>(consts_raw);
-  const int n = blockIdx.y;
-  const Settings s = stage_settings<T>(smem, ops, sel, out_sel, widths, tap_sel, consts,
-                                       s_consts, n, L, max_w, K, C);
-  const int64_t hw = static_cast<int64_t>(H) * W;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
-  const bool active = p < hw;
-  const int y = active ? static_cast<int>(p / W) : 0;
-  const int x = active ? static_cast<int>(p % W) : 0;
-  const int side = 2 * radius + 1;
-  const int zero_row = side * side;
-  const T* frame = frames + static_cast<int64_t>(n) * hw;
-  for (int c = 0; c < C; ++c) {
-    const int t = s.tap_sel[c];
-    T v = zero_value<T>();
-    if (t == zero_row) {
-      v = s_consts[c];
-    } else if (active && t >= 0 && t < zero_row) {
-      const int yy = y + t / side - radius;
-      const int xx = x + t % side - radius;
-      if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-        v = frame[static_cast<int64_t>(yy) * W + xx];
-    }
-    vals[0][c][threadIdx.x] = v;
-  }
-  level_pipeline<T>(s, vals, L, max_w, K, out,
-                    static_cast<int64_t>(n) * K * hw + p, hw, active);
-}
-
-// --- B2: pre-packed channels ------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
-vcgra_batched_kernel(const T* __restrict__ xs, const int* __restrict__ ops,
-                     const int* __restrict__ sel, const int* __restrict__ out_sel,
-                     const int* __restrict__ widths, T* __restrict__ out,
-                     int64_t B, int L, int max_w, int K, int C) {
-  extern __shared__ int smem[];
-  __shared__ __align__(16) unsigned char vals_raw[2 * kMaxVals * kBlock * sizeof(T)];
-  auto vals = reinterpret_cast<T (*)[kMaxVals][kBlock]>(vals_raw);
-  const int n = blockIdx.y;
-  const Settings s = stage_settings<T>(smem, ops, sel, out_sel, widths, nullptr,
-                                       static_cast<const T*>(nullptr), nullptr,
-                                       n, L, max_w, K, C);
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
-  const bool active = p < B;
-  const T* x = xs + static_cast<int64_t>(n) * C * B;
-  for (int c = 0; c < C; ++c)
-    vals[0][c][threadIdx.x] = active ? x[c * B + p] : zero_value<T>();
-  level_pipeline<T>(s, vals, L, max_w, K, out, static_cast<int64_t>(n) * K * B + p, B,
-                    active);
-}
-
-// --- B4: one app over channel-major [C, N] ---------------------------------
-
 template <typename T>
 __global__ void __launch_bounds__(kBlock)
 vcgra_conventional_kernel(const T* __restrict__ x, const int* __restrict__ ops,
                           const int* __restrict__ sel, const int* __restrict__ out_sel,
                           const int* __restrict__ widths, T* __restrict__ out, int64_t N,
                           int64_t block_n, int L, int max_w, int K, int C) {
-  extern __shared__ int smem[];
+  extern __shared__ int settings_smem[];  // the other kernels' `smem` is unsigned char
+  // Raw storage: a __shared__ array may not have a constructor (bf16).
   __shared__ __align__(16) unsigned char vals_raw[2 * kMaxVals * kBlock * sizeof(T)];
   auto vals = reinterpret_cast<T (*)[kMaxVals][kBlock]>(vals_raw);
-  const Settings s = stage_settings<T>(smem, ops, sel, out_sel, widths, nullptr,
-                                       static_cast<const T*>(nullptr), nullptr,
-                                       0, L, max_w, K, C);
+  const Settings s = stage_settings(settings_smem, ops, sel, out_sel, widths, L, max_w, K);
   const int64_t start = static_cast<int64_t>(blockIdx.x) * block_n;
   const int64_t end = start + block_n < N ? start + block_n : N;
   // Each pass is independent per thread (its own value column), so passes
@@ -202,33 +238,8 @@ vcgra_conventional_kernel(const T* __restrict__ x, const int* __restrict__ ops,
   }
 }
 
-size_t settings_smem_bytes(int L, int max_w, int K, int C) {
-  return sizeof(int) * (static_cast<size_t>(3) * L * max_w + K + L + C);
-}
-
-template <typename T>
-int launch_fused(const void* frames, const int* ops, const int* sel, const int* out_sel,
-                 const int* tap_sel, const void* consts, const int* widths, void* out,
-                 int N, int H, int W, int L, int max_w, int K, int C, int radius,
-                 cudaStream_t stream) {
-  const int64_t hw = static_cast<int64_t>(H) * W;
-  const dim3 grid(static_cast<unsigned>((hw + kBlock - 1) / kBlock), N);
-  vcgra_fused_batched_kernel<T><<<grid, kBlock, settings_smem_bytes(L, max_w, K, C), stream>>>(
-      static_cast<const T*>(frames), ops, sel, out_sel, tap_sel,
-      static_cast<const T*>(consts), widths, static_cast<T*>(out), H, W, L, max_w, K, C,
-      radius);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_batched(const void* xs, const int* ops, const int* sel, const int* out_sel,
-                   const int* widths, void* out, int N, int64_t B, int L, int max_w, int K,
-                   int C, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((B + kBlock - 1) / kBlock), N);
-  vcgra_batched_kernel<T><<<grid, kBlock, settings_smem_bytes(L, max_w, K, 0), stream>>>(
-      static_cast<const T*>(xs), ops, sel, out_sel, widths, static_cast<T*>(out), B, L,
-      max_w, K, C);
-  return static_cast<int>(cudaGetLastError());
+size_t settings_smem_bytes(int L, int max_w, int K) {
+  return sizeof(int) * (static_cast<size_t>(3) * L * max_w + K + L);
 }
 
 template <typename T>
@@ -236,7 +247,7 @@ int launch_conventional(const void* x, const int* ops, const int* sel, const int
                         const int* widths, void* out, int64_t N, int64_t block_n, int L,
                         int max_w, int K, int C, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((N + block_n - 1) / block_n));
-  vcgra_conventional_kernel<T><<<grid, kBlock, settings_smem_bytes(L, max_w, K, 0), stream>>>(
+  vcgra_conventional_kernel<T><<<grid, kBlock, settings_smem_bytes(L, max_w, K), stream>>>(
       static_cast<const T*>(x), ops, sel, out_sel, widths, static_cast<T*>(out), N, block_n,
       L, max_w, K, C);
   return static_cast<int>(cudaGetLastError());
@@ -244,45 +255,105 @@ int launch_conventional(const void* x, const int* ops, const int* sel, const int
 
 }  // namespace
 
-// dtype codes: 0 int32, 1 int16, 2 float32, 3 bfloat16.  A bad code returns
-// cudaErrorInvalidValue without launching.
-extern "C" int vcgra_max_vals() { return kMaxVals; }
+// Limits: the widest value vector of B1 and B2, and of B4; the largest
+// radius of B1's shared-memory window, and of B1 at all.
+extern "C" int vcgra_max_vals() { return kVecMaxVals; }
+extern "C" int vcgra_conventional_max_vals() { return kMaxVals; }
+extern "C" int vcgra_window_max_radius() { return kMaxWindowRadius; }
+extern "C" int vcgra_fused_max_radius() { return kMaxFusedRadius; }
 
-extern "C" int vcgra_fused_batched(int dtype, const void* frames, const int* ops,
-                                   const int* sel, const int* out_sel, const int* tap_sel,
-                                   const void* consts, const int* widths, void* out, int N,
-                                   int H, int W, int L, int max_w, int K, int C, int radius,
-                                   void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_fused<int32_t>(frames, ops, sel, out_sel, tap_sel, consts, widths,
-                                         out, N, H, W, L, max_w, K, C, radius, st);
-    case 1: return launch_fused<int16_t>(frames, ops, sel, out_sel, tap_sel, consts, widths,
-                                         out, N, H, W, L, max_w, K, C, radius, st);
-    case 2: return launch_fused<float>(frames, ops, sel, out_sel, tap_sel, consts, widths,
-                                       out, N, H, W, L, max_w, K, C, radius, st);
-    case 3: return launch_fused<__nv_bfloat16>(frames, ops, sel, out_sel, tap_sel, consts,
-                                               widths, out, N, H, W, L, max_w, K, C, radius,
-                                               st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Ints of one app's settings record (B1, B2).
+extern "C" int vcgra_record_ints(int C, int L, int max_w, int K) {
+  return record_ints(C, L, max_w, K);
 }
 
-extern "C" int vcgra_batched(int dtype, const void* xs, const int* ops, const int* sel,
-                             const int* out_sel, const int* widths, void* out, int N,
-                             int64_t B, int L, int max_w, int K, int C, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// Bytes of dynamic shared memory one block takes (elem: the dtype's
+// bytes): B1 at `radius` (with its window up to kMaxWindowRadius, without
+// past it), B2.
+extern "C" int vcgra_fused_smem(int elem, int radius, int slots_a, int slots_b, int threads,
+                                int C, int L, int max_w, int K) {
+  const bool window = radius <= kMaxWindowRadius;
+  return static_cast<int>(smem_layout(elem, window ? radius : 0, window ? 1 : 0, slots_a,
+                                      slots_b, threads, C, L, max_w, K).total);
+}
+extern "C" int vcgra_batched_smem(int elem, int slots_a, int slots_b, int threads, int C, int L,
+                                  int max_w, int K) {
+  return static_cast<int>(smem_layout(elem, 0, 0, slots_a, slots_b, threads, C, L, max_w, K).total);
+}
+
+// Registers a thread takes in kernel `kernel` (0: B1 with its window, 1:
+// B1 reading taps from device memory, 2: B2) for dtype code `dtype`, or -1.
+extern "C" int vcgra_kernel_regs(int kernel, int dtype) {
+#define VCGRA_REGS(CODE, T)                                                      \
+  case CODE:                                                                     \
+    return kernel == 0   ? kernel_regs(vcgra_tile_kernel<T, false, true>)       \
+           : kernel == 1 ? kernel_regs(vcgra_tile_kernel<T, false, false>)      \
+           : kernel == 2 ? kernel_regs(vcgra_batched_kernel<T>)                  \
+                         : -1;
   switch (dtype) {
-    case 0: return launch_batched<int32_t>(xs, ops, sel, out_sel, widths, out, N, B, L,
-                                           max_w, K, C, st);
-    case 1: return launch_batched<int16_t>(xs, ops, sel, out_sel, widths, out, N, B, L,
-                                           max_w, K, C, st);
-    case 2: return launch_batched<float>(xs, ops, sel, out_sel, widths, out, N, B, L, max_w,
-                                         K, C, st);
-    case 3: return launch_batched<__nv_bfloat16>(xs, ops, sel, out_sel, widths, out, N, B,
-                                                 L, max_w, K, C, st);
+    VCGRA_REGS(0, int32_t)
+    VCGRA_REGS(1, int16_t)
+    VCGRA_REGS(2, float)
+    VCGRA_REGS(3, __nv_bfloat16)
+    default: return -1;
+  }
+#undef VCGRA_REGS
+}
+
+// dtype codes: 0 int32, 1 int16, 2 float32, 3 bfloat16.  threads (32, 64 or
+// 128) per block; slots_a / slots_b: the two value banks' slots
+// (ops.value_slots).  A bad code, a value vector wider than kVecMaxVals, a
+// radius past kMaxFusedRadius or a block over kMaxSmem returns
+// cudaErrorInvalidValue without launching.  radii: int32 [1] on the device,
+// the radius.  Scratch the caller allocates: records int32 [N,
+// vcgra_record_ints(C, L, max_w, K)] and rec_consts [N, C] of the grid
+// dtype, the settings records the first launch packs.
+extern "C" int vcgra_fused_batched(int dtype, const void* frames, const int* ops,
+                                   const int* sel, const int* out_sel, const int* tap_sel,
+                                   const void* consts, const int* radii, const int* widths,
+                                   void* records, void* rec_consts, void* out, int N, int H,
+                                   int W, int L, int max_w, int K, int C, int radius,
+                                   int threads, int slots_a, int slots_b, void* stream) {
+  if (!valid_vec_launch(C, max_w, threads, slots_a, slots_b) || radius < 0 ||
+      radius > kMaxFusedRadius)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VCGRA_FUSED(CODE, T)                                                                 \
+  case CODE:                                                                                 \
+    return launch_fused<T>(frames, ops, sel, out_sel, tap_sel, consts, radii, widths,        \
+                           static_cast<int*>(records), rec_consts, out, N, H, W, L, max_w, K, \
+                           C, radius, threads, slots_a, slots_b, st);
+  switch (dtype) {
+    VCGRA_FUSED(0, int32_t)
+    VCGRA_FUSED(1, int16_t)
+    VCGRA_FUSED(2, float)
+    VCGRA_FUSED(3, __nv_bfloat16)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef VCGRA_FUSED
+}
+
+// As vcgra_fused_batched, over pre-packed channels xs [N, C, B]; scratch:
+// records int32 [N, vcgra_record_ints(C, L, max_w, K)].
+extern "C" int vcgra_batched(int dtype, const void* xs, const int* ops, const int* sel,
+                             const int* out_sel, const int* widths, void* records, void* out,
+                             int N, int64_t B, int L, int max_w, int K, int C, int threads,
+                             int slots_a, int slots_b, void* stream) {
+  if (!valid_vec_launch(C, max_w, threads, slots_a, slots_b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VCGRA_BATCHED(CODE, T)                                                              \
+  case CODE:                                                                                \
+    return launch_batched<T>(xs, ops, sel, out_sel, widths, static_cast<int*>(records), out, \
+                             N, B, L, max_w, K, C, threads, slots_a, slots_b, st);
+  switch (dtype) {
+    VCGRA_BATCHED(0, int32_t)
+    VCGRA_BATCHED(1, int16_t)
+    VCGRA_BATCHED(2, float)
+    VCGRA_BATCHED(3, __nv_bfloat16)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef VCGRA_BATCHED
 }
 
 // block_n: pixels per block, a positive multiple of the block's 128 threads

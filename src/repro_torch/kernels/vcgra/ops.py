@@ -115,21 +115,36 @@ def _check_settings(grid: GridSpec, n: int, settings, device) -> None:
     _check("out_sel", out_sel, (n, grid.num_outputs), torch.int32, device)
 
 
-def _launch_target(grid: GridSpec, n: int, device: torch.device, library: str = "vcgra"):
-    """The bound library, after the checks only a launch needs."""
-    if device.type != "cuda":
-        raise ValueError(f"the Hopper kernels run on CUDA tensors, got {device}")
-    lib = load_library(library)
+#: The widest value vector (max(C, PEs a level)) each kernel holds: B1, B2
+#: and B3 share ``csrc/vcgra_vec.cuh``'s 64; B4, the one-pixel-a-thread
+#: design of ``csrc/vcgra.cu``, holds 32.
+MAX_VALS = {"vcgra_fused_batched": 64, "vcgra_batched": 64, "vcgra_pipeline_batched": 64,
+            "vcgra_conventional": 32}
+#: The library each wrapper launches from.
+_LIBRARIES = {"vcgra_pipeline_batched": "vcgra_pipeline"}
+
+
+def check_value_width(kernel: str, grid: GridSpec) -> None:
+    """Refuse a grid whose value vector is wider than ``kernel`` holds
+    (:data:`MAX_VALS`), before any library is loaded."""
     widest = max(grid.num_inputs, max(grid.pes_per_level))
-    limit = lib.vcgra_max_vals()
+    limit = MAX_VALS[kernel]
     if widest > limit:
         raise ValueError(
-            f"grid {grid.name!r} needs a {widest}-wide value vector; the "
-            f"kernels hold at most {limit}"
+            f"grid {grid.name!r} needs a {widest}-wide value vector; "
+            f"{kernel} holds at most {limit}"
         )
+
+
+def _launch_target(kernel: str, grid: GridSpec, n: int, device: torch.device):
+    """The bound library of ``kernel``, after the checks only a launch
+    needs."""
+    if device.type != "cuda":
+        raise ValueError(f"the Hopper kernels run on CUDA tensors, got {device}")
+    check_value_width(kernel, grid)
     if n > _MAX_APPS:
         raise ValueError(f"{n} apps in one launch; at most {_MAX_APPS}")
-    return lib
+    return load_library(_LIBRARIES.get(kernel, "vcgra"))
 
 
 def _raise_on_error(name: str, rc: int) -> None:
@@ -139,7 +154,8 @@ def _raise_on_error(name: str, rc: int) -> None:
 
 def vcgra_fused_batched(grid: GridSpec, radius: int, settings, ingests,
                         images: torch.Tensor, tile_rows=None) -> torch.Tensor:
-    """N raw frames, N tenants, ONE launch: the Hopper twin of the
+    """N raw frames, N tenants, in one call (a small launch that packs each
+    app's live settings, then the kernel): the Hopper twin of the
     reference's Pallas ``vcgra_fused_batched``.
 
     ``settings``: dense banks (:func:`pack_settings_batched`);
@@ -148,7 +164,10 @@ def vcgra_fused_batched(grid: GridSpec, radius: int, settings, ingests,
     path's ``form_tap_bank``.  Returns [N, num_outputs, H*W] in the grid
     dtype.  ``tile_rows`` is validated and resolved like the reference's;
     the kernel reads each tap straight from the frame, so its output is
-    the same for every tile height.
+    the same for every tile height.  A radius up to
+    :data:`WINDOW_MAX_RADIUS` reads its taps from a frame window in shared
+    memory, a larger one (up to :data:`FUSED_MAX_RADIUS`) from device
+    memory (:func:`fused_launch`).
     """
     frames = images.to(grid.dtype)
     n, H, W = frames.shape
@@ -163,20 +182,26 @@ def vcgra_fused_batched(grid: GridSpec, radius: int, settings, ingests,
     _check("images", frames, (n, H, W), grid.dtype, device)
     if device.type == "cpu":
         return ref.vcgra_fused_batched_ref(grid, radius, settings, ingests, frames)
-    lib = _launch_target(grid, n, device)
-    K = grid.num_outputs
+    lib = _launch_target("vcgra_fused_batched", grid, n, device)
+    L, max_w, K, C = grid.num_levels, max(grid.pes_per_level), grid.num_outputs, grid.num_inputs
+    threads, _, _ = fused_launch(frames.element_size(), int(radius), C, grid.pes_per_level, K)
     out = torch.empty((n, K, H * W), dtype=grid.dtype, device=device)
     if out.numel() == 0:
         return out
     ops, sel, out_sel = settings
     widths = _int32_on(grid.pes_per_level, device)
+    radii = _int32_on((int(radius),), device)
+    records = torch.empty((n, record_ints(C, grid.pes_per_level, K)), dtype=torch.int32,
+                          device=device)
+    rec_consts = torch.empty((n, C), dtype=grid.dtype, device=device)
     with torch.cuda.device(device):
         rc = lib.vcgra_fused_batched(
             _DTYPE_CODES[grid.dtype], frames.data_ptr(), ops.data_ptr(),
             sel.data_ptr(), out_sel.data_ptr(), tap_sel.data_ptr(),
-            consts.data_ptr(), widths.data_ptr(), out.data_ptr(),
-            n, H, W, grid.num_levels, max(grid.pes_per_level), K,
-            grid.num_inputs, int(radius), torch.cuda.current_stream().cuda_stream,
+            consts.data_ptr(), radii.data_ptr(), widths.data_ptr(), records.data_ptr(),
+            rec_consts.data_ptr(), out.data_ptr(), n, H, W, L, max_w, K, C, int(radius),
+            threads, *value_slots(C, grid.pes_per_level),
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("vcgra_fused_batched", rc)
     LAUNCHES["vcgra_fused_batched"] += 1
@@ -184,28 +209,32 @@ def vcgra_fused_batched(grid: GridSpec, radius: int, settings, ingests,
 
 
 def vcgra_batched(grid: GridSpec, settings, xs: torch.Tensor) -> torch.Tensor:
-    """N tenants over pre-packed channels ``[N, num_inputs, B]`` in ONE
-    launch -> ``[N, num_outputs, B]``: the Hopper twin of the reference's
-    Pallas ``vcgra_batched``.  B needs no padding (the kernel masks the
-    ragged last block)."""
+    """N tenants over pre-packed channels ``[N, num_inputs, B]`` in one
+    call (a small launch that packs each app's live settings, then the
+    kernel) -> ``[N, num_outputs, B]``: the Hopper twin of the reference's
+    Pallas ``vcgra_batched``.  Only each app's live channels are read.  B
+    needs no padding (the kernel masks the ragged last group)."""
     n, C, B = xs.shape
     device = xs.device
     _check_settings(grid, n, settings, device)
     _check("xs", xs, (n, grid.num_inputs, B), grid.dtype, device)
     if device.type == "cpu":
         return ref.vcgra_batched_ref(grid, settings, xs)
-    lib = _launch_target(grid, n, device)
-    K = grid.num_outputs
+    lib = _launch_target("vcgra_batched", grid, n, device)
+    L, max_w, K = grid.num_levels, max(grid.pes_per_level), grid.num_outputs
+    threads, _ = batched_launch(xs.element_size(), C, grid.pes_per_level, K)
     out = torch.empty((n, K, B), dtype=grid.dtype, device=device)
     if out.numel() == 0:
         return out
     ops, sel, out_sel = settings
     widths = _int32_on(grid.pes_per_level, device)
+    records = torch.empty((n, record_ints(C, grid.pes_per_level, K)), dtype=torch.int32,
+                          device=device)
     with torch.cuda.device(device):
         rc = lib.vcgra_batched(
             _DTYPE_CODES[grid.dtype], xs.data_ptr(), ops.data_ptr(), sel.data_ptr(),
-            out_sel.data_ptr(), widths.data_ptr(), out.data_ptr(),
-            n, B, grid.num_levels, max(grid.pes_per_level), K, C,
+            out_sel.data_ptr(), widths.data_ptr(), records.data_ptr(), out.data_ptr(),
+            n, B, L, max_w, K, C, threads, *value_slots(C, grid.pes_per_level),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("vcgra_batched", rc)
@@ -213,25 +242,26 @@ def vcgra_batched(grid: GridSpec, settings, xs: torch.Tensor) -> torch.Tensor:
     return out
 
 
-#: B3's limits: the sum of the stage radii, the widest value vector
-#: (max(C, PEs a level)), and the shared memory one block may take on the
-#: H100.
-PIPELINE_MAX_RADIUS = 16
-PIPELINE_MAX_VALS = 64
+#: The largest radius (B3: sum of the stage radii) a frame window in shared
+#: memory holds; B1 past it reads its taps from device memory, up to the
+#: largest radius whose (2r + 1)^2 + 1 tap-bank rows an int32 ``tap_sel``
+#: indexes.  The shared memory one block may take on the H100.
+WINDOW_MAX_RADIUS = 16
+FUSED_MAX_RADIUS = 23169
 MAX_SMEM_BYTES = 232_448
 
 
-def pipeline_slots(num_inputs: int, widths) -> Tuple[int, int]:
-    """B3's two value banks, in 16-byte slots a thread: bank A holds the
-    input channels and the outputs of levels 1, 3, ...; bank B those of
-    levels 0, 2, ...."""
+def value_slots(num_inputs: int, widths) -> Tuple[int, int]:
+    """The two value banks of B1, B2 and B3, in 16-byte slots a thread:
+    bank A holds the input channels and the outputs of levels 1, 3, ...;
+    bank B those of levels 0, 2, ...."""
     widths = list(widths)
     return max([num_inputs] + widths[1::2]), max(widths[0::2])
 
 
-def pipeline_record_ints(num_inputs: int, widths, K: int) -> int:
-    """Ints of one (stage, app) settings record of B3: the kept PEs
-    (two ints each, a row of the widest level per level), the kept taps
+def record_ints(num_inputs: int, widths, K: int) -> int:
+    """Ints of one (stage, app) settings record of B1, B2 and B3: the kept
+    PEs (two ints each, a row of the widest level per level), the kept taps
     (two ints each), each level's count, the kept consts' and zeros'
     destinations, the K output offsets, three channel counts and the
     forwarded offset, rounded up to 4 ints (16 bytes)."""
@@ -239,35 +269,64 @@ def pipeline_record_ints(num_inputs: int, widths, K: int) -> int:
     return -(-(2 * L * max(widths) + L + 4 * num_inputs + K + 4) // 4) * 4
 
 
-def pipeline_launch(itemsize: int, R: int, num_inputs: int, widths,
-                    K: int) -> Tuple[int, int]:
-    """B3's block: ``(threads, dynamic shared memory bytes)``, the most
-    threads of 128, 64, 32 whose block fits :data:`MAX_SMEM_BYTES` (the
-    mirror of ``smem_layout`` in ``csrc/vcgra_pipeline.cu``: two region
-    buffers of ``(32 + 2R) x (32P + 2Rp + 2P)`` elements, P = 16 /
-    itemsize pixels a thread and Rp = R rounded up to P, the value banks,
-    the consts and a settings record).  Refuses a chain reaching past
-    :data:`PIPELINE_MAX_RADIUS` or a value vector wider than
-    :data:`PIPELINE_MAX_VALS`."""
+def _block(kernel: str, itemsize: int, R: int, buffers: int, num_inputs: int, widths,
+           K: int) -> Tuple[int, int]:
+    """``(threads, dynamic shared memory bytes)`` of a block of B1, B2 or
+    B3: the most threads of 128, 64, 32 whose block fits
+    :data:`MAX_SMEM_BYTES` (the mirror of ``smem_layout`` in
+    ``csrc/vcgra_vec.cuh``: ``buffers`` window buffers of ``(32 + 2R) x
+    (32P + 2Rp + 2P)`` elements, P = 16 / itemsize pixels a thread and Rp =
+    R rounded up to P, the value banks, the consts and a settings
+    record)."""
     widths = list(widths)
-    if R > PIPELINE_MAX_RADIUS:
-        raise ValueError(f"chain radii reach {R} pixels; the kernel's halo holds at most "
-                         f"{PIPELINE_MAX_RADIUS}")
-    if max([num_inputs] + widths) > PIPELINE_MAX_VALS:
+    if max([num_inputs] + widths) > MAX_VALS[kernel]:
         raise ValueError(f"value vector of {max([num_inputs] + widths)} (inputs {num_inputs}, "
-                         f"levels {widths}); the kernel takes at most {PIPELINE_MAX_VALS}")
+                         f"levels {widths}); {kernel} takes at most {MAX_VALS[kernel]}")
     P = 16 // itemsize
     Rp = -(-R // P) * P
     rows, cols = 32 + 2 * R, 32 * P + 2 * Rp + 2 * P
     buf = -(-rows * cols * itemsize // 16) * 16
-    slots = sum(pipeline_slots(num_inputs, widths))
-    fixed = (2 * buf + -(-num_inputs * itemsize // 16) * 16
-             + 4 * pipeline_record_ints(num_inputs, widths, K))
+    slots = sum(value_slots(num_inputs, widths))
+    fixed = (buffers * buf + -(-num_inputs * itemsize // 16) * 16
+             + 4 * record_ints(num_inputs, widths, K))
     for threads in (128, 64, 32):
         smem = fixed + slots * threads * 16
         if smem <= MAX_SMEM_BYTES:
             return threads, smem
-    raise ValueError(f"the chain kernel's block does not fit {MAX_SMEM_BYTES} bytes")
+    raise ValueError(f"{kernel}'s block does not fit {MAX_SMEM_BYTES} bytes")
+
+
+def pipeline_launch(itemsize: int, R: int, num_inputs: int, widths,
+                    K: int) -> Tuple[int, int]:
+    """B3's block, ``(threads, dynamic shared memory bytes)``: two window
+    buffers for a chain whose radii sum to R.  Refuses a chain reaching
+    past :data:`WINDOW_MAX_RADIUS` or a value vector wider than 64."""
+    if R > WINDOW_MAX_RADIUS:
+        raise ValueError(f"chain radii reach {R} pixels; the kernel's halo holds at most "
+                         f"{WINDOW_MAX_RADIUS}")
+    return _block("vcgra_pipeline_batched", itemsize, R, 2, num_inputs, widths, K)
+
+
+def fused_launch(itemsize: int, radius: int, num_inputs: int, widths,
+                 K: int) -> Tuple[int, int, bool]:
+    """B1's block, ``(threads, dynamic shared memory bytes, window)``: with
+    ``window`` (radius up to :data:`WINDOW_MAX_RADIUS`) one window buffer
+    holds the frame's tile and halo; past it the kernel reads its taps from
+    device memory and takes no buffer.  Refuses a radius past
+    :data:`FUSED_MAX_RADIUS` or a value vector wider than 64."""
+    if radius > FUSED_MAX_RADIUS:
+        raise ValueError(f"radius {radius}: its tap bank's rows do not fit an int32 tap_sel "
+                         f"(at most {FUSED_MAX_RADIUS})")
+    window = radius <= WINDOW_MAX_RADIUS
+    threads, smem = _block("vcgra_fused_batched", itemsize, radius if window else 0,
+                           int(window), num_inputs, widths, K)
+    return threads, smem, window
+
+
+def batched_launch(itemsize: int, num_inputs: int, widths, K: int) -> Tuple[int, int]:
+    """B2's block, ``(threads, dynamic shared memory bytes)``: no window
+    buffer.  Refuses a value vector wider than 64."""
+    return _block("vcgra_batched", itemsize, 0, 0, num_inputs, widths, K)
 
 
 def vcgra_pipeline_batched(grid: GridSpec, radii, settings, ingests, out_chs: torch.Tensor,
@@ -310,15 +369,15 @@ def vcgra_pipeline_batched(grid: GridSpec, radii, settings, ingests, out_chs: to
     if device.type == "cpu":
         return ref.vcgra_pipeline_batched_ref(grid, radii, settings, ingests, out_chs, hw,
                                               frames)
-    lib = _launch_target(grid, n, device, "vcgra_pipeline")
+    lib = _launch_target("vcgra_pipeline_batched", grid, n, device)
     threads, _ = pipeline_launch(frames.element_size(), R, C, grid.pes_per_level, K)
-    slots_a, slots_b = pipeline_slots(C, grid.pes_per_level)
+    slots_a, slots_b = value_slots(C, grid.pes_per_level)
     out = torch.empty((n, K, H * W), dtype=grid.dtype, device=device)
     if out.numel() == 0:
         return out
     widths = _int32_on(grid.pes_per_level, device)
     radii_t = _int32_on(radii, device)
-    records = torch.empty((S * n, pipeline_record_ints(C, grid.pes_per_level, K)),
+    records = torch.empty((S * n, record_ints(C, grid.pes_per_level, K)),
                           dtype=torch.int32, device=device)
     rec_consts = torch.empty((S * n, C), dtype=grid.dtype, device=device)
     with torch.cuda.device(device):
@@ -364,7 +423,7 @@ def vcgra_conventional(grid: GridSpec, settings, x: torch.Tensor,
     _check("x", x, (grid.num_inputs, N), grid.dtype, device)
     if device.type == "cpu":
         return ref.vcgra_conventional_ref(grid, settings, x)
-    lib = _launch_target(grid, 1, device)
+    lib = _launch_target("vcgra_conventional", grid, 1, device)
     out = torch.empty((K, N), dtype=grid.dtype, device=device)
     if out.numel() == 0:
         return out

@@ -1,9 +1,10 @@
 """The Hopper kernels on the card -- B1, B2, the chain kernel B3, the
 single-app kernels B4 (conventional) and B5 (specialized, NVRTC-compiled
 per app), the fused stencil B6 and the flash decode kernel B7 -- held
-against their plain PyTorch versions on the same inputs (B1-B6 bitwise for
-int32, int16 and float32, bf16 within the reference's 0.5; B7's float32
-outputs at the reference's 2e-5, its bf16 outputs within one bf16 unit).
+against their plain PyTorch versions on the same inputs (B1 and B2 bitwise
+in every dtype, bf16 included; B3-B6 bitwise for int32, int16 and float32,
+bf16 within the reference's 0.5; B7's float32 outputs at the reference's
+2e-5, its bf16 outputs within one bf16 unit).
 
 Every test needs a CUDA device and skips itself elsewhere; on a GPU host
 run ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
@@ -32,7 +33,8 @@ from repro_torch.kernels.vcgra import (
     vcgra_specialized, vcgra_specialized_ref,
 )
 from repro_torch.kernels.vcgra.ops import (
-    _pack_settings, pipeline_launch, pipeline_record_ints, pipeline_slots,
+    FUSED_MAX_RADIUS, WINDOW_MAX_RADIUS, _pack_settings, batched_launch, fused_launch, pipeline_launch,
+    record_ints, value_slots,
 )
 from repro_torch.kernels.vcgra.specialized import compile_module
 
@@ -53,11 +55,33 @@ def all_apps_grid():
     return custom("all-apps", inputs, widths, 1)
 
 
+def wide_grid():
+    """A grid 40 values wide (past B4's 32) that every library app maps on."""
+    return custom("wide-40", 40, [40, 11, 7, 5, 3, 3, 2], 1)
+
+
+#: B1/B2's grids: (grid, apps mapped on it).
+VEC_GRIDS = ((sobel_grid, SOBEL_APPS), (all_apps_grid, ALL_APPS), (wide_grid, ALL_APPS))
+#: B1's frames (H, W): not multiples of the 32-row tile or of P, one pixel,
+#: and a row past a 2048-column tile edge.
+FUSED_FRAMES = ((23, 41), (37, 53), (1, 1), (33, 2049))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the Hopper kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def assert_bitwise(got, want):
+    """Equal bit for bit (bf16 too), the contract of B1 and B2."""
+    torch.cuda.synchronize()
+    got, want = got.cpu(), want.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.bfloat16:
+        got, want = got.view(torch.int16), want.view(torch.int16)
+    assert torch.equal(got, want)
 
 
 def assert_close(got, want, dtype_name):
@@ -69,49 +93,113 @@ def assert_close(got, want, dtype_name):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("radius", [0, 1])
+@pytest.mark.parametrize("radius", [0, 1, 2, WINDOW_MAX_RADIUS + 1])
 @pytest.mark.parametrize("dtype_name", sorted(DTYPES))
 def test_fused_kernel_matches_plain_version(cuda, dtype_name, radius):
+    """B1 bitwise: the Sobel, all-apps and 40-wide grids, library ingests
+    at radius 1 and random runtime ones at radius 0, 2 and one past the
+    shared-memory window (taps from device memory), ragged frames."""
     rng = np.random.default_rng(0)
-    for base, names in ((sobel_grid(), SOBEL_APPS), (all_apps_grid(), ALL_APPS)):
-        bits, float_pe = DTYPES[dtype_name]
-        grid = dataclasses.replace(base, data_bits=bits, float_pe=float_pe)
-        n, H, W = len(names) + 1, 23, 41
+    bits, float_pe = DTYPES[dtype_name]
+    for make_grid, names in VEC_GRIDS:
+        grid = dataclasses.replace(make_grid(), data_bits=bits, float_pe=float_pe)
+        n = len(names) + 1
         cfgs = [map_app(apps.ALL_APPS[names[i % len(names)]](), grid) for i in range(n)]
         settings = pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=cuda))
         if radius == 1:
             ingests = IngestPlan.stack([c.ingest for c in cfgs], grid.dtype, device=cuda)
-        else:   # random runtime ingest settings over the one-tap bank
+        else:   # random runtime ingest settings over the whole bank, zero row included
+            taps = (2 * radius + 1) ** 2
             ingests = (
-                torch.as_tensor(rng.integers(0, 2, (n, grid.num_inputs)),
+                torch.as_tensor(rng.integers(-1, taps + 2, (n, grid.num_inputs)),
                                 dtype=torch.int32, device=cuda),
                 torch.as_tensor(rng.integers(-8, 9, (n, grid.num_inputs)),
                                 device=cuda).to(grid.dtype),
             )
-        frames = torch.as_tensor(rng.integers(0, 256, (n, H, W)), device=cuda).to(grid.dtype)
-        want = vcgra_fused_batched_ref(grid, radius, settings, ingests, frames)
-        for tile_rows in (None, 1, 3, H + 1, "auto"):
-            before = LAUNCHES["vcgra_fused_batched"]
-            got = vcgra_fused_batched(grid, radius, settings, ingests, frames,
-                                      tile_rows=tile_rows)
-            assert LAUNCHES["vcgra_fused_batched"] == before + 1
-            assert_close(got, want, dtype_name)
+        for H, W in FUSED_FRAMES:
+            frames = torch.as_tensor(rng.integers(0, 256, (n, H, W)),
+                                     device=cuda).to(grid.dtype)
+            want = vcgra_fused_batched_ref(grid, radius, settings, ingests, frames)
+            for tile_rows in ((None, 1, 3, H + 1, "auto") if H == 23 else (None,)):
+                before = LAUNCHES["vcgra_fused_batched"]
+                got = vcgra_fused_batched(grid, radius, settings, ingests, frames,
+                                          tile_rows=tile_rows)
+                assert LAUNCHES["vcgra_fused_batched"] == before + 1
+                assert_bitwise(got, want)
 
 
 @pytest.mark.parametrize("dtype_name", sorted(DTYPES))
 def test_batched_kernel_matches_plain_version(cuda, dtype_name):
+    """B2 bitwise on the Sobel, all-apps and 40-wide grids, at pixel
+    batches aligned and not to P (and to a block's groups)."""
     rng = np.random.default_rng(1)
     bits, float_pe = DTYPES[dtype_name]
-    grid = sobel_grid(data_bits=bits, float_pe=float_pe)
-    cfgs = [map_app(apps.ALL_APPS[n](), grid) for n in SOBEL_APPS]
-    settings = pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=cuda))
-    for B in (45, 1000):
-        xs = torch.as_tensor(rng.integers(0, 256, (len(cfgs), grid.num_inputs, B)),
-                             device=cuda).to(grid.dtype)
-        before = LAUNCHES["vcgra_batched"]
-        got = vcgra_batched(grid, settings, xs)
-        assert LAUNCHES["vcgra_batched"] == before + 1
-        assert_close(got, vcgra_batched_ref(grid, settings, xs), dtype_name)
+    for make_grid, names in VEC_GRIDS:
+        grid = dataclasses.replace(make_grid(), data_bits=bits, float_pe=float_pe)
+        cfgs = [map_app(apps.ALL_APPS[n](), grid) for n in names]
+        settings = pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=cuda))
+        for B in (1, 45, 1000, 4099, 8192):
+            xs = torch.as_tensor(rng.integers(0, 256, (len(cfgs), grid.num_inputs, B)),
+                                 device=cuda).to(grid.dtype)
+            before = LAUNCHES["vcgra_batched"]
+            got = vcgra_batched(grid, settings, xs)
+            assert LAUNCHES["vcgra_batched"] == before + 1
+            assert_bitwise(got, vcgra_batched_ref(grid, settings, xs))
+
+
+def test_fused_and_batched_launch_shape_matches_its_mirror(cuda):
+    """The wrappers' launch-shape mirrors (``fused_launch``,
+    ``batched_launch``, ``record_ints``) equal the C side's layout, and the
+    limits the wrappers hold equal the library's."""
+    lib = load_library("vcgra")
+    assert lib.vcgra_max_vals() == 64 and lib.vcgra_conventional_max_vals() == 32
+    assert lib.vcgra_window_max_radius() == WINDOW_MAX_RADIUS
+    assert lib.vcgra_fused_max_radius() == FUSED_MAX_RADIUS
+    for itemsize in (4, 2):
+        for C, widths in ((18, [9] * 5), (27, [19, 11, 7, 5, 3, 3, 2]), (64, [64] * 3),
+                          (1, [1])):
+            for radius in (0, 1, 2, WINDOW_MAX_RADIUS, WINDOW_MAX_RADIUS + 1, 100):
+                threads, smem, window = fused_launch(itemsize, radius, C, widths, 2)
+                assert window == (radius <= WINDOW_MAX_RADIUS)
+                assert lib.vcgra_fused_smem(itemsize, radius, *value_slots(C, widths), threads,
+                                            C, len(widths), max(widths), 2) == smem
+            threads, smem = batched_launch(itemsize, C, widths, 2)
+            assert lib.vcgra_batched_smem(itemsize, *value_slots(C, widths), threads, C,
+                                          len(widths), max(widths), 2) == smem
+            assert lib.vcgra_record_ints(C, len(widths), max(widths), 2) == \
+                record_ints(C, widths, 2)
+    assert all(lib.vcgra_kernel_regs(kernel, code) > 0 for kernel in range(3)
+               for code in range(4))
+
+
+def test_fused_and_batched_kernels_refuse_what_they_cannot_launch(cuda):
+    """Past 64 values B1 and B2 raise, B4 past 32 (naming the kernel); the
+    C entry points refuse a bad dtype code without launching."""
+    lib = load_library("vcgra")
+    too_wide = custom("wide-65", 65, [9], 1)
+    frames = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda)
+    settings = (torch.zeros((1, 1, 9), dtype=torch.int32, device=cuda),
+                torch.zeros((1, 1, 9, 2), dtype=torch.int32, device=cuda),
+                torch.zeros((1, 1), dtype=torch.int32, device=cuda))
+    ingests = (torch.zeros((1, 65), dtype=torch.int32, device=cuda),
+               torch.zeros((1, 65), dtype=torch.int32, device=cuda))
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="vcgra_fused_batched holds at most 64"):
+        vcgra_fused_batched(too_wide, 1, settings, ingests, frames)
+    with pytest.raises(ValueError, match="vcgra_batched holds at most 64"):
+        vcgra_batched(too_wide, settings, torch.zeros((1, 65, 8), dtype=torch.int32,
+                                                      device=cuda))
+    grid = wide_grid()
+    cfg = map_app(apps.sobel_x(), grid)
+    with pytest.raises(ValueError, match="vcgra_conventional holds at most 32"):
+        vcgra_conventional(grid, _pack_settings(grid, cfg, device=cuda)[:3],
+                           torch.zeros((40, 128), dtype=torch.int32, device=cuda))
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.vcgra_fused_batched(9, *([frames.data_ptr()] * 11), 1, 8, 8, 1, 9, 1, 18, 1,
+                                   128, 18, 9, stream) != 0
+    assert lib.vcgra_batched(9, *([frames.data_ptr()] * 7), 1, 8, 1, 9, 1, 18, 128, 18, 9,
+                             stream) != 0
+    assert LAUNCHES == before
 
 
 def test_wrapper_rejects_operands_on_two_devices(cuda):
@@ -210,11 +298,11 @@ def test_pipeline_kernel_launch_shape_matches_its_mirror(cuda):
     for itemsize in (4, 2):
         for R, C, widths in ((3, 19, [11, 7, 5, 4, 3, 2]), (16, 64, [64] * 3), (0, 1, [1])):
             threads, smem = pipeline_launch(itemsize, R, C, widths, 2)
-            slots_a, slots_b = pipeline_slots(C, widths)
+            slots_a, slots_b = value_slots(C, widths)
             assert lib.vcgra_pipeline_smem(itemsize, R, slots_a, slots_b, threads, C,
                                            len(widths), max(widths), 2) == smem
             assert lib.vcgra_pipeline_record_ints(C, len(widths), max(widths), 2) == \
-                pipeline_record_ints(C, widths, 2)
+                record_ints(C, widths, 2)
     assert all(lib.vcgra_pipeline_regs(code) > 0 for code in range(4))
 
 
@@ -234,7 +322,7 @@ def test_pipeline_kernel_refuses_what_it_cannot_launch(cuda):
     assert lib.vcgra_pipeline_batched(
         9, *([frames.data_ptr()] * 13), 2, 2, 8, 8, grid.num_levels,
         max(grid.pes_per_level), grid.num_outputs, grid.num_inputs, 2, 128,
-        *pipeline_slots(grid.num_inputs, grid.pes_per_level),
+        *value_slots(grid.num_inputs, grid.pes_per_level),
         torch.cuda.current_stream().cuda_stream) != 0
     assert LAUNCHES["vcgra_pipeline_batched"] == before
 

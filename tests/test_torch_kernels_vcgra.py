@@ -14,11 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import OverlayPlan as ROverlayPlan
 from repro.core import applications as r_apps
+from repro.core import compile_plan as r_compile_plan
 from repro.core import map_app as r_map_app
 from repro.core.bitstream import VCGRAConfig as RConfig
+from repro.core.grid import custom as r_custom
 from repro.core.grid import sobel_grid as r_sobel_grid
 from repro.core.ingest import IngestPlan as RPlan, tap_offsets
+from repro.core.ops import Op as ROp
+from repro.core.specialize import _live_slots
 from repro.kernels.vcgra import (
     make_batched_fused_pallas_fn, make_batched_pallas_fn,
 )
@@ -40,6 +45,8 @@ from test_torch_core import (
 
 R_SOBEL = r_sobel_grid()
 SOBEL_APPS = ["sobel_x", "sobel_y", "sharpen", "laplace", "threshold", "identity"]
+#: B1/B2's grids of library apps: the Sobel grid and the all-apps grid.
+R_APP_GRIDS = {"sobel": (R_SOBEL, SOBEL_APPS), "all-apps": (R_SHARED, ALL_APP_NAMES)}
 
 
 def fused_operands(r_grid, names, images, dtype_name="int32"):
@@ -191,3 +198,70 @@ def test_hopper_plan_cells_match_torch_cells(batched, fused):
         outs[backend] = compile_plan(plan)(*(args if batched else single))
     assert_parity(outs["hopper"], outs["torch"], "int32")
 
+
+
+def bits(x):
+    """The raw bits of a torch tensor or a JAX array, as signed integers of
+    the element's width (bf16 too)."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16 if x.element_size() == 2 else torch.int32).numpy()
+    arr = np.asarray(x)
+    return arr.view(np.int16 if arr.itemsize == 2 else np.int32)
+
+
+def xla_fused(r_grid, r_args, radius=1):
+    """``repro``'s XLA oracle of one batched fused dispatch."""
+    plan = ROverlayPlan(grid=r_grid, batched=True, fused=True, radius=radius, backend="xla")
+    return r_compile_plan(plan)(*r_args)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("grid_name", sorted(R_APP_GRIDS))
+def test_dead_pes_set_to_none_change_no_bit(grid_name, dtype_name):
+    """B1 and B2 evaluate only live PEs.  Here, on the CPU: every library
+    app's plain version with each dead PE (``specialize._live_slots``)
+    turned to NONE is bitwise the plain version and ``repro``'s XLA path."""
+    base, names = R_APP_GRIDS[grid_name]
+    r_grid = with_dtype(base, dtype_name)
+    canvas = ragged_canvas(len(names), seed=8)
+    t_grid, r_args, settings, ingests, frames = fused_operands(r_grid, names, canvas,
+                                                               dtype_name)
+    ops = settings[0].clone()
+    dead = 0
+    for i, name in enumerate(names):
+        live = _live_slots(r_grid, r_map_app(r_apps.ALL_APPS[name](), r_grid))
+        for lvl, width in enumerate(r_grid.pes_per_level):
+            for slot in set(range(width)) - live[lvl]:
+                ops[i, lvl, slot] = int(ROp.NONE)
+                dead += 1
+    assert dead > 0
+    pruned = (ops, settings[1], settings[2])
+    plain = vcgra_fused_batched_ref(t_grid, 1, settings, ingests, frames)
+    got = vcgra_fused_batched_ref(t_grid, 1, pruned, ingests, frames)
+    assert got.dtype == plain.dtype == DTYPES[dtype_name][3]
+    np.testing.assert_array_equal(bits(got), bits(plain))
+    np.testing.assert_array_equal(bits(got), bits(xla_fused(r_grid, r_args)))
+    xs = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (len(names), r_grid.num_inputs, 77))).to(plain.dtype)
+    np.testing.assert_array_equal(bits(vcgra_batched_ref(t_grid, pruned, xs)),
+                                  bits(vcgra_batched_ref(t_grid, settings, xs)))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("width", [40, 64])
+def test_wide_grid_matches_reference(width, fused):
+    """A grid 33-64 values wide (B1 and B2 hold 64): the wrappers on CPU
+    tensors against ``repro``'s XLA path, every library app stacked."""
+    r_grid = r_custom(f"wide-{width}", width, [width, 11, 7, 5, 3, 3, 2], 1)
+    names = ALL_APP_NAMES
+    canvas = ragged_canvas(len(names), seed=10)
+    t_grid, r_args, settings, ingests, frames = fused_operands(r_grid, names, canvas)
+    assert max(t_grid.num_inputs, max(t_grid.pes_per_level)) == width
+    if fused:
+        got = vcgra_fused_batched(t_grid, 1, settings, ingests, frames)
+        assert_parity(got, xla_fused(r_grid, r_args), "int32")
+        return
+    x = np.random.default_rng(11).integers(0, 256, (len(names), width, 45)).astype(np.int32)
+    plan = ROverlayPlan(grid=r_grid, batched=True, backend="xla")
+    want = r_compile_plan(plan)(r_args[0], jnp.asarray(x))
+    assert_parity(vcgra_batched(t_grid, settings, torch.from_numpy(x)), want, "int32")
