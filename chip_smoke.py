@@ -42,15 +42,20 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    ``PixiePreprocessor`` cycling its four filters; every output equals the
    numpy oracles and ``backend="torch"`` on the card;
 6. B4, B5 and B6 vs their plain versions -- B4 on every grid dtype, the
-   Sobel grid and every library app's exact grid, ragged N and three
-   ``block_n``; B5 on every one of those configs with and without baked
+   Sobel grid, every library app's exact grid and every library app on
+   40- and 64-wide grids, ragged N and three ``block_n``, bitwise (bf16
+   too); B5 on the Sobel and exact-grid configs with and without baked
    coefficients (one NVRTC compile each, in parallel threads); B6 for the
    Sobel magnitude and every library filter in int32/float32/bf16 on odd
-   non-square frames and 1080p, three tile heights;
+   non-square frames, widths not a multiple of its V columns a thread or
+   below V, one-row frames and 1080p, each from a 16-byte aligned start
+   and one element past it, three tile heights;
 7. times with CUDA events at the paths' shapes, beside each kernel's bound
    and its plain version's time (B1 also at the all-apps flush's shape, B2
-   with its bound over the live channels and over all C; B1's, B2's and
-   B3's blocks: threads, registers, shared memory), the staged chain (three B1 launches with
+   with its bound over the live channels and over all C; B1's, B2's, B3's
+   and B4's blocks: threads, registers, shared memory; B6 and its
+   ``conv2d`` yardstick also with the L2 flushed before each run), the
+   staged chain (three B1 launches with
    the masked forward between them) beside B3, the end-to-end flush
    times, the paper's four Sobel magnitudes at 1080p int32 (``Pixie``
    conventional and parameterized, ``vcgra_apply_image``, the fused
@@ -82,7 +87,8 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    step and generate times, with a ``torch.profiler`` view of two decode
    steps (the device's busy time, launches, the costliest kernels).
 
-Then the kernel table line and, last, ``{"ok": true, "device": {...}}``.
+Then the kernel table line (each kernel also with its bf16 max error) and,
+last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
@@ -210,6 +216,33 @@ def compare(got, want, dtype_name, exact=False) -> float:
     return err
 
 
+class Tally:
+    """Kernel-vs-plain results by kernel: its cases, the max |kernel -
+    plain| per dtype and whether every bf16 case was bitwise."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def check(self, name, got, want, dtype_name, exact=False) -> float:
+        """:func:`compare` one case of kernel ``name`` and record it."""
+        import torch
+
+        err = compare(got, want, dtype_name, exact)
+        row = self.rows.setdefault(name, {"cases": 0, "max_abs_err": {}})
+        row["cases"] += 1
+        row["max_abs_err"][dtype_name] = max(row["max_abs_err"].get(dtype_name, 0.0), err)
+        if got.dtype == torch.bfloat16:
+            same = torch.equal(got.cpu().view(torch.int16), want.cpu().view(torch.int16))
+            row["bf16_bitwise"] = row.get("bf16_bitwise", True) and same
+        return err
+
+    def max_err(self, name) -> float:
+        return max(self.rows[name]["max_abs_err"].values())
+
+    def of(self, *names) -> dict:
+        return {name: self.rows[name] for name in names}
+
+
 def fused_operands(grid, names, images, device, radius=1, rng=None):
     """Dense banks for ``names`` on ``grid`` (library ingest plans, or
     random runtime tap selects and consts when ``rng`` is given)."""
@@ -273,12 +306,12 @@ def phase_device_and_build():
     return card
 
 
-def wide_grid():
-    """A grid 40 values wide (past B4's 32, inside B1's and B2's 64) that
-    every library app maps on."""
+def wide_grid(width=40):
+    """A grid ``width`` values wide (40: past 32; 64: the kernels' limit)
+    that every library app maps on."""
     from repro_torch.core.grid import custom
 
-    return custom("wide-40", 40, [40, 11, 7, 5, 3, 3, 2], 1)
+    return custom(f"wide-{width}", width, [width, 11, 7, 5, 3, 3, 2], 1)
 
 
 #: B1's kernel-vs-plain radii: library ingests at 1, random runtime ones
@@ -297,7 +330,7 @@ def fused_frames(n_apps):
 BATCHED_SIZES = (1, 45, 1000, 4099)
 
 
-def phase_kernels_vs_plain(device, all_grid):
+def phase_kernels_vs_plain(device, all_grid, tally):
     """Every case: kernel on the card vs its plain version on the same
     inputs, synchronized after each case, bitwise in every dtype."""
     import torch
@@ -313,8 +346,6 @@ def phase_kernels_vs_plain(device, all_grid):
 
     rng = np.random.default_rng(0)
     all_names = sorted(apps.ALL_APPS)
-    errs = {"vcgra_fused_batched": 0.0, "vcgra_batched": 0.0}
-    cases = {"vcgra_fused_batched": 0, "vcgra_batched": 0}
     for dtype_name in DTYPE_NAMES:
         for base, names in ((sobel_grid(), SOBEL_APPS), (all_grid, all_names),
                             (wide_grid(), all_names)):
@@ -330,19 +361,15 @@ def phase_kernels_vs_plain(device, all_grid):
                     for tr in (None, 1, 3, H + 1, TILE_AUTO) if H == 37 else (None,):
                         got = vcgra_fused_batched(grid, radius, settings, ingests, frames,
                                                   tile_rows=tr)
-                        errs["vcgra_fused_batched"] = max(
-                            errs["vcgra_fused_batched"], compare(got, want, dtype_name, True))
-                        cases["vcgra_fused_batched"] += 1
+                        tally.check("vcgra_fused_batched", got, want, dtype_name, True)
             cfgs = [map_app(apps.ALL_APPS[n](), grid) for n in names]
             settings = pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=device))
             for B in BATCHED_SIZES:
                 xs = torch.as_tensor(rng.integers(0, 256, (len(names), grid.num_inputs, B)),
                                      device=device).to(grid.dtype)
                 got = vcgra_batched(grid, settings, xs)
-                errs["vcgra_batched"] = max(errs["vcgra_batched"], compare(
-                    got, vcgra_batched_ref(grid, settings, xs), dtype_name, True))
-                cases["vcgra_batched"] += 1
-    return errs, cases
+                tally.check("vcgra_batched", got, vcgra_batched_ref(grid, settings, xs),
+                            dtype_name, True)
 
 
 def chain_operands(grid, chain, hws, Hc, Wc, device, rng, images=None):
@@ -382,13 +409,12 @@ def chain_operands(grid, chain, hws, Hc, Wc, device, rng, images=None):
     return settings, ingests, out_chs, hw, frames
 
 
-def phase_pipeline_vs_plain(device, all_grid):
+def phase_pipeline_vs_plain(device, all_grid, tally):
     """B3 on the card vs its plain version, every case synchronized."""
     from repro_torch.core.tiling import TILE_AUTO
     from repro_torch.kernels.vcgra import vcgra_pipeline_batched, vcgra_pipeline_batched_ref
 
     rng = np.random.default_rng(3)
-    err, cases = 0.0, 0
     bases = (shared_grid(CHAIN, "pipe-shared"), all_grid,
              shared_grid(CHAIN, "pipe-shared-k2", num_outputs=2))
     for dtype_name in ("int32", "int16", "float32", "bfloat16"):
@@ -404,8 +430,7 @@ def phase_pipeline_vs_plain(device, all_grid):
                     want = vcgra_pipeline_batched_ref(grid, radii, *args)
                     for tr in (None, 1, 3, TILE_AUTO):
                         got = vcgra_pipeline_batched(grid, radii, *args, tile_rows=tr)
-                        err = max(err, compare(got, want, dtype_name))
-                        cases += 1
+                        tally.check("vcgra_pipeline_batched", got, want, dtype_name)
         # Frames of several of the kernel's 32 x 32P output tiles, ragged in
         # both directions.
         grid = retyped(bases[2], dtype_name)
@@ -418,9 +443,7 @@ def phase_pipeline_vs_plain(device, all_grid):
                 args = chain_operands(grid, chain, hws, H, W, device, rng)
                 want = vcgra_pipeline_batched_ref(grid, radii, *args)
                 got = vcgra_pipeline_batched(grid, radii, *args)
-                err = max(err, compare(got, want, dtype_name))
-                cases += 1
-    return err, cases
+                tally.check("vcgra_pipeline_batched", got, want, dtype_name)
 
 
 def oracle(app, img):
@@ -594,19 +617,20 @@ def phase_chain_path(svc, pipe_grid):
 SHIELD_CYCLES = 2_000_000
 
 
-def cuda_ms(fn, reps, shield=False):
+def cuda_ms(fn, reps, shield=False, before=None):
     """Median device time of ``fn`` over ``reps`` runs, by CUDA events."""
-    return statistics.median(cuda_times(fn, reps, shield))
+    return statistics.median(cuda_times(fn, reps, shield, before))
 
 
-def cuda_times(fn, reps, shield=False):
+def cuda_times(fn, reps, shield=False, before=None):
     """Device times (ms) of ``reps`` runs of ``fn`` after one warm-up, by
     CUDA events.  Unshielded, a run's interval also holds the host's time
     to enqueue its launches whenever the stream is idle meanwhile (what a
     caller waits for).  With ``shield`` a spin is queued on the stream just
     before each start event, the host enqueues ``fn``'s launches while the
     card spins, and the interval is the card's own time for them: a
-    kernel's time, without its Python wrapper's."""
+    kernel's time, without its Python wrapper's.  ``before``, if given,
+    runs ahead of each run, outside its interval (an L2 flush)."""
     import torch
 
     fn()
@@ -614,6 +638,8 @@ def cuda_times(fn, reps, shield=False):
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         if shield:
             torch.cuda._sleep(SHIELD_CYCLES)
         start.record()
@@ -821,11 +847,11 @@ def phase_chain_times(device, svc, chain_reqs, pipe_grid):
     return row, e2e
 
 
-def kernel_block(kernel, grid, R=0):
-    """The block of B1 (at radius R), B2 or B3 (at total radius R) on this
-    grid: threads, registers a thread (the compiler's, read from the built
-    kernel) and dynamic shared memory; for B1 also whether its frame
-    window is in shared memory."""
+def kernel_block(kernel, grid, R=0, block_n=1024):
+    """The block of B1 (at radius R), B2, B3 (at total radius R) or B4 (at
+    ``block_n``) on this grid: threads, registers a thread (the compiler's,
+    read from the built kernel) and dynamic shared memory; for B1 also
+    whether its frame window is in shared memory, for B4 its passes."""
     from repro_torch.core.tiling import itemsize
     from repro_torch.kernels.build import load_library
     from repro_torch.kernels.vcgra import ops
@@ -836,6 +862,10 @@ def kernel_block(kernel, grid, R=0):
         threads, smem = ops.pipeline_launch(args[0], R, *args[1:])
         return {"threads": threads, "smem_bytes": smem,
                 "registers_per_thread": load_library("vcgra_pipeline").vcgra_pipeline_regs(code)}
+    if kernel == "vcgra_conventional":
+        threads, smem, passes = ops.conventional_launch(*args, block_n)
+        return {"threads": threads, "smem_bytes": smem, "passes": passes, "block_n": block_n,
+                "registers_per_thread": load_library("vcgra").vcgra_kernel_regs(3, code)}
     if kernel == "vcgra_fused_batched":
         threads, smem, window = ops.fused_launch(args[0], R, *args[1:])
         which = 0 if window else 1
@@ -982,14 +1012,24 @@ def phase_single_app_path(device, frame):
     return launches, pixies, cfg, sec_v_e
 
 
-def phase_single_vs_plain(device):
+#: B6's kernel-vs-plain frames (H, W): odd non-square, one pixel, widths
+#: that are not a multiple of its V columns a thread (4 or 8) or below V,
+#: one row, and 1080p.
+STENCIL_FRAMES = ((37, 53), (1, 1), (131, 7), (5, 4097), (3, 6), (1, 3), (2, 9), (1, 1920),
+                  (1080, 1920))
+
+
+def phase_single_vs_plain(device, tally):
     """B4, B5 and B6 on the card vs their plain versions, each case
     synchronized.  The B5 kernels (one per config, dtype and bake_consts)
-    are compiled first, in parallel threads."""
+    are compiled first, in parallel threads.  B4 also runs every library
+    app on the 40- and 64-wide grids; B6 every filter form on frames from a
+    16-byte aligned start and one element past it."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
     from repro_torch.core import applications as apps
+    from repro_torch.core.pixie import map_app
     from repro_torch.kernels import stencil
     from repro_torch.kernels.vcgra import (
         SpecializedKernel, vcgra_conventional, vcgra_conventional_ref, vcgra_specialized,
@@ -998,53 +1038,66 @@ def phase_single_vs_plain(device):
     from repro_torch.kernels.vcgra.ops import _pack_settings
 
     rng = np.random.default_rng(8)
-    errs = {"vcgra_conventional": 0.0, "vcgra_specialized": 0.0, "stencil_fused": 0.0}
-    cases = dict.fromkeys(errs, 0)
     jobs = [(dtype_name, grid, cfg, bake) for dtype_name in DTYPE_NAMES
             for grid, cfg in single_app_cases(dtype_name) for bake in (False, True)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as pool:
         kernels = list(pool.map(lambda j: SpecializedKernel(j[1], j[2], j[3], device), jobs))
     compile_s = time.perf_counter() - t0
-    for (dtype_name, grid, cfg, bake), kernel in zip(jobs, kernels):
+
+    def conventional(dtype_name, grid, cfg, x):
         settings = _pack_settings(grid, cfg, device=device)[:3]
+        want = vcgra_conventional_ref(grid, settings, x)
+        for block_n in (128, 256, 1024):
+            tally.check("vcgra_conventional",
+                        vcgra_conventional(grid, settings, x, block_n=block_n), want,
+                        dtype_name, True)
+
+    for (dtype_name, grid, cfg, bake), kernel in zip(jobs, kernels):
         for n in (1, 45, 4099):
             x = torch.as_tensor(rng.integers(-8, 256, (grid.num_inputs, n)),
                                 device=device).to(grid.dtype)
             want = vcgra_specialized_ref(grid, cfg, x, bake)
             for block_n in (128, 1024):
-                errs["vcgra_specialized"] = max(errs["vcgra_specialized"], compare(
-                    vcgra_specialized(kernel, x, block_n=block_n), want, dtype_name))
-                cases["vcgra_specialized"] += 1
-            if bake:
-                continue
-            want = vcgra_conventional_ref(grid, settings, x)
-            for block_n in (128, 256, 1024):
-                errs["vcgra_conventional"] = max(errs["vcgra_conventional"], compare(
-                    vcgra_conventional(grid, settings, x, block_n=block_n), want, dtype_name))
-                cases["vcgra_conventional"] += 1
+                tally.check("vcgra_specialized", vcgra_specialized(kernel, x, block_n=block_n),
+                            want, dtype_name)
+            if not bake:
+                conventional(dtype_name, grid, cfg, x)
+    for dtype_name in DTYPE_NAMES:
+        for width in (40, 64):
+            grid = retyped(wide_grid(width), dtype_name)
+            for name in sorted(apps.ALL_APPS):
+                cfg = map_app(apps.ALL_APPS[name](), grid)
+                for n in (1, 45, 4099):
+                    x = torch.as_tensor(rng.integers(-8, 256, (width, n)),
+                                        device=device).to(grid.dtype)
+                    conventional(dtype_name, grid, cfg, x)
     forms = [(apps.SOBEL_X, apps.SOBEL_Y)] + [(k,) for k in stencil.ops.FILTERS.values()]
     for dtype_name, dtype in (("int32", torch.int32), ("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
-        for H, W in ((37, 53), (1, 1), (131, 7), (1080, 1920)):
-            img = torch.as_tensor(rng.integers(0, 256, (H, W)), device=device).to(dtype)
-            for kernels_ in forms:
-                want = stencil.stencil_fused_ref(img, kernels_)
-                for block_h in (1, 8, 128):
-                    errs["stencil_fused"] = max(errs["stencil_fused"], compare(
-                        stencil.stencil_fused(img, kernels_, block_h=block_h), want,
-                        dtype_name))
-                    cases["stencil_fused"] += 1
-    return errs, cases, {"b5_kernels": len(jobs), "b5_compile_s": compile_s}
+        for H, W in STENCIL_FRAMES:
+            flat = torch.as_tensor(rng.integers(0, 256, H * W + 1), device=device).to(dtype)
+            for img in (flat[:-1].view(H, W), flat[1:].view(H, W)):
+                for kernels_ in forms:
+                    want = stencil.stencil_fused_ref(img, kernels_)
+                    for block_h in (1, 8, 128):
+                        tally.check("stencil_fused",
+                                    stencil.stencil_fused(img, kernels_, block_h=block_h), want,
+                                    dtype_name)
+    return {"b5_kernels": len(jobs), "b5_compile_s": compile_s}
 
 
 def phase_single_times(device, frame, mag_cfg, pixies):
     """B4, B5 and B6 at the single-app path's shapes (the ``sobel_mag``
     exact grid's ``[27, 1080*1920]`` int32 channels; the 1080p int32 frame),
-    beside their bounds and plain versions; for B6 also one
+    beside their bounds (B4 and B5 over the live channels and PEs) and
+    plain versions, with B4's block; for B6 also one
     ``torch.nn.functional.conv2d`` call (float32, one filter) as a
-    yardstick, beside B6's own float32 one-filter time.  Then the paper's
-    four Sobel magnitudes timed end to end on the card."""
+    yardstick, beside B6's own float32 one-filter time, and both again
+    with the L2 flushed before each run (``cold_ms``: a 64 MB write, outside
+    the timed interval; warm, the 8.3 MB frame stays in the 50 MB L2), and
+    B6's Sobel magnitude of the same frame in float32 and bf16.  Then the
+    paper's four Sobel magnitudes timed end to end on the card."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import applications as apps
@@ -1066,6 +1119,12 @@ def phase_single_times(device, frame, mag_cfg, pixies):
     kernel = SpecializedKernel(grid, mag_cfg, False, device)
     live = len(live_inputs(grid, mag_cfg))
     live_pes = kernel.source.count(" = pe(")
+    [(b4_pes, b4_channels)] = live_work(grid, ["sobel_mag"])
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+
+    def flush_l2():
+        scratch.fill_(1)
+
     rows = {}
 
     def row(name, run, plain, bytes_moved, ops, shape):
@@ -1075,27 +1134,52 @@ def phase_single_times(device, frame, mag_cfg, pixies):
                           bound_ms=b_ms, bound_by=b_by, shape=shape, main_path_err=err)
 
     row("vcgra_conventional", lambda: vcgra_conventional(grid, settings, x),
-        lambda: vcgra_conventional_ref(grid, settings, x), 4 * n * (C + K), n * grid.num_pes,
-        f"[{C}, {n}] {grid.name}")
+        lambda: vcgra_conventional_ref(grid, settings, x), 4 * n * (b4_channels + K),
+        n * b4_pes, f"[{C}, {n}] {grid.name}, {b4_channels} live rows, {b4_pes} live PEs")
+    rows["vcgra_conventional"].update(block=kernel_block("vcgra_conventional", grid),
+                                      live_channels=b4_channels, live_pes=b4_pes)
     row("vcgra_specialized", lambda: vcgra_specialized(kernel, x),
         lambda: vcgra_specialized_ref(grid, mag_cfg, x), 4 * n * (live + K), n * live_pes,
         f"[{C}, {n}] {grid.name}, {live} live rows, {live_pes} live PEs")
     pair = (apps.SOBEL_X, apps.SOBEL_Y)
-    row("stencil_fused", lambda: stencil.stencil_fused(frame_t, pair),
-        lambda: stencil.stencil_fused_ref(frame_t, pair), 4 * 2 * n, n * SOBEL_MAG_OPS,
-        f"{frame.shape[0]}x{frame.shape[1]} int32 Sobel magnitude")
+
+    def b6():
+        return stencil.stencil_fused(frame_t, pair)
+
+    row("stencil_fused", b6, lambda: stencil.stencil_fused_ref(frame_t, pair), 4 * 2 * n,
+        n * SOBEL_MAG_OPS, f"{frame.shape[0]}x{frame.shape[1]} int32 Sobel magnitude")
     frame_f = frame_t.float()
     weight = torch.tensor(apps.SOBEL_X, dtype=torch.float32, device=device)[None, None]
     lib_out = F.conv2d(frame_f[None, None], weight, padding=1)[0, 0]
     # Integer-valued frame: every float32 product and sum is exact, so the
     # library call and B6 agree bitwise whatever their summation order.
     compare(stencil.stencil_fused(frame_f, (apps.SOBEL_X,)), lib_out, "float32")
+
+    def library():
+        return F.conv2d(frame_f[None, None], weight, padding=1)
+
+    def single():
+        return stencil.stencil_fused(frame_f, (apps.SOBEL_X,))
+
     rows["stencil_fused"].update(
-        library_ms=cuda_ms(lambda: F.conv2d(frame_f[None, None], weight, padding=1), 20,
-                           shield=True),
+        cold_ms=cuda_ms(b6, 20, shield=True, before=flush_l2),
+        library_ms=cuda_ms(library, 20, shield=True),
+        library_cold_ms=cuda_ms(library, 20, shield=True, before=flush_l2),
         library_call="torch.nn.functional.conv2d float32, one 3x3 filter, padding=1",
-        single_filter_ms=cuda_ms(lambda: stencil.stencil_fused(frame_f, (apps.SOBEL_X,)), 20,
-                                 shield=True))
+        single_filter_ms=cuda_ms(single, 20, shield=True),
+        single_filter_cold_ms=cuda_ms(single, 20, shield=True, before=flush_l2),
+        block_h=8)
+    by_dtype = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        img = frame_t.to(dtype)
+        compare(stencil.stencil_fused(img, pair), stencil.stencil_fused_ref(img, pair),
+                str(dtype)[6:], exact=True)
+        by_dtype[str(dtype)[6:]] = {
+            "ms": cuda_ms(lambda: stencil.stencil_fused(img, pair), 20, shield=True),
+            "cold_ms": cuda_ms(lambda: stencil.stencil_fused(img, pair), 20, shield=True,
+                               before=flush_l2)}
+    rows["stencil_fused"]["sobel_mag_by_dtype"] = by_dtype
+    del scratch
 
     conv, par = pixies["sobel_mag conventional"], pixies["sobel_mag parameterized"]
     four = {
@@ -1532,17 +1616,16 @@ def main() -> int:
     from repro_torch.core import applications as apps
 
     all_grid = shared_grid(sorted(apps.ALL_APPS))
+    tally = Tally()
     t0 = time.perf_counter()
-    errs, cases = phase_kernels_vs_plain(device, all_grid)
-    emit({"phase": "kernels_vs_plain", "cases": cases, "max_abs_err": errs,
+    phase_kernels_vs_plain(device, all_grid, tally)
+    emit({"phase": "kernels_vs_plain", "kernels": tally.of("vcgra_fused_batched", "vcgra_batched"),
           "tolerance": "bitwise in every dtype, bf16 included",
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    errs["vcgra_pipeline_batched"], cases["vcgra_pipeline_batched"] = \
-        phase_pipeline_vs_plain(device, all_grid)
-    emit({"phase": "pipeline_vs_plain", "cases": cases["vcgra_pipeline_batched"],
-          "max_abs_err": errs["vcgra_pipeline_batched"],
+    phase_pipeline_vs_plain(device, all_grid, tally)
+    emit({"phase": "pipeline_vs_plain", "kernels": tally.of("vcgra_pipeline_batched"),
           "tolerance": "bitwise for int32/int16/float32; bf16 |d| <= 0.5 + 0.5|ref|",
           "seconds": time.perf_counter() - t0})
 
@@ -1553,10 +1636,11 @@ def main() -> int:
     single_launches, pixies, mag_cfg, sec_v_e = phase_single_app_path(device, frame)
 
     t0 = time.perf_counter()
-    single_errs, single_cases, compiles = phase_single_vs_plain(device)
-    errs.update(single_errs)
-    emit({"phase": "single_vs_plain", "cases": single_cases, "max_abs_err": single_errs,
-          **compiles, "tolerance": "bitwise for int32/int16/float32; bf16 |d| <= 0.5 + 0.5|ref|",
+    compiles = phase_single_vs_plain(device, tally)
+    emit({"phase": "single_vs_plain",
+          "kernels": tally.of("vcgra_conventional", "vcgra_specialized", "stencil_fused"),
+          **compiles, "tolerance": "B4 bitwise in every dtype, bf16 included; B5 and B6 bitwise "
+                                   "for int32/int16/float32, bf16 |d| <= 0.5 + 0.5|ref|",
           "seconds": time.perf_counter() - t0})
 
     rows, e2e = phase_times(device, svc, main_reqs, channel_requests, all_grid)
@@ -1569,7 +1653,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     flash_errs, flash_cases = phase_flash_vs_plain(device)
+    errs = {name: tally.max_err(name) for name in tally.rows}
     errs["flash_decode"] = max(e["max_abs_err"] for e in flash_errs.values())
+    bf16_errs = {name: row["max_abs_err"]["bfloat16"] for name, row in tally.rows.items()}
+    bf16_errs["flash_decode"] = flash_errs["bfloat16 q / bfloat16 cache"]["max_abs_err"]
     emit({"phase": "flash_vs_plain", "cases": flash_cases, "by_dtype": flash_errs,
           "tolerance": "float32 outputs |d| <= 2e-5 (1 + |ref|) (the reference's); bf16 "
                        "outputs |d| <= 2^-7 |ref| + 1e-3 max|ref| (one bf16 unit); exactly 0 "
@@ -1595,6 +1682,8 @@ def main() -> int:
             "max_abs_err": max(errs[name], r["main_path_err"]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "shape": r["shape"],
+            "bf16_max_abs_err": bf16_errs[name],
+            **{k: r[k] for k in ("cold_ms", "library_cold_ms") if k in r},
         })
     emit({"kernels": kernels, "launches": {"main_path": main_launches,
                                            "chain_path": chain_launches,

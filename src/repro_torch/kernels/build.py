@@ -3,7 +3,7 @@
 ``nvcc`` compiles each source into a shared library with a plain C
 interface, loaded with ``ctypes``: ``vcgra/csrc/vcgra.cu`` holds B1, B2 and
 B4, ``vcgra/csrc/vcgra_pipeline.cu`` holds B3 (both include
-``vcgra_vec.cuh``, the vectorised pipeline of B1, B2 and B3, which
+``vcgra_vec.cuh``, the vectorised pipeline of B1 to B4, which
 includes ``vcgra_pe.cuh``, the PE semantics), ``vcgra/csrc/vcgra_specialize.cu`` is
 the host shim that NVRTC-compiles and launches the per-app B5 kernels,
 ``stencil/csrc/stencil.cu`` holds B6 and
@@ -57,9 +57,8 @@ SIGNATURES = {
         ("vcgra_fused_batched", [_INT] + [_VOID_P] * 11 + [_INT] * 11 + [_VOID_P]),
         ("vcgra_batched", [_INT] + [_VOID_P] * 7 + [_INT, _INT64] + [_INT] * 7 + [_VOID_P]),
         ("vcgra_conventional",
-         [_INT] + [_VOID_P] * 6 + [_INT64, _INT64] + [_INT] * 4 + [_VOID_P]),
+         [_INT] + [_VOID_P] * 7 + [_INT64, _INT64] + [_INT] * 7 + [_VOID_P]),
         ("vcgra_max_vals", []),
-        ("vcgra_conventional_max_vals", []),
         ("vcgra_window_max_radius", []),
         ("vcgra_fused_max_radius", []),
         ("vcgra_record_ints", [_INT] * 4),

@@ -17,13 +17,14 @@
 // pixel reads its frame once and writes K outputs, ~0.08 ms of bytes at
 // the main path's shape, but every live PE at every pixel is a
 // runtime-selected op on two runtime-selected values, which a register
-// file cannot index.  B2 reads a channel row per live channel a pixel, so
-// its bytes weigh more: it runs near them.  Both take the vectorised
-// design of vcgra_vec.cuh (shared with B3): P = 16 / sizeof(T)
-// pixels a thread in 16-byte shared-memory value columns; settings decoded
-// once per app by a first one-warp launch (vcgra_pack_settings) into a
-// record of the live PEs and live channels only; one pe_vec call site with
-// the next PE prefetched; no division or modulo per pixel.
+// file cannot index.  B2 and B4 read a channel row per live channel a
+// pixel, so their bytes weigh more: they run near them.  All three take
+// the vectorised design of vcgra_vec.cuh (shared with B3): P = 16 /
+// sizeof(T) pixels a thread in 16-byte shared-memory value columns;
+// settings decoded once per app by a first one-warp launch
+// (vcgra_pack_settings) into a record of the live PEs and live channels
+// only; one pe_vec call site with the next PE prefetched; no division or
+// modulo per pixel.
 //   * B1 is the tile kernel's one-stage instance: one block per (app,
 //     32 x 32P output tile) with the (32 + 2r) x (32P + 2r) frame window in
 //     shared memory and taps at precomputed offsets dy * row + dx, for r up
@@ -35,12 +36,14 @@
 //     kBatchedPasses groups of P pixels a thread, reading each live
 //     channel's row x[c * B + p ...] with one 16-byte load where the rows
 //     are 16-byte aligned (B a multiple of P), P scalar loads otherwise.
-//
-// B4 keeps its first design (right before fast): one pixel a thread, 128 a
-// pass, each block staging its app's dense settings rows in shared memory
-// and running every PE of every level (level_pipeline) through a value
-// column of at most kMaxVals (32) values; block_n pixels per block, so a
-// block stages its bank once for block_n / 128 passes.
+//   * B4 is B2's kernel over one app ([C, N] is [1, C, B]) with the passes
+//     a runtime argument: block_n pixels a block, so ceil(block_n /
+//     (threads * P)) passes, at least one.  The reference's block_n
+//     contract holds (a positive multiple of 128); the output does not
+//     depend on it.  Its block (the sobel_mag grid's 45 value slots a
+//     thread) fits two to an SM, so on aligned rows it copies a group's
+//     live channels into shared memory with cp.async, all in flight at
+//     once, instead of two loads at a time through registers.
 //
 // PE semantics are vcgra_pe.cuh's (bit for bit the reference's).  64-bit
 // index math for N*K*H*W.
@@ -53,9 +56,8 @@
 
 namespace {
 
-constexpr int kBlock = 128;          // B4: threads (= pixels) per block
-constexpr int kMaxVals = 32;         // B4: widest value vector: max(C, pes per level)
 constexpr int kBatchedPasses = 8;    // B2: groups of P pixels a thread takes
+constexpr int kLane = 128;           // B4: block_n is a positive multiple of this
 // B1's largest radius: its (2r + 1)^2 + 1 tap-bank rows are indexed by the
 // int32 tap_sel.
 constexpr int kMaxFusedRadius = 23169;
@@ -90,18 +92,35 @@ int launch_fused(const void* frames, const int* ops, const int* sel, const int* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// --- B2: pre-packed channels ------------------------------------------------
+// --- B2 and B4: pre-packed channels -----------------------------------------
 
-// grid (ceil(groups / (threads * kBatchedPasses)), N apps); block b of app n
-// takes groups [b * threads * kBatchedPasses, ...), pass by pass, so that a
-// warp's threads read neighbouring 16 bytes in every pass.
-template <typename T>
+// One 16-byte copy from device memory into shared memory that holds no
+// register while in flight (cp.async, L2 only); cp_async_wait() waits for
+// all of the thread's copies and makes them visible to it.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem_dst))),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// grid (ceil(groups / (threads * passes)), N apps); block b of app n takes
+// groups [b * threads * passes, ...), pass by pass, so that a warp's
+// threads read neighbouring 16 bytes in every pass.  B2 is the instance
+// with kPasses = kBatchedPasses; B4 the one with kPasses = 0, which takes
+// the `passes` argument instead and, on aligned rows, copies every live
+// channel of a group into its value column with cp.async, all in flight
+// at once.
+template <typename T, int kPasses>
 __global__ void __launch_bounds__(128)
 vcgra_batched_kernel(const T* __restrict__ xs, const int* __restrict__ records,
                      T* __restrict__ out, int64_t B, int L, int max_w, int K, int C,
-                     int slots_a, int slots_b, bool aligned) {
+                     int slots_a, int slots_b, bool aligned, int passes) {
   using V = Vec<T>;
   constexpr int P = V::N;
+  const int n_pass = kPasses > 0 ? kPasses : passes;
   extern __shared__ __align__(16) unsigned char smem[];
   const int threads = blockDim.x, tid = threadIdx.x;
   const Layout lay = smem_layout(sizeof(T), 0, 0, slots_a, slots_b, threads, C, L, max_w, K);
@@ -116,8 +135,8 @@ vcgra_batched_kernel(const T* __restrict__ xs, const int* __restrict__ records,
   const int n_tap = rec.counts[0];
   const T* x = xs + static_cast<int64_t>(n) * C * B;
   T* o = out + static_cast<int64_t>(n) * K * B;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kBatchedPasses * threads + tid;
-  for (int pass = 0; pass < kBatchedPasses; ++pass) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * n_pass * threads + tid;
+  for (int pass = 0; pass < n_pass; ++pass) {
     const int64_t p = (first + static_cast<int64_t>(pass) * threads) * P;
     if (p >= B) return;
     auto fetch = [&](int2 t) {
@@ -128,19 +147,30 @@ vcgra_batched_kernel(const T* __restrict__ xs, const int* __restrict__ records,
       for (int e = 0; e < P; ++e) v.v[e] = p + e < B ? row[e] : zero_value<T>();
       return v;
     };
-    const V* src = eval_group<T>(col_a, col_b, rec, nullptr, n_tap, 0, 0, L, max_w, fetch);
+    int taps = n_tap;
+    if (kPasses == 0 && aligned) {
+      for (int c = 0; c < n_tap; ++c) {
+        const int2 t = rec.tap[c];
+        cp_async16(col_a + (t.y & 0xffff), x + t.x * B + p);
+      }
+      cp_async_wait();
+      taps = 0;
+    }
+    const V* src = eval_group<T>(col_a, col_b, rec, nullptr, taps, 0, 0, L, max_w, fetch);
     store_outputs<T>(o + p, B, src, rec.out, K, aligned, B - p);
   }
 }
 
-template <typename T>
+// B2 (kPasses = kBatchedPasses) and B4 (kPasses = 0, `passes` a block).
+template <typename T, int kPasses>
 int launch_batched(const void* xs, const int* ops, const int* sel, const int* out_sel,
                    const int* widths, int* records, void* out, int N, int64_t B, int L,
-                   int max_w, int K, int C, int threads, int slots_a, int slots_b,
+                   int max_w, int K, int C, int threads, int slots_a, int slots_b, int passes,
                    cudaStream_t stream) {
+  auto kernel = vcgra_batched_kernel<T, kPasses>;
   const Layout lay = smem_layout(sizeof(T), 0, 0, slots_a, slots_b, threads, C, L, max_w, K);
   if (lay.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(vcgra_batched_kernel<T>, lay.total);
+  cudaError_t err = allow_smem(kernel, lay.total);
   if (err != cudaSuccess) return static_cast<int>(err);
   vcgra_pack_settings<T><<<N, 32, 0, stream>>>(
       ops, sel, out_sel, nullptr, nullptr, nullptr, widths, nullptr, records, nullptr, 1, N,
@@ -148,14 +178,24 @@ int launch_batched(const void* xs, const int* ops, const int* sel, const int* ou
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int P = Vec<T>::N;
-  const int64_t per_block = static_cast<int64_t>(threads) * kBatchedPasses * P;
+  const int64_t per_block = static_cast<int64_t>(threads) * passes * P;
   const bool aligned = B % P == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const dim3 grid(static_cast<unsigned>((B + per_block - 1) / per_block), N);
-  vcgra_batched_kernel<T><<<grid, threads, lay.total, stream>>>(
+  kernel<<<grid, threads, lay.total, stream>>>(
       static_cast<const T*>(xs), records, static_cast<T*>(out), B, L, max_w, K, C, slots_a,
-      slots_b, aligned);
+      slots_b, aligned, passes);
   return static_cast<int>(cudaGetLastError());
+}
+
+// B4's passes: block_n pixels a block in passes of threads * P, at least
+// one, and no more than N needs (a block_n past N takes N in one block).
+template <typename T>
+int conventional_passes(int threads, int64_t N, int64_t block_n) {
+  const int64_t per_pass = static_cast<int64_t>(threads) * Vec<T>::N;
+  const int64_t want = (block_n + per_pass - 1) / per_pass;
+  const int64_t most = (N + per_pass - 1) / per_pass;
+  return static_cast<int>(want < most ? want : most > 0 ? most : 1);
 }
 
 bool valid_vec_launch(int C, int max_w, int threads, int slots_a, int slots_b) {
@@ -164,112 +204,22 @@ bool valid_vec_launch(int C, int max_w, int threads, int slots_a, int slots_b) {
          (threads == 32 || threads == 64 || threads == 128);
 }
 
-// --- B4: one app over channel-major [C, N] ---------------------------------
-
-struct Settings {
-  const int* ops;      // [L, max_w]
-  const int* sel;      // [L, max_w, 2]
-  const int* out_sel;  // [K]
-  const int* widths;   // [L]
-};
-
-// Copy the app's settings rows into shared memory: one bank per block, read
-// by every thread's mux selects.
-__device__ Settings stage_settings(int* smem, const int* ops, const int* sel,
-                                   const int* out_sel, const int* widths, int L, int max_w,
-                                   int K) {
-  const int n_ops = L * max_w;
-  int* s_ops = smem;
-  int* s_sel = s_ops + n_ops;
-  int* s_out = s_sel + 2 * n_ops;
-  int* s_w = s_out + K;
-  for (int i = threadIdx.x; i < n_ops; i += blockDim.x) s_ops[i] = ops[i];
-  for (int i = threadIdx.x; i < 2 * n_ops; i += blockDim.x) s_sel[i] = sel[i];
-  for (int i = threadIdx.x; i < K; i += blockDim.x) s_out[i] = out_sel[i];
-  for (int i = threadIdx.x; i < L; i += blockDim.x) s_w[i] = widths[i];
-  __syncthreads();
-  return Settings{s_ops, s_sel, s_out, s_w};
-}
-
-// Run the L PE levels over this thread's value column (vals[0] holds the C
-// channels on entry) and write the K output-mux selections.
-template <typename T>
-__device__ void level_pipeline(const Settings& s, T (*vals)[kMaxVals][kBlock],
-                               int L, int max_w, int K, T* out, int64_t out_base,
-                               int64_t stride, bool active) {
-  const int tid = threadIdx.x;
-  int cur = 0;
-  for (int lvl = 0; lvl < L; ++lvl) {
-    const int w = s.widths[lvl];
-    const int* ops = s.ops + lvl * max_w;
-    const int* sel = s.sel + 2 * lvl * max_w;
-    for (int slot = 0; slot < w; ++slot) {
-      const T a = vals[cur][sel[2 * slot]][tid];
-      const T b = vals[cur][sel[2 * slot + 1]][tid];
-      vals[1 - cur][slot][tid] = pe(ops[slot], a, b);
-    }
-    cur = 1 - cur;
-  }
-  if (!active) return;
-  for (int k = 0; k < K; ++k) out[out_base + k * stride] = vals[cur][s.out_sel[k]][tid];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
-vcgra_conventional_kernel(const T* __restrict__ x, const int* __restrict__ ops,
-                          const int* __restrict__ sel, const int* __restrict__ out_sel,
-                          const int* __restrict__ widths, T* __restrict__ out, int64_t N,
-                          int64_t block_n, int L, int max_w, int K, int C) {
-  extern __shared__ int settings_smem[];  // the other kernels' `smem` is unsigned char
-  // Raw storage: a __shared__ array may not have a constructor (bf16).
-  __shared__ __align__(16) unsigned char vals_raw[2 * kMaxVals * kBlock * sizeof(T)];
-  auto vals = reinterpret_cast<T (*)[kMaxVals][kBlock]>(vals_raw);
-  const Settings s = stage_settings(settings_smem, ops, sel, out_sel, widths, L, max_w, K);
-  const int64_t start = static_cast<int64_t>(blockIdx.x) * block_n;
-  const int64_t end = start + block_n < N ? start + block_n : N;
-  // Each pass is independent per thread (its own value column), so passes
-  // need no barrier between them.
-  for (int64_t base = start; base < end; base += kBlock) {
-    const int64_t p = base + threadIdx.x;
-    const bool active = p < end;
-    for (int c = 0; c < C; ++c)
-      vals[0][c][threadIdx.x] = active ? x[c * N + p] : zero_value<T>();
-    level_pipeline<T>(s, vals, L, max_w, K, out, p, N, active);
-  }
-}
-
-size_t settings_smem_bytes(int L, int max_w, int K) {
-  return sizeof(int) * (static_cast<size_t>(3) * L * max_w + K + L);
-}
-
-template <typename T>
-int launch_conventional(const void* x, const int* ops, const int* sel, const int* out_sel,
-                        const int* widths, void* out, int64_t N, int64_t block_n, int L,
-                        int max_w, int K, int C, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((N + block_n - 1) / block_n));
-  vcgra_conventional_kernel<T><<<grid, kBlock, settings_smem_bytes(L, max_w, K), stream>>>(
-      static_cast<const T*>(x), ops, sel, out_sel, widths, static_cast<T*>(out), N, block_n,
-      L, max_w, K, C);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Limits: the widest value vector of B1 and B2, and of B4; the largest
-// radius of B1's shared-memory window, and of B1 at all.
+// Limits: the widest value vector of B1, B2 and B4; the largest radius of
+// B1's shared-memory window, and of B1 at all.
 extern "C" int vcgra_max_vals() { return kVecMaxVals; }
-extern "C" int vcgra_conventional_max_vals() { return kMaxVals; }
 extern "C" int vcgra_window_max_radius() { return kMaxWindowRadius; }
 extern "C" int vcgra_fused_max_radius() { return kMaxFusedRadius; }
 
-// Ints of one app's settings record (B1, B2).
+// Ints of one app's settings record (B1, B2, B4).
 extern "C" int vcgra_record_ints(int C, int L, int max_w, int K) {
   return record_ints(C, L, max_w, K);
 }
 
 // Bytes of dynamic shared memory one block takes (elem: the dtype's
 // bytes): B1 at `radius` (with its window up to kMaxWindowRadius, without
-// past it), B2.
+// past it), B2 and B4.
 extern "C" int vcgra_fused_smem(int elem, int radius, int slots_a, int slots_b, int threads,
                                 int C, int L, int max_w, int K) {
   const bool window = radius <= kMaxWindowRadius;
@@ -282,13 +232,15 @@ extern "C" int vcgra_batched_smem(int elem, int slots_a, int slots_b, int thread
 }
 
 // Registers a thread takes in kernel `kernel` (0: B1 with its window, 1:
-// B1 reading taps from device memory, 2: B2) for dtype code `dtype`, or -1.
+// B1 reading taps from device memory, 2: B2, 3: B4) for dtype code
+// `dtype`, or -1.
 extern "C" int vcgra_kernel_regs(int kernel, int dtype) {
 #define VCGRA_REGS(CODE, T)                                                      \
   case CODE:                                                                     \
     return kernel == 0   ? kernel_regs(vcgra_tile_kernel<T, false, true>)       \
            : kernel == 1 ? kernel_regs(vcgra_tile_kernel<T, false, false>)      \
-           : kernel == 2 ? kernel_regs(vcgra_batched_kernel<T>)                  \
+           : kernel == 2 ? kernel_regs(vcgra_batched_kernel<T, kBatchedPasses>) \
+           : kernel == 3 ? kernel_regs(vcgra_batched_kernel<T, 0>)              \
                          : -1;
   switch (dtype) {
     VCGRA_REGS(0, int32_t)
@@ -344,8 +296,10 @@ extern "C" int vcgra_batched(int dtype, const void* xs, const int* ops, const in
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VCGRA_BATCHED(CODE, T)                                                              \
   case CODE:                                                                                \
-    return launch_batched<T>(xs, ops, sel, out_sel, widths, static_cast<int*>(records), out, \
-                             N, B, L, max_w, K, C, threads, slots_a, slots_b, st);
+    return launch_batched<T, kBatchedPasses>(xs, ops, sel, out_sel, widths,                  \
+                                             static_cast<int*>(records), out, N, B, L, max_w, \
+                                             K, C, threads, slots_a, slots_b, kBatchedPasses, \
+                                             st);
   switch (dtype) {
     VCGRA_BATCHED(0, int32_t)
     VCGRA_BATCHED(1, int16_t)
@@ -356,23 +310,29 @@ extern "C" int vcgra_batched(int dtype, const void* xs, const int* ops, const in
 #undef VCGRA_BATCHED
 }
 
-// block_n: pixels per block, a positive multiple of the block's 128 threads
-// (the wrapper checks it); any other value returns cudaErrorInvalidValue.
+// One app over channel-major x [C, N] -> out [K, N] (B4): as vcgra_batched
+// with N = 1 app over B = N pixels; block_n pixels a block (a positive
+// multiple of kLane, else cudaErrorInvalidValue without launching);
+// scratch: records int32 [vcgra_record_ints(C, L, max_w, K)].
 extern "C" int vcgra_conventional(int dtype, const void* x, const int* ops, const int* sel,
-                                  const int* out_sel, const int* widths, void* out,
-                                  int64_t N, int64_t block_n, int L, int max_w, int K, int C,
-                                  void* stream) {
-  if (block_n <= 0 || block_n % kBlock != 0) return static_cast<int>(cudaErrorInvalidValue);
+                                  const int* out_sel, const int* widths, void* records,
+                                  void* out, int64_t N, int64_t block_n, int L, int max_w, int K,
+                                  int C, int threads, int slots_a, int slots_b, void* stream) {
+  if (block_n <= 0 || block_n % kLane != 0 ||
+      !valid_vec_launch(C, max_w, threads, slots_a, slots_b))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VCGRA_CONVENTIONAL(CODE, T)                                                          \
+  case CODE:                                                                                 \
+    return launch_batched<T, 0>(x, ops, sel, out_sel, widths, static_cast<int*>(records),    \
+                                out, 1, N, L, max_w, K, C, threads, slots_a, slots_b,        \
+                                conventional_passes<T>(threads, N, block_n), st);
   switch (dtype) {
-    case 0: return launch_conventional<int32_t>(x, ops, sel, out_sel, widths, out, N, block_n,
-                                                L, max_w, K, C, st);
-    case 1: return launch_conventional<int16_t>(x, ops, sel, out_sel, widths, out, N, block_n,
-                                                L, max_w, K, C, st);
-    case 2: return launch_conventional<float>(x, ops, sel, out_sel, widths, out, N, block_n,
-                                              L, max_w, K, C, st);
-    case 3: return launch_conventional<__nv_bfloat16>(x, ops, sel, out_sel, widths, out, N,
-                                                      block_n, L, max_w, K, C, st);
+    VCGRA_CONVENTIONAL(0, int32_t)
+    VCGRA_CONVENTIONAL(1, int16_t)
+    VCGRA_CONVENTIONAL(2, float)
+    VCGRA_CONVENTIONAL(3, __nv_bfloat16)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef VCGRA_CONVENTIONAL
 }

@@ -1,6 +1,7 @@
-// The vectorised VCGRA pipeline, written once for three Hopper kernels:
-// B1 (vcgra_fused_batched) and B2 (vcgra_batched) in vcgra.cu, B3
-// (vcgra_pipeline_batched) in vcgra_pipeline.cu.
+// The vectorised VCGRA pipeline, written once for four Hopper kernels:
+// B1 (vcgra_fused_batched), B2 (vcgra_batched) and B4 (vcgra_conventional,
+// B2's kernel over one app) in vcgra.cu, B3 (vcgra_pipeline_batched) in
+// vcgra_pipeline.cu.
 //
 //   * P pixels a thread.  A thread carries P = 16 / sizeof(T) neighbouring
 //     pixels (4 for int32 and float32, 8 for int16 and bf16) through every

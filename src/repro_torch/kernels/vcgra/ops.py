@@ -59,8 +59,7 @@ _DTYPE_CODES = {torch.int32: 0, torch.int16: 1, torch.float32: 2, torch.bfloat16
 _MAX_APPS = 65535
 
 #: ``block_n`` of the single-app kernels (B4, B5) is a positive multiple of
-#: this, as the reference's lane-aligned blocks are; B4's blocks have this
-#: many threads.
+#: this, as the reference's lane-aligned blocks are.
 LANE = 128
 
 
@@ -115,11 +114,10 @@ def _check_settings(grid: GridSpec, n: int, settings, device) -> None:
     _check("out_sel", out_sel, (n, grid.num_outputs), torch.int32, device)
 
 
-#: The widest value vector (max(C, PEs a level)) each kernel holds: B1, B2
-#: and B3 share ``csrc/vcgra_vec.cuh``'s 64; B4, the one-pixel-a-thread
-#: design of ``csrc/vcgra.cu``, holds 32.
+#: The widest value vector (max(C, PEs a level)) each kernel holds: B1, B2,
+#: B3 and B4 share ``csrc/vcgra_vec.cuh``'s 64.
 MAX_VALS = {"vcgra_fused_batched": 64, "vcgra_batched": 64, "vcgra_pipeline_batched": 64,
-            "vcgra_conventional": 32}
+            "vcgra_conventional": 64}
 #: The library each wrapper launches from.
 _LIBRARIES = {"vcgra_pipeline_batched": "vcgra_pipeline"}
 
@@ -271,8 +269,8 @@ def record_ints(num_inputs: int, widths, K: int) -> int:
 
 def _block(kernel: str, itemsize: int, R: int, buffers: int, num_inputs: int, widths,
            K: int) -> Tuple[int, int]:
-    """``(threads, dynamic shared memory bytes)`` of a block of B1, B2 or
-    B3: the most threads of 128, 64, 32 whose block fits
+    """``(threads, dynamic shared memory bytes)`` of a block of B1, B2, B3
+    or B4: the most threads of 128, 64, 32 whose block fits
     :data:`MAX_SMEM_BYTES` (the mirror of ``smem_layout`` in
     ``csrc/vcgra_vec.cuh``: ``buffers`` window buffers of ``(32 + 2R) x
     (32P + 2Rp + 2P)`` elements, P = 16 / itemsize pixels a thread and Rp =
@@ -327,6 +325,17 @@ def batched_launch(itemsize: int, num_inputs: int, widths, K: int) -> Tuple[int,
     """B2's block, ``(threads, dynamic shared memory bytes)``: no window
     buffer.  Refuses a value vector wider than 64."""
     return _block("vcgra_batched", itemsize, 0, 0, num_inputs, widths, K)
+
+
+def conventional_launch(itemsize: int, num_inputs: int, widths, K: int,
+                        block_n: int) -> Tuple[int, int, int]:
+    """B4's block, ``(threads, dynamic shared memory bytes, passes)``: B2's
+    block over one app, taking ``block_n`` pixels in passes of ``threads *
+    P`` (P = 16 / itemsize), at least one (the C side also takes no more
+    than N needs).  Refuses a value vector wider than 64."""
+    threads, smem = _block("vcgra_conventional", itemsize, 0, 0, num_inputs, widths, K)
+    per_pass = threads * (16 // itemsize)
+    return threads, smem, max(1, -(-int(block_n) // per_pass))
 
 
 def vcgra_pipeline_batched(grid: GridSpec, radii, settings, ingests, out_chs: torch.Tensor,
@@ -407,9 +416,11 @@ def vcgra_conventional(grid: GridSpec, settings, x: torch.Tensor,
     its settings as runtime operands: the Hopper twin of the reference's
     Pallas ``vcgra_conventional``.  ``settings``: one dense bank
     ``(ops int32 [L, max_w], sel int32 [L, max_w, 2], out_sel int32 [K])``
-    (:func:`_pack_settings`).  ``block_n`` pixels per block (validated like
-    the reference's); N needs no padding and the output does not depend on
-    ``block_n``."""
+    (:func:`_pack_settings`).  Like B2 with one app: a small launch packs
+    the app's live settings, then the kernel reads only its live channels.
+    ``block_n`` pixels per block (validated like the reference's;
+    :func:`conventional_launch`); N needs no padding and the output does not
+    depend on ``block_n``."""
     block_n = _check_block_n(block_n)
     if x.dim() != 2:
         raise ValueError(f"x must be [channels, N], got shape {tuple(x.shape)}")
@@ -424,15 +435,19 @@ def vcgra_conventional(grid: GridSpec, settings, x: torch.Tensor,
     if device.type == "cpu":
         return ref.vcgra_conventional_ref(grid, settings, x)
     lib = _launch_target("vcgra_conventional", grid, 1, device)
+    threads, _, _ = conventional_launch(x.element_size(), C, grid.pes_per_level, K, block_n)
     out = torch.empty((K, N), dtype=grid.dtype, device=device)
     if out.numel() == 0:
         return out
     widths = _int32_on(grid.pes_per_level, device)
+    records = torch.empty(record_ints(C, grid.pes_per_level, K), dtype=torch.int32,
+                          device=device)
     with torch.cuda.device(device):
         rc = lib.vcgra_conventional(
             _DTYPE_CODES[grid.dtype], x.data_ptr(), ops.data_ptr(), sel.data_ptr(),
-            out_sel.data_ptr(), widths.data_ptr(), out.data_ptr(), N, block_n,
-            L, max_w, K, C, torch.cuda.current_stream().cuda_stream,
+            out_sel.data_ptr(), widths.data_ptr(), records.data_ptr(), out.data_ptr(), N,
+            block_n, L, max_w, K, C, threads, *value_slots(C, grid.pes_per_level),
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("vcgra_conventional", rc)
     LAUNCHES["vcgra_conventional"] += 1

@@ -1,10 +1,10 @@
 """The Hopper kernels on the card -- B1, B2, the chain kernel B3, the
 single-app kernels B4 (conventional) and B5 (specialized, NVRTC-compiled
 per app), the fused stencil B6 and the flash decode kernel B7 -- held
-against their plain PyTorch versions on the same inputs (B1 and B2 bitwise
-in every dtype, bf16 included; B3-B6 bitwise for int32, int16 and float32,
-bf16 within the reference's 0.5; B7's float32 outputs at the reference's
-2e-5, its bf16 outputs within one bf16 unit).
+against their plain PyTorch versions on the same inputs (B1, B2 and B4
+bitwise in every dtype, bf16 included; B3, B5 and B6 bitwise for int32,
+int16 and float32, bf16 within the reference's 0.5; B7's float32 outputs
+at the reference's 2e-5, its bf16 outputs within one bf16 unit).
 
 Every test needs a CUDA device and skips itself elsewhere; on a GPU host
 run ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
@@ -33,8 +33,8 @@ from repro_torch.kernels.vcgra import (
     vcgra_specialized, vcgra_specialized_ref,
 )
 from repro_torch.kernels.vcgra.ops import (
-    FUSED_MAX_RADIUS, WINDOW_MAX_RADIUS, _pack_settings, batched_launch, fused_launch, pipeline_launch,
-    record_ints, value_slots,
+    FUSED_MAX_RADIUS, MAX_VALS, WINDOW_MAX_RADIUS, _pack_settings, batched_launch,
+    conventional_launch, fused_launch, pipeline_launch, record_ints, value_slots,
 )
 from repro_torch.kernels.vcgra.specialized import compile_module
 
@@ -56,8 +56,15 @@ def all_apps_grid():
 
 
 def wide_grid():
-    """A grid 40 values wide (past B4's 32) that every library app maps on."""
+    """A grid 40 values wide (past 32, inside the kernels' 64) that every
+    library app maps on."""
     return custom("wide-40", 40, [40, 11, 7, 5, 3, 3, 2], 1)
+
+
+def widest_grid():
+    """A grid at the kernels' 64-value limit that every library app maps
+    on."""
+    return custom("wide-64", 64, [64, 11, 7, 5, 3, 3, 2], 1)
 
 
 #: B1/B2's grids: (grid, apps mapped on it).
@@ -152,7 +159,7 @@ def test_fused_and_batched_launch_shape_matches_its_mirror(cuda):
     ``batched_launch``, ``record_ints``) equal the C side's layout, and the
     limits the wrappers hold equal the library's."""
     lib = load_library("vcgra")
-    assert lib.vcgra_max_vals() == 64 and lib.vcgra_conventional_max_vals() == 32
+    assert lib.vcgra_max_vals() == 64 == MAX_VALS["vcgra_conventional"]
     assert lib.vcgra_window_max_radius() == WINDOW_MAX_RADIUS
     assert lib.vcgra_fused_max_radius() == FUSED_MAX_RADIUS
     for itemsize in (4, 2):
@@ -172,9 +179,25 @@ def test_fused_and_batched_launch_shape_matches_its_mirror(cuda):
                for code in range(4))
 
 
+def test_conventional_launch_shape_matches_its_mirror(cuda):
+    """B4's mirror (``conventional_launch``) equals the C side's B2 layout
+    it launches with, at every block_n, and its block reports registers."""
+    lib = load_library("vcgra")
+    for itemsize in (4, 2):
+        for C, widths in ((27, [18, 10, 6, 4, 2, 2, 1]), (18, [9] * 5), (64, [64] * 3),
+                          (40, [40, 11, 7, 5, 3, 3, 2]), (1, [1])):
+            for block_n in (128, 1024, 4096):
+                threads, smem, passes = conventional_launch(itemsize, C, widths, 1, block_n)
+                assert passes == max(1, -(-block_n // (threads * 16 // itemsize)))
+                assert lib.vcgra_batched_smem(itemsize, *value_slots(C, widths), threads, C,
+                                              len(widths), max(widths), 1) == smem
+    assert conventional_launch(4, 27, [18, 10, 6, 4, 2, 2, 1], 1, 1024) == (128, 93_760, 2)
+    assert all(lib.vcgra_kernel_regs(3, code) > 0 for code in range(4))
+
+
 def test_fused_and_batched_kernels_refuse_what_they_cannot_launch(cuda):
-    """Past 64 values B1 and B2 raise, B4 past 32 (naming the kernel); the
-    C entry points refuse a bad dtype code without launching."""
+    """Past 64 values B1, B2 and B4 raise (naming the kernel); the C entry
+    points refuse a bad dtype code or block_n without launching."""
     lib = load_library("vcgra")
     too_wide = custom("wide-65", 65, [9], 1)
     frames = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda)
@@ -189,16 +212,26 @@ def test_fused_and_batched_kernels_refuse_what_they_cannot_launch(cuda):
     with pytest.raises(ValueError, match="vcgra_batched holds at most 64"):
         vcgra_batched(too_wide, settings, torch.zeros((1, 65, 8), dtype=torch.int32,
                                                       device=cuda))
-    grid = wide_grid()
+    b4_settings = tuple(torch.zeros(t.shape[1:], dtype=torch.int32, device=cuda)
+                        for t in settings)
+    with pytest.raises(ValueError, match="vcgra_conventional holds at most 64"):
+        vcgra_conventional(too_wide, b4_settings,
+                           torch.zeros((65, 128), dtype=torch.int32, device=cuda))
+    assert LAUNCHES == before
+    grid = wide_grid()   # 40 values: past 32, inside 64
     cfg = map_app(apps.sobel_x(), grid)
-    with pytest.raises(ValueError, match="vcgra_conventional holds at most 32"):
-        vcgra_conventional(grid, _pack_settings(grid, cfg, device=cuda)[:3],
-                           torch.zeros((40, 128), dtype=torch.int32, device=cuda))
+    x = torch.zeros((40, 128), dtype=torch.int32, device=cuda)
+    assert vcgra_conventional(grid, _pack_settings(grid, cfg, device=cuda)[:3], x).shape == \
+        (1, 128)
+    before = dict(LAUNCHES)
     stream = torch.cuda.current_stream().cuda_stream
     assert lib.vcgra_fused_batched(9, *([frames.data_ptr()] * 11), 1, 8, 8, 1, 9, 1, 18, 1,
                                    128, 18, 9, stream) != 0
     assert lib.vcgra_batched(9, *([frames.data_ptr()] * 7), 1, 8, 1, 9, 1, 18, 128, 18, 9,
                              stream) != 0
+    for dtype, block_n in ((9, 128), (0, 100), (0, 0)):
+        assert lib.vcgra_conventional(dtype, *([frames.data_ptr()] * 7), 8, block_n, 1, 9, 1,
+                                      18, 128, 18, 9, stream) != 0
     assert LAUNCHES == before
 
 
@@ -354,7 +387,28 @@ def test_conventional_kernel_matches_plain_version(cuda, dtype_name):
                 before = LAUNCHES["vcgra_conventional"]
                 got = vcgra_conventional(grid, (ops, sel, out_sel), x, block_n=block_n)
                 assert LAUNCHES["vcgra_conventional"] == before + 1
-                assert_close(got, want, dtype_name)
+                assert_bitwise(got, want)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_conventional_kernel_takes_64_wide_grids(cuda, dtype_name):
+    """B4 on the 40- and 64-wide grids (past 32 values, up to its limit),
+    every library app, bitwise at ragged N and three block_n."""
+    rng = np.random.default_rng(12)
+    bits, float_pe = DTYPES[dtype_name]
+    for make_grid in (wide_grid, widest_grid):
+        grid = dataclasses.replace(make_grid(), data_bits=bits, float_pe=float_pe)
+        for name in ALL_APPS:
+            settings = _pack_settings(grid, map_app(apps.ALL_APPS[name](), grid), device=cuda)[:3]
+            for N in (1, 45, 4099):
+                x = torch.as_tensor(rng.integers(-8, 256, (grid.num_inputs, N)),
+                                    device=cuda).to(grid.dtype)
+                want = vcgra_conventional_ref(grid, settings, x)
+                for block_n in (128, 256, 1024):
+                    before = LAUNCHES["vcgra_conventional"]
+                    got = vcgra_conventional(grid, settings, x, block_n=block_n)
+                    assert LAUNCHES["vcgra_conventional"] == before + 1
+                    assert_bitwise(got, want)
 
 
 @pytest.mark.parametrize("bake_consts", [False, True])
@@ -382,21 +436,32 @@ def test_specialized_compile_error_raises_with_the_log(cuda):
     assert "undeclared_name" in str(info.value)
 
 
+#: B6's frames (H, W): odd non-square, one pixel, one row, widths that are
+#: not a multiple of its V columns a thread (4 or 8) or below V, and 1080p.
+STENCIL_FRAMES = ((37, 53), (1, 1), (130, 7), (5, 4097), (3, 6), (1, 3), (2, 9), (1, 1920),
+                  (1080, 1920))
+
+
 @pytest.mark.parametrize("dtype_name", ["int32", "float32", "bfloat16"])
 def test_stencil_kernel_matches_plain_version(cuda, dtype_name):
+    """B6 bitwise in int32 and float32 (bf16 within the reference's 0.5) on
+    every filter form, frame and block_h, from 16-byte aligned frames and
+    from a view one element past an aligned start (scalar loads)."""
     rng = np.random.default_rng(6)
     dtype = {"int32": torch.int32, "float32": torch.float32, "bfloat16": torch.bfloat16}
     forms = [(apps.SOBEL_X, apps.SOBEL_Y)] + [(k,) for k in stencil.ops.FILTERS.values()]
-    for H, W in ((37, 53), (1, 1), (130, 7), (1080, 1920)):
-        img = torch.as_tensor(rng.integers(0, 256, (H, W)), device=cuda).to(dtype[dtype_name])
-        for kernels in forms:
-            want = stencil.stencil_fused_ref(img, kernels)
-            for block_h in (1, 8, 128):
-                before = stencil.LAUNCHES["stencil_fused"]
-                got = stencil.stencil_fused(img, kernels, block_h=block_h)
-                assert stencil.LAUNCHES["stencil_fused"] == before + 1
-                assert got.dtype == img.dtype
-                assert_close(got, want, dtype_name)
+    for H, W in STENCIL_FRAMES:
+        flat = torch.as_tensor(rng.integers(0, 256, H * W + 1), device=cuda).to(dtype[dtype_name])
+        for img in (flat[:-1].view(H, W), flat[1:].view(H, W)):
+            assert img.is_contiguous()
+            for kernels in forms:
+                want = stencil.stencil_fused_ref(img, kernels)
+                for block_h in (1, 8, 128):
+                    before = stencil.LAUNCHES["stencil_fused"]
+                    got = stencil.stencil_fused(img, kernels, block_h=block_h)
+                    assert stencil.LAUNCHES["stencil_fused"] == before + 1
+                    assert got.dtype == img.dtype
+                    assert_close(got, want, dtype_name)
 
 
 def test_stencil_kernel_refuses_what_it_cannot_launch(cuda):

@@ -18,12 +18,14 @@ import torch
 from repro.core import applications as r_apps
 from repro.core import for_dfg as r_for_dfg
 from repro.core import map_app as r_map_app
+from repro.core.grid import custom as r_custom
 from repro.core.grid import sobel_grid as r_sobel_grid
 from repro.core.interpreter import pack_inputs as r_pack_inputs
 from repro.kernels.vcgra import vcgra_apply as r_vcgra_apply
 from repro.kernels.vcgra import vcgra_apply_image as r_vcgra_apply_image
 from repro.kernels.vcgra import vcgra_ref as r_vcgra_ref
 from repro.kernels.vcgra.vcgra_kernel import _pack_settings as r_pack_settings
+from repro.kernels.vcgra.vcgra_kernel import vcgra_conventional as r_vcgra_conventional
 
 from repro_torch.core import applications as t_apps
 from repro_torch.core.interpreter import pack_inputs
@@ -162,3 +164,20 @@ def test_single_app_wrappers_validate_like_the_reference():
     for block_n in (128, 384):
         assert torch.equal(vcgra_conventional(t_grid, settings, x, block_n=block_n), want)
         assert torch.equal(vcgra_apply(t_grid, t_cfg, x, block_n=block_n), want)
+
+
+@pytest.mark.parametrize("app_name", ["sobel_mag", "gauss3"])
+def test_conventional_on_a_40_wide_grid_matches_reference(app_name):
+    """B4's plain version on a grid 40 values wide (past 32, inside the
+    kernel's 64) against the reference's Pallas
+    ``vcgra_conventional`` in interpret mode, N = 256."""
+    r_grid = r_custom("wide-40", 40, [40, 11, 7, 5, 3, 3, 2], 1)
+    cfg = r_map_app(r_apps.ALL_APPS[app_name](), r_grid)
+    x = np.random.default_rng(7).integers(-8, 256, (40, 256)).astype(np.int32)
+    r_ops, r_sel, r_out, _ = r_pack_settings(r_grid, cfg)
+    want = r_vcgra_conventional(r_grid, (r_ops, r_sel, r_out), jnp.asarray(x), block_n=128,
+                                interpret=True)
+    t_grid = port_grid(r_grid)
+    settings = _pack_settings(t_grid, port_config(cfg))[:3]
+    assert_parity(vcgra_conventional(t_grid, settings, torch.from_numpy(x), block_n=128),
+                  want, "int32")

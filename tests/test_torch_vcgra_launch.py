@@ -1,5 +1,5 @@
-"""The launch shapes and limits of the vectorised VCGRA kernels (B1 and B2;
-B3's are in ``test_torch_flash_numerics.py``), decided in Python before a
+"""The launch shapes and limits of the vectorised VCGRA kernels (B1, B2 and
+B4; B3's are in ``test_torch_flash_numerics.py``), decided in Python before a
 launch: the block each wrapper asks for, the radius path B1 takes, the
 value-vector width each kernel holds, and the headers every kernel
 library is rebuilt from.  No JAX, no card: the C side's twins of these
@@ -53,21 +53,42 @@ def test_fused_and_batched_blocks_at_the_main_path_shape():
 
 @pytest.mark.parametrize("kernel", sorted(ops.MAX_VALS))
 def test_each_kernel_holds_its_own_value_width(kernel):
-    """64 values for B1, B2 and B3, 32 for B4, checked before a library is
-    loaded; the message names the kernel."""
+    """64 values for B1, B2, B3 and B4, checked before a library is loaded;
+    the message names the kernel."""
     limit = ops.MAX_VALS[kernel]
-    assert limit == (32 if kernel == "vcgra_conventional" else 64)
+    assert limit == 64
     ops.check_value_width(kernel, custom("at-limit", limit, [limit, 3], 1))
+    ops.check_value_width(kernel, custom("wide-40", 40, [40, 3], 1))
     for grid in (custom("too-many-inputs", limit + 1, [3], 1),
                  custom("too-wide-level", 3, [3, limit + 1], 1)):
         with pytest.raises(ValueError, match=f"{kernel} holds at most {limit}"):
             ops.check_value_width(kernel, grid)
     loaded = dict(build._libs)
-    if kernel == "vcgra_conventional":   # 40 values: past B4's limit, inside B1's
-        with pytest.raises(ValueError, match="vcgra_conventional holds at most 32"):
-            ops._launch_target(kernel, custom("wide-40", 40, [40, 3], 1), 1,
-                               torch.device("cuda"))
+    with pytest.raises(ValueError, match=f"{kernel} holds at most 64"):
+        ops._launch_target(kernel, custom("wide-65", 65, [65, 3], 1), 1, torch.device("cuda"))
     assert build._libs == loaded
+
+
+SOBEL_MAG = (27, [18, 10, 6, 4, 2, 2, 1])
+
+
+def test_conventional_block_at_the_single_app_shape():
+    """B4 is B2's block over one app: at the ``sobel_mag`` exact grid in
+    int32 (value slots (27, 18), a 372-int record) 128 threads and 93,760
+    bytes; ``block_n`` sets its passes of 128 x 4 pixels, at least one."""
+    assert ops.value_slots(*SOBEL_MAG) == (27, 18)
+    assert ops.record_ints(*SOBEL_MAG, K=1) == 372
+    smem = 45 * 128 * 16 + 112 + 4 * 372
+    assert smem == 93_760
+    for block_n, passes in ((128, 1), (256, 1), (512, 1), (1024, 2), (1152, 3), (4096, 8)):
+        assert ops.conventional_launch(4, *SOBEL_MAG, 1, block_n) == (128, smem, passes)
+    assert ops.conventional_launch(4, *SOBEL_MAG, 1, 1024)[:2] == \
+        ops.batched_launch(4, *SOBEL_MAG, K=1)
+    # Eight pixels a thread in 2-byte dtypes.
+    assert ops.conventional_launch(2, *SOBEL_MAG, 1, 1024)[2] == 1
+    assert ops.conventional_launch(2, *SOBEL_MAG, 1, 2048)[2] == 2
+    with pytest.raises(ValueError, match="vcgra_conventional takes at most 64"):
+        ops.conventional_launch(4, 65, [9], 1, 1024)
 
 
 def test_every_included_header_is_in_the_library_digest():
