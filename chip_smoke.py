@@ -33,7 +33,23 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    radii groups and single-stage requests on ``sobel-5x9``; every output
    equals the staged numpy oracle and ``backend="torch"``, and B3's launch
    count equals the fleet's pipeline dispatches;
-5. the single-app path, driven with the counters reset just before it --
+5. the synthesis case -- ``synthesize("sobel_mag", SOBEL_SOURCE)`` served
+   through B1 beside the library ``sobel_mag`` on a 1080p frame, bitwise;
+6. the resilience path, each case one flush with the counters reset just
+   before it -- at 1080p: a non-transient dispatch fault on the hopper plan
+   served by the torch plan, a transient fault retried on B1, a poisoned
+   float32 ticket quarantined alone, a 65-wide grid refused at submit and
+   a faulted depth-3 chain served by torch -- every output bitwise a sound
+   flush's, every degradation stamped;
+7. the streaming path -- ``StreamingFrontend()`` serves 48 1080p requests
+   with mixed deadlines and priorities plus four depth-3 chains, under
+   sync and async ingest, bitwise the sync ``FleetFrontend``; per mode the
+   latency percentiles, partial-tile dispatches, ``ingest_overlap_s``, 5
+   flushes of 8 x 1080p timed and profiled (the card's busy share).
+   Every fleet phase asserts that the ladder moved nothing on a sound
+   path: no fallback, retry, quarantine or guard failure, all breakers
+   closed;
+8. the single-app path, driven with the counters reset just before it --
    ``Pixie(sobel_grid())`` on a 1080p ``sobel_x`` in both modes, ``Pixie``
    on the ``sobel_mag`` exact grid (``run_image``, ``run_raw``,
    ``run_many`` over three ragged apps, ``run_pipeline`` of a depth-3
@@ -41,7 +57,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    modes (B5, B4), ``sobel_magnitude_fused`` (B6) and a
    ``PixiePreprocessor`` cycling its four filters; every output equals the
    numpy oracles and ``backend="torch"`` on the card;
-6. B4, B5 and B6 vs their plain versions -- B4 on every grid dtype, the
+9. B4, B5 and B6 vs their plain versions -- B4 on every grid dtype, the
    Sobel grid, every library app's exact grid and every library app on
    40- and 64-wide grids, ragged N and three ``block_n``, bitwise (bf16
    too); B5 on the Sobel and exact-grid configs with and without baked
@@ -50,7 +66,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    non-square frames, widths not a multiple of its V columns a thread or
    below V, one-row frames and 1080p, each from a 16-byte aligned start
    and one element past it, three tile heights;
-7. times with CUDA events at the paths' shapes, beside each kernel's bound
+10. times with CUDA events at the paths' shapes, beside each kernel's bound
    and its plain version's time (B1 also at the all-apps flush's shape, B2
    with its bound over the live channels and over all C; B1's, B2's, B3's
    and B4's blocks: threads, registers, shared memory; B6 and its
@@ -61,7 +77,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    conventional and parameterized, ``vcgra_apply_image``, the fused
    stencil) and the single-app ``Pixie.timings`` (map, reconfigure: a
    settings copy, or B5's NVRTC compile and load);
-8. B7 (flash decode) vs its plain version -- the case table of
+11. B7 (flash decode) vs its plain version -- the case table of
    ``repro_torch.kernels.flash_attention.parity`` (the reference flash
    suite's MHA, GQA 4:1, MQA, ragged 25/5 heads and chunk sweep, and
    gemma-2b's MQA head, H 8, G 1, D 256, a 200-row cache and one head a
@@ -70,7 +86,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    body), lengths 0, 1, ragged and S, and a poisoned tail past the
    lengths; float32 outputs at the reference's 2e-5, bf16 outputs within
    one bf16 unit;
-9. the LM serving path, driven with the counters reset just before it --
+12. the LM serving path, driven with the counters reset just before it --
    gemma-2b at full width (2.5 B parameters from a seeded generator on the
    card): ``ServeEngine(max_batch=8, max_seq=4096)`` generates 32 tokens
    from 8 prompts of 128, then a ``SlotServer`` serves 3 requests, one
@@ -80,7 +96,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    against last-position ``prefill`` logits (plain attention) of the same
    token sequences, from the 128-token prompts and from a 1-token prefix,
    and the same check must fail with B7's lengths planted off by one;
-10. B7's times at the engine's shape and at the ``decode_32k`` shape of one
+13. B7's times at the engine's shape and at the ``decode_32k`` shape of one
    gemma-2b layer, beside its bound, its plain version and one
    ``scaled_dot_product_attention`` call, with its block's registers and
    shared memory (B3's are in the chain times of phase 7), and the LM's prefill, decode
@@ -482,6 +498,19 @@ def serve(svc, requests):
     return [h.result() for h in handles]
 
 
+#: The ladder counters a sound fleet keeps at zero.
+LADDER_COUNTERS = ("fallback_dispatches", "retries", "quarantined_requests", "guard_failures")
+
+
+def assert_sound(fleet, label):
+    """A fleet that served a sound path degraded nothing: no fallback
+    dispatch, retry, quarantine or guard failure, every breaker closed."""
+    counts = {k: getattr(fleet.stats, k) for k in LADDER_COUNTERS}
+    if any(counts.values()) or not fleet.breakers.all_closed():
+        raise AssertionError(f"{label}: the ladder moved on a sound path: {counts}, "
+                             f"breakers {fleet.breakers.states()}")
+
+
 def phase_main_path(device, all_grid):
     import torch
     from repro_torch.core import applications as apps
@@ -529,6 +558,7 @@ def phase_main_path(device, all_grid):
     plans = {k.rsplit("|", 1)[0] for k in stats.dispatch_plans}
     if stats.overlay_builds != len(plans):
         raise AssertionError(f"{stats.overlay_builds} builds for {len(plans)} plans")
+    assert_sound(svc.fleet, "main path")
 
     for reqs, outs in zip(flushes, served):
         for (app, img, _), out in zip(reqs, outs):
@@ -548,6 +578,8 @@ def phase_main_path(device, all_grid):
     for got, want in zip(served_channels, oracle_fleet.run_many(channel_requests())):
         if not np.array_equal(got, want):
             raise AssertionError("hopper channel output differs from backend='torch'")
+    assert_sound(oracle_svc.fleet, "main path, torch oracle")
+    assert_sound(oracle_fleet, "main path, torch oracle")
     torch.cuda.empty_cache()
     emit({"phase": "main_path", "flushes": len(flushes) + 1,
           "requests": sum(map(len, flushes)) + len(channel_apps),
@@ -593,6 +625,7 @@ def phase_chain_path(svc, pipe_grid):
                                vcgra_pipeline_batched=pipe) or (pipe, fused, packed) != (3, 1, 0):
         raise AssertionError(
             f"launches {launches} vs dispatches pipeline={pipe} fused={fused} packed={packed}")
+    assert_sound(svc.fleet, "chain path")
     for reqs, outs in zip(flushes, served):
         for (app, img, _), out in zip(reqs, outs):
             if not np.array_equal(out, staged_oracle(app, img)):
@@ -603,6 +636,7 @@ def phase_chain_path(svc, pipe_grid):
             if not np.array_equal(got, want):
                 raise AssertionError("hopper chain output differs from backend='torch'")
         torch.cuda.empty_cache()
+    assert_sound(oracle_svc.fleet, "chain path, torch oracle")
     emit({"phase": "chain_path", "flushes": len(flushes),
           "requests": sum(map(len, flushes)), "launches": launches,
           "pipeline_dispatches": pipe,
@@ -610,6 +644,325 @@ def phase_chain_path(svc, pipe_grid):
           "chain_path_s": chain_s,
           "checked_against": ["staged numpy oracle", "backend='torch' on the card"]})
     return flushes[0], launches
+
+
+def frames_1080p(rng, n, dtype=np.int32):
+    return [rng.integers(0, 256, (1080, 1920)).astype(dtype) for _ in range(n)]
+
+
+def served_or_failed(handles):
+    """Each handle's output as numpy, or the class name of its failure."""
+    out = []
+    for h in handles:
+        try:
+            out.append(np.asarray(h.result(timeout=600)))
+        except Exception as exc:  # noqa: BLE001 -- recorded; the caller checks which failed
+            out.append(type(exc).__name__)
+    return out
+
+
+def phase_resilience_path(svc, main_reqs, chain_reqs, pipe_grid):
+    """The self-healing ladder on the card at full size, one flush per
+    case, the launch counters reset just before each and read just after:
+    (a) a non-transient ``dispatch`` fault on the hopper plan key is served
+    by the torch plan; (b) a transient fault that fires once is retried on
+    B1; (c) a persistent ``nan_output`` on one ticket of a float32
+    8-request flush quarantines that ticket alone; (d) a 65-value-wide
+    grid, wider than B1 holds, is refused at submit with a ``ValueError``
+    to its submitter (nothing launched, nothing degraded), and the torch
+    fleet serves it; (e) a fault on the depth-3 chain's hopper plan
+    degrades to the torch chain.  Every served output is bitwise equal to
+    a sound flush of the same frames; every degradation shows in
+    ``fallback_dispatches``, the breaker events and the torch plan's key
+    in ``dispatch_plans``."""
+    import torch
+    from repro_torch.core.grid import custom, sobel_grid
+    from repro_torch.runtime import BreakerBoard, FaultInjector, RetryPolicy
+    from repro_torch.runtime.fleet import PixieFleet
+    from repro_torch.serve import FleetFrontend
+
+    def case(label, front, reqs, sound, expect_launches, **expect):
+        reset_launches()
+        t0 = time.perf_counter()
+        handles = [front.submit(app, img, grid=grid) for app, img, grid in reqs]
+        front.flush()
+        outs = served_or_failed(handles)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        st = front.stats
+        failed = [i for i, o in enumerate(outs) if isinstance(o, str)]
+        row = {"launches": {k: v for k, v in launches.items() if v},
+               "quarantined": failed, "failures": sorted({outs[i] for i in failed}),
+               "breaker_events": [e["event"] for e in st.breaker_events],
+               "plans": sorted({k.split("|")[3] for k in st.dispatch_plans}),
+               "flush_s": seconds, **{k: getattr(st, k) for k in LADDER_COUNTERS}}
+        if launches != no_launches(**expect_launches):
+            raise AssertionError(f"resilience {label}: launches {launches}")
+        for key, want in expect.items():
+            if row[key] != want:
+                raise AssertionError(f"resilience {label}: {key} {row[key]} != {want}")
+        for i, (got, want) in enumerate(zip(outs, sound)):
+            if i not in failed and not np.array_equal(got, want):
+                raise AssertionError(f"resilience {label}: output {i} differs from the sound flush")
+        return row
+
+    rng = np.random.default_rng(9)
+    sound = serve(svc, main_reqs)
+    sound_chain = serve(svc, chain_reqs)
+    assert_sound(svc.fleet, "resilience path, sound flushes")
+    rows = {}
+    rows["a_non_transient"] = case(
+        "(a)", FleetFrontend(fleet=PixieFleet(
+            faults=FaultInjector(seed=0).inject("dispatch", transient=False,
+                                                match=("|hopper|",)),
+            breakers=BreakerBoard(failure_threshold=1))),
+        main_reqs, sound, {}, fallback_dispatches=1, retries=0, quarantined=[],
+        breaker_events=["open:dispatch"], plans=["torch"])
+    rows["b_transient"] = case(
+        "(b)", FleetFrontend(fleet=PixieFleet(
+            faults=FaultInjector(seed=0).inject("dispatch", max_fires=1))),
+        main_reqs, sound, {"vcgra_fused_batched": 1}, retries=1, fallback_dispatches=0,
+        quarantined=[], plans=["hopper"])
+    f32_reqs = [(app, img.astype(np.float32), None) for app, img, _ in main_reqs]
+    f32_grid = sobel_grid(float_pe=True)
+    f32_sound_svc = FleetFrontend(fleet=PixieFleet(default_grid=f32_grid))
+    f32_sound = [np.asarray(o) for o in serve(f32_sound_svc, f32_reqs)]
+    assert_sound(f32_sound_svc.fleet, "resilience path, sound float32 flush")
+    rows["c_poisoned_float32_ticket"] = case(
+        "(c)", FleetFrontend(fleet=PixieFleet(
+            default_grid=f32_grid, retry=RetryPolicy(max_attempts=1),
+            faults=FaultInjector(seed=0).inject("nan_output", match=("<ticket:3>",)))),
+        f32_reqs, f32_sound, {"vcgra_fused_batched": 2}, quarantined=[3],
+        failures=["QuarantinedError"], quarantined_requests=1)
+    del f32_sound_svc, f32_sound
+    wide = custom("wide-65", 65, [65, 11, 7, 5, 3, 3, 2], 1)
+    wide_reqs = [(app, img, wide) for app, img in zip(["sobel_x", "laplace"],
+                                                      frames_1080p(rng, 2))]
+    wide_sound = serve(FleetFrontend(fleet=PixieFleet(backend="torch", batch_tile=2)), wide_reqs)
+    for (app, img, _), out in zip(wide_reqs, wide_sound):
+        if not np.array_equal(out, oracle(app, img)):
+            raise AssertionError(f"wide-65 {app}: backend='torch' differs from the numpy oracle")
+    wide_front = FleetFrontend(fleet=PixieFleet(batch_tile=2))
+    reset_launches()
+    refusals = []
+    for app, img, grid in wide_reqs:
+        try:
+            wide_front.submit(app, img, grid=grid)
+        except ValueError as exc:
+            refusals.append(str(exc))
+    wide_front.flush()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if (len(refusals) != len(wide_reqs) or wide_front.stats.submitted
+            or wide_front.stats.dispatch_plans or launches != no_launches()):
+        raise AssertionError(f"resilience (d): refusals {refusals}, submitted "
+                             f"{wide_front.stats.submitted}, launches {launches}")
+    assert_sound(wide_front.fleet, "resilience (d)")
+    rows["d_wide_grid"] = {"refused_at_submit": len(refusals), "refusal": refusals[0],
+                           "launches": {}, "plans": []}
+    torch.cuda.empty_cache()
+    rows["e_chain_fault"] = case(
+        "(e)", FleetFrontend(fleet=PixieFleet(
+            faults=FaultInjector(seed=0).inject("dispatch", transient=False,
+                                                match=("|hopper|dev1|pipe",)),
+            breakers=BreakerBoard(failure_threshold=1))),
+        chain_reqs, sound_chain, {}, fallback_dispatches=1, quarantined=[],
+        breaker_events=["open:dispatch"], plans=["torch"])
+    torch.cuda.empty_cache()
+    emit({"phase": "resilience_path", "cases": rows,
+          "sizes": "(a)(b) 8 x 1080p int32 sobel-5x9; (c) 8 x 1080p float32 sobel-5x9; "
+                   "(d) 2 x 1080p int32 wide-65; (e) 8 x 1080p int32 depth-3 chain "
+                   f"{'+'.join(CHAIN)} on {pipe_grid.name}",
+          "checked_against": ["sound hopper flush of the same frames, bitwise",
+                              "backend='torch' and the numpy oracle for wide-65, which "
+                              "the hopper fleet refuses at submit"]})
+    return rows
+
+
+#: Requests of the streaming phase: 48 image requests over the main
+#: flush's apps plus this many depth-3 chains.
+STREAM_IMAGES, STREAM_CHAINS = 48, 4
+
+
+def streaming_trace(pipe_grid):
+    """(app, frame, grid, deadline_s, priority) of the streaming phase:
+    every other image request has a 0.2 s deadline, priorities alternate
+    in pairs, the chains have no deadline."""
+    rng = np.random.default_rng(8)
+    trace = [(MAIN_APPS[i % len(MAIN_APPS)], img, None, 0.2 if i % 2 == 0 else None,
+              (i // 2) % 2) for i, img in enumerate(frames_1080p(rng, STREAM_IMAGES))]
+    trace += [(CHAIN, img, pipe_grid, None, 1)
+              for img in frames_1080p(rng, STREAM_CHAINS)]
+    return trace
+
+
+def flush_times(mode, reqs, runs=5):
+    """``runs`` flushes of ``reqs`` through a fresh ``FleetFrontend`` of
+    ingest ``mode``: each flush's median host-clock time with its outputs
+    read before the next (``serial``), the time a flush when flush k's
+    outputs are read only after flush k+1 was dispatched (``pipelined``),
+    and a ``torch.profiler`` trace of the serial flushes (the device's busy
+    time a flush and the card's busy share of the traced window)."""
+    import torch
+    from repro_torch.serve import FleetFrontend
+
+    front = FleetFrontend(ingest=mode)
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+
+    def one():
+        for out in serve(front, reqs):
+            np.asarray(out)
+        torch.cuda.synchronize()
+
+    def split(before, host_before):
+        """The fleet's own per-flush split since ``before``, and the pinned
+        host allocations the caching host allocator made meanwhile."""
+        out = {f"{k}_ms_per_flush": (front.timings[k] - before[k]) * 1e3 / runs
+               for k in ("pack_s", "dispatch_s")}
+        if host_before is not None:
+            after = host_stats()
+            out["pinned_allocations"] = (after.get("num_host_alloc", 0)
+                                         - host_before.get("num_host_alloc", 0))
+        return out
+
+    one()
+    serial = []
+    before, host_before = dict(front.timings), host_stats() if host_stats else None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        one()
+        serial.append((time.perf_counter() - t0) * 1e3)
+    serial_split = split(before, host_before)
+    before, host_before = dict(front.timings), host_stats() if host_stats else None
+    t0 = time.perf_counter()
+    held = None
+    for _ in range(runs):
+        handles = [front.submit(app, img, grid=grid) for app, img, grid in reqs]
+        front.flush()
+        if held is not None:
+            for h in held:
+                np.asarray(h.result())
+        held = handles
+    for h in held:
+        np.asarray(h.result())
+    torch.cuda.synchronize()
+    pipelined_ms = (time.perf_counter() - t0) * 1e3 / runs
+    pipelined_split = split(before, host_before)
+    profiled = profile_steps(one, steps=runs)
+    median = statistics.median(serial)
+    assert_sound(front.fleet, f"flush times, ingest={mode}")
+    return {"median_ms": median, "runs_ms": serial, "serial_split": serial_split,
+            "pipelined_ms_per_flush": pipelined_ms, "pipelined_split": pipelined_split,
+            "ingest_overlap_s": front.stats.ingest_overlap_s,
+            "profile": profiled, "device_busy_share": profiled["device_busy_share"]}
+
+
+def phase_streaming_path(svc, main_reqs, pipe_grid):
+    """``StreamingFrontend()`` with its defaults (hopper, cuda) serves the
+    streaming trace -- 48 1080p int32 requests over the main flush's apps
+    with mixed deadlines and priorities, plus depth-3 chains -- once with
+    ``ingest="sync"`` and once with ``"async"``, the launch counters reset
+    just before each run and read just after.  Every output is bitwise
+    equal to the sync ``FleetFrontend`` on the same trace, with zero
+    fallbacks; B1 and B3 launch once per fused and chain dispatch.  Then
+    5 flushes of 8 x 1080p timed and profiled per ingest mode, in the
+    order sync, async, async, sync (the host's first flushes of a process
+    run slower, so each mode is read twice, once early and once late)."""
+    import torch
+    from repro_torch.serve import StreamingFrontend
+
+    trace = streaming_trace(pipe_grid)
+    want = []
+    for k in range(0, len(trace), 8):
+        want += [np.asarray(o) for o in serve(svc, [(a, im, g) for a, im, g, _, _ in
+                                                     trace[k:k + 8]])]
+    assert_sound(svc.fleet, "streaming path, sync front-end")
+    rows = {}
+    for mode in ("sync", "async"):
+        stream = StreamingFrontend(ingest=mode)
+        if (stream.backend, stream.device.type, stream.ingest) != ("hopper", "cuda", mode):
+            raise AssertionError(f"StreamingFrontend() defaults: {stream.backend}, "
+                                 f"{stream.device}, {stream.ingest}")
+        reset_launches()
+        t0 = time.perf_counter()
+        handles = [stream.submit(app, img, grid=grid, deadline_s=d, priority=p)
+                   for app, img, grid, d, p in trace]
+        outs = served_or_failed(handles)
+        stream.close(timeout=600)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        st = stream.stats
+        pipe = st.pipeline_dispatches
+        if launches != no_launches(vcgra_fused_batched=st.fused_dispatches - pipe,
+                                   vcgra_pipeline_batched=pipe) or st.dispatches != st.fused_dispatches:
+            raise AssertionError(f"streaming {mode}: launches {launches} vs dispatches "
+                                 f"{st.dispatches} (pipeline {pipe})")
+        assert_sound(stream.fleet, f"streaming path, ingest={mode}")
+        for i, (got, ref) in enumerate(zip(outs, want)):
+            if isinstance(got, str) or not np.array_equal(got, ref):
+                raise AssertionError(f"streaming {mode}: request {i} differs from the sync "
+                                     f"FleetFrontend ({got if isinstance(got, str) else 'values'})")
+        del outs, handles
+        rows[mode] = {
+            "requests": len(trace), "wall_s": wall_s, "launches": launches,
+            "latency": stream.latency.summary(), "dispatches": st.dispatches,
+            "pipeline_dispatches": pipe, "partial_tile_dispatches": st.partial_tile_dispatches,
+            "preempted_batches": st.preempted_batches, "ingest_overlap_s": st.ingest_overlap_s,
+            "ingest_readiness": st.ingest_readiness,
+        }
+        torch.cuda.empty_cache()
+    for mode in ("sync", "async", "async", "sync"):
+        rows[mode].setdefault("flushes_8x1080p", []).append(flush_times(mode, main_reqs))
+        torch.cuda.empty_cache()
+    emit({"phase": "streaming_path", "modes": rows,
+          "trace": f"{STREAM_IMAGES} x 1080p int32 over {MAIN_APPS} on sobel-5x9 (every other "
+                   f"with deadline_s 0.2, priorities 0/1) + {STREAM_CHAINS} x 1080p chains "
+                   f"{'+'.join(CHAIN)} on {pipe_grid.name}",
+          "checked_against": "the sync FleetFrontend on the same trace, bitwise"})
+    for mode, row in rows.items():
+        lat, fls = row["latency"], row["flushes_8x1080p"]
+        print(f"streaming ingest={mode}: total_s p50/p95/p99 "
+              f"{lat['total_s']['p50']:.4f}/{lat['total_s']['p95']:.4f}/"
+              f"{lat['total_s']['p99']:.4f} s, partial-tile dispatches "
+              f"{row['partial_tile_dispatches']}, ingest_overlap_s {row['ingest_overlap_s']:.6f}, "
+              "8 x 1080p flush median (early, late) "
+              f"{[round(f['median_ms'], 3) for f in fls]} ms, pipelined "
+              f"{[round(f['pipelined_ms_per_flush'], 3) for f in fls]} ms, device busy share "
+              f"(one trace: device union / profiled window) "
+              f"{[f['device_busy_share'] for f in fls]}", flush=True)
+    return rows
+
+
+def phase_synthesis_case(svc):
+    """``synthesize("sobel_mag", SOBEL_SOURCE)`` -- the paper's textual
+    front-end -- mapped and served on the card through B1 beside the
+    library ``sobel_mag`` on one 1080p frame, the counters reset just
+    before: one B1 launch, both outputs bitwise equal to each other and
+    to the numpy oracle."""
+    import torch
+    from repro_torch.core import SOBEL_SOURCE, for_dfg, synthesize
+    from repro_torch.core import applications as apps
+
+    grid = for_dfg(apps.sobel_magnitude(), shape="rect")
+    frame = frames_1080p(np.random.default_rng(10), 1)[0]
+    dfg = synthesize("sobel_mag", SOBEL_SOURCE)
+    reset_launches()
+    synthesized, library = serve(svc, [(dfg, frame, grid), ("sobel_mag", frame, grid)])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches != no_launches(vcgra_fused_batched=1):
+        raise AssertionError(f"synthesis case: launches {launches}")
+    if not (np.array_equal(synthesized, library)
+            and np.array_equal(library, oracle("sobel_mag", frame))):
+        raise AssertionError("synthesized sobel_mag differs from the library sobel_mag")
+    assert_sound(svc.fleet, "synthesis case")
+    emit({"phase": "synthesis_case", "grid": grid.name, "frame": "1080 x 1920 int32",
+          "synthesized_ops": dfg.num_ops(), "synthesized_depth": dfg.depth(),
+          "library_ops": apps.sobel_magnitude().num_ops(), "launches": launches,
+          "checked_against": ["library sobel_mag", "numpy oracle"]})
+    return launches
 
 
 #: GPU cycles of the spin queued before each shielded timing (~1 ms on an
@@ -762,6 +1115,7 @@ def phase_times(device, svc, main_reqs, channel_requests, all_grid):
         block=kernel_block("vcgra_batched", grid))
 
     e2e = time_flushes(svc, main_reqs, "8 x 1080p int32, sobel-5x9")
+    assert_sound(svc.fleet, "main path times")
     emit({"phase": "times", "kernels": rows, "end_to_end": e2e,
           "rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S, "scalar_ops_per_s": SCALAR_OPS_PER_S},
           "library_ms": None,
@@ -843,6 +1197,7 @@ def phase_chain_times(device, svc, chain_reqs, pipe_grid):
     row["faster"] = "B3" if row["ms"] < row["staged_ms"] else "staged"
     row["block"] = kernel_block("vcgra_pipeline_batched", grid, sum(radii))
     e2e = time_flushes(svc, chain_reqs, f"8 x 1080p int32 chain {'+'.join(CHAIN)}, {grid.name}")
+    assert_sound(svc.fleet, "chain path times")
     emit({"phase": "chain_times", "kernel": row, "end_to_end": e2e})
     return row, e2e
 
@@ -1463,33 +1818,74 @@ def flash_bound(B, H, G, D, lengths, itemsize):
     return (*bound(bytes_moved, 4 * D * H * rows), bytes_moved)
 
 
-def profile_decode_steps(step, steps=2, top=8):
-    """``torch.profiler`` over ``steps`` decode steps: the device's busy
-    time and the kernel launches per step, and the kernels that take the
-    most device time (ms per step).  The host's times under the profiler
-    are inflated and not reported."""
+#: The ``record_function`` range around the profiled steps.
+PROFILED_WINDOW = "chip_smoke.profiled_steps"
+
+
+def busy_union(events):
+    """The device's busy time inside the profiled window of one trace (us)
+    and the window's length: the union of every device interval (kernels,
+    copies, sets) clipped to the wall window of the ``PROFILED_WINDOW``
+    range, which ends after a synchronize.  Overlapping intervals (a
+    side-stream copy beside a kernel) count once, so the share cannot
+    exceed 1."""
+    windows = [e for e in events if e.name == PROFILED_WINDOW
+               and "CUDA" not in str(getattr(e, "device_type", ""))]
+    if not windows:
+        return None, None
+    w0, w1 = windows[0].time_range.start, windows[0].time_range.end
+    spans = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1)) for e in events
+                   if "CUDA" in str(getattr(e, "device_type", "")) and e.name != PROFILED_WINDOW)
+    busy, end = 0.0, w0
+    for start, stop in spans:
+        start = max(start, end)
+        if stop > start:
+            busy += stop - start
+            end = stop
+    return busy, w1 - w0
+
+
+def profile_steps(step, steps=2, top=8):
+    """``torch.profiler`` over ``steps`` calls of ``step`` (decode steps,
+    flushes): the device's busy time and the kernel launches per step, the
+    part of it that copies to or from pageable host memory (staged through
+    the host, so its span holds host time too), the kernels that take
+    the most device time (ms per step), and from the same trace the card's
+    busy share of the profiled window (:func:`busy_union`; the profiler's
+    own host cost lengthens the window, so the share reads low, not
+    high).  The host's times under the profiler are inflated and not
+    reported otherwise."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
+        with record_function(PROFILED_WINDOW):
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+    union_us, window_us = busy_union(prof.events())
     events = prof.key_averages()
 
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     kernels = [e for e in events if getattr(e, "device_type", None) is not None
-               and "CUDA" in str(e.device_type) and device_us(e) > 0]
+               and "CUDA" in str(e.device_type) and device_us(e) > 0
+               and e.key != PROFILED_WINDOW]
     busy_us = sum(device_us(e) for e in kernels)
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx"))
     kernels.sort(key=device_us, reverse=True)
+    pageable_us = sum(device_us(e) for e in kernels if "Pageable" in e.key)
     return {
         "device_ms_per_step": busy_us / 1e3 / steps if busy_us else None,
+        "device_busy_union_ms_per_step": (None if union_us is None
+                                          else union_us / 1e3 / steps),
+        "window_ms_per_step": None if window_us is None else window_us / 1e3 / steps,
+        "device_busy_share": (None if not window_us else union_us / window_us),
+        "pageable_copy_ms_per_step": pageable_us / 1e3 / steps,
         "kernel_launches_per_step": launches / steps,
         "top_kernels_ms_per_step": {e.key[:80]: device_us(e) / 1e3 / steps
                                     for e in kernels[:top]},
@@ -1570,7 +1966,7 @@ def phase_lm_times(device, lm, engine, prompts):
     # the same position each time: the step rewrites one cache row in place
     decode_ms = host_ms(lambda: lm.decode_step(engine.params, tok, cache, lengths), 10)
     decode_event_ms = cuda_times(lambda: lm.decode_step(engine.params, tok, cache, lengths), 10)
-    profiled = profile_decode_steps(lambda: lm.decode_step(engine.params, tok, cache, lengths))
+    profiled = profile_steps(lambda: lm.decode_step(engine.params, tok, cache, lengths))
     del cache
     t0 = time.perf_counter()
     engine.generate(prompts, LM_GEN)
@@ -1632,6 +2028,9 @@ def main() -> int:
     svc, main_reqs, channel_requests, main_launches = phase_main_path(device, all_grid)
     pipe_grid = shared_grid(CHAIN, "pipe-shared")
     chain_reqs, chain_launches = phase_chain_path(svc, pipe_grid)
+    synthesis_launches = phase_synthesis_case(svc)
+    resilience = phase_resilience_path(svc, main_reqs, chain_reqs, pipe_grid)
+    streaming = phase_streaming_path(svc, main_reqs, pipe_grid)
     frame = np.random.default_rng(6).integers(0, 256, (1080, 1920)).astype(np.int32)
     single_launches, pixies, mag_cfg, sec_v_e = phase_single_app_path(device, frame)
 
@@ -1687,6 +2086,11 @@ def main() -> int:
         })
     emit({"kernels": kernels, "launches": {"main_path": main_launches,
                                            "chain_path": chain_launches,
+                                           "synthesis_case": synthesis_launches,
+                                           "resilience_path": {k: r["launches"] for k, r in
+                                                               resilience.items()},
+                                           "streaming_path": {k: r["launches"] for k, r in
+                                                              streaming.items()},
                                            "single_app_path": single_launches,
                                            "lm_path": lm_launches},
           "card": card, "end_to_end_flush_ms": e2e["median_ms"],
@@ -1694,6 +2098,8 @@ def main() -> int:
           "staged_chain_ms": rows["vcgra_pipeline_batched"]["staged_ms"],
           "sobel_four_way_ms": four_ms, "sec_v_e_s": sec_v_e,
           "flash_decode_32k_ms": flash_rows["decode_32k"]["ms"],
+          "streaming_flush_ms": {k: [f["median_ms"] for f in r["flushes_8x1080p"]]
+                                 for k, r in streaming.items()},
           "lm_decode_step_ms": lm_times["decode_step_ms"],
           "lm_generate_tokens_per_s": lm_times["generate_tokens_per_s"]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

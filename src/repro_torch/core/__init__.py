@@ -1,6 +1,6 @@
-"""The Pixie overlay core: graph IR, grid generator, mapper, settings,
-eager interpreter, specialization, the plan layer and the ``Pixie``
-facade."""
+"""The Pixie overlay core: graph IR, the textual synthesis front-end,
+grid generator, mapper, settings, eager interpreter, specialization, the
+plan layer and the ``Pixie`` facade."""
 
 from repro_torch.core.bitstream import VCGRAConfig, assemble, from_reference
 from repro_torch.core.dfg import DFG, InRef, NodeRef, reference_eval
@@ -14,6 +14,7 @@ from repro_torch.core.plan import (
     register_executor,
 )
 from repro_torch.core.route import Routing, RoutingError, route
+from repro_torch.core.synthesis import SOBEL_SOURCE, SynthesisError, synthesize
 
 __all__ = [
     "DFG", "InRef", "NodeRef", "reference_eval",
@@ -25,4 +26,5 @@ __all__ = [
     "Placement", "PlacementError", "level_demand", "place",
     "Routing", "RoutingError", "route",
     "VCGRAConfig", "assemble", "from_reference",
+    "SOBEL_SOURCE", "SynthesisError", "synthesize",
 ]

@@ -1,7 +1,8 @@
-"""IngestPlan: how each memory-VC channel is *produced* from a raw frame.
+"""IngestPlan: how each memory-VC channel is *produced* from a raw frame,
+and the ingest pipelining modes of a dispatch.
 
-Twin of the reference package's ``core/ingest.py`` (sync ingest only).  At
-map time every channel of an application gets a production rule:
+Twin of the reference package's ``core/ingest.py``.  At map time every
+channel of an application gets a production rule:
 
   tap (dj, di)   gathered from the raw image by a shifted read
                  (the line-buffer read)
@@ -11,15 +12,90 @@ map time every channel of an application gets a production rule:
 The rules are *runtime settings arrays*: the fused dispatch forms one tap
 bank per frame and each channel selects its producer from it, exactly
 like a VC mux select, so every app mapped on a grid shares one executable.
+
+:data:`INGEST_MODES` and :class:`ReadinessProbe` serve the fleet's async
+ingest: the probe is a ``torch.cuda.Event`` recorded after a dispatch and
+polled with ``query()``, where the reference parks a watcher thread on a
+JAX value.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+import time
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+#: Ingest pipelining modes of a fleet (and its front-ends).  "sync" packs,
+#: dispatches and copies outputs back in strict order; "async"
+#: double-buffers: frames are embedded into a pool of two pinned canvases
+#: per shape and copied to the card on a side stream, outputs come back
+#: with one copy per dispatch into a pool of two pinned buffers per size
+#: and are read lazily, so packing of flush k+1 overlaps the device work of
+#: flush k.  Both modes run the same executables and are bitwise-identical.
+INGEST_MODES = ("sync", "async")
+
+
+def check_ingest(mode: str) -> str:
+    """Validate (and return) an ingest mode; shared by the fleet and its
+    front-ends."""
+    if mode not in INGEST_MODES:
+        raise ValueError(
+            f"unknown ingest mode {mode!r}; expected one of {INGEST_MODES}"
+        )
+    return mode
+
+
+class ReadinessProbe:
+    """Zero-timeout readiness check for work queued on ``device``.
+
+    On a CUDA device the probe records a ``torch.cuda.Event`` on ``stream``
+    (default: the current one) when it is made; :meth:`ready` is the
+    event's ``query()``, a poll that never synchronizes the device, and
+    :meth:`wait` blocks on that event alone.  PyTorch runs CPU work
+    synchronously, so on the CPU the work is complete when the probe is
+    made: the probe is always ready and :attr:`on_device` is False.
+    """
+
+    def __init__(self, device, stream: Optional["torch.cuda.Stream"] = None):
+        dev = torch.device(device)
+        self._event = None
+        if dev.type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record(stream if stream is not None
+                               else torch.cuda.current_stream(dev))
+
+    @property
+    def on_device(self) -> bool:
+        """Does the probe watch a CUDA event (False: always ready)?"""
+        return self._event is not None
+
+    def ready(self) -> bool:
+        """Zero-timeout poll: has the work completed?"""
+        return self._event is None or self._event.query()
+
+    def block(self, stream: "torch.cuda.Stream") -> None:
+        """Make ``stream`` wait for the probed work (device side; the host
+        does not block).  A no-op on the CPU."""
+        if self._event is not None:
+            stream.wait_event(self._event)
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block (at most ``timeout`` seconds) until the work completes;
+        returns whether it completed within the wait."""
+        if self._event is None:
+            return True
+        if timeout is None:
+            self._event.synchronize()
+            return True
+        deadline = time.perf_counter() + timeout
+        while not self._event.query():
+            if time.perf_counter() >= deadline:
+                return False
+            time.sleep(5e-5)
+        return True
 
 
 def tap_offsets(radius: int) -> Tuple[Tuple[int, int], ...]:

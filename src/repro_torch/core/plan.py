@@ -1,7 +1,8 @@
 """OverlayPlan: the unified compile/dispatch pipeline for the overlay.
 
-Twin of the reference package's ``core/plan.py`` (single device, sync
-ingest):
+Twin of the reference package's ``core/plan.py`` (single device; the
+ingest mode belongs to the fleet, which feeds the dispatch, and is no plan
+axis here):
 
   OverlayPlan        a frozen, hashable description of one dispatch: grid
                      structure, fused-vs-channel ingest (+ tap radius),
@@ -16,6 +17,7 @@ ingest):
                      "hopper" kernel cells register themselves from
                      ``repro_torch.kernels.vcgra.ops``.
   OverlayExecutable  the callable artifact, carrying its plan.
+  fallback_chain     the self-healing fleet's degradation ladder of a plan.
 
 PyTorch runs eagerly, so "compiling" a plan only binds the executor; the
 Hopper kernels themselves are built once per process at first launch.
@@ -351,6 +353,37 @@ def replace_plan(plan: OverlayPlan, **overrides: Any) -> OverlayPlan:
         fields.update(overrides)
         return OverlayPlan(**fields)
     return dataclasses.replace(plan, **overrides)
+
+
+def fallback_chain(plan: OverlayPlan) -> Tuple[OverlayPlan, ...]:
+    """The graceful-degradation ladder of ``plan``, most- to
+    least-capable: each step strips ONE risky axis while keeping the
+    request-shaped axes (grid, fusion, radius/pipeline), so any
+    step serves the exact same dispatch operands.
+
+      1. ``backend="hopper"`` -> ``"torch"`` (the eager oracle);
+      2. ``tile_rows`` -> ``None`` (untiled pixel axis).
+
+    The reference's chain also steps a device mesh down between the two;
+    the port has no mesh yet.  Every step is bitwise-equal to the primary
+    (the parity the port's tests hold each axis to), so a circuit breaker
+    can degrade dispatch by dispatch without changing results, and each
+    entry is just another plan-cache key."""
+    chain = []
+    cur = plan
+
+    def step(**overrides: Any) -> None:
+        nonlocal cur
+        nxt = replace_plan(cur, **overrides)
+        if nxt != cur:
+            chain.append(nxt)
+            cur = nxt
+
+    if cur.backend != "torch":
+        step(backend="torch")
+    if cur.tile_rows is not None:
+        step(tile_rows=None)
+    return tuple(chain)
 
 
 # -- executor registry ---------------------------------------------------------

@@ -14,6 +14,10 @@ a digest of its source, the shared headers, the flags and the libraries it
 links, so an edit rebuilds it.  :func:`build_all` starts one ``nvcc``
 per source at once.  Nothing here runs on import: machines without
 ``nvcc`` (the CPU test hosts) import the package freely.
+
+A library that cannot be built or loaded raises :class:`KernelBuildError`.
+The fleet's self-healing ladder re-raises it and never serves around it:
+a missing kernel is a broken deployment, not a fault to degrade past.
 """
 
 from __future__ import annotations
@@ -98,12 +102,20 @@ SIGNATURES = {
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
+#: Where the toolkit's compiler lives when ``nvcc`` is not on PATH.
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel library could not be built (no ``nvcc``, a compile error)
+    or loaded (a missing shared object or entry point)."""
+
 
 def find_nvcc() -> str:
     """The CUDA compiler: ``nvcc`` on PATH, else the toolkit's default."""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    nvcc = shutil.which("nvcc") or DEFAULT_NVCC
     if not os.path.exists(nvcc):
-        raise RuntimeError(
+        raise KernelBuildError(
             "nvcc not found (PATH or /usr/local/cuda/bin): the Hopper kernels "
             "are built from their csrc/ sources at first use"
         )
@@ -164,7 +176,7 @@ def build_all(build_dir: Path = BUILD_DIR, verbose: bool = False,
             print(err, end="", file=sys.stderr, flush=True)
         os.replace(tmp, paths[name])
     if failures:
-        raise RuntimeError("\n".join(failures))
+        raise KernelBuildError("\n".join(failures))
     return paths
 
 
@@ -181,9 +193,12 @@ def load_library(name: str) -> ctypes.CDLL:
             builtins = cuda_home() / "lib64" / "libnvrtc-builtins.so"
             if builtins.exists():
                 ctypes.CDLL(str(builtins), mode=ctypes.RTLD_GLOBAL)
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in SIGNATURES[name]:
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _INT
+        try:
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in SIGNATURES[name]:
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _INT
+        except (OSError, AttributeError) as exc:
+            raise KernelBuildError(f"cannot load kernel library {path}: {exc}") from exc
         _libs[name] = lib
     return lib

@@ -1,7 +1,7 @@
 """Pixie fleet: a multi-tenant batched scheduler for VCGRA overlays.
 
-Twin of the reference package's ``runtime/fleet.py`` (one device, sync
-ingest).  Every application mapped on a grid yields identically-shaped
+Twin of the reference package's ``runtime/fleet.py`` (one device).  Every
+application mapped on a grid yields identically-shaped
 settings, so N *different* tenants stack (``VCGRAConfig.stack``) into one
 dispatch of a batched :class:`~repro_torch.core.plan.OverlayPlan`.
 
@@ -22,18 +22,37 @@ Scheduling model (the reference's, rule for rule):
   and flat pixel batches to power-of-two buckets -- and outputs are sliced
   back, so results are bitwise identical to unbatched runs;
 * mapped configs are cached by DFG structural hash (and library name),
-  executables per plan, stacked settings banks per tenant set.
+  executables per plan, stacked settings banks per tenant set;
+* with ``ingest="async"`` the pipeline double-buffers: frames fill one of
+  two pinned host canvases per shape and are copied to the card on a side
+  stream, each dispatch's outputs come back in ONE copy into one of two
+  pinned output buffers per size and are read lazily (:class:`LazyOutput`,
+  copied out of the buffer at the first read), so packing of flush k+1
+  overlaps the device work of flush k (``FleetStats.ingest_overlap_s``).
+
+Dispatch is self-healing, rule for rule the reference's ladder for the
+faults it routes: transient failures retry with a deterministic backoff, a
+failing plan degrades down :func:`~repro_torch.core.plan.fallback_chain`
+(``hopper`` -> ``torch``, tiled -> untiled) behind per-plan circuit
+breakers, float outputs pass a NaN/Inf guard, and a request no plan can
+serve is isolated by bisection and fails only its own ticket
+(:class:`QuarantinedError`).  The ladder routes the faults of the chaos
+hook points (:class:`InjectedFault`) and poisoned outputs; any other error
+of a dispatch -- a kernel that fails to build, load or launch -- raises out
+of :meth:`PixieFleet.flush` and is never served around.  A grid wider than
+the Hopper kernels hold is refused at submit, to its own submitter.
 
 Banks and canvases live on the fleet's ``device`` (default ``"cuda"``,
-which raises when no card is visible).  This fleet has no self-healing
-ladder: a dispatch error propagates out of :meth:`PixieFleet.flush`.
+which raises when no card is visible).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
+import weakref
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -46,13 +65,19 @@ from repro_torch.core import interpreter
 from repro_torch.core.bitstream import VCGRAConfig
 from repro_torch.core.dfg import DFG
 from repro_torch.core.grid import GridSpec
-from repro_torch.core.ingest import IngestPlan
+from repro_torch.core.ingest import IngestPlan, ReadinessProbe, check_ingest
 from repro_torch.core.pixie import map_app
 from repro_torch.core.plan import (
-    OverlayExecutable, OverlayPlan, PipelineSpec, compile_plan,
+    OverlayExecutable, OverlayPlan, PipelineSpec, compile_plan, fallback_chain,
 )
 from repro_torch.core.tiling import (
     TILE_AUTO, check_tile_rows, pad_batches, pad_channels, pow2_bucket, round_up,
+)
+from repro_torch.kernels.vcgra.ops import check_value_width
+from repro_torch.runtime.chaos import FaultInjector, InjectedFault
+from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
+from repro_torch.runtime.resilience import (
+    BreakerBoard, PoisonedOutputError, QuarantinedError, RetryPolicy,
 )
 
 
@@ -61,6 +86,53 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     widens exactly to float32."""
     t = t.cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+class LazyOutput:
+    """One request's output of an async-ingest dispatch: a window of the
+    pooled host buffer the dispatch's outputs are copied into (pinned
+    memory on a card).  The first host read -- ``np.asarray(out)``,
+    :meth:`numpy` -- waits on that dispatch's :class:`ReadinessProbe`, so
+    the device keeps working while the caller packs its next batch, and
+    copies the window out into an array of its own, releasing the buffer.
+    The fleet forces that copy before it refills the buffer.  Values are
+    bitwise the sync path's numpy arrays (bf16 widened exactly to
+    float32)."""
+
+    __slots__ = ("_host", "_offset", "shape", "_probe", "_array", "__weakref__")
+
+    def __init__(self, host: torch.Tensor, offset: int, shape: Tuple[int, ...],
+                 probe: ReadinessProbe):
+        self._host = host
+        self._offset = offset
+        self.shape = tuple(shape)
+        self._probe = probe
+        self._array: Optional[np.ndarray] = None
+
+    def ready(self) -> bool:
+        """Has the dispatch (and its copy back) completed?"""
+        return self._array is not None or self._probe.ready()
+
+    def numpy(self) -> np.ndarray:
+        """The output as a numpy array (waits for its dispatch once)."""
+        if self._array is None:
+            self._probe.wait()
+            n = math.prod(self.shape)
+            window = self._host[self._offset:self._offset + n].view(self.shape)
+            self._array = np.empty(self.shape, dtype=window.numpy().dtype)
+            torch.from_numpy(self._array).copy_(window)  # parallel on large outputs
+            self._host = self._probe = None
+        return self._array
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        if dtype is not None and a.dtype != dtype:
+            return a.astype(dtype)
+        return a.copy() if copy else a
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        state = "read" if self._array is not None else "pending"
+        return f"LazyOutput(shape={self.shape}, {state})"
 
 
 class LRUCache:
@@ -131,11 +203,23 @@ class FleetStats:
 
     backend: str = "hopper"      # execution backend of every dispatch
     device: str = "cuda"         # device of every dispatch
+    ingest: str = "sync"         # ingest pipelining mode of every dispatch
+    # How async ingest observes completion: "cuda-event" (a torch.cuda.Event
+    # polled with query()) or "always-ready" (a CPU fleet, where PyTorch
+    # runs synchronously, so the overlap below stays 0); "none" when sync.
+    ingest_readiness: str = "none"
+    # Host packing time that ran while the previous dispatch was still
+    # executing on the device (async ingest only).
+    ingest_overlap_s: float = 0.0
     submitted: int = 0
     executed: int = 0
     dispatches: int = 0          # batched overlay launches
     fused_dispatches: int = 0    # of which took the fused-ingest path
     pipeline_dispatches: int = 0  # of which ran a depth > 1 chain
+    # Streaming-scheduler preemptions: batches whose composition changed
+    # because an urgent-deadline request jumped the (priority, arrival)
+    # order -- see StreamingFrontend._select_batch.
+    preempted_batches: int = 0
     partial_tile_dispatches: int = 0  # dispatches with fewer requests than the tile
     padded_app_slots: int = 0    # wasted N-axis slots from tile rounding
     map_calls: int = 0           # place/route runs (config-cache misses)
@@ -147,10 +231,52 @@ class FleetStats:
     # "<plan.key()>|<padded tile>" -> dispatch count.
     dispatch_plans: Dict[str, int] = dataclasses.field(default_factory=dict)
     evicted_plans: List[str] = dataclasses.field(default_factory=list)
+    # -- the self-healing ladder ------------------------------------------
+    retries: int = 0             # re-dispatch attempts after a transient failure
+    quarantined_requests: int = 0  # tickets isolated by bisection and failed
+    # Dispatches served by a degraded plan of the fallback chain (hopper ->
+    # torch, tiled -> untiled) because the primary failed or its breaker
+    # was open.  The degraded plan's key is in dispatch_plans.
+    fallback_dispatches: int = 0
+    guard_failures: int = 0      # outputs rejected by the NaN/Inf guard
+    straggler_flushes: int = 0   # flushes the HeartbeatMonitor flagged
+    # Every circuit-breaker transition, in order: {"plan", "event", "t",
+    # "consecutive_failures"}.  SHARED with the fleet's BreakerBoard.
+    breaker_events: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
     def stamp_dispatch(self, plan: OverlayPlan, tile: str) -> None:
         key = f"{plan.key()}|{tile}"
         self.dispatch_plans[key] = self.dispatch_plans.get(key, 0) + 1
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class _PooledBuffer:
+    """One reusable host buffer -- a frame canvas or an async output
+    buffer -- plus the copy and the lazy outputs still using it.
+
+    ``pending`` probes the async path's last copy out of (canvas) or into
+    (output buffer) ``buf``; ``readers`` are the :class:`LazyOutput`
+    windows of an output buffer.  :meth:`release` waits on the copy and
+    makes every unread window copy its values out, so ``buf`` may be
+    refilled; the pool calls it at *reuse* time, two flushes later under
+    the depth-2 rotation."""
+
+    buf: torch.Tensor
+    pending: Optional[ReadinessProbe] = None
+    readers: List["weakref.ref[LazyOutput]"] = dataclasses.field(default_factory=list)
+
+    def release(self) -> None:
+        if self.pending is not None:
+            self.pending.wait()
+            self.pending = None
+        for ref in self.readers:
+            lazy = ref()
+            if lazy is not None:
+                lazy.numpy()
+        self.readers = []
 
 
 @dataclasses.dataclass
@@ -181,6 +307,11 @@ class PixieFleet:
     defaults to ``"cuda"`` and raises when no card is visible; the CPU is
     used only when asked for (``device="cpu"``), and there the kernel
     wrappers compute their plain PyTorch versions.
+
+    ``faults``, ``retry``, ``breakers``, ``heartbeat`` and ``output_guard``
+    tune the self-healing ladder with the reference's defaults and arming
+    rules.  Every dispatch runs on the CUDA stream that was current when
+    the fleet was built, whichever thread flushes.
     """
 
     def __init__(
@@ -194,10 +325,29 @@ class PixieFleet:
         backend: str = "hopper",
         tile_rows: Union[int, str, None] = TILE_AUTO,
         device: Union[str, torch.device] = "cuda",
+        ingest: str = "sync",
+        faults: Optional[FaultInjector] = None,
+        retry: Optional[RetryPolicy] = None,
+        breakers: Optional[BreakerBoard] = None,
+        heartbeat: Optional[HeartbeatMonitor] = None,
+        output_guard: Optional[bool] = None,
     ):
         self.default_grid = default_grid or gridlib.sobel_grid()
         self.backend = interpreter.check_backend(backend)
         self.device = interpreter.check_device(device)
+        # "sync" packs, dispatches and copies back in strict order; "async"
+        # double-buffers (module docstring).  Bitwise-identical; async
+        # results are LazyOutput windows instead of eager numpy.
+        self.ingest = check_ingest(ingest)
+        # The stream every dispatch is issued on (the streaming worker
+        # flushes from its own thread) and the side stream of async
+        # host-to-device copies, made at first use.
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._copy_stream = None
+        # The last async dispatch's readiness: overlap accounting polls it
+        # when the next pack starts.
+        self._inflight: Optional[ReadinessProbe] = None
         # Row tiling of fused dispatches: TILE_AUTO (default), an int, or
         # None.  All values are bitwise-identical (a plan-key axis).
         self.tile_rows = check_tile_rows(tile_rows)
@@ -207,19 +357,51 @@ class PixieFleet:
         # the same ~min_pixel_batch pixels per tile as the unfused path.
         self.min_image_side = max(1, int(math.isqrt(self.min_pixel_batch)))
         # Reused zero canvases for fused frame embedding, keyed by padded
-        # tile shape (pinned host memory when the fleet runs on a card).
+        # tile shape (pinned host memory when the fleet runs on a card);
+        # two per shape under async ingest, which also pools the host
+        # buffers its outputs are copied into, two per size.
         self._canvas_pool = LRUCache(8)
+        self._output_pool = LRUCache(8)
         self._overlays = LRUCache(max_overlays)   # keyed by OverlayPlan
         self._configs = LRUCache(max_configs)
         # Stacked settings banks: a repeat flush of the same tenant set
         # skips re-stacking (and re-copying) N configs.
         self._banks = LRUCache(4 * max_overlays)
-        self.stats = FleetStats(self.backend, str(self.device))
+        readiness = "none"
+        if self.ingest == "async":
+            readiness = "cuda-event" if self.device.type == "cuda" else "always-ready"
+        self.stats = FleetStats(self.backend, str(self.device), self.ingest,
+                                ingest_readiness=readiness)
         self._pending: List[Tuple[int, _Prepared]] = []
         # Bounded: unredeemed tickets are evicted oldest-first.
-        self._results: "OrderedDict[int, np.ndarray]" = OrderedDict()
+        self._results: "OrderedDict[int, Any]" = OrderedDict()
         self.max_retained_results = int(max_retained_results)
         self._next_ticket = 0
+        # -- the self-healing ladder -----------------------------------------
+        # Transient failures retry with a deterministic backoff, a failing
+        # plan degrades down its fallback chain behind a per-plan-key
+        # circuit breaker, and a request no plan can serve fails ONLY its
+        # own ticket (stored in _failures, raised by result()).
+        self.faults = faults
+        self.retry = retry or RetryPolicy()
+        self.breakers = breakers or BreakerBoard()
+        # Flush wall times feed the HeartbeatMonitor; a flagged straggler
+        # counts as a breaker failure for every plan it dispatched -- only
+        # when the caller armed the fleet (faults=, breakers= or
+        # heartbeat=), so host jitter never degrades a vanilla fleet.
+        self.heartbeat = heartbeat if heartbeat is not None else HeartbeatMonitor()
+        self._straggler_trips_breaker = (
+            faults is not None or breakers is not None or heartbeat is not None
+        )
+        # NaN/Inf output guard (float grids only); on by default exactly
+        # when faults are installed, since it forces async outputs eagerly.
+        self._guard = bool(faults is not None if output_guard is None else output_guard)
+        self._failures: "OrderedDict[int, BaseException]" = OrderedDict()
+        # Per-flush scratch: breakers owed a success at flush end, and the
+        # memoized fallback chains.
+        self._flush_successes: List[Tuple[Any, str]] = []
+        self._chain_cache = LRUCache(64)
+        self.stats.breaker_events = self.breakers.events
         # pack_s: host-side input preparation; dispatch_s: overlay
         # executions incl. output copies; flush_s: the most recent flush.
         self.timings: Dict[str, float] = {"pack_s": 0.0, "dispatch_s": 0.0}
@@ -287,6 +469,10 @@ class PixieFleet:
         if fn is not None:
             self.stats.overlay_cache_hits += 1
             return fn
+        if self.faults is not None:
+            # Compile faults fire on cache MISSES only, and a failing build
+            # is never cached, exactly like a real deterministic error.
+            self.faults.fire("compile", (f"plan:{plan.key()}",))
         fn = compile_plan(plan)
         self.stats.overlay_builds += 1
         for evicted in self._overlays.put(plan, fn):
@@ -320,7 +506,10 @@ class PixieFleet:
         return ticket
 
     def result(self, ticket: int) -> np.ndarray:
-        """Redeem a flushed ticket (pops it from the retained results)."""
+        """Redeem a flushed ticket (pops it from the retained results).  A
+        quarantined ticket raises its stored :class:`QuarantinedError`."""
+        if ticket in self._failures:
+            raise self._failures.pop(ticket)
         try:
             return self._results.pop(ticket)
         except KeyError:
@@ -336,8 +525,37 @@ class PixieFleet:
         self._results.pop(ticket, None)
 
     def pending_count(self) -> int:
-        """Requests submitted but not yet flushed."""
+        """Requests submitted but not yet flushed (the continuous-batching
+        scheduler polls this)."""
         return len(self._pending)
+
+    def cancel_pending(self) -> int:
+        """Drop every submitted-but-unflushed request (no results, no
+        failures recorded); returns how many were dropped.  The streaming
+        supervisor calls this after a worker crash, so a restarted worker
+        never re-serves tickets whose handles were already failed."""
+        n = len(self._pending)
+        self._pending.clear()
+        return n
+
+    def pop_failures(self) -> Dict[int, BaseException]:
+        """Drain the per-ticket failures of resilient flushes; front-ends
+        route each to its own JobHandle.  Tickets not drained here raise
+        from :meth:`result`."""
+        if not self._failures:
+            return {}
+        failures = dict(self._failures)
+        self._failures.clear()
+        return failures
+
+    def install_faults(self, faults: FaultInjector) -> None:
+        """Arm an injector after construction (the streaming front-end
+        installs its injector into the fleet it owns).  Also arms the
+        NaN/Inf guard and the straggler -> breaker coupling, as passing
+        ``faults=`` at construction does."""
+        self.faults = faults
+        self._guard = True
+        self._straggler_trips_breaker = True
 
     def _stacked_bank(self, grid: GridSpec, configs: List[VCGRAConfig],
                       fused: bool = False):
@@ -365,19 +583,76 @@ class PixieFleet:
         self._banks.put(bkey, stacked)
         return stacked
 
-    def _canvas(self, shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
-        """A zeroed host frame canvas from the reuse pool (pinned when the
-        fleet runs on a card, so the copy to the device is a plain DMA)."""
+    def _pooled(self, cache: LRUCache, shape: Tuple[int, ...],
+                dtype: torch.dtype) -> Tuple[_PooledBuffer, bool]:
+        """A host buffer from a reuse pool (pinned when the fleet runs on a
+        card, so copies to and from the device are plain DMAs) and whether
+        it was reused.  The pool is two deep under async ingest -- flush
+        k+1 fills one buffer while flush k's copy of the other may be in
+        flight -- and a reused buffer is released here (:meth:`_PooledBuffer.
+        release`)."""
         key = (shape, dtype)
-        buf = self._canvas_pool.get(key)
-        if buf is None:
-            buf = torch.zeros(shape, dtype=dtype,
-                              pin_memory=self.device.type == "cuda")
-            self._canvas_pool.put(key, buf)
-            return buf
-        self.stats.canvas_pool_hits += 1
-        buf.zero_()
-        return buf
+        pool = cache.get(key)
+        if pool is None:
+            pool = []
+            cache.put(key, pool)
+        depth = 2 if self.ingest == "async" else 1
+        if len(pool) < depth:
+            entry = _PooledBuffer(torch.zeros(shape, dtype=dtype,
+                                              pin_memory=self.device.type == "cuda"))
+            pool.append(entry)
+            return entry, False
+        entry = pool.pop(0)
+        pool.append(entry)
+        entry.release()
+        return entry, True
+
+    def _canvas(self, shape: Tuple[int, ...], dtype: torch.dtype) -> _PooledBuffer:
+        """A zeroed host frame canvas from the canvas pool."""
+        entry, reused = self._pooled(self._canvas_pool, shape, dtype)
+        if reused:
+            self.stats.canvas_pool_hits += 1
+            entry.buf.zero_()
+        return entry
+
+    def _note_overlap(self, pack_started: float) -> None:
+        """Credit host pack time to ``ingest_overlap_s`` when it ran while
+        the previous async dispatch was still executing; drop the probe
+        once it reports completion."""
+        if self._inflight is None:
+            return
+        if self._inflight.ready():
+            self._inflight = None
+        else:
+            self.stats.ingest_overlap_s += time.perf_counter() - pack_started
+
+    def _on_device(self):
+        """The fleet's device and dispatch stream, made current for the
+        calling thread."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self.device))
+        stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
+
+    def _small_to_device(self, array: np.ndarray) -> torch.Tensor:
+        """A small host operand on the device.  Under async ingest on a
+        card it goes through pinned memory without blocking the host: a
+        blocking copy would wait for the previous dispatch and void the
+        overlap."""
+        t = torch.from_numpy(array)
+        if self.ingest == "async" and self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _check_width(self, kernel: str, grid: GridSpec) -> None:
+        """On the hopper backend, refuse a grid wider than ``kernel``
+        holds, at submit and to this request's submitter alone (every
+        device: the plain versions a CPU fleet runs keep the kernels'
+        limits)."""
+        if self.backend == "hopper":
+            check_value_width(kernel, grid)
 
     def _prepare(self, request: FleetRequest) -> _Prepared:
         t0 = time.perf_counter()
@@ -395,6 +670,7 @@ class PixieFleet:
             if cfg.ingest is not None:
                 # Fused path: keep the RAW frame; line-buffer formation
                 # happens inside the batched dispatch at flush time.
+                self._check_width("vcgra_fused_batched", grid)
                 prepared = _Prepared(grid, cfg, "image", image, hw)
                 self.timings["pack_s"] += time.perf_counter() - t0
                 return prepared
@@ -405,6 +681,7 @@ class PixieFleet:
         else:
             hw = None
             feed = request.inputs
+        self._check_width("vcgra_batched", grid)
         x = interpreter.pack_inputs(cfg, feed, grid.dtype, device=self.device)
         if x.dim() != 2:
             raise ValueError(f"fleet needs flat [channels, batch] inputs, got {tuple(x.shape)}")
@@ -434,14 +711,21 @@ class PixieFleet:
                 )
         spec = PipelineSpec.chain(cfgs, request.out_channels)
         if spec.depth == 1:
+            self._check_width("vcgra_fused_batched", grid)
             return _Prepared(grid, cfgs[0], "image", image, hw)
+        self._check_width("vcgra_pipeline_batched", grid)
         return _Prepared(grid, cfgs[0], "pipeline", image, hw, spec=spec)
 
     # -- batched execution ----------------------------------------------------
 
     def _dispatch_fused(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
-                        out: Dict[int, np.ndarray]) -> None:
+                        out: Dict[int, Any]) -> None:
         """One fused dispatch: raw frames -> outputs, line buffers inside.
+
+        ``plan`` carries the execution axes: the resilient flush passes the
+        fleet's primary plan, or a degraded sibling from
+        :func:`~repro_torch.core.plan.fallback_chain` -- same operands,
+        same bitwise outputs, another executable.
 
         Frames are embedded top-left into one zero host canvas
         [n_tile, Hb, Wb] (pow-2-bucketed sides, app axis rounded to
@@ -463,10 +747,12 @@ class PixieFleet:
         self.stats.partial_tile_dispatches += 1 if n < n_tile else 0
         stacked, ingests = self._stacked_bank(grid, configs, fused=True)
         frames = self._ship_frames(items, n_tile, Hb, Wb, grid.dtype)
+        self._note_overlap(t0)
         self.timings["pack_s"] += time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        ys = fn(stacked, ingests, frames)
+        self._pre_dispatch(plan, items)
+        ys = self._corrupt_outputs(items, fn(stacked, ingests, frames))
         self.stats.dispatches += 1
         self.stats.fused_dispatches += 1
         self._unpack_frames(fn.plan, items, ys, n_tile, Hb, Wb, out)
@@ -476,27 +762,82 @@ class PixieFleet:
                      Hb: int, Wb: int, dtype: torch.dtype) -> torch.Tensor:
         """Embed the raw frames top-left into one pooled zero canvas
         ``[n_tile, Hb, Wb]`` and copy it to the fleet's device (on a CPU
-        fleet the canvas itself; outputs never alias it)."""
-        canvas = self._canvas((n_tile, Hb, Wb), dtype)
+        fleet the canvas itself; outputs never alias it).
+
+        Async on a card: the copy runs ``non_blocking`` on a side stream
+        into memory allocated there (and marked as used by the dispatch
+        stream), the dispatch stream waits on its event, and the canvas
+        keeps the event as its pending copy, waited for at reuse."""
+        entry = self._canvas((n_tile, Hb, Wb), dtype)
+        canvas = entry.buf
         for i, (_, p) in enumerate(items):
             H, W = p.hw
             canvas[i, :H, :W] = torch.from_numpy(np.ascontiguousarray(p.payload))
-        return canvas.to(self.device)
+        if self.ingest == "sync" or self.device.type != "cuda":
+            return canvas.to(self.device)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            frames = torch.empty(canvas.shape, dtype=dtype, device=self.device)
+            frames.copy_(canvas, non_blocking=True)
+            entry.pending = ReadinessProbe(self.device, self._copy_stream)
+        frames.record_stream(main)
+        entry.pending.block(main)
+        return frames
 
     def _unpack_frames(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
                        ys: torch.Tensor, n_tile: int, Hb: int, Wb: int,
-                       out: Dict[int, np.ndarray]) -> None:
+                       out: Dict[int, Any]) -> None:
         """Stamp a frame dispatch and slice each request's ``[H, W]`` (or
         ``[K, H, W]``) output back to the host."""
         self.stats.stamp_dispatch(plan, f"n{n_tile}x{Hb}x{Wb}")
         self.stats.executed += len(items)
+        if self.ingest == "async":
+            views = []
+            for i, (_, p) in enumerate(items):
+                H, W = p.hw
+                y = ys[i].reshape(-1, Hb, Wb)[:, :H, :W]
+                views.append(y[0] if y.shape[0] == 1 else y)
+            self._unpack_lazy(items, views, ys.numel(), out)
+            return
         for i, (ticket, p) in enumerate(items):
             H, W = p.hw
             y = _to_host(ys[i].reshape(-1, Hb, Wb)[:, :H, :W])
             out[ticket] = y[0] if y.shape[0] == 1 else y
 
+    def _unpack_lazy(self, items: List[Tuple[int, _Prepared]], views: List[torch.Tensor],
+                     capacity: int, out: Dict[int, Any]) -> None:
+        """Async unpack: every request's output view is gathered into ONE
+        buffer, which lands in a pooled host buffer of ``capacity``
+        elements (the dispatch's padded output size, so pool keys follow
+        the tile buckets) -- on a card through one ``non_blocking`` copy
+        into pinned memory -- and is handed out as :class:`LazyOutput`
+        windows behind one readiness probe.  bf16 widens exactly to
+        float32 on the way."""
+        dtype = torch.float32 if views[0].dtype == torch.bfloat16 else views[0].dtype
+        sizes = [v.numel() for v in views]
+        entry, _ = self._pooled(self._output_pool, (capacity,), dtype)
+        host = entry.buf[:sum(sizes)]
+        packed = host
+        if self.device.type == "cuda":
+            packed = torch.empty(host.shape, dtype=dtype, device=self.device)
+        offset = 0
+        for v, size in zip(views, sizes):
+            packed[offset:offset + size].view(v.shape).copy_(v)
+            offset += size
+        if packed is not host:
+            host.copy_(packed, non_blocking=True)
+        probe = entry.pending = ReadinessProbe(self.device)
+        offset = 0
+        for (ticket, _), v, size in zip(items, views, sizes):
+            out[ticket] = lazy = LazyOutput(host, offset, tuple(v.shape), probe)
+            entry.readers.append(weakref.ref(lazy))
+            offset += size
+        self._inflight = probe
+
     def _dispatch_pipeline(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
-                           out: Dict[int, np.ndarray]) -> None:
+                           out: Dict[int, Any]) -> None:
         """One chained dispatch: raw frames -> final-stage outputs, every
         intermediate on the device.
 
@@ -521,18 +862,20 @@ class PixieFleet:
         for si in range(specs[0].depth):
             stacked, ingests = self._stacked_bank(
                 grid, [s.stages[si].config for s in specs], fused=True)
-            out_ch = torch.tensor([s.stages[si].out_channel for s in specs],
-                                  dtype=torch.int32).to(self.device)
+            out_ch = self._small_to_device(
+                np.asarray([s.stages[si].out_channel for s in specs], np.int32))
             stage_settings.append((stacked, ingests, out_ch))
         hw = np.full((n_tile, 2), (Hb, Wb), np.int32)
         for i, (_, p) in enumerate(items):
             hw[i] = p.hw
-        hw = torch.from_numpy(hw).to(self.device)
+        hw = self._small_to_device(hw)
         frames = self._ship_frames(items, n_tile, Hb, Wb, grid.dtype)
+        self._note_overlap(t0)
         self.timings["pack_s"] += time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        ys = fn(tuple(stage_settings), hw, frames)
+        self._pre_dispatch(plan, items)
+        ys = self._corrupt_outputs(items, fn(tuple(stage_settings), hw, frames))
         self.stats.dispatches += 1
         self.stats.fused_dispatches += 1
         self.stats.pipeline_dispatches += 1
@@ -540,7 +883,7 @@ class PixieFleet:
         self.timings["dispatch_s"] += time.perf_counter() - t0
 
     def _dispatch_packed(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
-                         out: Dict[int, np.ndarray]) -> None:
+                         out: Dict[int, Any]) -> None:
         """One unfused dispatch over packed [channels, batch] inputs
         (named-channel requests and image apps without an ingest plan)."""
         t0 = time.perf_counter()
@@ -559,33 +902,239 @@ class PixieFleet:
         self.stats.partial_tile_dispatches += 1 if n < n_tile else 0
         stacked = self._stacked_bank(grid, configs)
         xstack = torch.stack(xs)
+        self._note_overlap(t0)
         self.timings["pack_s"] += time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        ys = fn(stacked, xstack)
+        self._pre_dispatch(plan, items)
+        ys = self._corrupt_outputs(items, fn(stacked, xstack))
         self.stats.dispatches += 1
         self.stats.stamp_dispatch(fn.plan, f"n{n_tile}xb{batch}")
         self.stats.executed += n
-        for i, (ticket, p) in enumerate(items):
-            y = _to_host(ys[i, :, : p.payload.shape[-1]])
-            if p.hw is not None:
-                H, W = p.hw
-                y = y[:, : H * W].reshape((-1, H, W))
-                y = y[0] if y.shape[0] == 1 else y
-            out[ticket] = y
+        if self.ingest == "async":
+            views = []
+            for i, (_, p) in enumerate(items):
+                y = ys[i, :, : p.payload.shape[-1]]
+                if p.hw is not None:
+                    H, W = p.hw
+                    y = y[:, : H * W].reshape((-1, H, W))
+                    y = y[0] if y.shape[0] == 1 else y
+                views.append(y)
+            self._unpack_lazy(items, views, ys.numel(), out)
+        else:
+            for i, (ticket, p) in enumerate(items):
+                y = _to_host(ys[i, :, : p.payload.shape[-1]])
+                if p.hw is not None:
+                    H, W = p.hw
+                    y = y[:, : H * W].reshape((-1, H, W))
+                    y = y[0] if y.shape[0] == 1 else y
+                out[ticket] = y
         self.timings["dispatch_s"] += time.perf_counter() - t0
 
-    def flush(self, limit: Optional[int] = None) -> Dict[int, np.ndarray]:
-        """Run pending requests: one dispatch per grid group (two when a
-        group mixes fused image requests with packed-channel requests),
-        plus one per chain radii group.
+    # -- resilient dispatch ---------------------------------------------------
+
+    def _primary_plan(self, key: Tuple, items: List[Tuple[int, _Prepared]]) -> OverlayPlan:
+        """The fleet-configured plan of one flush group.  Chain groups bake
+        their app-tile-padded spec tuple into the plan (padding is
+        executable shape), so the plan is recomputed per work set during
+        bisection."""
+        grid = key[0]
+        if key[1] == "image":
+            return self.plan_for_dispatch(grid, fused=True, radius=key[2])
+        if key[1] == "pipe":
+            specs = [p.spec for _, p in items]
+            specs += [specs[0]] * (round_up(len(items), self.batch_tile) - len(items))
+            return self.plan_for_dispatch(grid, fused=True, pipeline=tuple(specs))
+        return self.plan_for_dispatch(grid, fused=False)
+
+    def _dispatch_plan(self, plan: OverlayPlan, kind: str,
+                       items: List[Tuple[int, _Prepared]], out: Dict[int, Any]) -> None:
+        if kind == "image":
+            self._dispatch_fused(plan, items, out)
+        elif kind == "pipe":
+            self._dispatch_pipeline(plan, items, out)
+        else:
+            self._dispatch_packed(plan, items, out)
+
+    def _candidates(self, plan: OverlayPlan) -> Tuple[OverlayPlan, ...]:
+        """``(primary, *fallback_chain)``, memoized per plan."""
+        chain = self._chain_cache.get(plan)
+        if chain is None:
+            chain = (plan, *fallback_chain(plan))
+            self._chain_cache.put(plan, chain)
+        return chain
+
+    def _fault_tokens(self, plan: OverlayPlan,
+                      items: List[Tuple[int, _Prepared]]) -> List[str]:
+        """Context tokens a FaultSpec's ``match=`` is tested against: the
+        plan key plus every rider's ticket and app name (bracketed so
+        ``<ticket:1>`` never substring-matches ``<ticket:12>``)."""
+        tokens = [f"plan:{plan.key()}"]
+        for ticket, p in items:
+            tokens.append(f"<ticket:{ticket}>")
+            tokens.append(f"<app:{p.cfg.app_name}>")
+        return tokens
+
+    def _pre_dispatch(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]]) -> None:
+        """Fire the stall and dispatch hook points (one attribute check
+        without an injector)."""
+        if self.faults is None:
+            return
+        tokens = self._fault_tokens(plan, items)
+        self.faults.fire("transfer_stall", tokens)
+        self.faults.fire("dispatch", tokens)
+
+    def _corrupt_outputs(self, items: List[Tuple[int, _Prepared]],
+                         ys: torch.Tensor) -> torch.Tensor:
+        """Apply armed ``nan_output`` corruption to the dispatch's output
+        batch (float grids only: integer fabrics cannot encode NaN, so the
+        output guard scopes itself the same way)."""
+        if self.faults is None or not ys.dtype.is_floating_point:
+            return ys
+        slots = self.faults.corrupt_slots(
+            [[f"<ticket:{t}>", f"<app:{p.cfg.app_name}>"] for t, p in items])
+        if slots:
+            ys = ys.clone()
+            ys[slots] = float("nan")
+        return ys
+
+    def _guard_outputs(self, got: Dict[int, Any],
+                       items: List[Tuple[int, _Prepared]]) -> List[Tuple[int, _Prepared]]:
+        """The NaN/Inf output guard: pops poisoned tickets out of ``got``
+        and returns their work items (the resilient loop re-dispatches
+        just those).  Float outputs only; forces async outputs, which is
+        why the guard defaults on only when faults are installed."""
+        if not self._guard:
+            return []
+        bad = []
+        for ticket, prep in items:
+            y = got.get(ticket)
+            if y is None:
+                continue
+            arr = np.asarray(y)
+            if np.issubdtype(arr.dtype, np.floating) and not np.isfinite(arr).all():
+                bad.append((ticket, prep))
+                del got[ticket]
+        return bad
+
+    def _quarantine(self, ticket: int, prep: _Prepared,
+                    cause: Optional[BaseException]) -> None:
+        """Fail ONE isolated request: a QuarantinedError against its ticket
+        (raised by result(), drained by front-ends via pop_failures)."""
+        self.stats.quarantined_requests += 1
+        exc = QuarantinedError(ticket, app=prep.cfg.app_name, cause=cause)
+        if cause is not None:
+            exc.__cause__ = cause
+        self._failures[ticket] = exc
+        while len(self._failures) > self.max_retained_results:
+            self._failures.popitem(last=False)
+
+    def _dispatch_resilient(self, key: Tuple, items: List[Tuple[int, _Prepared]],
+                            out: Dict[int, Any]) -> None:
+        """One flush group through the self-healing ladder, in the
+        reference's order:
+
+        1. the primary plan, retried with deterministic backoff on
+           *transient* failures (``RetryPolicy.should_retry``);
+        2. on exhaustion or a non-transient failure -- or when the
+           primary's breaker is open -- each plan of the fallback chain in
+           turn, each behind its own breaker (the last is tried even when
+           its breaker is open, if nothing else was);
+        3. outputs through the NaN/Inf guard: clean tickets commit, and
+           only the poisoned ones go around again;
+        4. if EVERY plan fails the whole work set, bisect: halves recurse
+           independently, so only the offending request(s) fail, with
+           QuarantinedError.
+
+        The ladder routes :class:`InjectedFault` (the chaos hook points)
+        and poisoned outputs.  Any other error of a dispatch -- a kernel
+        that cannot be built, loaded or launched, a refused operand --
+        raises out of the flush at once and is never served around.
+        Breaker successes are deferred to :meth:`_settle_flush`."""
+        kind = key[1]
+        candidates = self._candidates(self._primary_plan(key, items))
+        last_exc: Optional[BaseException] = None
+        tried_any = False
+        for ci, cand in enumerate(candidates):
+            br = self.breakers.breaker(cand.key())
+            last_resort = ci == len(candidates) - 1 and not tried_any
+            if not br.allow() and not last_resort:
+                continue
+            tried_any = True
+            for attempt in range(self.retry.max_attempts):
+                if attempt:
+                    self.stats.retries += 1
+                    time.sleep(self.retry.backoff_s(attempt - 1))
+                got: Dict[int, Any] = {}
+                try:
+                    self._dispatch_plan(cand, kind, items, got)
+                    bad = self._guard_outputs(got, items)
+                except InjectedFault as exc:
+                    last_exc = exc
+                    br.record_failure()
+                    if self.retry.should_retry(exc):
+                        continue
+                    break
+                if bad:
+                    out.update(got)
+                    self.stats.guard_failures += len(bad)
+                    br.record_failure("nan_guard")
+                    last_exc = PoisonedOutputError(
+                        f"{len(bad)}/{len(items)} outputs of plan "
+                        f"{cand.key()} failed the NaN/Inf guard"
+                    )
+                    if len(bad) < len(items):
+                        # Survivors committed; the poisoned subset takes
+                        # the whole ladder again from the primary.
+                        self._dispatch_resilient(key, bad, out)
+                        return
+                    continue  # whole batch poisoned: burn a retry
+                out.update(got)
+                self._flush_successes.append((br, cand.key()))
+                if ci:  # not the primary (by position in the chain)
+                    self.stats.fallback_dispatches += 1
+                return
+        if len(items) == 1:
+            ticket, prep = items[0]
+            self._quarantine(ticket, prep, last_exc)
+            return
+        mid = len(items) // 2
+        self._dispatch_resilient(key, items[:mid], out)
+        self._dispatch_resilient(key, items[mid:], out)
+
+    def _settle_flush(self, dispatched: bool, flush_s: float) -> None:
+        """Flush epilogue: feed the wall time to the HeartbeatMonitor and
+        settle the deferred breaker successes -- a straggler flush counts
+        against every plan it dispatched when the fleet is armed,
+        otherwise each plan records its success."""
+        straggler = False
+        if dispatched and self.heartbeat is not None:
+            straggler = self.heartbeat.record(self.stats.dispatches, flush_s)
+            if straggler:
+                self.stats.straggler_flushes += 1
+        punish = straggler and self._straggler_trips_breaker
+        for br, _key in self._flush_successes:
+            if punish:
+                br.record_failure("straggler")
+            else:
+                br.record_success()
+        self._flush_successes = []
+
+    def flush(self, limit: Optional[int] = None) -> Dict[int, Any]:
+        """Run pending requests through the self-healing ladder: one
+        dispatch per grid group (two when a group mixes fused image
+        requests with packed-channel requests), plus one per chain radii
+        group.
 
         ``limit`` dispatches only the oldest ``limit`` pending requests and
         leaves the rest queued.  ``timings`` gets ``flush_started`` and
         ``flush_s``.  Returns {ticket: output}: image requests as [H, W]
-        (or [num_outputs, H, W]), channel requests as [num_outputs, batch],
-        all numpy on the host (bf16 grids as exact float32).  A dispatch
-        error propagates.
+        (or [num_outputs, H, W]), channel requests as [num_outputs, batch];
+        numpy arrays on the host under sync ingest (bf16 grids as exact
+        float32), :class:`LazyOutput` windows of the same values under
+        async ingest.  A quarantined ticket is missing from the result and
+        raises from :meth:`result` (or is drained by :meth:`pop_failures`);
+        any dispatch error other than an injected fault raises.
         """
         if limit is None or limit >= len(self._pending):
             pending, self._pending = self._pending, []
@@ -607,34 +1156,31 @@ class PixieFleet:
                 key = (p.grid, "channels")
             groups.setdefault(key, []).append((ticket, p))
 
-        out: Dict[int, np.ndarray] = {}
+        out: Dict[int, Any] = {}
         t0 = time.perf_counter()
         self.timings["flush_started"] = t0
-        for key, items in groups.items():
-            if key[1] == "image":
-                plan = self.plan_for_dispatch(key[0], fused=True, radius=key[2])
-                self._dispatch_fused(plan, items, out)
-            elif key[1] == "pipe":
-                # The app-tile-padded spec tuple is executable shape, so it
-                # is part of the plan.
-                specs = [p.spec for _, p in items]
-                specs += [specs[0]] * (round_up(len(items), self.batch_tile) - len(items))
-                plan = self.plan_for_dispatch(key[0], fused=True, pipeline=tuple(specs))
-                self._dispatch_pipeline(plan, items, out)
-            else:
-                self._dispatch_packed(self.plan_for_dispatch(key[0], fused=False),
-                                      items, out)
-        self.timings["flush_s"] = time.perf_counter() - t0
+        self._flush_successes = []
+        with self._on_device():
+            for key, items in groups.items():
+                self._dispatch_resilient(key, items, out)
+        flush_s = time.perf_counter() - t0
+        self.timings["flush_s"] = flush_s
+        self._settle_flush(bool(groups), flush_s)
         self._results.update(out)
         while len(self._results) > self.max_retained_results:
             self._results.popitem(last=False)
         return out
 
-    def run_many(self, requests: Sequence[FleetRequest]) -> List[np.ndarray]:
+    def run_many(self, requests: Sequence[FleetRequest]) -> List[Any]:
         """submit() + flush() convenience; outputs in request order (and
-        released from retention)."""
+        released from retention).  A quarantined request raises its
+        stored failure."""
         tickets = [self.submit(r) for r in requests]
         outs = self.flush()
+        failures = self.pop_failures()
         for t in tickets:
             self.discard(t)
+        for t in tickets:
+            if t in failures:
+                raise failures[t]
         return [outs[t] for t in tickets]

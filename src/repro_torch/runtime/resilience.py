@@ -1,16 +1,16 @@
 """Self-healing primitives for the serving stack: typed errors, retry
 policy, and per-plan circuit breakers.
 
-A verbatim copy of the JAX package's module (pure Python; the port may
+A copy of the JAX package's module (pure Python; the port may
 not import the reference package).  The fleet's plan-cache architecture
 (``OverlayPlan`` -> ``compile_plan``, one frozen hashable key per
 executable) is what makes *graceful degradation* cheap: when a plan keeps
-failing, a self-healing fleet re-dispatches the same work on a degraded
-sibling plan, and the degraded executable is just another cache entry.
-The port's fleet does not run that ladder yet -- a dispatch error
-propagates out of ``PixieFleet.flush`` -- so today only the error types
-below are on its path.  This module contributes the three policy pieces
-a self-healing fleet threads around the ladder:
+failing, the fleet re-dispatches the same work on a degraded sibling plan
+(``hopper -> torch``, tiled -> untiled; see
+:func:`repro_torch.core.plan.fallback_chain`) and the degraded executable
+is just another cache entry -- every step of the chain is bitwise-equal
+to the primary.  This module contributes the three policy pieces the
+fleet threads around that chain:
 
 * a typed exception hierarchy (:class:`ServiceError` and friends) shared
   by the runtime and serving layers -- defined HERE, at the bottom of the

@@ -1,5 +1,5 @@
-"""Serving surface: the futures API, the synchronous fleet front-end and
-the LM serving engine."""
+"""Serving surface: the futures API, the synchronous and streaming fleet
+front-ends and the LM serving engine."""
 
 from repro_torch.serve.engine import ServeConfig, ServeEngine, SlotServer
 from repro_torch.serve.fleet_frontend import FleetFrontend
@@ -7,10 +7,11 @@ from repro_torch.serve.service import (
     AdmissionError, DispatchError, ImageJob, ImageService, JobHandle,
     JobTimeout, LatencyStats, QuarantinedError, ServiceError,
 )
+from repro_torch.serve.streaming import StreamingFrontend
 
 __all__ = [
     "ServeConfig", "ServeEngine", "SlotServer",
-    "FleetFrontend",
+    "FleetFrontend", "StreamingFrontend",
     "ImageService", "ImageJob", "JobHandle",
     "LatencyStats", "AdmissionError",
     "ServiceError", "DispatchError", "QuarantinedError", "JobTimeout",

@@ -10,12 +10,16 @@ device-resident chain.
 
 ``submit`` returns a :class:`~repro_torch.serve.service.JobHandle`, and
 ``result()`` on an undispatched handle drives the flush itself; there is
-no worker thread here.
+no worker thread here.  For a server that overlaps arrival with dispatch
+and schedules against deadlines, use
+:class:`repro_torch.serve.streaming.StreamingFrontend`, which implements
+the same API on the same fleet.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -25,6 +29,7 @@ import torch
 from repro_torch.core import applications as app_lib
 from repro_torch.core.dfg import DFG
 from repro_torch.core.grid import GridSpec
+from repro_torch.core.ingest import check_ingest
 from repro_torch.core.interpreter import check_backend
 from repro_torch.runtime.fleet import FleetRequest, PixieFleet
 from repro_torch.serve.service import (
@@ -36,10 +41,12 @@ def build_fleet(
     fleet: Optional[PixieFleet],
     backend: Optional[str],
     device: Union[str, torch.device, None],
+    ingest: Optional[str] = None,
 ) -> PixieFleet:
     """Resolve a front-end's fleet: pass-through with axis-conflict checks
     when one is provided, else a fresh fleet on the requested axes
-    (defaults: ``backend="hopper"``, ``device="cuda"``)."""
+    (defaults: ``backend="hopper"``, ``device="cuda"``, ``ingest="sync"``).
+    Shared by the synchronous and streaming front-ends."""
     if backend is not None:
         check_backend(backend)
         if fleet is not None and fleet.backend != backend:
@@ -52,7 +59,15 @@ def build_fleet(
             f"device={device!r} conflicts with the provided fleet's device "
             f"{str(fleet.device)!r}; configure the PixieFleet instead"
         )
-    return fleet or PixieFleet(backend=backend or "hopper", device=device or "cuda")
+    if ingest is not None:
+        check_ingest(ingest)
+        if fleet is not None and fleet.ingest != ingest:
+            raise ValueError(
+                f"ingest={ingest!r} conflicts with the provided fleet's "
+                f"ingest {fleet.ingest!r}; configure the PixieFleet instead"
+            )
+    return fleet or PixieFleet(backend=backend or "hopper", device=device or "cuda",
+                               ingest=ingest or "sync")
 
 
 class FleetFrontend(ImageService):
@@ -74,8 +89,9 @@ class FleetFrontend(ImageService):
         max_done: int = 1024,
         backend: Optional[str] = None,
         device: Union[str, torch.device, None] = None,
+        ingest: Optional[str] = None,
     ):
-        self.fleet = build_fleet(fleet, backend, device)
+        self.fleet = build_fleet(fleet, backend, device, ingest)
         # Name -> DFG factory; defaults to the paper's application library.
         self.registry = dict(registry) if registry is not None else dict(app_lib.ALL_APPS)
         self._arrivals: Dict[int, Tuple[str, float]] = {}
@@ -103,7 +119,11 @@ class FleetFrontend(ImageService):
         device-resident pipeline dispatch (stage i's output feeds stage
         i+1's taps) and the job is named ``"a+b+c"``."""
         if kwargs:
-            raise TypeError(f"unsupported submit options {sorted(kwargs)}")
+            raise TypeError(
+                f"unsupported submit options {sorted(kwargs)}; deadline_s/"
+                f"priority scheduling needs the streaming front-end "
+                f"(repro_torch.serve.StreamingFrontend)"
+            )
         if isinstance(app, (list, tuple)):
             resolved = [resolve_app(self.registry, a) for a in app]
             name = "+".join(n for n, _ in resolved)
@@ -119,8 +139,17 @@ class FleetFrontend(ImageService):
 
     def flush(self) -> List[ImageJob]:
         """Drain the queue: one batched dispatch per grid group.  Resolves
-        every pending handle and records the queue/flush latency split."""
+        every pending handle and records the queue/flush latency split.
+        Tickets quarantined by the fleet's resilient flush fail their own
+        handle with the stored :class:`QuarantinedError`; batchmates are
+        served normally."""
         outs = self.fleet.flush()
+        for ticket, exc in self.fleet.pop_failures().items():
+            self._arrivals.pop(ticket, None)
+            self.latency.record_failure()
+            handle = self._handles.pop(ticket, None)
+            if handle is not None:
+                handle._fail(exc)
         flush_started = self.fleet.timings.get("flush_started", time.perf_counter())
         flush_s = self.fleet.timings.get("flush_s", 0.0)
         seq = self._flush_seq
@@ -145,6 +174,33 @@ class FleetFrontend(ImageService):
             self._done.popitem(last=False)
         return jobs
 
+    # -- deprecated three-call protocol ------------------------------------
+
+    def tick(self) -> List[ImageJob]:
+        """Deprecated alias of :meth:`flush` (the old queue/tick/take
+        protocol)."""
+        warnings.warn(
+            "FleetFrontend tick() is deprecated: hold the JobHandle from "
+            "submit() and call result() on it, or call flush() to drain "
+            "explicitly",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return self.flush()
+
+    def take(self, ticket: Union[int, JobHandle]) -> np.ndarray:
+        """Deprecated ticket redemption (the old queue/tick/take protocol);
+        accepts a bare ticket or a handle."""
+        warnings.warn(
+            "FleetFrontend take() is deprecated: call result() on the "
+            "JobHandle returned by submit()",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        if isinstance(ticket, JobHandle):
+            ticket = ticket.ticket
+        return self._done.pop(ticket).output
+
     @property
     def backend(self) -> str:
         """Execution backend of the underlying fleet ("torch" or "hopper")."""
@@ -153,6 +209,12 @@ class FleetFrontend(ImageService):
     @property
     def device(self) -> torch.device:
         return self.fleet.device
+
+    @property
+    def ingest(self) -> str:
+        """Ingest mode of the underlying fleet ("sync" or "async"; async
+        jobs carry :class:`~repro_torch.runtime.fleet.LazyOutput`s)."""
+        return self.fleet.ingest
 
     @property
     def stats(self):

@@ -1,8 +1,9 @@
 """The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py`` import
 neither JAX nor the reference package, and importing the entry points (the
-serving front-end, the ``Pixie`` facade, the kernel packages, the
-preprocessor, the LM serving engine, the models and the serving CLI) pulls
-no JAX into the process.  (Only the tests import
+serving front-ends, the ``Pixie`` facade, the kernel packages, the
+preprocessor, the LM serving engine, the models, the serving CLI, the
+fault injector, the heartbeat and the synthesis front-end) pulls no JAX
+into the process.  (Only the tests import
 both.)"""
 
 import os
@@ -45,6 +46,10 @@ def test_serving_entry_point_imports_without_jax():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.flash_attention.parity\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.serve.streaming\n"
+        "import repro_torch.runtime.chaos\n"
+        "import repro_torch.runtime.fault_tolerance\n"
+        "import repro_torch.core.synthesis\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -538,3 +538,71 @@ def test_flash_decode_refuses_what_it_cannot_launch(cuda):
         flash_attention.decode_attention(q[:, :8], kv, kv, lens.long(), chunk=64)
     with pytest.raises(ValueError, match="one device"):
         flash_attention.decode_attention(q[:, :8], kv.cpu(), kv.cpu(), lens, chunk=64)
+
+
+# -- the serving path's async ingest and self-healing ladder on the card -------
+
+
+def test_readiness_probe_polls_a_cuda_event(cuda):
+    """The async-ingest probe is a ``torch.cuda.Event``: pending while the
+    stream still spins, ready after, and ``wait`` blocks on it alone."""
+    from repro_torch.core.ingest import ReadinessProbe
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)   # ~0.1 s of spinning on the stream
+    probe = ReadinessProbe(cuda)
+    assert probe.on_device and not probe.ready()
+    assert not probe.wait(timeout=0.0)
+    assert probe.wait(timeout=60.0) and probe.ready()
+
+
+def test_async_ingest_reuses_pinned_canvases_bitwise(cuda):
+    """Async ingest on the card: pinned canvases and pinned output
+    buffers, two of each per shape.  After a warm-up flush (settings banks
+    built), flush 1 runs behind a spin while flush 2 packs and dispatches
+    without waiting for it; flush 3 reuses flush 1's canvas and output
+    buffer, so the pool first copies flush 1's unread outputs out; every
+    output equals the sync fleet's."""
+    from repro_torch.runtime.fleet import FleetRequest, LazyOutput, PixieFleet
+
+    rng = np.random.default_rng(31)
+    traces = [[FleetRequest(app=a, image=rng.integers(0, 256, (300, 500)).astype(np.int32))
+               for a in SOBEL_APPS[:3]] for _ in range(3)]
+    sync = PixieFleet()
+    fleet = PixieFleet(ingest="async")
+    assert fleet.stats.ingest_readiness == "cuda-event"
+    np.asarray(fleet.run_many(traces[0])[0])
+    torch.cuda._sleep(400_000_000)
+    held = [fleet.run_many(trace) for trace in traces[:2]]
+    assert not held[0][0].ready()
+    assert fleet.stats.ingest_overlap_s > 0.0
+    held.append(fleet.run_many(traces[2]))
+    assert held[0][0].ready()
+    assert fleet.stats.canvas_pool_hits == 2
+    for cache in (fleet._canvas_pool, fleet._output_pool):
+        (pool,) = cache._d.values()
+        assert len(pool) == 2 and all(e.buf.is_pinned() for e in pool)
+    for trace, outs in zip(traces, held):
+        for got, want in zip(outs, sync.run_many(trace)):
+            assert isinstance(got, LazyOutput)
+            np.testing.assert_array_equal(np.asarray(got), want)
+    assert fleet.stats.fallback_dispatches == fleet.stats.retries == 0
+
+
+def test_wide_grid_is_refused_at_submit_on_the_card(cuda):
+    """A 65-value-wide grid is wider than B1 holds: the hopper fleet on the
+    card refuses it at submit, nothing launches and nothing degrades; the
+    torch fleet serves it."""
+    from repro_torch.runtime.fleet import FleetRequest, PixieFleet
+
+    grid = custom("wide-65", 65, [65, 11, 7, 5, 3, 3, 2], 1)
+    image = np.random.default_rng(32).integers(0, 256, (64, 80)).astype(np.int32)
+    fleet = PixieFleet(default_grid=grid)
+    LAUNCHES["vcgra_fused_batched"] = 0
+    with pytest.raises(ValueError, match="65-wide value vector"):
+        fleet.submit(FleetRequest(app="sobel_x", image=image))
+    assert fleet.flush() == {} and LAUNCHES["vcgra_fused_batched"] == 0
+    assert fleet.stats.fallback_dispatches == 0 and fleet.stats.dispatch_plans == {}
+    (got,) = PixieFleet(default_grid=grid, backend="torch").run_many(
+        [FleetRequest(app="sobel_x", image=image)])
+    assert got.shape == image.shape
