@@ -80,8 +80,11 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 11. B7 (flash decode) vs its plain version -- the case table of
    ``repro_torch.kernels.flash_attention.parity`` (the reference flash
    suite's MHA, GQA 4:1, MQA, ragged 25/5 heads and chunk sweep, and
-   gemma-2b's MQA head, H 8, G 1, D 256, a 200-row cache and one head a
-   group at D 256), in float32, bf16 and float32 q over a bf16 cache (the
+   gemma-2b's MQA head, H 8, G 1, D 256, a 200-row cache, one head a
+   group at D 256, and the zoo's head layouts: gemma3-12b's Hg 2 at D 256,
+   deepseek's and qwen2-moe's Hg 1 at D 128, hymba's Hg 5 at D 64,
+   musicgen's Hg 1 at D 64; plus 1,024-slot rings read with lengths below,
+   at and capped at W), in float32, bf16 and float32 q over a bf16 cache (the
    bf16 caches on the tensor-core body, the float32 ones on the CUDA-core
    body), lengths 0, 1, ragged and S, and a poisoned tail past the
    lengths; float32 outputs at the reference's 2e-5, bf16 outputs within
@@ -101,7 +104,25 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    ``scaled_dot_product_attention`` call, with its block's registers and
    shared memory (B3's are in the chain times of phase 7), and the LM's prefill, decode
    step and generate times, with a ``torch.profiler`` view of two decode
-   steps (the device's busy time, launches, the costliest kernels).
+   steps (the device's busy time, launches, the costliest kernels);
+14. the rest of the LM zoo (:data:`ZOO`), each config built in its served
+   dtype from a seeded generator on the card and the launch counters reset
+   just before its ``ServeEngine.generate``: gemma3-12b (5:1 local:global
+   over 1,024-slot rings, 11.77 B) and deepseek-moe-16b (a dense layer,
+   then 64 routed experts top-6 + 2 shared, 16.32 B) at full width and
+   depth, batch 8; qwen2-moe-a2.7b, xlstm-1.3b, hymba-1.5b (meta tokens),
+   paligemma-3b (stub embeddings, prefix-LM mask) and musicgen-medium at
+   full width, batch 2.  B7 must launch once per attention layer per
+   decode step and nothing else; teacher-forced decode logits are held
+   against prefill logits (gemma3 from 1,000 tokens, its rings wrapping
+   during decode, and from 1,100, wrapped in prefill; MoE against a
+   dropless prefill, on the rows both routed alike; the recurrent kinds
+   with their bf16 prefill's own distance from a float32 one added), and
+   two ring faults planted in gemma3's decode must fail the check from a
+   1-token prefix.  For gemma3-12b and deepseek-moe-16b: init time, peak
+   memory, prefill, decode step, generate, a profile of two steps, the
+   prefill's dropped MoE choices, and B7 at their decode shapes beside its
+   bound, its plain version and SDPA.
 
 Then the kernel table line (each kernel also with its bf16 max error) and,
 last, ``{"ok": true, "device": {...}}``.
@@ -1614,6 +1635,19 @@ def phase_flash_vs_plain(device):
                                     f"{q_dtype}/{kv_dtype} lengths {lengths}")
                 err, share = max(err, e), max(share, s)
                 cases += 1
+        if kv_dtype == torch.bfloat16:
+            # the rings of the window kinds, read as the ring decode reads them
+            for B, H, G, D, W, chunk in parity.RING_CASES:
+                q, k, v = flash_inputs(rng, B, H, G, D, W, q_dtype, kv_dtype, device)
+                lengths = parity.ring_lengths(rng, B, W)
+                lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+                got = flash_attention.decode_attention(q, k, v, lens, chunk=chunk)
+                want = flash_attention.decode_ref(q, k, v, lens)
+                torch.cuda.synchronize()
+                e, s = parity.check(got, want, lengths, f"B7 ring {(B, H, G, D, W, chunk)} "
+                                    f"{q_dtype}/{kv_dtype} lengths {lengths}")
+                err, share = max(err, e), max(share, s)
+                cases += 1
         by_dtype[f"{str(q_dtype)[6:]} q / {str(kv_dtype)[6:]} cache"] = {
             "max_abs_err": err, "max_share_of_tolerance": share}
     q, k, v = flash_inputs(rng, 2, 4, 2, 64, 512, torch.float32, torch.float32, device)
@@ -1655,7 +1689,9 @@ def lm_setup(device):
 
 def _leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = tree.values()
+    if isinstance(tree, (tuple, list, type({}.values()))):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -1892,104 +1928,523 @@ def profile_steps(step, steps=2, top=8):
     }
 
 
-def phase_lm_times(device, lm, engine, prompts):
-    """B7 at the engine's shape (8 sequences of a 4096-row cache, 160 valid
-    rows each: 128 prompt + 32 generated) and at the ``decode_32k`` shape of
-    one gemma-2b layer (B 128, S 32768, all rows valid), bf16: kernel,
-    plain, one ``scaled_dot_product_attention`` call with a boolean length
-    mask and ``enable_gqa`` (the yardstick, never called by the port),
-    bound.  Then prefill, decode step and generate on the card."""
+def flash_row(label, rng, B, H, G, D, S, n, device):
+    """B7 in bf16 over a ``[B, S, G, D]`` cache with ``n`` valid rows a
+    sequence: its time (CUDA events, shielded), its block, its plain
+    version's time, one ``scaled_dot_product_attention`` call with a
+    boolean length mask and ``enable_gqa`` (the yardstick, never called by
+    the port), and its bound; held to the plain version at ``parity``'s
+    tolerance."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.build import load_library
     from repro_torch.kernels.flash_attention import parity
 
-    cfg = lm.cfg
-    H, G, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    rng = np.random.default_rng(13)
-    rows = {}
-    for label, B, S, n in (("engine", LM_BATCH, LM_MAX_SEQ, LM_PROMPT + LM_GEN),
-                           ("decode_32k", *DECODE_32K, DECODE_32K[1])):
-        q, k, v = flash_inputs(rng, B, H, G, D, S, torch.bfloat16, torch.bfloat16, device)
-        lens = torch.full((B,), n, dtype=torch.int32, device=device)
-        mask = (torch.arange(S, device=device)[None, :] < lens[:, None])[:, None, None, :]
+    q, k, v = flash_inputs(rng, B, H, G, D, S, torch.bfloat16, torch.bfloat16, device)
+    lens = torch.full((B,), n, dtype=torch.int32, device=device)
+    mask = (torch.arange(S, device=device)[None, :] < lens[:, None])[:, None, None, :]
 
-        def run():
-            return flash_attention.decode_attention(q, k, v, lens, chunk=512)
+    def run():
+        return flash_attention.decode_attention(q, k, v, lens, chunk=512)
 
-        def plain():
-            return flash_attention.decode_ref(q, k, v, lens)
+    def plain():
+        return flash_attention.decode_ref(q, k, v, lens)
 
-        def library():
-            return F.scaled_dot_product_attention(
-                q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-                enable_gqa=True)[:, :, 0, :]
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)[:, :, 0, :]
 
-        want = plain()
-        got = run()
-        lib = library()
+    want = plain()
+    got = run()
+    lib = library()
+    torch.cuda.synchronize()
+    err, share = parity.check(got, want, [n] * B, f"B7 at the {label} shape")
+    lib_err = float((lib.float() - want.float()).abs().max())
+    b_ms, b_by, b_bytes = flash_bound(B, H, G, D, [n] * B, 2)
+    ms = cuda_times(run, 20, shield=True)
+    route = flash_attention.ops.tensor_core_route(k.dtype, H // G, D)
+    lib = load_library("flash_decode")
+    block = ({"body": "tensor cores", "threads": 128,
+              "registers_per_thread": lib.flash_decode_tc_regs(1, H // G, D),
+              "smem_bytes": flash_attention.ops.tc_smem_bytes(q.dtype, H // G, D)}
+             if route else {"body": "CUDA cores"})
+    row = dict(
+        ms=statistics.median(ms), ms_range=[min(ms), max(ms)], block=block,
+        plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20, shield=True),
+        bound_ms=b_ms, bound_by=b_by, bytes=b_bytes, main_path_err=err,
+        err_share_of_tolerance=share, library_err=lib_err,
+        shape=f"q [{B}, {H}, {D}], k/v [{B}, {S}, {G}, {D}] bf16, lengths {n}")
+    del q, k, v, want, got, lib
+    torch.cuda.empty_cache()
+    return row
+
+
+def host_ms(fn, reps):
+    """Host-clock times (ms) of ``reps`` runs of ``fn``, each ended by a
+    synchronize: what a caller waits for."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        err, share = parity.check(got, want, [n] * B, f"B7 at the {label} shape")
-        lib_err = float((lib.float() - want.float()).abs().max())
-        b_ms, b_by, b_bytes = flash_bound(B, H, G, D, [n] * B, 2)
-        ms = cuda_times(run, 20, shield=True)
-        route = flash_attention.ops.tensor_core_route(k.dtype, H // G, D)
-        lib = load_library("flash_decode")
-        block = ({"body": "tensor cores", "threads": 128,
-                  "registers_per_thread": lib.flash_decode_tc_regs(1, H // G, D),
-                  "smem_bytes": flash_attention.ops.tc_smem_bytes(q.dtype, H // G, D)}
-                 if route else {"body": "CUDA cores"})
-        rows[label] = dict(
-            ms=statistics.median(ms), ms_range=[min(ms), max(ms)], block=block,
-            plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20, shield=True),
-            bound_ms=b_ms, bound_by=b_by, bytes=b_bytes, main_path_err=err,
-            err_share_of_tolerance=share, library_err=lib_err,
-            shape=f"q [{B}, {H}, {D}], k/v [{B}, {S}, {G}, {D}] bf16, lengths {n}")
-        del q, k, v, want, got, lib
-        torch.cuda.empty_cache()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
-    prompts_t = torch.as_tensor(prompts, device=device)
 
-    def host_ms(fn, reps):
-        out = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
+def serving_times(lm, engine, prompts, gen, cache_len, prefix_embeds=None):
+    """Prefill of the engine's batch, a decode step (host clock over 10
+    runs, CUDA events, and a ``torch.profiler`` view of two steps: the
+    device's busy time, launches, costliest kernels) and ``generate`` of
+    ``gen`` tokens, on the card."""
+    import torch
 
-    prefill_ms = host_ms(lambda: lm.prefill(engine.params, prompts_t, cache_len=LM_MAX_SEQ), 5)
-    _, cache, lengths = lm.prefill(engine.params, prompts_t, cache_len=LM_MAX_SEQ)
+    prompts_t = torch.as_tensor(prompts, device=engine.device)
+    pe = None if prefix_embeds is None else torch.as_tensor(prefix_embeds, device=engine.device)
+
+    def prefill():
+        return lm.prefill(engine.params, prompts_t, cache_len=cache_len, prefix_embeds=pe)
+
+    prefill_ms = host_ms(prefill, 5)
+    _, cache, lengths = prefill()
     tok = prompts_t[:, -1:]
-    # the same position each time: the step rewrites one cache row in place
-    decode_ms = host_ms(lambda: lm.decode_step(engine.params, tok, cache, lengths), 10)
-    decode_event_ms = cuda_times(lambda: lm.decode_step(engine.params, tok, cache, lengths), 10)
-    profiled = profile_steps(lambda: lm.decode_step(engine.params, tok, cache, lengths))
+    # the same position each time: the step rewrites its cache rows in place
+
+    def step():
+        return lm.decode_step(engine.params, tok, cache, lengths)
+
+    decode_ms = host_ms(step, 10)
+    decode_event_ms = cuda_times(step, 10)
+    profiled = profile_steps(step)
     del cache
     t0 = time.perf_counter()
-    engine.generate(prompts, LM_GEN)
+    engine.generate(prompts, gen, prefix_embeds=prefix_embeds)
     generate_s = time.perf_counter() - t0
     step_ms = statistics.median(decode_ms)
-    out = {
+    return {
         "prefill_ms": statistics.median(prefill_ms), "prefill_runs_ms": prefill_ms,
         "decode_step_ms": step_ms, "decode_step_runs_ms": decode_ms,
         "decode_step_event_ms": statistics.median(decode_event_ms),
-        "b7_share_of_decode_step": cfg.num_layers * rows["engine"]["ms"] / step_ms,
         "decode_step_profile": profiled,
         "device_idle_share": (None if profiled["device_ms_per_step"] is None
                               else 1.0 - profiled["device_ms_per_step"] / step_ms),
         "generate_s": generate_s,
-        "generate_tokens_per_s": LM_BATCH * LM_GEN / generate_s,
-        "shape": f"{LM_ARCH} full width, batch {LM_BATCH}, prompt {LM_PROMPT}, "
-                 f"cache {LM_MAX_SEQ}, bf16",
+        "generate_tokens_per_s": len(prompts) * gen / generate_s,
     }
+
+
+def phase_lm_times(device, lm, engine, prompts):
+    """B7 at the engine's shape (8 sequences of a 4096-row cache, 160 valid
+    rows each: 128 prompt + 32 generated) and at the ``decode_32k`` shape of
+    one gemma-2b layer (B 128, S 32768, all rows valid), bf16
+    (:func:`flash_row`).  Then prefill, decode step and generate on the
+    card (:func:`serving_times`)."""
+    cfg = lm.cfg
+    H, G, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(13)
+    rows = {label: flash_row(label, rng, B, H, G, D, S, n, device)
+            for label, B, S, n in (("engine", LM_BATCH, LM_MAX_SEQ, LM_PROMPT + LM_GEN),
+                                   ("decode_32k", *DECODE_32K, DECODE_32K[1]))}
+    out = serving_times(lm, engine, prompts, LM_GEN, LM_MAX_SEQ)
+    out["b7_share_of_decode_step"] = cfg.num_layers * rows["engine"]["ms"] / out["decode_step_ms"]
+    out["shape"] = (f"{LM_ARCH} full width, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+                    f"cache {LM_MAX_SEQ}, bf16")
     emit({"phase": "lm_times", "flash_decode": rows, "lm": out,
           "library_call": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True, "
                           "boolean length mask)",
           "rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S, "f32_ops_per_s": SCALAR_OPS_PER_S}})
     return rows, out
+
+
+@dataclasses.dataclass(frozen=True)
+class ZooRun:
+    """One config of the zoo phase: the engine's batch and cache, the
+    prompt length, the tokens ``generate`` makes, and the decode-vs-prefill
+    checks ``(label, start, steps, fresh)``: teacher-forced from ``start``
+    tokens of the engine's sequences (prompt + generated) or, ``fresh``,
+    of a new random sequence of ``start + steps`` tokens."""
+    arch: str
+    batch: int
+    max_seq: int
+    prompt: int
+    gen: int
+    checks: tuple
+    timed: bool = False       # serving times, profile and B7 beside its bound
+    plants: bool = False      # the ring faults of :data:`RING_PLANTS`
+
+
+#: The zoo phase, full width.  gemma3-12b and deepseek-moe-16b at full depth
+#: too; gemma3's 1,000-token prompts fill 1,000 of its local layers' 1,024
+#: ring slots, so the rings wrap during decode (position 1,024 on), and its
+#: 1,100-token check starts with the rings wrapped in prefill.
+ZOO = (
+    ZooRun("gemma3-12b", 8, 4096, 1000, 32,
+           (("from_1000_tokens_wraps_in_decode", 1000, 32, False),
+            ("from_1100_tokens_wrapped_in_prefill", 1100, 8, True),
+            ("from_1_token", 1, 8, False)), timed=True, plants=True),
+    ZooRun("deepseek-moe-16b", 8, 4096, 128, 16,
+           (("from_128_tokens", 128, 16, False), ("from_1_token", 1, 8, False)), timed=True),
+    ZooRun("qwen2-moe-a2.7b", 2, 512, 64, 8, (("from_64_tokens", 64, 8, False),)),
+    ZooRun("xlstm-1.3b", 2, 512, 64, 8, (("from_64_tokens", 64, 8, False),)),
+    ZooRun("hymba-1.5b", 2, 512, 64, 8, (("from_64_tokens", 64, 8, False),)),
+    ZooRun("paligemma-3b", 2, 512, 64, 8, (("from_64_tokens", 64, 8, False),)),
+    ZooRun("musicgen-medium", 2, 512, 64, 8, (("from_64_tokens", 64, 8, False),)),
+)
+#: Sequences of each decode-vs-prefill check (the first of the batch).
+ZOO_CHECK_ROWS = 2
+#: Faults planted in the ring decode of the window kinds: B7 reads
+#: min(lengths + 2, W) rows (one unwritten), or the new k/v lands in slot
+#: (lengths + 1) % W (the token's own row left out, an empty one read).
+#: Held to the limit from a 1-token prefix, where they are large; reported
+#: from the long prompts, where one row among a thousand is not.
+RING_PLANTS = {"ring_reads_one_row_past": {"extra_rows": 1},
+               "ring_slot_one_ahead": {"slot_shift": 1}}
+#: Kinds whose decode runs a recurrence step by step where prefill runs
+#: its chunked form: in bf16 the two round at other points (the mLSTM's
+#: decode conv and q/k in float32, its prefill's in bf16; the SSM's bf16
+#: decays one step at a time).  Their check, and the MoE configs' (bf16
+#: router logits, and expert products over buffers of another shape), add
+#: the bf16 prefill's own distance from a float32 prefill of the same
+#: tokens to the limit: on an H100 the gaps read 2.0-2.9% (xlstm-1.3b) and
+#: 3.5-5.4% (hymba-1.5b) against that distance's 2.3-2.8% and 3.7-5.4%.
+#: In float32 both forms agree within 1e-6 (tests/test_torch_linear_rnn.py).
+RECURRENT_KINDS = ("mlstm", "slstm", "hymba", "hymba_g")
+#: B7 timed at the zoo's decode shapes: (arch, B, S, valid rows).
+ZOO_FLASH = {"gemma3-12b": (8, 1024, 1024), "deepseek-moe-16b": (8, 4096, 160)}
+
+
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg`` with attention, each one B7 launch a decode
+    step."""
+    from repro_torch.models.blocks import ATTN_KINDS
+
+    kinds = list(cfg.prefix_pattern) + list(cfg.pattern) * cfg.n_superblocks
+    return sum(k in ATTN_KINDS or k in ("hymba", "hymba_g") for k in kinds)
+
+
+def planted_ring(extra_rows=0, slot_shift=0):
+    """``attention_decode_ring`` with a fault planted (:data:`RING_PLANTS`)."""
+    import torch
+    from repro_torch.models import attention
+
+    def ring(params, x, cache, lengths, *, num_heads, num_kv_heads, head_dim, rope_theta):
+        G, Hg = num_kv_heads, num_heads // num_kv_heads
+        k_cache, v_cache = cache
+        W = k_cache.shape[1]
+        q, k_new, v_new = attention._project_qkv(params, x, G, Hg, head_dim,
+                                                 lengths[:, None], rope_theta)
+        rows = torch.arange(x.shape[0], device=x.device)
+        slots = (lengths.long() + slot_shift) % W
+        k_cache[rows, slots] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[rows, slots] = v_new[:, 0].to(v_cache.dtype)
+        n_rows = (lengths + 1 + extra_rows).clamp_max(W)
+        return attention._decode_out(params, q, k_cache, v_cache, n_rows, G, Hg, head_dim,
+                                     v_cache.dtype), (k_cache, v_cache)
+
+    return ring
+
+
+class RouterForce:
+    """While active, wraps ``moe.route``.  Recording, it keeps each MoE
+    layer's top-k expert ids per sequence and position (a prefill's, then
+    each decode step's at its position); forcing, a prefill routes every
+    token to the experts recorded for it, its gates renormalised from its
+    own probabilities at those experts.  Decode and prefill then make the
+    same discrete choices, and what parts them is rounding alone: with
+    bf16 router logits a 27-layer, 64-expert model otherwise routes almost
+    every token differently somewhere (on an H100, no sequence of
+    deepseek-moe-16b from a 1-token prefix routed alike in every layer)."""
+
+    def __init__(self, batch, positions):
+        self.batch, self.positions = batch, positions
+        self.routes, self.call, self.at, self.force = [], 0, 0, False
+        self.overridden = 0
+
+    def begin(self, at=0, force=False):
+        """The next calls: one forward pass whose first position is ``at``."""
+        self.call, self.at, self.force = 0, at, force
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+
+        self.real = real = moe.route
+
+        def route(logits, k):
+            probs, gates, ids = real(logits, k)
+            n = logits.shape[0] // self.batch
+            if self.call == len(self.routes):
+                self.routes.append(torch.zeros((self.batch, self.positions, k),
+                                               dtype=ids.dtype, device=ids.device))
+            table = self.routes[self.call]
+            self.call += 1
+            if not self.force:
+                table[:, self.at:self.at + n] = ids.view(self.batch, n, k)
+                return probs, gates, ids
+            forced = table[:, self.at:self.at + n].reshape(-1, k)
+            self.overridden += int((forced.sort(-1).values != ids.sort(-1).values)
+                                   .any(-1).sum())
+            gates = probs.gather(1, forced)
+            gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
+            return probs, gates, forced
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self.real
+
+
+class Widened:
+    """While active, every ``block_prefill`` widens its layer's weights and
+    input to float32, so an LM with no compute dtype prefills in float32
+    from bf16 weights while one layer's float32 copy exists at a time (a
+    float32 copy of a 16 B model would not fit beside its bf16 one)."""
+
+    def __enter__(self):
+        from repro_torch.models import blocks
+        from repro_torch.models.lm import tree_map
+
+        self.real = real = blocks.block_prefill
+
+        def block_prefill(params, cfg, kind, x, *args, **kwargs):
+            return real(tree_map(lambda t: t.float(), params), cfg, kind, x.float(),
+                        *args, **kwargs)
+
+        blocks.block_prefill = block_prefill
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+
+        blocks.block_prefill = self.real
+
+
+def zoo_gaps(lm, check_lm, params, seq, start, steps, cache_len, pe, b7_per_step,
+             plant=None, noise_lm=None):
+    """Teacher-forced: prefill ``seq[:, :start]`` (after the stub
+    embeddings ``pe``), feed ``seq`` one decode step at a time, and set
+    each step's logits beside the last-position logits of a ``check_lm``
+    prefill of the same tokens (plain attention, no B7; for MoE routed as
+    the decode routed, :class:`RouterForce`).  ``plant``: a
+    :data:`RING_PLANTS` fault in the ring decode.  ``noise_lm``: the
+    config with no compute dtype, whose prefill of the same tokens under
+    :class:`Widened` is the float32 twin that measures the bf16 prefill's
+    own rounding.  Returns, per step, the max |decode - prefill| over max
+    |prefill logit| (``gap``) and the bf16 prefill's distance from its
+    twin (``noise``); the greedy tokens that agree; and the MoE choices
+    the forcing overrode."""
+    import contextlib
+
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import attention
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    real = attention.attention_decode_ring
+    if plant:
+        attention.attention_decode_ring = planted_ring(**plant)
+    first = pre_len(start, pe, lm.cfg)
+    force = RouterForce(seq.shape[0], first + steps) if lm.cfg.moe is not None else None
+    try:
+        with force if force is not None else contextlib.nullcontext():
+            _, cache, lengths = check_lm.prefill(params, seq[:, :start], cache_len=cache_len,
+                                                 prefix_embeds=pe)
+            out, agree = [], 0
+            for j in range(steps):
+                before = flash_attention.LAUNCHES["flash_decode"]
+                if force is not None:
+                    force.begin(at=first + j)
+                dec, cache, lengths = lm.decode_step(params, seq[:, start + j:start + j + 1],
+                                                     cache, lengths)
+                if flash_attention.LAUNCHES["flash_decode"] != before + b7_per_step:
+                    raise AssertionError(f"a decode step ran B7 {flash_attention.LAUNCHES} "
+                                         f"times since {before}, not once in each of the "
+                                         f"{b7_per_step} attention layers")
+                if force is not None:
+                    force.begin(force=True)
+                pre, _, _ = check_lm.prefill(params, seq[:, :start + j + 1],
+                                             cache_len=cache_len, prefix_embeds=pe)
+                if not bool(torch.isfinite(dec).all()) or dec.shape != pre.shape:
+                    raise AssertionError("decode logits are not finite or not of the "
+                                         "prefill's shape")
+                step = {"gap": rel(dec, pre)}
+                if noise_lm is not None:
+                    if force is not None:
+                        force.begin(force=True)
+                    with Widened():
+                        pre32 = noise_lm.prefill(params, seq[:, :start + j + 1],
+                                                 cache_len=cache_len, prefix_embeds=pe)[0]
+                    step["noise"] = rel(pre, pre32)
+                out.append(step)
+                agree += int((dec.argmax(-1) == pre.argmax(-1)).sum())
+            del cache
+    finally:
+        attention.attention_decode_ring = real
+    return out, agree, (force.overridden if force is not None else None)
+
+
+def pre_len(n_tokens, pe, cfg):
+    """Positions of a prefill of ``n_tokens`` tokens: the meta tokens and
+    stub embeddings lead them."""
+    return n_tokens + cfg.meta_tokens + (0 if pe is None else pe.shape[1])
+
+
+def zoo_checks(run, lm, check_lm, params, prompts, tokens, pe, device, b7_per_step,
+               noise_lm=None):
+    """:func:`zoo_gaps` for each check of ``run``.  Each step's gap (every
+    row) within :data:`LM_LOGIT_REL_TOL`, plus, with ``noise_lm`` (the MoE and
+    recurrent configs), the bf16 prefill's own distance from its float32
+    twin on the same tokens; with ``run.plants``, each ring fault planted
+    and held above the limit from a 1-token prefix."""
+    import torch
+
+    rng = np.random.default_rng(14)
+    rows = ZOO_CHECK_ROWS
+    engine_seq = torch.as_tensor(np.concatenate([prompts, tokens], axis=1)[:rows], device=device)
+    pe_rows = None if pe is None else torch.as_tensor(pe[:rows], device=device)
+    out = {}
+    for label, start, steps, fresh in run.checks:
+        seq = (torch.as_tensor(rng.integers(0, lm.cfg.vocab_size, (rows, start + steps)),
+                               device=device) if fresh else engine_seq)
+        per_step, agree, overridden = zoo_gaps(lm, check_lm, params, seq, start, steps,
+                                               run.max_seq, pe_rows, b7_per_step,
+                                               noise_lm=noise_lm)
+        held = [(st["gap"], LM_LOGIT_REL_TOL + st.get("noise", 0.0)) for st in per_step]
+        if any(g > lim for g, lim in held):
+            raise AssertionError(f"{run.arch} {label}: decode vs prefill (gap, limit) "
+                                 f"{held}: over the limit")
+        entry = {"start": start, "steps": steps, "sequences": rows,
+                 "max_rel_to_max_logit": max(g for g, _ in held),
+                 "max_limit": max(lim for _, lim in held),
+                 "per_step": per_step, "greedy_agree": agree, "greedy_total": steps * rows}
+        if overridden is not None:
+            entry["moe_choices_overridden_in_prefill"] = overridden
+        if run.plants:
+            planted = {name: max(st["gap"] for st in zoo_gaps(
+                lm, check_lm, params, seq, start, steps, run.max_seq, pe_rows, b7_per_step,
+                plant)[0]) for name, plant in RING_PLANTS.items()}
+            missed = [name for name, gap in planted.items() if gap <= LM_LOGIT_REL_TOL]
+            if start == 1 and missed:
+                raise AssertionError(f"{run.arch} {label}: planted {missed} stay within "
+                                     f"{LM_LOGIT_REL_TOL} ({planted}); the check cannot "
+                                     "see them")
+            entry["planted_max_rel_to_max_logit"] = planted
+        out[label] = entry
+    return out
+
+
+def moe_drops(lm, params, prompts, cache_len, device):
+    """Routed choices a prefill of ``prompts`` drops at the config's own
+    capacity factor, counted by wrapping ``moe.dispatch``."""
+    import torch
+    from repro_torch.models import moe
+
+    real, counts = moe.dispatch, {"choices": 0, "dropped": 0}
+
+    def dispatch(expert_ids, E, C):
+        pos, keep = real(expert_ids, E, C)
+        counts["choices"] += keep.numel()
+        counts["dropped"] += int((~keep).sum())
+        return pos, keep
+
+    moe.dispatch = dispatch
+    try:
+        lm.prefill(params, torch.as_tensor(prompts, device=device), cache_len=cache_len)
+    finally:
+        moe.dispatch = real
+    return {**counts, "capacity_factor": lm.cfg.moe.capacity_factor,
+            "share": counts["dropped"] / counts["choices"]}
+
+
+def phase_lm_zoo(device, run):
+    """One config of the zoo at full width (:data:`ZOO`), built from a
+    seeded generator on the card in its served dtype (``init(cast=True)``:
+    the float32 copy of a whole model never exists), the launch counters
+    reset just before ``ServeEngine.generate`` and read just after: B7
+    launches equal to the attention layers times the decode steps, and
+    nothing else.  Then the decode-vs-prefill checks (MoE against a
+    dropless prefill: capacity factor E / top_k, C = T), the prefill's
+    drops at the config's own capacity, and for ``run.timed`` the serving
+    times and B7 at the config's decode shape beside its bound."""
+    import torch
+    from repro_torch.configs import get_arch, param_count
+    from repro_torch.models import LM
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = get_arch(run.arch)
+    lm = LM(cfg)
+    check_lm = lm
+    if cfg.moe is not None:
+        check_lm = LM(dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=device).manual_seed(0), cast=True)
+    engine = ServeEngine(lm, params, ServeConfig(max_batch=run.batch, max_seq=run.max_seq))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in _leaves(params))
+    rng = np.random.default_rng(15)
+    prompts = rng.integers(0, cfg.vocab_size, (run.batch, run.prompt))
+    pe = None
+    if cfg.modality == "vision_stub":
+        pe = (rng.standard_normal((run.batch, cfg.prefix_tokens, cfg.d_model))
+              .astype(np.float32) * 0.02)
+    layers = attention_layers(cfg)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, run.gen, prefix_embeds=pe)
+    torch.cuda.synchronize()
+    generate_first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches != no_launches(flash_decode=layers * (run.gen - 1)):
+        raise AssertionError(f"{run.arch}: launches {launches}: expected flash_decode = "
+                             f"{layers} attention layers x {run.gen - 1} decode steps and "
+                             "nothing else")
+    if tokens.shape != (run.batch, run.gen) or not ((tokens >= 0)
+                                                   & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"{run.arch}: generate returned {tokens.shape} / out-of-range "
+                             "tokens")
+    serve_peak = torch.cuda.max_memory_allocated()
+    noise_lm = None
+    if cfg.moe is not None or any(k in RECURRENT_KINDS for k in cfg.pattern):
+        noise_lm = LM(check_lm.cfg, compute_dtype=None)
+    checks = zoo_checks(run, lm, check_lm, engine.params, prompts, tokens, pe, device, layers,
+                        noise_lm)
+    out = {"phase": "lm_zoo", "arch": run.arch, "parameters": n_params,
+           "param_count": param_count(cfg)["total"], "init_and_cast_s": init_s,
+           "peak_gb": {"init": init_peak / 1e9, "init_and_generate": serve_peak / 1e9},
+           "engine": {"max_batch": run.batch, "max_seq": run.max_seq, "prompt": run.prompt,
+                      "generated": run.gen, "prefix_tokens": cfg.prefix_tokens,
+                      "meta_tokens": cfg.meta_tokens},
+           "attention_layers": layers, "decode_steps": run.gen - 1, "launches": launches,
+           "generate_first_s": generate_first_s,
+           "decode_vs_prefill": {"tolerance_rel": LM_LOGIT_REL_TOL, **checks}}
+    if cfg.moe is not None:
+        out["prefill_drops"] = moe_drops(lm, engine.params, prompts, run.max_seq, device)
+    if run.timed:
+        B, S, n = ZOO_FLASH[run.arch]
+        out["flash_decode"] = flash_row(run.arch, np.random.default_rng(16), B, cfg.num_heads,
+                                        cfg.num_kv_heads, cfg.head_dim, S, n, device)
+        out["times"] = serving_times(lm, engine, prompts, run.gen, run.max_seq, pe)
+        out["times"]["b7_share_of_decode_step"] = (
+            layers * out["flash_decode"]["ms"] / out["times"]["decode_step_ms"])
+        out["peak_gb"]["after_times"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(out)
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2064,6 +2519,14 @@ def main() -> int:
     lm, engine, prompts, lm_launches = phase_lm_serve_path(device)
     flash_rows, lm_times = phase_lm_times(device, lm, engine, prompts)
     rows["flash_decode"] = flash_rows["engine"]
+    del lm, engine
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    zoo = {}
+    for run in ZOO:
+        zoo[run.arch] = phase_lm_zoo(device, run)
+    zoo_s = time.perf_counter() - t0
 
     # Each kernel's launches come from the path it serves, counted from 0.
     launches = {"vcgra_fused_batched": main_launches["vcgra_fused_batched"],
@@ -2084,6 +2547,8 @@ def main() -> int:
             "bf16_max_abs_err": bf16_errs[name],
             **{k: r[k] for k in ("cold_ms", "library_cold_ms") if k in r},
         })
+    b7 = next(k for k in kernels if k["name"] == "flash_decode")
+    b7["launches_lm_zoo"] = {arch: z["launches"]["flash_decode"] for arch, z in zoo.items()}
     emit({"kernels": kernels, "launches": {"main_path": main_launches,
                                            "chain_path": chain_launches,
                                            "synthesis_case": synthesis_launches,
@@ -2092,7 +2557,9 @@ def main() -> int:
                                            "streaming_path": {k: r["launches"] for k, r in
                                                               streaming.items()},
                                            "single_app_path": single_launches,
-                                           "lm_path": lm_launches},
+                                           "lm_path": lm_launches,
+                                           "lm_zoo": {arch: z["launches"]
+                                                      for arch, z in zoo.items()}},
           "card": card, "end_to_end_flush_ms": e2e["median_ms"],
           "chain_flush_ms": chain_e2e["median_ms"],
           "staged_chain_ms": rows["vcgra_pipeline_batched"]["staged_ms"],
@@ -2101,7 +2568,12 @@ def main() -> int:
           "streaming_flush_ms": {k: [f["median_ms"] for f in r["flushes_8x1080p"]]
                                  for k, r in streaming.items()},
           "lm_decode_step_ms": lm_times["decode_step_ms"],
-          "lm_generate_tokens_per_s": lm_times["generate_tokens_per_s"]})
+          "lm_generate_tokens_per_s": lm_times["generate_tokens_per_s"],
+          "lm_zoo": {arch: {"decode_step_ms": z["times"]["decode_step_ms"],
+                            "generate_tokens_per_s": z["times"]["generate_tokens_per_s"],
+                            "flash_decode_ms": z["flash_decode"]["ms"]}
+                     for arch, z in zoo.items() if "times" in z},
+          "lm_zoo_s": zoo_s})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -8,7 +8,7 @@ tuple.  The reference scans the superblocks; the port's ``models/lm.py``
 loops over them and keeps the same stacked ``[n_superblocks, ...]``
 parameter and cache leaves.
 
-Layer kinds of the reference's ``models/blocks.py`` (the port's runs ``dense``):
+Layer kinds of ``models/blocks.py`` (the reference's and the port's):
   dense    GQA attention + (Ge/Swi)GLU MLP
   local    like dense but sliding-window attention (cfg.window)
   global   explicit full attention (used inside mixed patterns)

@@ -27,13 +27,24 @@ import torch
 #: glm4-9b's and starcoder2-7b's groups (16 and 9 heads, D 128), the
 #: reduced LM's D 16, a cache of 200 rows (no multiple of the tensor-core
 #: body's 64-row tiles, so its lengths end inside a tile) and one head a
-#: group at D 256.
+#: group at D 256; then the rest of the zoo's head layouts at their cache
+#: lengths: gemma3-12b's global layers (Hg 2, D 256), deepseek-moe-16b's
+#: and qwen2-moe's (Hg 1, D 128), hymba-1.5b's global layers (Hg 5, D 64)
+#: and musicgen-medium's (Hg 1, D 64).
 CASES: List[Tuple[int, int, int, int, int, int]] = [
     (2, 8, 8, 64, 512, 256), (2, 8, 2, 64, 512, 256), (1, 8, 1, 128, 1024, 256),
     (3, 25, 5, 64, 512, 256), (2, 4, 2, 64, 1024, 128), (2, 4, 2, 64, 1024, 256),
     (2, 4, 2, 64, 1024, 512), (1, 2, 2, 32, 128, 128), (8, 8, 1, 256, 4096, 512),
     (5, 8, 1, 256, 1000, 8), (2, 32, 2, 128, 512, 256), (2, 36, 4, 128, 512, 256),
     (3, 4, 2, 16, 64, 64), (3, 16, 2, 128, 200, 8), (2, 4, 4, 256, 320, 64),
+    (2, 16, 8, 256, 4096, 512), (3, 16, 16, 128, 4096, 512), (3, 25, 5, 64, 1152, 128),
+    (2, 24, 24, 64, 512, 256),
+]
+#: (B, H, G, D, W, chunk): ring caches of W rows, read with the lengths of
+#: :func:`ring_lengths` -- gemma3-12b's local layers at the engine's batch
+#: (Hg 2, D 256) and hymba-1.5b's (Hg 5, D 64), both W = 1024.
+RING_CASES: List[Tuple[int, int, int, int, int, int]] = [
+    (8, 16, 8, 256, 1024, 512), (3, 25, 5, 64, 1024, 512),
 ]
 #: (q dtype, cache dtype) pairs the kernel takes.
 DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -48,6 +59,15 @@ def lengths(rng, B: int, S: int) -> List[int]:
     """Lengths 0, 1, S and two ragged values, cycled over the batch."""
     picks = [0, 1, S, int(rng.integers(2, S)), int(rng.integers(1, S + 1))]
     return [picks[(i + B) % len(picks)] for i in range(B)]
+
+
+def ring_lengths(rng, B: int, W: int) -> List[int]:
+    """What the ring decode hands B7, ``min(position + 1, W)``, for
+    positions below the ring's end (a ragged one and W - 2), at it (W - 1)
+    and past it (W, and a later one): lengths below, at and capped at W,
+    cycled over the batch (three sequences hold all three)."""
+    positions = [int(rng.integers(0, W - 2)), W - 1, int(rng.integers(W, 4 * W)), W - 2, W]
+    return [min(positions[i % len(positions)] + 1, W) for i in range(B)]
 
 
 def tolerance(want: torch.Tensor) -> Tuple[float, float]:

@@ -5,7 +5,11 @@
 
 Twin of the reference's ``launch/serve.py`` with the same flags, plus
 ``--device`` (``cuda`` unless asked for ``cpu``).  Parameters come from a
-``torch.Generator`` seeded with ``--seed`` on that device.
+``torch.Generator`` seeded with ``--seed`` on that device, drawn in the
+served dtype (``LM.init(..., cast=True)``: a 16 B model's float32 copy
+would not fit the card beside its bf16 one).  The cache holds
+``--max-seq`` tokens after the config's modality-stub and meta positions;
+paligemma's stub patch embeddings are drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -40,18 +44,23 @@ def main(argv=None) -> int:
     if args.reduced:
         cfg = reduced(cfg)
     lm = LM(cfg, chunk_q=64)
-    params = lm.init(torch.Generator(device=device).manual_seed(args.seed))
+    params = lm.init(torch.Generator(device=device).manual_seed(args.seed), cast=True)
 
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    pe = None
+    if cfg.modality == "vision_stub":
+        pe = (rng.standard_normal((args.batch, cfg.prefix_tokens, cfg.d_model))
+              .astype(np.float32) * 0.02)
     engine = ServeEngine(
         lm, params,
-        ServeConfig(max_batch=args.batch, max_seq=args.max_seq,
+        ServeConfig(max_batch=args.batch,
+                    max_seq=args.max_seq + cfg.prefix_tokens + cfg.meta_tokens,
                     temperature=args.temperature, seed=args.seed),
         device=device,
     )
     t0 = time.perf_counter()
-    out = engine.generate(prompts, args.gen)
+    out = engine.generate(prompts, args.gen, prefix_embeds=pe)
     dt = time.perf_counter() - t0
     print(f"generated [{out.shape[0]} x {out.shape[1]}] tokens on {device} in {dt:.2f}s "
           f"({out.shape[0] * out.shape[1] / dt:.1f} tok/s, first call: on the card "

@@ -2,8 +2,9 @@
 
 Twin of the reference's ``models/attention.py``.  The prefill path never
 materialises the full [S, S] score matrix: queries are processed in
-``chunk_q`` blocks by a Python loop (the reference's ``lax.scan``), so
-scores peak at [B, G, Hg, chunk_q, S] f32.  Decode writes the new token's
+``chunk_q`` blocks by a Python loop (the reference's ``lax.scan``; the
+last block ragged, where the reference shrinks the block to a divisor of
+S), so scores peak at [B, G, Hg, chunk_q, S] f32.  Decode writes the new token's
 k/v into the cache in place and attends through the flash decode kernel
 (``kernels/flash_attention``, B7), which computes the same function as the
 reference's einsum decode apart from one rounding: the reference rounds
@@ -12,8 +13,11 @@ them in float32.
 
 Masking supports: causal, sliding-window (``window > 0``), and
 bidirectional-prefix (PaliGemma-style prefix-LM over ``prefix_len``
-leading positions) on the prefill path; decode takes full attention only.
-The mesh constraints of the reference (``seq_shard``) are not ported.
+leading positions) on the prefill path.  Decode takes full attention, a
+window over the full cache (the window's rows gathered into a buffer of
+``window`` rows that B7 reads), or the window kinds' ring cache
+(``attention_decode_ring``), which B7 reads as it stands.  The mesh
+constraints of the reference (``seq_shard``) are not ported.
 """
 
 from __future__ import annotations
@@ -119,8 +123,12 @@ def attention_train(
 
     q, k, v = _project_qkv(params, x, G, Hg, head_dim, positions[None], rope_theta)
 
-    cq = pick_chunk(S, chunk_q)
-    n_chunks = S // cq
+    # Query chunks of chunk_q rows, the last one ragged.  The reference
+    # takes the largest divisor of S (pick_chunk), which is 1 for a prime S:
+    # a query's scores never depend on its chunk, so the function is the
+    # same, without S chunks a layer for a prime-length prompt.
+    cq = min(chunk_q, S)
+    n_chunks = -(-S // cq)
     # banded K/V: a sliding-window chunk only sees the last (window + cq)
     # keys, as in the reference.
     band = window + cq
@@ -130,13 +138,13 @@ def attention_train(
         out = _sdpa(q, k, v, _mask(positions, positions, window, prefix_len))
     else:
         outs = []
-        for i in range(n_chunks):
-            qb = q[:, i * cq:(i + 1) * cq]
-            pos_q = i * cq + torch.arange(cq, device=x.device)
+        for i in range(0, S, cq):
+            qb = q[:, i:i + cq]
+            pos_q = positions[i:i + cq]
             if use_band:
-                start = min(max(i * cq - window, 0), S - band)
+                start = min(max(i - window, 0), S - band)
                 kb, vb = k[:, start:start + band], v[:, start:start + band]
-                pos_k = start + torch.arange(band, device=x.device)
+                pos_k = positions[start:start + band]
             else:
                 kb, vb, pos_k = k, v, positions
             outs.append(_sdpa(qb, kb, vb, _mask(pos_q, pos_k, window, prefix_len)))
@@ -146,6 +154,21 @@ def attention_train(
     if return_kv:
         return y, (k, v)
     return y
+
+
+def _decode_out(params, q, k_rows, v_rows, n_rows, G, Hg, head_dim, out_dtype):
+    """B7 over ``k_rows``/``v_rows`` ``[B, R, G, hd]`` masked to each
+    sequence's first ``n_rows`` rows, then the output projection."""
+    B = q.shape[0]
+    R = k_rows.shape[1]
+    out = decode_attention(q.reshape(B, G * Hg, head_dim), k_rows, v_rows,
+                           n_rows.to(torch.int32), chunk=pick_chunk(R, 512))
+    out = out.to(out_dtype).reshape(B, 1, G, Hg, head_dim)
+    # bf16 attention into float32 weights (compute_dtype=None) promotes, as
+    # in JAX; torch.einsum takes one dtype.
+    wo = params["wo"]
+    dtype = torch.promote_types(out.dtype, wo.dtype)
+    return torch.einsum("bsghk,ghkd->bsd", out.to(dtype), wo.to(dtype))
 
 
 def attention_decode(
@@ -161,11 +184,12 @@ def attention_decode(
     window: int = 0,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode over a KV cache; returns (y, cache).  The cache
-    tensors are updated in place and returned."""
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window decode (the ring cache, attention_decode_ring) is not ported "
-            "yet: ROADMAP Queue A item 14")
+    tensors are updated in place and returned.
+
+    With ``window > 0`` a sequence attends to its rows ``lengths - window
+    + 1 .. lengths`` only, as the reference masks them; B7 takes no start
+    row, so those rows are gathered into a ``[B, window, G, hd]`` buffer
+    first (keys are stored post-RoPE, so their order is free)."""
     B = x.shape[0]
     G = num_kv_heads
     Hg = num_heads // G
@@ -181,13 +205,51 @@ def attention_decode(
     k_cache[rows, slots] = k_new[:, 0].to(k_cache.dtype)
     v_cache[rows, slots] = v_new[:, 0].to(v_cache.dtype)
 
-    # The reference masks keys at pos <= lengths, B7 at pos < lengths: + 1.
-    out = decode_attention(q.reshape(B, G * Hg, head_dim), k_cache, v_cache,
-                           (lengths + 1).to(torch.int32), chunk=pick_chunk(S, 512))
-    out = out.to(v_cache.dtype).reshape(B, 1, G, Hg, head_dim)
-    # bf16 attention into float32 weights (compute_dtype=None) promotes, as
-    # in JAX; torch.einsum takes one dtype.
-    wo = params["wo"]
-    dtype = torch.promote_types(out.dtype, wo.dtype)
-    y = torch.einsum("bsghk,ghkd->bsd", out.to(dtype), wo.to(dtype))
+    if window > 0:
+        # rows max(0, lengths + 1 - window) .. min(lengths, S - 1)
+        first = (lengths.long() + 1 - window).clamp_min(0)
+        n_rows = torch.minimum(lengths.long(), torch.full_like(first, S - 1)) - first + 1
+        idx = (first[:, None] + torch.arange(window, device=x.device)).clamp_max(S - 1)
+        k_rows, v_rows = k_cache[rows[:, None], idx], v_cache[rows[:, None], idx]
+    else:
+        # The reference masks keys at pos <= lengths, B7 at pos < lengths: + 1.
+        k_rows, v_rows, n_rows = k_cache, v_cache, lengths + 1
+    y = _decode_out(params, q, k_rows, v_rows, n_rows, G, Hg, head_dim, v_cache.dtype)
+    return y, (k_cache, v_cache)
+
+
+def attention_decode_ring(
+    params: Params,
+    x: torch.Tensor,                         # [B, 1, D]
+    cache: Tuple[torch.Tensor, torch.Tensor],  # k,v: [B, W, G, hd] ring buffers
+    lengths: torch.Tensor,                   # [B] int32 absolute position
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Sliding-window decode over an O(window) ring-buffer cache, updated
+    in place.
+
+    The new k/v goes to slot ``lengths % W``.  Keys are stored post-RoPE at
+    absolute positions, so slot order is irrelevant to the attention math,
+    and eviction enforces the window.  The reference masks slots ``<=
+    lengths`` (all of them once wrapped); B7 reads rows ``< min(lengths +
+    1, W)``, the same set."""
+    B = x.shape[0]
+    G = num_kv_heads
+    Hg = num_heads // G
+    k_cache, v_cache = cache
+    W = k_cache.shape[1]
+
+    q, k_new, v_new = _project_qkv(params, x, G, Hg, head_dim, lengths[:, None], rope_theta)
+
+    rows = torch.arange(B, device=x.device)
+    slots = lengths.long() % W
+    k_cache[rows, slots] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, slots] = v_new[:, 0].to(v_cache.dtype)
+
+    n_rows = (lengths + 1).clamp_max(W)
+    y = _decode_out(params, q, k_cache, v_cache, n_rows, G, Hg, head_dim, v_cache.dtype)
     return y, (k_cache, v_cache)

@@ -37,13 +37,17 @@ def _require(tree, keys, what):
 
 
 def params_from_numpy(tree, device="cuda"):
-    """The reference LM's parameters (``embed``, ``final_norm``, ``blocks``)
-    as the port's."""
+    """The reference LM's parameters (``embed``, ``final_norm``, ``blocks``,
+    and where the config has them the ``prefix`` tuple of unrolled layers
+    and the ``meta`` tokens; every kind's leaves, ``moe`` and the recurrent
+    kinds' included) as the port's."""
     _require(tree, ("embed", "final_norm", "blocks"), "parameter")
     return _tree(tree, device)
 
 
 def cache_from_numpy(tree, device="cuda"):
-    """The reference LM's decode cache (``blocks``) as the port's."""
+    """The reference LM's decode cache (``blocks``, and the ``prefix``
+    tuple where the config has one: bf16 k/v, ring or full, and the
+    float32 recurrent states) as the port's."""
     _require(tree, ("blocks",), "cache")
     return _tree(tree, device)

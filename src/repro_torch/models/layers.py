@@ -42,6 +42,39 @@ def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+def promoted(*tensors: torch.Tensor):
+    """The tensors in their promoted dtype: JAX's products promote mixed
+    operands (a float32 state times bf16 weights), torch's refuse them."""
+    dtype = tensors[0].dtype
+    for t in tensors[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return tuple(t.to(dtype) for t in tensors)
+
+
+# -- gate activations -------------------------------------------------------------
+# The recurrent kinds' gates as the reference evaluates them: one rounding
+# to the input's dtype after every primitive (XLA's bf16 arithmetic),
+# where torch's fused sigmoid and softplus round once.  In bf16 the fused
+# forms differ by an ulp on a sixth to a third of the inputs, and the
+# gates' log-decays are summed over a chunk and exponentiated, which
+# multiplies that ulp into several per cent of a state.
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: 1 / (1 + exp(-x))."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, ``logaddexp(x, 0)``: max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -softplus(-x)
+
+
 # -- RMSNorm -------------------------------------------------------------------
 
 

@@ -4,8 +4,8 @@ batching.
 Twin of the reference's ``serve/engine.py``.  The engine owns a fixed
 [max_batch, max_seq] cache; requests claim slots, prefill fills them, and
 the decode step advances every active slot each tick (inactive slots are
-masked from sampling).  Every decode step's attention runs the flash
-decode kernel (B7) on the card.  Greedy or temperature sampling;
+masked from sampling).  Every attention layer of a decode step runs the
+flash decode kernel (B7) on the card, over a full or a ring cache.  Greedy or temperature sampling;
 deterministic under a fixed seed (temperature sampling draws from a
 ``torch.Generator`` seeded with ``ServeConfig.seed``: the same law as the
 reference's ``jax.random.categorical``, other numbers).
@@ -14,6 +14,8 @@ Both entry points run on ``device`` ("cuda" unless the caller asks for the
 CPU) and raise where that device is missing.  They cast the f32 master
 weights to the LM's compute dtype once, at construction, where the
 reference casts them inside every jitted step; the values are the same.
+Weights drawn already cast (``LM.init(..., cast=True)``, the way to build
+a 16 B model on one card) pass through.
 """
 
 from __future__ import annotations
@@ -99,13 +101,17 @@ class SlotServer:
         self.last_token = torch.zeros((cfg.max_batch,), dtype=torch.int32, device=self.device)
         self.outputs: Dict[int, List[int]] = {}
 
-    def add_request(self, slot: int, prompt) -> None:
-        """Single-slot prefill (production would batch these too)."""
+    def add_request(self, slot: int, prompt, prefix_embeds=None) -> None:
+        """Single-slot prefill (production would batch these too).
+        ``prefix_embeds`` ``[P, D]``: the request's modality-stub
+        embeddings, ahead of its prompt."""
         if self.active[slot]:
             raise ValueError(f"slot {slot} is busy")
         prompt = torch.as_tensor(prompt, device=self.device)
+        if prefix_embeds is not None:
+            prefix_embeds = torch.as_tensor(prefix_embeds, device=self.device)[None]
         logits, cache1, lengths1 = self.lm.prefill(
-            self.params, prompt[None], cache_len=self.cfg.max_seq
+            self.params, prompt[None], cache_len=self.cfg.max_seq, prefix_embeds=prefix_embeds
         )
         # splice slot 0 of the single-request cache into the shared cache
         _splice_tree(self.cache, cache1, slot)
@@ -140,6 +146,9 @@ def _splice_tree(full, one, slot: int) -> None:
     if isinstance(full, dict):
         for key in full:
             _splice_tree(full[key], one[key], slot)
+    elif isinstance(full, (tuple, list)):
+        for f, o in zip(full, one):
+            _splice_tree(f, o, slot)
     else:
         _splice(full, one, slot)
 

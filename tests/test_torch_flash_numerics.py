@@ -33,7 +33,9 @@ NEG_INF = -1e30
 SM_COUNT, MAX_SPLITS = 132, 8192
 #: The ``decode_32k`` head shape (one gemma-2b layer) at a reduced S.
 DECODE_32K_REDUCED = (4, 8, 1, 256, 4096, 512)
-DENSE = ("gemma-2b", "glm4-9b", "starcoder2-7b")
+#: Every config with attention layers (all but xlstm-1.3b): B7 runs in each.
+ATTENTION_ARCHS = ("deepseek-moe-16b", "gemma-2b", "gemma3-12b", "glm4-9b", "hymba-1.5b",
+                   "musicgen-medium", "paligemma-3b", "qwen2-moe-a2.7b", "starcoder2-7b")
 
 
 def bf16_parts(x: torch.Tensor, n: int):
@@ -120,11 +122,31 @@ def test_tensor_core_arithmetic_holds_the_parity_tolerance(case, dtypes):
                      f"emulated B7 {case} {dtypes}")
 
 
+RING_TC_CASES = [(case, dt) for case in parity.RING_CASES for dt in parity.DTYPES
+                 if dt[1] == torch.bfloat16]
+
+
+@pytest.mark.parametrize("case,dtypes", RING_TC_CASES,
+                         ids=[f"{c}-{str(d[0])[6:]}" for c, d in RING_TC_CASES])
+def test_tensor_core_arithmetic_over_a_ring(case, dtypes):
+    """The ring caches' lengths, below, at and capped at W."""
+    B, H, G, D, W, _ = case
+    rng = np.random.default_rng(hash(case) % 2 ** 32)
+    q, k, v = _inputs(rng, B, H, G, D, W, *dtypes)
+    lens = parity.ring_lengths(rng, B, W)
+    assert min(lens) < W and lens.count(W) >= 2
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    parity.check(emulate_tc(q, k, v, lengths), decode_ref(q, k, v, lengths), lens,
+                 f"emulated B7 over a ring {case} {dtypes}")
+
+
 def test_every_parity_case_on_a_bf16_cache_takes_the_tensor_cores():
     routed = {(c, d) for c, d in TC_CASES}
     for case in parity.CASES:
         for dt in parity.DTYPES:
             assert ((case, dt) in routed) == (dt[1] == torch.bfloat16), (case, dt)
+    for case in parity.RING_CASES:
+        assert ops.tensor_core_route(torch.bfloat16, case[1] // case[2], case[3]), case
 
 
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
@@ -153,14 +175,18 @@ def test_a_single_bf16_part_of_p_misses_the_float32_tolerance():
 
 
 def _shapes():
-    """(label, Hg, D, B, S, G) of every parity case, decode_32k and the three
-    dense configs at the engine's batch and cache."""
-    out = [(f"parity{c}", c[1] // c[2], c[3], c[0], c[4], c[2]) for c in parity.CASES]
+    """(label, Hg, D, B, S, G) of every parity case, decode_32k and every
+    config with attention at the engine's batch and cache (and, for the
+    window kinds, their 1,024-row ring)."""
+    out = [(f"parity{c}", c[1] // c[2], c[3], c[0], c[4], c[2])
+           for c in parity.CASES + parity.RING_CASES]
     out.append(("decode_32k", 8, 256, 128, 32768, 1))
-    for name in DENSE:
+    for name in ATTENTION_ARCHS:
         cfg = get_arch(name)
-        out.append((name, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim, 8, 4096,
-                    cfg.num_kv_heads))
+        Hg, D, G = cfg.num_heads // cfg.num_kv_heads, cfg.head_dim, cfg.num_kv_heads
+        out.append((name, Hg, D, 8, 4096, G))
+        if cfg.window:
+            out.append((f"{name}-ring", Hg, D, 8, min(4096, cfg.window), G))
     return out
 
 
@@ -169,7 +195,7 @@ def test_route_split_and_shared_memory_of_every_shape(label, Hg, D, B, S, G):
     for kv_dtype in (torch.bfloat16, torch.float32):
         assert ops.tensor_core_route(kv_dtype, Hg, D) == (
             kv_dtype == torch.bfloat16 and D in ops.TC_HEAD_DIMS and Hg <= ops.TC_MAX_HEADS)
-    if label in DENSE or label == "decode_32k":
+    if label.removesuffix("-ring") in ATTENTION_ARCHS or label == "decode_32k":
         assert ops.tensor_core_route(torch.bfloat16, Hg, D)
     for q_dtype in (torch.bfloat16, torch.float32):
         if ops.tensor_core_route(torch.bfloat16, Hg, D):

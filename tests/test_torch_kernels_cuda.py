@@ -498,6 +498,69 @@ def test_flash_decode_matches_plain_version(cuda, q_dtype, kv_dtype):
             parity.check(got, want, lengths, f"B7 {(B, H, G, D, S, chunk)} lengths {lengths}")
 
 
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_over_a_ring_matches_plain_version(cuda, q_dtype):
+    """B7 over the window kinds' 1,024-slot rings (gemma3-12b's Hg 2 at D
+    256, hymba-1.5b's Hg 5 at D 64), bf16, with the lengths the ring decode
+    hands it: below, at and capped at W."""
+    rng = np.random.default_rng(12)
+    for B, H, G, D, W, chunk in parity.RING_CASES:
+        q = torch.as_tensor(rng.standard_normal((B, H, D)), dtype=torch.float32,
+                            device=cuda).to(q_dtype)
+        k, v = (torch.as_tensor(rng.standard_normal((B, W, G, D)), dtype=torch.float32,
+                                device=cuda).bfloat16() for _ in range(2))
+        lengths = parity.ring_lengths(rng, B, W)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        got = flash_attention.decode_attention(q, k, v, lens, chunk=chunk)
+        want = flash_attention.decode_ref(q, k, v, lens)
+        torch.cuda.synchronize()
+        parity.check(got, want, lengths, f"B7 ring {(B, H, G, D, W, chunk)} lengths {lengths}")
+
+
+@pytest.mark.parametrize("window", [0, 7, 1024])
+def test_ring_and_window_decode_on_the_card_follow_the_cpu(cuda, window):
+    """The models' decode attention on the card (B7) against the same call
+    on the CPU (B7's plain version): a 1,024-slot ring from positions
+    below, at and past its end (``window`` 1024), a full cache (0) and a
+    window of 7 over it.  The cache writes within one bf16 unit plus 1e-3
+    (float32 projections on two devices, roped at positions up to 3,000
+    rad: a last-bit difference in a float32 RoPE frequency moves such an
+    angle by ~3e-4 rad, as ``tests/test_torch_lm.py``'s rope test notes;
+    then rounded to bf16), the outputs within 2e-3 (B7's float32
+    tolerance, plus what those move)."""
+    from repro_torch.models import attention
+
+    rng = np.random.default_rng(13)
+    B, G, Hg, hd, D = 3, 8, 2, 256, 512
+    params = {name: torch.as_tensor(rng.standard_normal(shape) * D ** -0.5,
+                                    dtype=torch.float32)
+              for name, shape in (("wq", (D, G, Hg, hd)), ("wk", (D, G, hd)),
+                                  ("wv", (D, G, hd)), ("wo", (G, Hg, hd, D)))}
+    S = 1024 if window == 1024 else 2048
+    k, v = (torch.as_tensor(rng.standard_normal((B, S, G, hd)),
+                            dtype=torch.float32).bfloat16() for _ in range(2))
+    lengths = torch.tensor([5, 1023, 3000] if window == 1024 else [0, 700, 2047],
+                           dtype=torch.int32)
+    x = torch.as_tensor(rng.standard_normal((B, 1, D)), dtype=torch.float32)
+    kw = dict(num_heads=G * Hg, num_kv_heads=G, head_dim=hd, rope_theta=10_000.0)
+    outs = []
+    for dev in ("cpu", cuda):
+        p = {n: t.to(dev) for n, t in params.items()}
+        cache = (k.to(dev).clone(), v.to(dev).clone())
+        before = flash_attention.LAUNCHES["flash_decode"]
+        if window == 1024:
+            y, cache = attention.attention_decode_ring(p, x.to(dev), cache, lengths.to(dev), **kw)
+        else:
+            y, cache = attention.attention_decode(p, x.to(dev), cache, lengths.to(dev),
+                                                  window=window, **kw)
+        assert flash_attention.LAUNCHES["flash_decode"] == before + (dev != "cpu")
+        outs.append((y.cpu(), cache[0].cpu(), cache[1].cpu()))
+    (y_cpu, k_cpu, v_cpu), (y_gpu, k_gpu, v_gpu) = outs
+    for got, want in ((k_gpu, k_cpu), (v_gpu, v_cpu)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-3)
+    torch.testing.assert_close(y_gpu, y_cpu, rtol=2e-3, atol=2e-3)
+
+
 def test_flash_decode_never_reads_past_the_lengths(cuda):
     """Rows past each sequence's length, poisoned with 1e9, change nothing."""
     rng = np.random.default_rng(10)

@@ -24,6 +24,8 @@ Tolerances, each with its reason:
   twice that tolerance.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -221,18 +223,31 @@ def test_attention_decode_writes_in_place_and_clamps():
     # softmax weights to bf16 before the weighted sum, B7 does not: the
     # outputs differ by up to a bf16 unit of |v| (~1) times |wo|.
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=2e-2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_attn.attention_decode(tp, torch.from_numpy(x), (tk, tv),
-                                torch.from_numpy(lengths), window=4, **kw)
+    # a window over the full cache decodes too (tests/test_torch_lm_ring.py
+    # holds it against the reference at every window and length)
+    got_w, _ = t_attn.attention_decode(tp, torch.from_numpy(x), (tk, tv),
+                                       torch.from_numpy(lengths), window=4, **kw)
+    want_w, _ = r_attn.attention_decode(jp, jnp.asarray(x), (wk, wv), jnp.asarray(lengths),
+                                         window=4, **kw)
+    np.testing.assert_allclose(_np(got_w), _np(want_w), rtol=0, atol=2e-2)
 
 
 def test_unported_kinds_and_modalities_raise():
-    for name in ("gemma3-12b", "deepseek-moe-16b", "xlstm-1.3b", "hymba-1.5b",
-                 "paligemma-3b", "musicgen-medium", "qwen2-moe-a2.7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LM(reduced(ARCHS[name]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_blocks.init_block_cache(reduced(ARCHS["gemma-2b"]), "local", 1, 8)
+    """Every kind, prefix pattern, meta-token count and modality stub of
+    the zoo is ported: each config constructs and builds its caches; only a
+    kind or modality the reference does not have raises."""
+    for name, cfg in ARCHS.items():
+        lm = LM(reduced(cfg))
+        cache = lm.init_cache(1, 8)
+        assert len(cache.get("prefix", ())) == len(cfg.prefix_pattern), name
+    cfg = reduced(ARCHS["gemma-2b"])
+    assert t_blocks.init_block_cache(cfg, "local", 1, 8)["k"].shape[1] == 8
+    with pytest.raises(ValueError, match="kind"):
+        LM(dataclasses.replace(cfg, pattern=("dense", "conv")))
+    with pytest.raises(ValueError, match="kind"):
+        t_blocks.init_block_cache(cfg, "conv", 1, 8)
+    with pytest.raises(ValueError, match="modality"):
+        LM(dataclasses.replace(cfg, modality="video_stub"))
 
 
 def _lm_pair(name, dtype_name):
