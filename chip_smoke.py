@@ -122,7 +122,30 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    1-token prefix.  For gemma3-12b and deepseek-moe-16b: init time, peak
    memory, prefill, decode step, generate, a profile of two steps, the
    prefill's dropped MoE choices, and B7 at their decode shapes beside its
-   bound, its plain version and SDPA.
+   bound, its plain version and SDPA;
+15. the training path (no kernel of its own: training attention is plain
+   products, B7 only serves the trained weights) -- (a) the card against
+   the CPU port on reduced gemma-2b and deepseek-moe-16b in float32, TF32
+   off: loss and every grad leaf, then params and AdamW moments after two
+   ``train_step``s; (b) gemma-2b at full width and depth (2.5 B float32
+   masters from a seeded generator, ``remat="full"``, batch 4 x 1,024, CE
+   chunks of 512): bf16 against float32 compute on the same params and
+   batch (loss distance, grad norm ratio, cosine of the flattened grads)
+   within limits set from the reference's own gap; (c) 10 ``train_step``s
+   on one repeated batch, the loss falling by at least 0.1, with the step
+   time, tokens/s, peak memory, model FLOPs and a ``torch.profiler`` step;
+   (e) the trained weights, optimizer state dropped, served by
+   ``ServeEngine`` at phase 12's shape with the launch counters reset just
+   before: B7 18 x 31 launches and nothing else, decode held to prefill and
+   the planted faults caught; then ``train_loop`` over ``TokenPipeline``
+   for 3 steps; (d) at full width and two layers, a straight run against a
+   run checkpointed halfway and resumed by a new ``train_loop``, equal
+   losses, and the same check failing with the restored ``count`` planted
+   at 0, with a save and a restore timed; (f) deepseek-moe-16b (the dense
+   layer and 2 MoE layers at capacity factor 1.25, aux loss in the total,
+   ``remat="full"`` equal to ``"none"``), xlstm-1.3b (7 mLSTM + 1 sLSTM,
+   256 tokens) and hymba-1.5b (meta tokens, local and global attention) at
+   full width, one superblock, a few steps each, finite and falling.
 
 Then the kernel table line (each kernel also with its bf16 max error) and,
 last, ``{"ok": true, "device": {...}}``.
@@ -2208,7 +2231,7 @@ class Widened:
 
     def __enter__(self):
         from repro_torch.models import blocks
-        from repro_torch.models.lm import tree_map
+        from repro_torch.tree import tree_map
 
         self.real = real = blocks.block_prefill
 
@@ -2447,6 +2470,477 @@ def phase_lm_zoo(device, run):
     return out
 
 
+# -- phase 15: the training path ------------------------------------------------------
+
+TRAIN_ARCH = "gemma-2b"
+#: (b)-(e): gemma-2b at full width and depth, batch x sequence, CE chunk.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LOSS_CHUNK = 4, 1024, 512
+#: (c): steps on one repeated batch, and the fall the loss must show: the
+#: reference's own memorisation threshold (tests/test_train_loop.py).
+MEMO_STEPS, MEMO_LR, MEMO_DROP = 10, 3e-4, 0.1
+#: (a): the card against the CPU port, float32 compute, TF32 off: the same
+#: function through other kernels, held as the CPU tests hold the port to
+#: the reference (tests/test_torch_train.py): loss relative 1e-5, each grad
+#: leaf max |d| <= 1e-4 max |g|.  After two AdamW steps the moments carry
+#: that tolerance (:func:`moment_tolerances`), and the params lie within
+#: 1e-4 of their largest element plus 5% of the learning rate (Adam's update
+#: divides two moments that both vanish with the grad, so a near-zero
+#: grad's float32 noise moves its update by a share of one step).
+CARD_LOSS_RTOL, CARD_GRAD_REL, CARD_LR_SHARE = 1e-5, 1e-4, 0.05
+CARD_ARCHS, CARD_LR = ("gemma-2b", "deepseek-moe-16b"), 3e-3
+#: (b): bf16 compute against float32 compute on the same params and batch.
+#: The reference's own gap, reduced gemma-2b on the CPU (JAX, 2 x 24 tokens,
+#: tests/test_torch_train.py::test_bf16_limits_cover_the_reference_gap,
+#: which holds these limits to at least 20x it): loss 9.9e-6 of the loss,
+#: grad global norms 1.00013 of each other, 1 - cosine of the flattened
+#: grads 1.43e-4.  The limits are 100x, 79x and 35x those readings, for 18
+#: layers of 2048 where the reduced model has 2 of 64: wide for bf16 noise,
+#: tight for a broken bf16 path (a layer's grads lost moves the cosine by
+#: ~1/18).
+BF16_LOSS_REL, BF16_NORM_RATIO, BF16_ONE_MINUS_COS = 1e-3, 0.01, 5e-3
+#: (d): gemma-2b at full width and two layers, batch x sequence, steps of
+#: the straight run (the resumed runs take half and half), and the
+#: tolerance of a resumed loss against the straight run's.  The card's
+#: embedding backward accumulates with atomics, so two runs are not
+#: bitwise equal: each resumed loss within 1e-4 of it; a restored count
+#: planted at 0 changes AdamW's bias correction (1.8x the update at step
+#: 4) and must move a loss past that.
+RESUME_LAYERS, RESUME_BATCH, RESUME_SEQ, RESUME_STEPS, RESUME_RTOL = 2, 2, 256, 6, 1e-4
+RESUME_OPT = dict(lr=1e-3, warmup_steps=0, schedule="constant")
+#: (f): the other block kinds at full width, one superblock (deepseek: the
+#: dense prefix layer and 2 MoE layers at the config's capacity factor):
+#: (arch, layers, batch, sequence).
+TRAIN_KINDS = (("deepseek-moe-16b", 3, 2, 512), ("xlstm-1.3b", 8, 2, 256),
+               ("hymba-1.5b", 8, 2, 1024))
+KIND_STEPS, KIND_LR = 4, 1e-3
+#: The H100 SXM's dense bf16 tensor-core peak (data sheet, 700 W).
+BF16_PEAK_FLOPS = 989e12
+
+
+def loss_and_grads(lm, params, tokens, prefix_embeds=None):
+    """(loss, metrics, grads in JAX's leaf order) of ``lm.loss`` by autograd,
+    leaving ``params`` out of autograd (detached views, as ``train_step``
+    differentiates)."""
+    import torch
+    from repro_torch.tree import leaves, unflatten_like
+
+    diff = [p.detach().requires_grad_() for p in leaves(params)]
+    loss, metrics = lm.loss(unflatten_like(params, diff), tokens, prefix_embeds)
+    grads = torch.autograd.grad(loss, diff)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
+
+
+def held(got, want, tol, label) -> float:
+    """Every element of ``got`` within ``tol`` of ``want``; returns max |d|."""
+    d = (got.detach().float().cpu() - want.detach().float().cpu()).abs()
+    worst = float(d.max()) if d.numel() else 0.0
+    if worst > tol:
+        raise AssertionError(f"{label}: off by up to {worst:.3e} (tolerance {tol:.3e})")
+    return worst
+
+
+def moment_tolerances(v, b1, b2, rel):
+    """(tol_m, tol_v) of one leaf after two AdamW steps whose grads each lie
+    within ``rel`` G of the other device's, G the leaf's largest grad over
+    the two steps: v = (1 - b2)(b2 g1^2 + g2^2) gives G^2 <= max v / ((1 -
+    b2) b2), so |dm| <= rel (1 - b1^2) G and |dv| <= 2 rel (1 - b2^2) G^2.
+    (A bound on m's own largest element would not do: two steps' grads of
+    opposite signs cancel in m, not in its error.)"""
+    g2 = float(v.max()) / ((1 - b2) * b2)
+    return rel * (1 - b1 ** 2) * g2 ** 0.5, 2 * rel * (1 - b2 ** 2) * g2
+
+
+def phase_train_card_vs_cpu(device):
+    """(a) The chain to the reference: reduced gemma-2b and reduced
+    deepseek-moe-16b, float32 compute, the same converted parameters and
+    batch on the card and on the CPU: loss and every grad leaf, then
+    params, ``m`` and ``v`` after two ``train_step``s (:data:`CARD_LOSS_RTOL`
+    and the rest)."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import train_step
+    from repro_torch.tree import flatten_with_path, leaves, tree_map
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch in CARD_ARCHS:
+        cfg = reduced(get_arch(arch))
+        lm = LM(cfg, chunk_q=16, loss_chunk=20, compute_dtype=None)
+        cpu = lm.init(torch.Generator().manual_seed(0))
+        card = tree_map(lambda t: t.to(device, copy=True), cpu)
+        tokens = np.random.default_rng(21).integers(0, cfg.vocab_size, (2, 48))
+        t_cpu, t_card = torch.as_tensor(tokens), torch.as_tensor(tokens, device=device)
+        l_cpu, m_cpu, g_cpu = loss_and_grads(lm, cpu, t_cpu)
+        l_card, m_card, g_card = loss_and_grads(lm, card, t_card)
+        loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        if loss_rel > CARD_LOSS_RTOL:
+            raise AssertionError(f"{arch}: card loss {float(l_card)} vs CPU {float(l_cpu)}")
+        grad_rel = 0.0
+        for (path, _), g, w in zip(flatten_with_path(cpu), g_card, g_cpu):
+            scale = float(w.abs().max())
+            worst = held(g, w, CARD_GRAD_REL * scale, f"{arch} grad {path}")
+            grad_rel = max(grad_rel, worst / max(scale, 1e-30))
+        ocfg = AdamWConfig(lr=CARD_LR, warmup_steps=1, total_steps=4)
+        o_cpu, o_card = init_opt_state(cpu), init_opt_state(card)
+        losses = []
+        for _ in range(2):
+            _, _, mc = train_step(lm, ocfg, cpu, o_cpu, t_cpu)
+            _, _, md = train_step(lm, ocfg, card, o_card, t_card)
+            losses.append((float(md["loss"]), float(mc["loss"])))
+        state = {"params": 0.0, "m": 0.0, "v": 0.0}
+        for (path, p_cpu), p_card, mom_cpu, mom_card, v_cpu, v_card in zip(
+                flatten_with_path(cpu), leaves(card), leaves(o_cpu["m"]), leaves(o_card["m"]),
+                leaves(o_cpu["v"]), leaves(o_card["v"])):
+            tol_m, tol_v = moment_tolerances(v_cpu, ocfg.b1, ocfg.b2, CARD_GRAD_REL)
+            tol_p = CARD_GRAD_REL * float(p_cpu.abs().max()) + CARD_LR_SHARE * CARD_LR
+            for kind, g, w, tol in (("params", p_card, p_cpu, tol_p),
+                                    ("m", mom_card, mom_cpu, tol_m), ("v", v_card, v_cpu, tol_v)):
+                worst = held(g, w, tol, f"{arch} {kind} {path}")
+                state[kind] = max(state[kind], worst / max(tol, 1e-30))
+        out[arch] = {"loss_card": float(l_card), "loss_rel": loss_rel,
+                     "aux_card": float(m_card["aux"]), "aux_cpu": float(m_cpu["aux"]),
+                     "grad_max_rel": grad_rel, "leaves": len(g_cpu),
+                     "train_step_losses_card_cpu": losses,
+                     "after_two_steps_max_share_of_tolerance": state}
+        if float(m_cpu["aux"]) > 0 and abs(float(m_card["aux"]) - float(m_cpu["aux"])) > \
+                CARD_LOSS_RTOL * float(m_cpu["aux"]):
+            raise AssertionError(f"{arch}: aux loss {float(m_card['aux'])} vs "
+                                 f"{float(m_cpu['aux'])}")
+    emit({"phase": "train_card_vs_cpu", "cases": out,
+          "tolerance": f"loss rel {CARD_LOSS_RTOL}; grads max|d| <= {CARD_GRAD_REL} max|g| "
+                       f"per leaf; m, v that tolerance carried (moment_tolerances); params "
+                       f"{CARD_GRAD_REL} max|p| + {CARD_LR_SHARE} lr",
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
+def model_flops(cfg, n_params, batch, seq):
+    """Model FLOPs of one training step: 6 N T (forward and backward of every
+    parameter's product; the tied table counted once, as the unembedding)
+    plus attention's 12 L H hd S T (scores and weighted sums, forward and
+    backward, no causal halving), PaLM's count."""
+    tokens = batch * seq
+    return 6.0 * n_params * tokens + 12.0 * cfg.num_layers * cfg.num_heads * cfg.head_dim \
+        * seq * tokens
+
+
+def timed_steps(step_fn, n):
+    """Host-clock ms of ``n`` calls of ``step_fn`` (each ends on the loss
+    read back: a synchronize), and the losses."""
+    import torch
+
+    ms, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(step_fn()))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, losses
+
+
+def phase_train_gemma(device):
+    """(b) bf16 against float32 compute, (c) memorisation and its times,
+    (e) the trained weights served through B7, then ``train_loop`` over
+    ``TokenPipeline``: gemma-2b at full width and depth, float32 masters
+    from a seeded generator on the card, ``remat="full"``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.train import LoopConfig, make_train_step, train_loop
+    from repro_torch.tree import leaves
+
+    cfg = get_arch(TRAIN_ARCH)
+    lm = LM(cfg, remat="full", loss_chunk=TRAIN_LOSS_CHUNK)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(params))
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    tokens = torch.as_tensor(pipe.batch_at(0), device=device)
+
+    # (b) bf16 compute against float32 compute
+    t0 = time.perf_counter()
+    l_b, _, g_b = loss_and_grads(lm, params, tokens)
+    l_f, _, g_f = loss_and_grads(dataclasses.replace(lm, compute_dtype=None), params, tokens)
+    dot = nb = nf = 0.0
+    for b, f in zip(g_b, g_f):
+        if not (bool(torch.isfinite(b).all()) and bool(torch.isfinite(f).all())):
+            raise AssertionError("(b): a grad is not finite")
+        dot += float(torch.dot(b.reshape(-1), f.reshape(-1)))
+        nb += float(torch.dot(b.reshape(-1), b.reshape(-1)))
+        nf += float(torch.dot(f.reshape(-1), f.reshape(-1)))
+    del g_b, g_f
+    bf16 = {"loss_bf16": float(l_b), "loss_f32": float(l_f),
+            "loss_rel": abs(float(l_b) - float(l_f)) / abs(float(l_f)),
+            "grad_norm_ratio": (nb / nf) ** 0.5, "one_minus_cosine": 1.0 - dot / (nb * nf) ** 0.5,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "seconds": time.perf_counter() - t0,
+            "limits": {"loss_rel": BF16_LOSS_REL, "grad_norm_ratio": [1 - BF16_NORM_RATIO,
+                                                                      1 + BF16_NORM_RATIO],
+                       "one_minus_cosine": BF16_ONE_MINUS_COS}}
+    if not (bf16["loss_rel"] <= BF16_LOSS_REL
+            and abs(bf16["grad_norm_ratio"] - 1) <= BF16_NORM_RATIO
+            and bf16["one_minus_cosine"] <= BF16_ONE_MINUS_COS):
+        raise AssertionError(f"(b): bf16 against float32 compute outside its limits: {bf16}")
+    emit({"phase": "train_bf16_vs_f32", "arch": TRAIN_ARCH, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, **bf16})
+
+    # (c) memorisation: MEMO_STEPS train_steps on the one batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    opt_init_s = time.perf_counter() - t0
+    step_fn, _ = make_train_step(lm, None, AdamWConfig(lr=MEMO_LR, warmup_steps=0,
+                                                       schedule="constant"))
+    last = {}
+
+    def one_step():
+        _, _, last["metrics"] = step_fn(params, opt, tokens)
+        return last["metrics"]["loss"]
+
+    ms, losses = timed_steps(one_step, MEMO_STEPS)
+    if not np.isfinite(losses).all() or losses[-1] > losses[0] - MEMO_DROP:
+        raise AssertionError(f"(c): losses {losses} did not fall by {MEMO_DROP}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profiled = profile_steps(one_step, steps=1, top=10)
+    step_ms = statistics.median(ms[2:])
+    flops = model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    memo = {"phase": "train_memorisation", "arch": TRAIN_ARCH, "parameters": n_params,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "loss_chunk": TRAIN_LOSS_CHUNK,
+            "remat": lm.remat, "compute_dtype": "bfloat16", "lr": MEMO_LR,
+            "losses": losses, "drop": losses[0] - losses[-1], "required_drop": MEMO_DROP,
+            "init_params_s": init_s, "init_opt_state_s": opt_init_s,
+            "step_ms": step_ms, "step_runs_ms": ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+            "peak_gb": peak, "grad_norm": float(last["metrics"]["grad_norm"]),
+            "model_flops_per_step": flops,
+            "achieved_tflops": flops / (step_ms / 1e3) / 1e12,
+            "share_of_bf16_peak": flops / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+            "profile_one_step": profiled,
+            "device_idle_share": (None if profiled["device_ms_per_step"] is None
+                                  else 1.0 - profiled["device_ms_per_step"] / step_ms)}
+    emit(memo)
+
+    # (e) the trained weights served: the optimizer state dropped, the
+    # params cast, phase 12's engine shape
+    del opt, last
+    torch.cuda.empty_cache()
+    engine = ServeEngine(lm, params, ServeConfig(max_batch=LM_BATCH, max_seq=LM_MAX_SEQ))
+    del params
+    torch.cuda.empty_cache()
+    prompts = np.random.default_rng(22).integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    reset_launches()
+    generated = engine.generate(prompts, LM_GEN)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches != no_launches(flash_decode=cfg.num_layers * (LM_GEN - 1)):
+        raise AssertionError(f"(e): launches {launches}: expected flash_decode = "
+                             f"{cfg.num_layers} layers x {LM_GEN - 1} decode steps and nothing "
+                             "else")
+    check = decode_vs_prefill(lm, engine.params, prompts, generated, device)
+    emit({"phase": "train_serve_trained", "arch": TRAIN_ARCH, "trained_steps": MEMO_STEPS + 2,
+          "engine": {"max_batch": LM_BATCH, "max_seq": LM_MAX_SEQ, "prompt": LM_PROMPT,
+                     "generated": LM_GEN},
+          "launches": launches, "decode_vs_prefill": check})
+    del engine
+    torch.cuda.empty_cache()
+
+    # train_loop over TokenPipeline, with the heartbeat
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = train_loop(lm, LoopConfig(steps=3, log_every=1, seed=1),
+                      AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=3),
+                      TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1),
+                      device=device)
+    if not np.isfinite(hist["loss"]).all() or hist["step"] != [0, 1, 2]:
+        raise AssertionError(f"train_loop: {hist}")
+    emit({"phase": "train_loop", "arch": TRAIN_ARCH, "steps": hist["step"],
+          "losses": hist["loss"], "step_s": hist["dt"],
+          "throughput_tok_s": hist["throughput_tok_s"][0],
+          "loop_s": time.perf_counter() - t0,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    torch.cuda.empty_cache()
+    return memo, launches, bf16
+
+
+def phase_train_resume(device):
+    """(d) Crash and resume: gemma-2b at full width and two layers.  A
+    straight ``train_loop`` of :data:`RESUME_STEPS` against half the steps,
+    its checkpoint, and a new ``train_loop`` that resumes through
+    ``resume_or_init`` for the rest: equal losses within
+    :data:`RESUME_RTOL`.  Then the same resume with the restored optimizer
+    ``count`` planted at 0 must fail that check.  Also a blocking save and
+    a restore of the same state, timed and held bitwise."""
+    import shutil
+    import torch
+    import repro_torch.train.loop as loop_mod
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import LoopConfig, init_train_state, train_loop
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=RESUME_LAYERS)
+    lm = LM(cfg, remat="full", loss_chunk=TRAIN_LOSS_CHUNK)
+    pipe = TokenPipeline(cfg.vocab_size, RESUME_SEQ, RESUME_BATCH, seed=3)
+    ocfg = AdamWConfig(**RESUME_OPT)
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        # a save and a restore of (d)'s training state, timed
+        params, opt = init_train_state(lm, seed=3, device=device)
+        tree = {"params": params, "opt": opt}
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves(tree))
+        ck = Checkpointer(str(root / "timing"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1, tree, blocking=True)
+        save_s = time.perf_counter() - t0
+        like = tree_map(torch.zeros_like, tree)
+        t0 = time.perf_counter()
+        step, restored = ck.restore_latest(like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if step != 1 or not all(torch.equal(a, b) for a, b in zip(leaves(restored),
+                                                                  leaves(tree))):
+            raise AssertionError("(d): the restored state differs from the saved one")
+        del params, opt, tree, like, restored
+        shutil.rmtree(root / "timing")
+        torch.cuda.empty_cache()
+
+        half = RESUME_STEPS // 2
+        straight = train_loop(lm, LoopConfig(steps=RESUME_STEPS, log_every=0, seed=3), ocfg,
+                              pipe, device=device)["loss"]
+        d = str(root / "run")
+        train_loop(lm, LoopConfig(steps=half, ckpt_every=half, ckpt_dir=d, log_every=0,
+                                  seed=3), ocfg, pipe, device=device)
+        resumed = train_loop(lm, LoopConfig(steps=RESUME_STEPS, ckpt_every=half, ckpt_dir=d,
+                                            log_every=0, seed=3), ocfg, pipe, device=device)
+
+        def gaps(hist):
+            if hist["step"] != list(range(half, RESUME_STEPS)):
+                raise AssertionError(f"(d): resumed at steps {hist['step']}")
+            return [abs(a - b) / abs(b) for a, b in zip(hist["loss"], straight[half:])]
+
+        sound = gaps(resumed)
+        if max(sound) > RESUME_RTOL:
+            raise AssertionError(f"(d): resumed losses {resumed['loss']} vs straight "
+                                 f"{straight[half:]}: {sound} over {RESUME_RTOL}")
+        # the planted fault: the restored count set to 0
+        shutil.rmtree(Path(d) / f"step_{RESUME_STEPS}")
+        real = loop_mod.resume_or_init
+
+        def planted(ckpt, init_fn, like=None):
+            state = real(ckpt, init_fn, like)
+            state.tree["opt"]["count"].zero_()
+            return state
+
+        loop_mod.resume_or_init = planted
+        try:
+            fault = gaps(train_loop(lm, LoopConfig(steps=RESUME_STEPS, ckpt_every=half,
+                                                   ckpt_dir=d, log_every=0, seed=3),
+                                    ocfg, pipe, device=device))
+        finally:
+            loop_mod.resume_or_init = real
+        if max(fault) <= RESUME_RTOL:
+            raise AssertionError(f"(d): a restored count planted at 0 stays within "
+                                 f"{RESUME_RTOL} ({fault}); the check cannot see it")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"phase": "train_resume", "arch": TRAIN_ARCH, "layers": RESUME_LAYERS,
+           "batch": RESUME_BATCH, "seq": RESUME_SEQ, "steps": RESUME_STEPS, "resumed_at": half,
+           "straight_losses": straight, "resumed_losses": resumed["loss"],
+           "resumed_rel_gaps": sound, "planted_count_zero_rel_gaps": fault,
+           "tolerance_rel": RESUME_RTOL, "checkpoint_bytes": n_bytes,
+           "save_s": save_s, "restore_s": restore_s}
+    emit(out)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_kinds(device):
+    """(f) The other block kinds at full width, one superblock: each trains
+    :data:`KIND_STEPS` steps on one repeated batch, finite, its loss
+    falling; deepseek's MoE at the config's capacity with the aux loss in
+    the total, and ``remat="full"`` against ``"none"`` on it (float32
+    compute, (a)'s tolerance)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import flatten_with_path
+
+    rows = {}
+    for arch, layers, batch, seq in TRAIN_KINDS:
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        lm = LM(cfg, remat="full", loss_chunk=TRAIN_LOSS_CHUNK)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, opt = init_train_state(lm, seed=4, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tokens = torch.as_tensor(np.random.default_rng(23).integers(0, cfg.vocab_size,
+                                                                    (batch, seq)),
+                                 device=device)
+        row = {"layers": layers, "pattern": list(cfg.prefix_pattern) + list(cfg.pattern),
+               "batch": batch, "seq": seq, "meta_tokens": cfg.meta_tokens,
+               "parameters": sum(p.numel() for _, p in flatten_with_path(params)),
+               "init_s": init_s}
+        if cfg.moe is not None:
+            f32 = [loss_and_grads(dataclasses.replace(lm, remat=remat, compute_dtype=None),
+                                  params, tokens) for remat in ("full", "none")]
+            (l_full, _, g_full), (l_none, _, g_none) = f32
+            if abs(float(l_full) - float(l_none)) > CARD_LOSS_RTOL * abs(float(l_none)):
+                raise AssertionError(f"{arch}: remat full loss {float(l_full)} vs none "
+                                     f"{float(l_none)}")
+            worst = 0.0
+            for (path, _), g, w in zip(flatten_with_path(params), g_full, g_none):
+                scale = float(w.abs().max())
+                e = held(g, w, CARD_GRAD_REL * scale, f"{arch} remat grad {path}")
+                worst = max(worst, e / max(scale, 1e-30))
+            row["remat_full_vs_none"] = {"loss_full": float(l_full), "loss_none": float(l_none),
+                                         "grad_max_rel": worst}
+            row["capacity_factor"] = cfg.moe.capacity_factor
+            del f32, g_full, g_none
+        step_fn, _ = make_train_step(lm, None, AdamWConfig(lr=KIND_LR, warmup_steps=0,
+                                                           schedule="constant"))
+        aux = []
+
+        def one_step():
+            _, _, m = step_fn(params, opt, tokens)
+            aux.append(float(m["aux"]))
+            return m["loss"]
+
+        ms, losses = timed_steps(one_step, KIND_STEPS)
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError(f"{arch}: losses {losses} not finite or not falling")
+        if cfg.moe is not None and not min(aux) > 0:
+            raise AssertionError(f"{arch}: the MoE aux loss is not in the total: {aux}")
+        row.update(losses=losses, aux=aux, step_runs_ms=ms, step_ms=statistics.median(ms[2:]),
+                   tokens_per_s=batch * seq / (statistics.median(ms[2:]) / 1e3),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        rows[arch] = row
+        del params, opt
+    torch.cuda.empty_cache()
+    emit({"phase": "train_kinds", "kinds": rows, "steps": KIND_STEPS, "lr": KIND_LR})
+    return rows
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
@@ -2528,6 +3022,13 @@ def main() -> int:
         zoo[run.arch] = phase_lm_zoo(device, run)
     zoo_s = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    card_vs_cpu = phase_train_card_vs_cpu(device)
+    memo, trained_launches, bf16 = phase_train_gemma(device)
+    resume = phase_train_resume(device)
+    kinds = phase_train_kinds(device)
+    train_s = time.perf_counter() - t0
+
     # Each kernel's launches come from the path it serves, counted from 0.
     launches = {"vcgra_fused_batched": main_launches["vcgra_fused_batched"],
                 "vcgra_batched": main_launches["vcgra_batched"],
@@ -2559,7 +3060,8 @@ def main() -> int:
                                            "single_app_path": single_launches,
                                            "lm_path": lm_launches,
                                            "lm_zoo": {arch: z["launches"]
-                                                      for arch, z in zoo.items()}},
+                                                      for arch, z in zoo.items()},
+                                           "trained_weights_served": trained_launches},
           "card": card, "end_to_end_flush_ms": e2e["median_ms"],
           "chain_flush_ms": chain_e2e["median_ms"],
           "staged_chain_ms": rows["vcgra_pipeline_batched"]["staged_ms"],
@@ -2573,7 +3075,20 @@ def main() -> int:
                             "generate_tokens_per_s": z["times"]["generate_tokens_per_s"],
                             "flash_decode_ms": z["flash_decode"]["ms"]}
                      for arch, z in zoo.items() if "times" in z},
-          "lm_zoo_s": zoo_s})
+          "lm_zoo_s": zoo_s,
+          "training": {"card_vs_cpu_loss_rel": {a: r["loss_rel"] for a, r in card_vs_cpu.items()},
+                       "bf16_vs_f32": {k: bf16[k] for k in ("loss_rel", "grad_norm_ratio",
+                                                            "one_minus_cosine")},
+                       "gemma_2b_step_ms": memo["step_ms"],
+                       "gemma_2b_tokens_per_s": memo["tokens_per_s"],
+                       "gemma_2b_peak_gb": memo["peak_gb"],
+                       "memorisation_drop": memo["drop"],
+                       "resume_max_rel_gap": max(resume["resumed_rel_gaps"]),
+                       "planted_count_max_rel_gap": max(resume["planted_count_zero_rel_gaps"]),
+                       "checkpoint_save_s": resume["save_s"],
+                       "checkpoint_restore_s": resume["restore_s"],
+                       "kinds_step_ms": {a: r["step_ms"] for a, r in kinds.items()},
+                       "seconds": train_s}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -4,12 +4,14 @@ Twin of the reference's ``models/attention.py``.  The prefill path never
 materialises the full [S, S] score matrix: queries are processed in
 ``chunk_q`` blocks by a Python loop (the reference's ``lax.scan``; the
 last block ragged, where the reference shrinks the block to a divisor of
-S), so scores peak at [B, G, Hg, chunk_q, S] f32.  Decode writes the new token's
-k/v into the cache in place and attends through the flash decode kernel
-(``kernels/flash_attention``, B7), which computes the same function as the
-reference's einsum decode apart from one rounding: the reference rounds
-the softmax weights to the cache dtype before the weighted sum, B7 keeps
-them in float32.
+S), so scores peak at [B, G, Hg, chunk_q, S] f32; under autograd each
+chunk is recomputed in backward (``torch.utils.checkpoint``, the
+reference's per-chunk remat), so training keeps none of them.  Decode
+writes the new token's k/v into the cache in place and attends through
+the flash decode kernel (``kernels/flash_attention``, B7), which computes
+the same function as the reference's einsum decode apart from one
+rounding: the reference rounds the softmax weights to the cache dtype
+before the weighted sum, B7 keeps them in float32.
 
 Masking supports: causal, sliding-window (``window > 0``), and
 bidirectional-prefix (PaliGemma-style prefix-LM over ``prefix_len``
@@ -25,6 +27,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import decode_attention
 from repro_torch.models.layers import Params, f32_matmul, rope, truncated_normal
@@ -115,7 +118,8 @@ def attention_train(
     chunk_q: int = 512,
     return_kv: bool = False,
 ):
-    """Full-sequence attention (training / prefill), query-chunked."""
+    """Full-sequence attention (training / prefill), query-chunked; with
+    grad enabled and more than one chunk, each chunk is rematerialised."""
     B, S, _ = x.shape
     G = num_kv_heads
     Hg = num_heads // G
@@ -147,7 +151,14 @@ def attention_train(
                 pos_k = positions[start:start + band]
             else:
                 kb, vb, pos_k = k, v, positions
-            outs.append(_sdpa(qb, kb, vb, _mask(pos_q, pos_k, window, prefix_len)))
+            mask = _mask(pos_q, pos_k, window, prefix_len)
+            if torch.is_grad_enabled():
+                # remat, as the reference's: backward recomputes the chunk's
+                # scores and softmax instead of keeping [B, Hq, cq, S] float32
+                # residuals a chunk
+                outs.append(checkpoint(_sdpa, qb, kb, vb, mask, use_reentrant=False))
+            else:
+                outs.append(_sdpa(qb, kb, vb, mask))
         out = torch.cat(outs, dim=1)
 
     y = torch.einsum("bsghk,ghkd->bsd", out, params["wo"])

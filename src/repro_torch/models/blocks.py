@@ -1,4 +1,4 @@
-"""Per-kind transformer blocks: init / prefill / decode / cache.
+"""Per-kind transformer blocks: init / train / prefill / decode / cache.
 
 Twin of the reference's ``models/blocks.py``.  One module owns the
 layer-kind dispatch so the LM stack (``models/lm.py``) can walk a pattern
@@ -6,6 +6,7 @@ of heterogeneous kinds (dense, local, global, moe, mlstm, slstm, hymba,
 hymba_g) with uniform plumbing:
 
     init_block(generator, cfg, kind)                          -> params dict
+    block_train(params, cfg, kind, x, prefix_len)              -> (x', aux_loss)
     block_prefill(params, cfg, kind, x, cache_len, prefix_len) -> (x', cache)
     block_decode(params, cfg, kind, x, cache, l)              -> (x', cache)
     init_block_cache(cfg, kind, batch, seq, device)           -> zeroed cache dict
@@ -244,13 +245,74 @@ def _store_kv(k: torch.Tensor, cache_len: int, window: int) -> torch.Tensor:
     return buf
 
 
-def _attention_prefill(aparams, cfg: ArchConfig, h, window, prefix_len, chunk_q):
-    return attn.attention_train(
-        aparams, h,
-        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-        window=window, prefix_len=prefix_len, chunk_q=chunk_q, return_kv=True,
-    )
+def _block_seq(params: Params, cfg: ArchConfig, kind: str, x: torch.Tensor, prefix_len: int,
+               chunk_q: int, cache_len=None):
+    """The full-sequence body shared by training and prefill: ``(x', aux,
+    cache)``.  ``aux`` is the MoE load-balance loss (None for the other
+    kinds); the decode cache is built only when ``cache_len`` is given."""
+    check_kind(kind)
+    window = _window_for(cfg, kind)
+    want_cache = cache_len is not None
+    aux = cache = None
+    if kind in ATTN_KINDS or kind in ("hymba", "hymba_g"):
+        ln = "ln_attn" if kind in ATTN_KINDS else "ln"
+        h = rmsnorm(params[ln], x)
+        a, (k, v) = attn.attention_train(
+            params["attn"], h,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            window=window, prefix_len=prefix_len, chunk_q=chunk_q, return_kv=True,
+        )
+        if want_cache:
+            cache = {"k": _store_kv(k, cache_len, window), "v": _store_kv(v, cache_len, window)}
+        if kind in ATTN_KINDS:
+            x = x + a
+            h = rmsnorm(params["ln_mlp"], x)
+            if kind == "moe":
+                h, aux = moe_lib.moe_ffn_ep(params["moe"], h, cfg.moe, cfg.mlp_type)
+            else:
+                h = mlp(params["mlp"], h, cfg.mlp_type)
+            return x + h, aux, cache
+        # hymba / hymba_g
+        s, state = _hymba_ssm_seq(params, cfg, h, state=None, return_state=want_cache)
+        x = x + _hymba_mix(params, a, s)
+        h2 = mlp(params["mlp"], rmsnorm(params["ln_mlp"], x), cfg.mlp_type)
+        if want_cache:
+            cache["S"], cache["n"] = state
+        return x + h2, aux, cache
+
+    if kind == "mlstm":
+        y, state = _mlstm_seq(params, cfg, rmsnorm(params["ln"], x), state=None,
+                              return_state=want_cache)
+        if want_cache:
+            (S, n), conv = state
+            cache = {"S": S, "n": n, "conv": conv}
+        return x + y, aux, cache
+
+    # slstm
+    h = rmsnorm(params["ln"], x)
+    h, (c, n, hs) = lrnn.slstm_scan(params["slstm"], h, cfg.num_heads)
+    x = x + h
+    h2 = mlp(params["mlp"], rmsnorm(params["ln_mlp"], x), "swiglu")
+    if want_cache:
+        cache = {"c": c, "n": n, "h": hs}
+    return x + h2, aux, cache
+
+
+def block_train(
+    params: Params,
+    cfg: ArchConfig,
+    kind: str,
+    x: torch.Tensor,
+    prefix_len: int = 0,
+    chunk_q: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence block application.  Returns (x', aux_loss): the MoE
+    kind's float32 load-balance loss, 0 for every other kind."""
+    x, aux, _ = _block_seq(params, cfg, kind, x, prefix_len, chunk_q)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def block_prefill(
@@ -262,43 +324,10 @@ def block_prefill(
     prefix_len: int = 0,
     chunk_q: int = 512,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence application that also emits the decode cache."""
-    check_kind(kind)
-    window = _window_for(cfg, kind)
-    if kind in ATTN_KINDS:
-        h = rmsnorm(params["ln_attn"], x)
-        h, (k, v) = _attention_prefill(params["attn"], cfg, h, window, prefix_len, chunk_q)
-        x = x + h
-        h = rmsnorm(params["ln_mlp"], x)
-        if kind == "moe":
-            h, _ = moe_lib.moe_ffn_ep(params["moe"], h, cfg.moe, cfg.mlp_type)
-        else:
-            h = mlp(params["mlp"], h, cfg.mlp_type)
-        cache = {"k": _store_kv(k, cache_len, window), "v": _store_kv(v, cache_len, window)}
-        return x + h, cache
-
-    if kind == "mlstm":
-        y, ((S, n), conv) = _mlstm_seq(
-            params, cfg, rmsnorm(params["ln"], x), state=None, return_state=True
-        )
-        return x + y, {"S": S, "n": n, "conv": conv}
-
-    if kind == "slstm":
-        h = rmsnorm(params["ln"], x)
-        h, (c, n, hs) = lrnn.slstm_scan(params["slstm"], h, cfg.num_heads)
-        x = x + h
-        h2 = mlp(params["mlp"], rmsnorm(params["ln_mlp"], x), "swiglu")
-        return x + h2, {"c": c, "n": n, "h": hs}
-
-    # hymba / hymba_g
-    h = rmsnorm(params["ln"], x)
-    a, (k, v) = _attention_prefill(params["attn"], cfg, h, window, prefix_len, chunk_q)
-    s, (S, n) = _hymba_ssm_seq(params, cfg, h, state=None, return_state=True)
-    x = x + _hymba_mix(params, a, s)
-    h2 = mlp(params["mlp"], rmsnorm(params["ln_mlp"], x), cfg.mlp_type)
-    cache = {"k": _store_kv(k, cache_len, window), "v": _store_kv(v, cache_len, window),
-             "S": S, "n": n}
-    return x + h2, cache
+    """Full-sequence application that also emits the decode cache (the MoE
+    aux loss is dropped, as in the reference)."""
+    x, _, cache = _block_seq(params, cfg, kind, x, prefix_len, chunk_q, cache_len)
+    return x, cache
 
 
 # -- decode -----------------------------------------------------------------------

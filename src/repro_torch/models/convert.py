@@ -1,4 +1,4 @@
-"""The reference's parameter and cache pytrees, as numpy arrays, into the
+"""The reference's parameter, cache and optimizer-state pytrees, as numpy arrays, into the
 port's dicts of tensors, leaf by leaf (both packages keep one layout).
 
 Hand it ``jax.tree_util.tree_map(np.asarray, params)``: dicts stay dicts,
@@ -50,4 +50,11 @@ def cache_from_numpy(tree, device="cuda"):
     tuple where the config has one: bf16 k/v, ring or full, and the
     float32 recurrent states) as the port's."""
     _require(tree, ("blocks",), "cache")
+    return _tree(tree, device)
+
+
+def opt_state_from_numpy(tree, device="cuda"):
+    """The reference's AdamW state (``m`` and ``v``, float32 trees of the
+    parameters' layout, and the int32 step ``count``) as the port's."""
+    _require(tree, ("m", "v", "count"), "optimizer-state")
     return _tree(tree, device)

@@ -23,6 +23,15 @@ from the step-by-step decode (``gla_step``, whose float32 state never
 holds a bf16 sum).  Summed in float32, prefill and decode compute one
 function, the reference's float32 one.
 
+A second one, for training: the reference masks the intra-chunk weights
+after the exp (``where(tril, exp(P_t - P_s) i_s, 0)``).  Above the
+diagonal P_t - P_s is the sum of the decays between them, positive, and
+past 88 (hymba at full width: ~0.7 a step over a 256-step chunk) its exp
+overflows to inf; the forward value takes the 0, but the gradient of the
+discarded branch is 0 x inf = NaN, and a train step's grads are NaN.  The
+port masks the gaps before the exp (exp(-inf) = 0): the same forward
+values, bitwise, and finite grads.
+
 Gate conventions: ``log_f`` (log forget) <= 0 and ``i_gate`` in [0, 1]
 (sigmoid), so every chunk weight exp(log-sum) stays in [0, 1].
 """
@@ -75,9 +84,11 @@ def gla_chunked(
         y_inter = torch.einsum("bthd,bhdv->bthv", q_dec, S)
         n_inter = torch.einsum("bthd,bhd->bth", q_dec, n)
 
-        # intra-chunk: masked decayed quadratic form
-        gap = P[:, :, None, :] - P[:, None, :, :]   # [B,t,s,H]
-        w = torch.where(tril[None, :, :, None], torch.exp(gap) * ib[:, None], 0.0)
+        # intra-chunk: masked decayed quadratic form; the mask goes in before
+        # the exp (see the module docstring)
+        gap = (P[:, :, None, :] - P[:, None, :, :]).masked_fill(
+            ~tril[None, :, :, None], -torch.inf)    # [B,t,s,H]
+        w = torch.exp(gap) * ib[:, None]
         scores = torch.einsum("bthd,bshd->btsh", qb, kb) * w
         y = y_inter + torch.einsum("btsh,bshv->bthv", scores, vb)
 

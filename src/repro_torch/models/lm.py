@@ -1,4 +1,4 @@
-"""The language-model stack for serving: prefill and decode.
+"""The language-model stack: training forward and loss, prefill, decode.
 
 Twin of the reference's ``models/lm.py``.  Parameters live in a plain dict
 of tensors with the reference's layout, so the tests compare like with
@@ -13,37 +13,37 @@ like and ``models/convert.py`` copies the reference's pytree leaf by leaf:
     }
 
 The reference scans the superblocks (``lax.scan``); here a Python loop
-walks the prefix layers, then the superblocks, indexing the stacked
-leaves, and decode writes each layer's new k/v and recurrent state into
-the cache in place.  ``forward`` and ``loss`` come with the training
-slice (ROADMAP Queue A item 8).
+walks the prefix layers, then the superblocks.  Training takes each
+stacked leaf apart once (``unbind``, so backward stacks its grads once)
+and, with ``remat="full"``, recomputes each superblock in backward (and
+each layer of a multi-layer superblock), as the reference's
+``jax.checkpoint`` does.  The cross-entropy is evaluated in sequence
+chunks, each recomputed in backward, so no ``[B, chunk, V]`` float32
+logits are kept.  Decode writes each layer's new k/v and recurrent state
+into the cache in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (
     embed, init_embedding, init_rmsnorm, rmsnorm, truncated_normal, unembed,
 )
+from repro_torch.tree import tree_map
+
+#: What the mesh-only options wait for.
+MESH_ITEM = "the multi-GPU mesh (ROADMAP Queue A item 6)"
 
 
 def _block_keys(cfg: ArchConfig):
     return [f"{j}:{kind}" for j, kind in enumerate(cfg.pattern)]
-
-
-def tree_map(fn, tree):
-    """``fn`` on every tensor of a tree of dicts and tuples."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def _cast_params(params, dtype):
@@ -86,14 +86,40 @@ def _stacked(make, n: int, dtype=None) -> Dict:
     return out
 
 
+def _unstack(tree, n: int) -> List[Dict]:
+    """Stacked ``[n, ...]`` leaves as ``n`` trees of views, one ``unbind``
+    a leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _remat(fn):
+    """``fn`` recomputed in backward instead of keeping its residuals."""
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return wrapped
+
+
 @dataclasses.dataclass(frozen=True)
 class LM:
     cfg: ArchConfig
-    chunk_q: int = 512                       # attention query chunk (prefill)
+    remat: str = "full"          # none | full
+    chunk_q: int = 512           # attention query chunk
+    loss_chunk: int = 512        # CE chunking along the sequence
+    zloss: float = 0.0
     compute_dtype: Optional[torch.dtype] = torch.bfloat16  # None => keep f32
+    attn_seq_shard: bool = False  # mesh-only in the reference
+    seq_parallel: bool = False    # mesh-only in the reference (its default True)
 
     def __post_init__(self):
         cfg = self.cfg
+        if self.remat not in ("none", "full"):
+            raise ValueError(f"remat must be 'none' or 'full', not {self.remat!r}")
+        for name in ("attn_seq_shard", "seq_parallel"):
+            if getattr(self, name):
+                raise ValueError(f"{name} shards over a mesh: it waits for {MESH_ITEM}")
         for kind in (*cfg.prefix_pattern, *cfg.pattern):
             blk.check_kind(kind)
         if cfg.modality not in ("text", "vision_stub", "audio_stub"):
@@ -154,6 +180,84 @@ class LM:
             h = torch.cat([meta, h], dim=1)
             n_prefix += cfg.meta_tokens
         return h, n_prefix
+
+    # -- full-sequence forward -------------------------------------------------
+
+    def forward(
+        self,
+        params: Dict,
+        tokens: torch.Tensor,
+        prefix_embeds: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """Returns (hidden [B, S_total, D], aux_loss, n_prefix)."""
+        cfg = self.cfg
+        params = self.cast_params(params)
+        h, n_prefix = self._embed_inputs(params, tokens, prefix_embeds)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        prefix_len = n_prefix if cfg.modality == "vision_stub" else 0
+
+        def one_block(hh, p, kind):
+            return blk.block_train(p, cfg, kind, hh, prefix_len, self.chunk_q)
+
+        for p, kind in zip(params.get("prefix", ()), cfg.prefix_pattern):
+            h, a = one_block(h, p, kind)
+            aux = aux + a
+
+        layer = one_block
+        if self.remat == "full" and len(cfg.pattern) > 1:
+            # per-layer remat inside the superblock, as the reference's:
+            # without it backward keeps a whole multi-layer body's residuals
+            layer = _remat(one_block)
+
+        def sb_body(hh, ax, sb_params):
+            for key, kind in zip(_block_keys(cfg), cfg.pattern):
+                hh, a = layer(hh, sb_params[key], kind)
+                ax = ax + a
+            return hh, ax
+
+        body = _remat(sb_body) if self.remat == "full" else sb_body
+        for sb_params in _unstack(params["blocks"], cfg.n_superblocks):
+            h, aux = body(h, aux, sb_params)
+        h = rmsnorm(params["final_norm"], h)
+        return h, aux, n_prefix
+
+    # -- training loss -----------------------------------------------------------
+
+    def loss(
+        self,
+        params: Dict,
+        tokens: torch.Tensor,                     # [B, S_tok]
+        prefix_embeds: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token CE over the token region (prefix/meta positions
+        skipped), plus the ``zloss`` term and the summed aux losses.
+
+        The logits come from the float32 master ``embed`` leaves, as the
+        reference's do (its ``unembed`` promotes the bf16 hidden state), in
+        ``loss_chunk`` positions at a time, the last chunk ragged."""
+        h, aux, n_prefix = self.forward(params, tokens, prefix_embeds)
+        h_tok = h[:, n_prefix:]                    # align with `tokens`
+        B, S, _ = h_tok.shape
+        h_in = h_tok[:, :-1]
+        labels = tokens[:, 1:].long()
+
+        def ce_chunk(hc, lc):
+            logits = unembed(params["embed"], hc)           # f32 [B, c, V]
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lc[..., None])[..., 0]
+            return (lse - gold).sum() + lse.square().sum() * self.zloss
+
+        # remat: backward recomputes each chunk's [B, c, V] logits instead of
+        # keeping them (V up to 262k: ~4 GB a chunk at batch 4 x 1024)
+        chunk_fn = _remat(ce_chunk) if torch.is_grad_enabled() else ce_chunk
+        c = min(self.loss_chunk, S - 1)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, S - 1, c):
+            total = total + chunk_fn(h_in[:, i:i + c], labels[:, i:i + c])
+
+        n_tokens = B * (S - 1)
+        ce = total / n_tokens
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # -- serving -----------------------------------------------------------------
 

@@ -1,20 +1,23 @@
-"""Straggler detection for the serving path.
+"""Crash-restart state and straggler detection.
 
-Twin of the reference package's ``runtime/fault_tolerance.py``, in part:
+Twin of the reference package's ``runtime/fault_tolerance.py``:
 
+* ``RunState`` + ``resume_or_init``: crash-restart protocol on top of the
+  atomic checkpointer -- a restarted job resumes from the newest committed
+  step; torn/partial checkpoints are skipped and garbage-collected.
+  ``train/loop.py`` runs it.
 * ``HeartbeatMonitor``: wall-clock duration tracker with a robust
-  (median * k) straggler threshold.  ``PixieFleet._settle_flush`` feeds
-  every flush's wall time in, and a flagged straggler counts as a
-  circuit-breaker failure against the plans that flush dispatched (when
-  the fleet is armed for resilience) -- see
+  (median * k) straggler threshold.  The training loop feeds it every
+  step's wall time; ``PixieFleet._settle_flush`` every flush's, and a
+  flagged straggler counts as a circuit-breaker failure against the plans
+  that flush dispatched (when the fleet is armed for resilience) -- see
   :mod:`repro_torch.runtime.resilience`.
 * ``ElasticPlan``: DEPRECATED, as in the reference.  It plans LM-style
   (data, model) meshes that nothing here dispatches.  For degrading a
   *serving* plan, use :func:`repro_torch.core.plan.fallback_chain`.
 
-The reference's crash-restart protocol (``RunState``, ``resume_or_init``)
-sits on its checkpointer, which the port does not have yet: it comes with
-the training stack.
+The reference's ``shardings`` arguments place restored leaves over a
+mesh, which the port does not have yet (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -22,9 +25,40 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.checkpoint import Checkpointer
+
+
+@dataclasses.dataclass
+class RunState:
+    step: int
+    tree: object            # {"params": ..., "opt": ...}
+    resumed: bool
+
+
+def resume_or_init(
+    ckpt: Checkpointer,
+    init_fn: Callable[[], object],
+    like=None,
+) -> RunState:
+    """Restart protocol: newest committed checkpoint wins; otherwise init.
+    Without ``like``, ``init_fn()``'s tree is the template the checkpoint
+    is restored into."""
+    ckpt.cleanup_tmp()
+    template = like
+    if template is None:
+        template = init_fn()
+        step, tree = ckpt.restore_latest(template)
+        if step is None:
+            return RunState(step=0, tree=template, resumed=False)
+        return RunState(step=step, tree=tree, resumed=True)
+    step, tree = ckpt.restore_latest(template)
+    if step is None:
+        return RunState(step=0, tree=init_fn(), resumed=False)
+    return RunState(step=step, tree=tree, resumed=True)
 
 
 class HeartbeatMonitor:

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.interpreter import check_device
-from repro_torch.models.lm import LM, tree_map
+from repro_torch.models.lm import LM
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass

@@ -2,8 +2,8 @@
 neither JAX nor the reference package, and importing the entry points (the
 serving front-ends, the ``Pixie`` facade, the kernel packages, the
 preprocessor, the LM serving engine, the models, the serving CLI, the
-fault injector, the heartbeat and the synthesis front-end) pulls no JAX
-into the process.  (Only the tests import
+fault injector, the heartbeat, the synthesis front-end and the training
+path) pulls no JAX into the process.  (Only the tests import
 both.)"""
 
 import os
@@ -50,6 +50,11 @@ def test_serving_entry_point_imports_without_jax():
         "import repro_torch.runtime.chaos\n"
         "import repro_torch.runtime.fault_tolerance\n"
         "import repro_torch.core.synthesis\n"
+        "import repro_torch.launch.train\n"
+        "import repro_torch.train\n"
+        "import repro_torch.checkpoint\n"
+        "import repro_torch.optim\n"
+        "import repro_torch.data.tokens\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -669,3 +669,48 @@ def test_wide_grid_is_refused_at_submit_on_the_card(cuda):
     (got,) = PixieFleet(default_grid=grid, backend="torch").run_many(
         [FleetRequest(app="sobel_x", image=image)])
     assert got.shape == image.shape
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """Two ``train_step``s of reduced gemma-2b (float32 compute, TF32 off)
+    on the card against the CPU port's, from the same parameters and batch
+    (the card's ``chip_smoke.py`` phase 15 (a) tolerance): losses relative
+    1e-5; ``m`` and ``v`` within the grads' 1e-4 of their largest element G,
+    carried through two steps (|dm| <= 1e-4 (1 - b1^2) G, |dv| <= 2e-4 (1 -
+    b2^2) G^2, with G^2 <= max v / ((1 - b2) b2)); the params within 1e-4 of
+    their largest element plus 5% of the learning rate (Adam's update
+    divides two moments that both vanish with the grad, so a near-zero
+    grad's float32 noise moves its update by a share of one step)."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import train_step
+    from repro_torch.tree import leaves, tree_map
+
+    lr = 3e-3
+    lm = LM(reduced(ARCHS["gemma-2b"]), chunk_q=16, loss_chunk=20, compute_dtype=None)
+    cpu = lm.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to("cuda", copy=True), cpu)
+    o_cpu, o_card = init_opt_state(cpu), init_opt_state(card)
+    tokens = np.random.default_rng(21).integers(0, 256, (2, 48))
+    ocfg = AdamWConfig(lr=lr, warmup_steps=1, total_steps=4)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for _ in range(2):
+            _, _, mc = train_step(lm, ocfg, cpu, o_cpu, torch.as_tensor(tokens))
+            _, _, md = train_step(lm, ocfg, card, o_card, torch.as_tensor(tokens, device="cuda"))
+            np.testing.assert_allclose(float(md["loss"]), float(mc["loss"]), rtol=1e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    b1, b2 = ocfg.b1, ocfg.b2
+    for p_cpu, p_card, m_cpu, m_card, v_cpu, v_card in zip(
+            leaves(cpu), leaves(card), leaves(o_cpu["m"]), leaves(o_card["m"]),
+            leaves(o_cpu["v"]), leaves(o_card["v"])):
+        g2 = float(v_cpu.max()) / ((1 - b2) * b2)
+        for kind, got, want, tol in (
+                ("params", p_card, p_cpu, 1e-4 * float(p_cpu.abs().max()) + 0.05 * lr),
+                ("m", m_card, m_cpu, 1e-4 * (1 - b1 ** 2) * g2 ** 0.5),
+                ("v", v_card, v_cpu, 2e-4 * (1 - b2 ** 2) * g2)):
+            assert float((got.cpu() - want).abs().max()) <= tol, kind
+    assert int(o_card["count"]) == 2
