@@ -145,7 +145,25 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    layer and 2 MoE layers at capacity factor 1.25, aux loss in the total,
    ``remat="full"`` equal to ``"none"``), xlstm-1.3b (7 mLSTM + 1 sLSTM,
    256 tokens) and hymba-1.5b (meta tokens, local and global attention) at
-   full width, one superblock, a few steps each, finite and falling.
+   full width, one superblock, a few steps each, finite and falling;
+16. the example twins -- each ``examples/torch_*.py`` ``main(["--device",
+   "cuda"])`` in-process at its reference's defaults (the training driver
+   at 200 of its 300 steps), the launch counters reset just before it: its
+   own ``[ok]`` checks pass and the kernels of its path launched;
+17. the paper's Table I on the card -- the reference's five components (VC
+   8->4, fixed- and floating-point PE, the 4x4 grid on ``reduce8``, the
+   Sobel grid of Fig. 5), each: the CPU census of the eager interpreter
+   against ``build_specialized_fn`` (``core.analysis.reduction_row``), B4
+   against B5 on the card (SASS instructions, registers a thread, shared
+   memory, input bytes a pixel; ``core.analysis.kernel_census``) and both
+   timed over a 1080p frame's pixels beside the bound, held bitwise to the
+   plain version; then one ``resources`` line;
+18. the roofline -- gemma-2b's decode step (phase 13's shape) and training
+   step (phase 15 (c)'s) censused on ``meta`` tensors
+   (``roofline.hlo_analysis``), ``RooflineReport``'s terms at the H100's
+   published peaks beside the measured step times; one ``roofline`` line.
+   Phase 10 also profiles one single-app 1080p frame per ``Pixie`` mode
+   (the card's idle share).
 
 Then the kernel table line (each kernel also with its bf16 max error) and,
 last, ``{"ok": true, "device": {...}}``.
@@ -167,13 +185,6 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-#: The card's memory rate and scalar peak (H100 SXM data sheet).  The data
-#: sheet has no int32 row; the float32
-#: non-tensor peak bounds the scalar int32 rate from above, so
-#: ops / SCALAR_OPS_PER_S stays a lower bound on the time.
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
 
 SOBEL_APPS = ["sobel_x", "sobel_y", "sharpen", "laplace", "threshold", "identity"]
 MAIN_APPS = SOBEL_APPS + ["sobel_x", "laplace"]
@@ -1048,29 +1059,38 @@ def cuda_times(fn, reps, shield=False, before=None):
 
 
 def bound(bytes_moved, ops):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    """The least time (ms) for ``bytes_moved`` bytes and ``ops`` scalar
+    operations at the card's memory rate and float32 non-tensor peak
+    (``repro_torch.roofline.model``: the H100 SXM data sheet), and which
+    side binds.  The data sheet has no int32 row; the float32 peak bounds
+    the scalar int32 rate from above, so ops over it stays a lower bound."""
+    from repro_torch.roofline.model import F32_FLOPS, HBM_BW
+
+    t_bytes, t_ops = bytes_moved / HBM_BW, ops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def live_work(grid, names):
-    """Per app of ``names`` on ``grid``: ``(live PEs, live input channels)``
-    by ``specialize._live_slots`` (NONE PEs and the channels no live PE
-    reads left out) -- the least work B1 and B2 do for that app."""
-    from repro_torch.core import applications as apps
+def config_work(grid, cfg):
+    """``(live PEs, live input channels)`` of one config on ``grid`` by
+    ``specialize._live_slots`` (NONE PEs and the channels no live PE reads
+    left out) -- the least work B1, B2 and B4 do for that app."""
     from repro_torch.core.ops import UNARY_OPS, Op
-    from repro_torch.core.pixie import map_app
     from repro_torch.core.specialize import _live_slots
 
-    work = []
-    for name in names:
-        cfg = map_app(apps.ALL_APPS[name](), grid)
-        live = _live_slots(grid, cfg)
-        pes = [(lvl, slot) for lvl, slots in enumerate(live) for slot in slots
-               if Op(int(cfg.opcodes[lvl][slot])) != Op.NONE]
-        channels = {int(cfg.selects[0][slot, j]) for lvl, slot in pes if lvl == 0
-                    for j in ((0,) if Op(int(cfg.opcodes[0][slot])) in UNARY_OPS else (0, 1))}
-        work.append((len(pes), len(channels)))
-    return work
+    live = _live_slots(grid, cfg)
+    pes = [(lvl, slot) for lvl, slots in enumerate(live) for slot in slots
+           if Op(int(cfg.opcodes[lvl][slot])) != Op.NONE]
+    channels = {int(cfg.selects[0][slot, j]) for lvl, slot in pes if lvl == 0
+                for j in ((0,) if Op(int(cfg.opcodes[0][slot])) in UNARY_OPS else (0, 1))}
+    return len(pes), len(channels)
+
+
+def live_work(grid, names):
+    """:func:`config_work` per library app of ``names`` on ``grid``."""
+    from repro_torch.core import applications as apps
+    from repro_torch.core.pixie import map_app
+
+    return [config_work(grid, map_app(apps.ALL_APPS[name](), grid)) for name in names]
 
 
 def phase_times(device, svc, main_reqs, channel_requests, all_grid):
@@ -1092,6 +1112,7 @@ def phase_times(device, svc, main_reqs, channel_requests, all_grid):
         pack_settings_batched, vcgra_batched, vcgra_batched_ref,
         vcgra_fused_batched, vcgra_fused_batched_ref,
     )
+    from repro_torch.roofline.model import F32_FLOPS, HBM_BW
 
     rng = np.random.default_rng(7)
     all_names = sorted(apps.ALL_APPS)
@@ -1161,7 +1182,7 @@ def phase_times(device, svc, main_reqs, channel_requests, all_grid):
     e2e = time_flushes(svc, main_reqs, "8 x 1080p int32, sobel-5x9")
     assert_sound(svc.fleet, "main path times")
     emit({"phase": "times", "kernels": rows, "end_to_end": e2e,
-          "rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S, "scalar_ops_per_s": SCALAR_OPS_PER_S},
+          "rates": {"hbm_bytes_per_s": HBM_BW, "scalar_ops_per_s": F32_FLOPS},
           "library_ms": None,
           "library_note": "no single PyTorch call computes a VCGRA overlay"})
     return rows, e2e
@@ -1594,10 +1615,24 @@ def phase_single_times(device, frame, mag_cfg, pixies):
             raise AssertionError(f"sobel four-way: {name} differs from the fused stencil")
     # Unshielded: each way's time includes the host work a caller waits for.
     four_ms = {name: cuda_ms(fn, 10) for name, fn in four.items()}
+    # The card's idle share of one single-app 1080p frame in each mode, from
+    # one trace of 10 ``run_image`` calls each (:func:`profile_steps`), read
+    # two ways: over the profiled window, which the profiler's host cost
+    # stretches (an upper reading), and as the traced busy time over the
+    # unprofiled frame time of ``four_ms``.
+    frame_profile = {name: profile_steps(four[name], steps=10, top=4)
+                     for name in ("pixie_conventional", "pixie_parameterized")}
+    idle = {name: {
+        "profiled_window": (None if p["device_busy_share"] is None
+                            else 1.0 - p["device_busy_share"]),
+        "unprofiled_frame": (None if p["device_busy_union_ms_per_step"] is None
+                             else 1.0 - p["device_busy_union_ms_per_step"] / four_ms[name])}
+        for name, p in frame_profile.items()}
     emit({"phase": "single_times", "kernels": rows, "sobel_four_way_ms": four_ms,
           "sobel_four_way": "1080x1920 int32, sobel_mag exact grid, identical outputs",
+          "single_frame_profile": frame_profile, "single_frame_idle_share": idle,
           "x_bytes": x.numel() * x.element_size()})
-    return rows, four_ms
+    return rows, four_ms, idle
 
 LM_ARCH = "gemma-2b"
 #: The LM path's sizes: the engine's batch and cache, prompts, tokens.
@@ -2065,6 +2100,8 @@ def phase_lm_times(device, lm, engine, prompts):
     one gemma-2b layer (B 128, S 32768, all rows valid), bf16
     (:func:`flash_row`).  Then prefill, decode step and generate on the
     card (:func:`serving_times`)."""
+    from repro_torch.roofline.model import F32_FLOPS, HBM_BW
+
     cfg = lm.cfg
     H, G, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     rng = np.random.default_rng(13)
@@ -2078,7 +2115,7 @@ def phase_lm_times(device, lm, engine, prompts):
     emit({"phase": "lm_times", "flash_decode": rows, "lm": out,
           "library_call": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True, "
                           "boolean length mask)",
-          "rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S, "f32_ops_per_s": SCALAR_OPS_PER_S}})
+          "rates": {"hbm_bytes_per_s": HBM_BW, "f32_ops_per_s": F32_FLOPS}})
     return rows, out
 
 
@@ -2513,8 +2550,6 @@ RESUME_OPT = dict(lr=1e-3, warmup_steps=0, schedule="constant")
 TRAIN_KINDS = (("deepseek-moe-16b", 3, 2, 512), ("xlstm-1.3b", 8, 2, 256),
                ("hymba-1.5b", 8, 2, 1024))
 KIND_STEPS, KIND_LR = 4, 1e-3
-#: The H100 SXM's dense bf16 tensor-core peak (data sheet, 700 W).
-BF16_PEAK_FLOPS = 989e12
 
 
 def loss_and_grads(lm, params, tokens, prefix_embeds=None):
@@ -2650,6 +2685,7 @@ def phase_train_gemma(device):
     from repro_torch.data import TokenPipeline
     from repro_torch.models import LM
     from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.roofline.model import PEAK_FLOPS
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.train import LoopConfig, make_train_step, train_loop
     from repro_torch.tree import leaves
@@ -2725,7 +2761,7 @@ def phase_train_gemma(device):
             "peak_gb": peak, "grad_norm": float(last["metrics"]["grad_norm"]),
             "model_flops_per_step": flops,
             "achieved_tflops": flops / (step_ms / 1e3) / 1e12,
-            "share_of_bf16_peak": flops / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+            "share_of_bf16_peak": flops / (step_ms / 1e3) / PEAK_FLOPS,
             "profile_one_step": profiled,
             "device_idle_share": (None if profiled["device_ms_per_step"] is None
                                   else 1.0 - profiled["device_ms_per_step"] / step_ms)}
@@ -2941,6 +2977,261 @@ def phase_train_kinds(device):
     return rows
 
 
+# -- phases 16-18: the example twins, Table I on the card, the roofline ---------------
+
+#: The ``examples/torch_*.py`` twins driven in-process at the reference's
+#: defaults, each with the kernels its path must launch.  The training
+#: driver takes 200 of its 300 steps: 300 (three ~1.2 GB checkpoints
+#: included) took 35 s on the H100, past this phase's share of the run.
+EXAMPLE_TWINS = (
+    ("torch_quickstart", (), ("vcgra_fused_batched", "vcgra_specialized")),
+    ("torch_pipeline_quickstart", (), ("vcgra_fused_batched", "vcgra_pipeline_batched")),
+    ("torch_fleet_quickstart", (), ("vcgra_fused_batched",)),
+    ("torch_serve_lm", (), ("flash_decode",)),
+    ("torch_image_pipeline", (), ("vcgra_fused_batched",)),
+    ("torch_train_lm", ("--steps", "200"), ()),
+)
+#: Table I's timed batch: a 1080p frame's pixels.
+RESOURCE_PIXELS = 1920 * 1080
+
+
+def phase_examples():
+    """Each ``examples/torch_*.py`` twin's ``main(["--device", "cuda"])``
+    in-process, the launch counters reset just before it: its own
+    ``[ok]`` checks must pass (an example that fails fails the run), and
+    the kernels of its path must have launched.  The twins' printing is
+    kept out of this output; their ``[ok]`` lines are in the JSON."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+
+    rows = {}
+    for name, argv, kernels in EXAMPLE_TWINS:
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        argv = ["--device", "cuda", *argv]
+        printed = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = module.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        lines = printed.getvalue().splitlines()
+        if rc != 0 or any(k not in launches for k in kernels):
+            raise AssertionError(f"{name} {argv}: exit {rc}, launches {launches} (expected "
+                                 f"{kernels}); its output:\n" + "\n".join(lines[-20:]))
+        rows[name] = {"argv": argv, "seconds": seconds, "launches": launches,
+                      "checks": [line.strip() for line in lines if "[ok]" in line
+                                 or "bitwise" in line or line.startswith("loss:")]}
+        emit({"phase": "example", "name": name, **rows[name]})
+    return rows
+
+
+def phase_resources(device, card):
+    """The paper's Table I on the card: the five components of the
+    reference's ``benchmarks/resource_table.py`` (``core.analysis
+    .table_one_components``), each (a) censused on the CPU, the eager
+    interpreter against ``build_specialized_fn`` at the reference's batch of
+    4096 (``reduction_row``); (b) censused on the card, B4 over the
+    component's grid against B5 generated for its app
+    (``core.analysis.kernel_census``: SASS instructions, registers a
+    thread, shared memory) with the input bytes each reads a pixel; (c)
+    timed, B4 and B5 over :data:`RESOURCE_PIXELS` pixels by CUDA events,
+    held to the plain version bitwise, beside the bound of the component's
+    live work.  One JSON line per component."""
+    import torch
+    from repro_torch.core.analysis import (
+        CENSUS_BATCH, PAPER_LUT_REDUCTION_PCT, census_pair, kernel_census, reduction_pct,
+        reduction_row, table_one_components,
+    )
+    from repro_torch.core.tiling import itemsize
+    from repro_torch.kernels.vcgra import (
+        SpecializedKernel, vcgra_conventional, vcgra_conventional_ref, vcgra_specialized,
+    )
+    from repro_torch.kernels.vcgra.ops import _pack_settings
+    from repro_torch.kernels.vcgra.specialized import live_inputs
+
+    rng = np.random.default_rng(23)
+    rows = []
+    for name, grid, cfg in table_one_components():
+        program = reduction_row(name, *census_pair(grid, cfg))
+        kernel = SpecializedKernel(grid, cfg, False, device)
+        b4, b5 = kernel_census("vcgra_conventional", grid), kernel_census(kernel)
+        pes, channels = config_work(grid, cfg)
+        size = itemsize(grid.dtype)
+        b4["input_bytes_per_pixel"] = size * channels
+        b5["input_bytes_per_pixel"] = size * len(live_inputs(grid, cfg))
+        b4["smem_bytes"] = b4["static_smem_bytes"] + b4["dynamic_smem_bytes"]
+        b5["smem_bytes"] = b5["static_smem_bytes"] + b5["dynamic_smem_bytes"]
+        n = RESOURCE_PIXELS
+        x = torch.as_tensor(rng.integers(0, 256, (grid.num_inputs, n)),
+                            device=device).to(grid.dtype)
+        settings = _pack_settings(grid, cfg, device=device)[:3]
+        dtype_name = str(grid.dtype)[6:]
+        want = vcgra_conventional_ref(grid, settings, x)
+        err = max(compare(vcgra_conventional(grid, settings, x), want, dtype_name),
+                  compare(vcgra_specialized(kernel, x), want, dtype_name))
+        b_ms, b_by = bound(size * n * (channels + grid.num_outputs), n * pes)
+        row = {
+            "component": name, "grid": grid.name, "dtype": dtype_name,
+            "paper_lut_reduction_pct": PAPER_LUT_REDUCTION_PCT[name],
+            "cpu_census": {"batch": CENSUS_BATCH, **program},
+            "card_census": {
+                "conventional": b4, "parameterized": b5,
+                "reduction_pct": {k: reduction_pct(b4[k], b5[k]) for k in (
+                    "sass_instructions", "registers_per_thread", "smem_bytes",
+                    "input_bytes_per_pixel")},
+                "all_channel_bytes_per_pixel": size * grid.num_inputs},
+            "time": {"pixels": n, "live_pes": pes, "live_channels": channels,
+                     "conventional_ms": cuda_ms(
+                         lambda: vcgra_conventional(grid, settings, x), 20, shield=True),
+                     "parameterized_ms": cuda_ms(lambda: vcgra_specialized(kernel, x), 20,
+                                                 shield=True),
+                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err_vs_plain": err},
+            "card": card}
+        row["time"]["reduction_pct"] = reduction_pct(row["time"]["conventional_ms"],
+                                                     row["time"]["parameterized_ms"])
+        del x, want
+        emit({"phase": "resources", **row})
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_roofline(lm_times, memo, card):
+    """Rooflines of gemma-2b at full width from the census of the ATen ops
+    one step executes (``roofline.hlo_analysis.analyze``) on ``meta``
+    tensors (nothing allocated): the decode step that :func:`phase_lm_times`
+    times (batch 8, 4096-row caches filled to 128 rows; B7's calls, which
+    cannot run on meta tensors, counted by :func:`flash_bound`'s bytes and
+    4 D ops a row and query head) and the training step of phase 15 (c)
+    (batch 4 x 1,024, ``remat="full"``, CE chunks of 512), beside the
+    measured step times of those phases."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from unittest import mock
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.roofline import (
+        F32_FLOPS, HBM_BW, PEAK_FLOPS, RooflineReport, model_flops_estimate,
+    )
+    from repro_torch.roofline.hlo_analysis import analyze, meta_like
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves
+
+    meta = torch.device("meta")
+    cfg = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+
+    def report(shape, census, extra_f32=0.0, extra_bytes=0.0, model=0.0):
+        bf16 = census.flops_by_dtype.get("bfloat16", 0.0) + census.flops_by_dtype.get(
+            "float16", 0.0)
+        return RooflineReport(
+            arch=cfg.name, shape=shape, mesh="1 card", chips=1, flops_per_device=bf16,
+            f32_flops_per_device=census.flops - bf16 + census.elementwise_ops + extra_f32,
+            bytes_per_device=census.hbm_bytes + extra_bytes,
+            coll_bytes_per_device=census.collective_bytes, model_flops=model,
+            coll_breakdown=census.coll_breakdown)
+
+    # the decode step
+    lm = LM(cfg)
+    with FakeTensorMode():
+        fake = lm.init(torch.Generator().manual_seed(0))
+        served = lm.cast_params(fake)
+    n_params = sum(p.numel() for p in leaves(fake))
+    rows_read = LM_PROMPT + 1
+    b7 = {"calls": 0, "bytes": 0.0, "ops": 0.0}
+
+    def census_b7(q, k, v, lengths, chunk=512):
+        B, H, D = q.shape
+        G = k.shape[2]
+        b7["calls"] += 1
+        b7["bytes"] += flash_bound(B, H, G, D, [rows_read] * B, k.element_size())[2]
+        b7["ops"] += 4.0 * D * H * B * rows_read
+        return torch.empty_like(q)
+
+    with mock.patch("repro_torch.models.attention.decode_attention", census_b7):
+        dec = analyze(lm.decode_step, meta_like(served),
+                      torch.empty((LM_BATCH, 1), dtype=torch.int64, device=meta),
+                      lm.init_cache(LM_BATCH, LM_MAX_SEQ, device=meta),
+                      torch.empty((LM_BATCH,), dtype=torch.int32, device=meta))
+    if b7["calls"] != cfg.num_layers:
+        raise AssertionError(f"the decode census saw {b7['calls']} B7 calls, not "
+                             f"{cfg.num_layers}")
+    decode = report(f"decode b{LM_BATCH} cache {LM_MAX_SEQ} fill {rows_read}", dec, b7["ops"],
+                    b7["bytes"], model_flops_estimate(
+                        cfg, ShapeConfig("decode", LM_MAX_SEQ, LM_BATCH, "decode"), n_params))
+    # The decode step's byte floor: every served weight read once and the
+    # cache rows B7 reads (q and out included), whatever the program fuses.
+    weight_bytes = float(sum(p.numel() * p.element_size() for p in leaves(served)))
+    del fake, served
+
+    # the training step
+    lm_t = LM(cfg, remat="full", loss_chunk=TRAIN_LOSS_CHUNK)
+    with FakeTensorMode():
+        fake = lm_t.init(torch.Generator().manual_seed(0))
+        opt = init_opt_state(fake)
+    step_fn, _ = make_train_step(lm_t, None, AdamWConfig(lr=MEMO_LR, warmup_steps=0,
+                                                         schedule="constant"))
+    tr = analyze(step_fn, meta_like(fake), meta_like(opt),
+                 torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int64, device=meta))
+    estimate = model_flops_estimate(
+        cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), n_params)
+    train = report(f"train b{TRAIN_BATCH}x{TRAIN_SEQ} remat full ce {TRAIN_LOSS_CHUNK}", tr,
+                   model=estimate)
+    census_s = time.perf_counter() - t0
+
+    def measured(r, host_ms, device_ms):
+        d = r.to_dict()
+        d.update(measured_step_ms=host_ms, measured_device_ms=device_ms,
+                 roofline_step_ms=r.step_time * 1e3,
+                 measured_over_roofline=host_ms / (r.step_time * 1e3),
+                 device_over_roofline=(None if device_ms is None
+                                       else device_ms / (r.step_time * 1e3)))
+        return d
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    palm = model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    rows = [
+        measured(decode, lm_times["decode_step_ms"],
+                 lm_times["decode_step_profile"]["device_ms_per_step"]),
+        measured(train, memo["step_ms"], memo["profile_one_step"]["device_ms_per_step"]),
+    ]
+    floor_ms = (weight_bytes + b7["bytes"]) / HBM_BW * 1e3
+    rows[0].update(b7_calls=b7["calls"], b7_bytes=b7["bytes"], b7_ops=b7["ops"],
+                   census_ops=sum(dec.op_counts.values()), weight_bytes=weight_bytes,
+                   byte_floor_ms=floor_ms,
+                   measured_over_byte_floor=rows[0]["measured_step_ms"] / floor_ms,
+                   device_over_byte_floor=(None if rows[0]["measured_device_ms"] is None
+                                           else rows[0]["measured_device_ms"] / floor_ms))
+    rows[1].update(
+        census_ops=sum(tr.op_counts.values()),
+        census_product_flops=tr.flops, census_flops_by_dtype=tr.flops_by_dtype,
+        model_flops_6nt=estimate, model_flops_chip_smoke=palm,
+        census_over_model_flops=tr.flops / palm,
+        # remat="full" runs each superblock's and each CE chunk's forward
+        # products again in backward: 2 N T more, and the attention products
+        # of a forward (a third of model_flops' 12 L H hd S T) again.
+        remat_recompute_estimate=2.0 * n_params * tokens + (palm - estimate) / 3,
+        census_over_model_flops_with_recompute=tr.flops / (
+            palm + 2.0 * n_params * tokens + (palm - estimate) / 3))
+    emit({"roofline": rows, "card": card, "census_s": census_s,
+          "peaks": {"bf16_tensor_flops": PEAK_FLOPS, "hbm_bytes_per_s": HBM_BW,
+                    "f32_flops": F32_FLOPS},
+          "note": "census on meta tensors of the eager program: every op's operands and "
+                  "result counted once (no fusion); float32 products (TF32 off) and "
+                  "elementwise ops at the float32 non-tensor rate, added to the tensor-core "
+                  "time; the roofline estimates the eager program and is no lower bound "
+                  "(the decode row's byte_floor_ms is one)"})
+    return rows
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
@@ -2994,7 +3285,7 @@ def main() -> int:
     rows, e2e = phase_times(device, svc, main_reqs, channel_requests, all_grid)
     rows["vcgra_pipeline_batched"], chain_e2e = phase_chain_times(
         device, svc, chain_reqs, pipe_grid)
-    single_rows, four_ms = phase_single_times(device, frame, mag_cfg, pixies)
+    single_rows, four_ms, single_idle = phase_single_times(device, frame, mag_cfg, pixies)
     rows.update(single_rows)
     del pixies
     torch.cuda.empty_cache()
@@ -3028,6 +3319,30 @@ def main() -> int:
     resume = phase_train_resume(device)
     kinds = phase_train_kinds(device)
     train_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    examples = phase_examples()
+    examples_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resources = phase_resources(device, card)
+    emit({"resources": [
+        {"component": r["component"], "paper_lut_reduction_pct": r["paper_lut_reduction_pct"],
+         "cpu_total_ops_reduction_pct": r["cpu_census"]["total_ops_reduction_pct"],
+         "cpu_flops_reduction_pct": r["cpu_census"]["flops_reduction_pct"],
+         "sass": [r["card_census"][m]["sass_instructions"]
+                  for m in ("conventional", "parameterized")],
+         "registers": [r["card_census"][m]["registers_per_thread"]
+                       for m in ("conventional", "parameterized")],
+         "input_bytes_per_pixel": [r["card_census"][m]["input_bytes_per_pixel"]
+                                   for m in ("conventional", "parameterized")],
+         "ms": [r["time"]["conventional_ms"], r["time"]["parameterized_ms"]],
+         "bound_ms": r["time"]["bound_ms"], "card_reduction_pct": r["card_census"]["reduction_pct"]}
+        for r in resources], "card": card, "seconds": time.perf_counter() - t0,
+        "columns": "[conventional (B4), parameterized (B5)]",
+        "paper": "Table I LUT reductions (Xilinx FPGA); not a GPU measurement"})
+    t0 = time.perf_counter()
+    roofline = phase_roofline(lm_times, memo, card)
+    roofline_s = time.perf_counter() - t0
 
     # Each kernel's launches come from the path it serves, counted from 0.
     launches = {"vcgra_fused_batched": main_launches["vcgra_fused_batched"],
@@ -3065,7 +3380,8 @@ def main() -> int:
           "card": card, "end_to_end_flush_ms": e2e["median_ms"],
           "chain_flush_ms": chain_e2e["median_ms"],
           "staged_chain_ms": rows["vcgra_pipeline_batched"]["staged_ms"],
-          "sobel_four_way_ms": four_ms, "sec_v_e_s": sec_v_e,
+          "sobel_four_way_ms": four_ms, "single_frame_idle_share": single_idle,
+          "sec_v_e_s": sec_v_e,
           "flash_decode_32k_ms": flash_rows["decode_32k"]["ms"],
           "streaming_flush_ms": {k: [f["median_ms"] for f in r["flushes_8x1080p"]]
                                  for k, r in streaming.items()},
@@ -3088,7 +3404,12 @@ def main() -> int:
                        "checkpoint_save_s": resume["save_s"],
                        "checkpoint_restore_s": resume["restore_s"],
                        "kinds_step_ms": {a: r["step_ms"] for a, r in kinds.items()},
-                       "seconds": train_s}})
+                       "seconds": train_s},
+          "examples_s": {name: r["seconds"] for name, r in examples.items()},
+          "examples_total_s": examples_s,
+          "roofline_measured_over_roofline": {r["shape"]: r["measured_over_roofline"]
+                                              for r in roofline},
+          "roofline_s": roofline_s})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

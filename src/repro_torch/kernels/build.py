@@ -69,6 +69,7 @@ SIGNATURES = {
         ("vcgra_fused_smem", [_INT] * 9),
         ("vcgra_batched_smem", [_INT] * 8),
         ("vcgra_kernel_regs", [_INT] * 2),
+        ("vcgra_conventional_static_smem", [_INT]),
     ),
     "vcgra_pipeline": (
         ("vcgra_pipeline_batched", [_INT] + [_VOID_P] * 13 + [_INT] * 12 + [_VOID_P]),
@@ -85,6 +86,8 @@ SIGNATURES = {
           ctypes.c_size_t]),
         ("vcgra_spec_launch", [_VOID_P] * 3 + [_INT64] * 3 + [_INT, _VOID_P]),
         ("vcgra_spec_free", [_VOID_P]),
+        ("vcgra_spec_cubin", [_VOID_P, _VOID_P, _INT]),
+        ("vcgra_spec_attribute", [_VOID_P, _INT]),
     ),
     "stencil": (
         ("stencil_fused", [_INT] * 3 + [_VOID_P] * 2 + [_INT] * 3 + [_VOID_P]),

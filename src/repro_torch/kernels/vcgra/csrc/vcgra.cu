@@ -231,6 +231,24 @@ extern "C" int vcgra_batched_smem(int elem, int slots_a, int slots_b, int thread
   return static_cast<int>(smem_layout(elem, 0, 0, slots_a, slots_b, threads, C, L, max_w, K).total);
 }
 
+// Static shared memory bytes of one B4 block for dtype code `dtype` (its
+// value columns are dynamic shared memory), or -1.
+extern "C" int vcgra_conventional_static_smem(int dtype) {
+  auto bytes = [](auto kernel) {
+    cudaFuncAttributes attr;
+    return cudaFuncGetAttributes(&attr, kernel) == cudaSuccess
+               ? static_cast<int>(attr.sharedSizeBytes)
+               : -1;
+  };
+  switch (dtype) {
+    case 0: return bytes(vcgra_batched_kernel<int32_t, 0>);
+    case 1: return bytes(vcgra_batched_kernel<int16_t, 0>);
+    case 2: return bytes(vcgra_batched_kernel<float, 0>);
+    case 3: return bytes(vcgra_batched_kernel<__nv_bfloat16, 0>);
+    default: return -1;
+  }
+}
+
 // Registers a thread takes in kernel `kernel` (0: B1 with its window, 1:
 // B1 reading taps from device memory, 2: B2, 3: B4) for dtype code
 // `dtype`, or -1.

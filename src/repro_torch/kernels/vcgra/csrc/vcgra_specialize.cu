@@ -26,12 +26,16 @@
 // NVRTC refused the source (the log holds its messages), 2 for another NVRTC
 // error, 3 for a failed cu* call (the log names the call);
 // vcgra_spec_launch returns 0 ok, 3 for bad arguments or context, 1000 + the
-// CUresult of a refused launch.
+// CUresult of a refused launch.  vcgra_spec_cubin hands the module's CUBIN
+// back (for nvdisasm), vcgra_spec_attribute one cuFuncGetAttribute value of
+// its kernel (registers a thread, static shared memory, ...).
 
 #include <cuda.h>
 #include <nvrtc.h>
 
 #include <cstdio>
+#include <cstring>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -41,6 +45,7 @@ struct Module {
   CUdevice dev;
   CUmodule mod;
   CUfunction fn;
+  std::vector<char> cubin;
 };
 
 void put_log(char* log, size_t loglen, const char* text) {
@@ -118,7 +123,8 @@ extern "C" int vcgra_spec_compile(const char* src, const char* header_src,
     cuDevicePrimaryCtxRelease(m.dev);
     return cu_error(rc, "cuModuleGetFunction", log, loglen);
   }
-  *handle = new Module(m);
+  m.cubin = std::move(cubin);
+  *handle = new Module(std::move(m));
   put_log(log, loglen, "");
   return 0;
 }
@@ -139,6 +145,27 @@ extern "C" int vcgra_spec_launch(void* handle, const void* x, void* y, long long
                       static_cast<unsigned>(threads), 1, 1, 0,
                       static_cast<CUstream>(stream), args, nullptr);
   return rc == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(rc);
+}
+
+// The CUBIN the module was loaded from: returns its size, and copies it into
+// `buf` when `len` holds it (call with len 0 for the size); -1 for no module.
+extern "C" int vcgra_spec_cubin(void* handle, void* buf, int len) {
+  const Module* m = static_cast<const Module*>(handle);
+  if (m == nullptr) return -1;
+  const int size = static_cast<int>(m->cubin.size());
+  if (buf != nullptr && len >= size) std::memcpy(buf, m->cubin.data(), m->cubin.size());
+  return size;
+}
+
+// cuFuncGetAttribute(`attribute`) of the module's kernel (a CUfunction_attribute:
+// 4 registers a thread, 1 static shared bytes, ...), or -1.
+extern "C" int vcgra_spec_attribute(void* handle, int attribute) {
+  const Module* m = static_cast<const Module*>(handle);
+  if (m == nullptr) return -1;
+  int value = -1;
+  const CUresult rc =
+      cuFuncGetAttribute(&value, static_cast<CUfunction_attribute>(attribute), m->fn);
+  return rc == CUDA_SUCCESS ? value : -1;
 }
 
 extern "C" int vcgra_spec_free(void* handle) {

@@ -61,6 +61,8 @@ _MAX_APPS = 65535
 #: ``block_n`` of the single-app kernels (B4, B5) is a positive multiple of
 #: this, as the reference's lane-aligned blocks are.
 LANE = 128
+#: Default ``block_n`` of the single-app kernels (B4, B5).
+BLOCK_N = 1024
 
 
 def reset_launch_counts() -> None:
@@ -411,7 +413,7 @@ def _check_block_n(block_n) -> int:
 
 
 def vcgra_conventional(grid: GridSpec, settings, x: torch.Tensor,
-                       block_n: int = 1024) -> torch.Tensor:
+                       block_n: int = BLOCK_N) -> torch.Tensor:
     """One app over channel-major ``x [num_inputs, N]`` -> ``[K, N]`` with
     its settings as runtime operands: the Hopper twin of the reference's
     Pallas ``vcgra_conventional``.  ``settings``: one dense bank
@@ -455,7 +457,7 @@ def vcgra_conventional(grid: GridSpec, settings, x: torch.Tensor,
 
 
 def vcgra_specialized(kernel: SpecializedKernel, x: torch.Tensor,
-                      block_n: int = 1024) -> torch.Tensor:
+                      block_n: int = BLOCK_N) -> torch.Tensor:
     """Run one app's loaded B5 kernel (:class:`SpecializedKernel`) over
     channel-major ``x [C, N]`` -> ``[K, N]``: the Hopper twin of the
     reference's Pallas ``vcgra_specialized``.  Only the live input rows are
@@ -507,7 +509,7 @@ def ingest_image(plan: IngestPlan, dtype: torch.dtype, image: torch.Tensor) -> t
 
 
 def vcgra_apply(grid: GridSpec, config: VCGRAConfig, x: torch.Tensor,
-                mode: str = "specialized", block_n: int = 1024) -> torch.Tensor:
+                mode: str = "specialized", block_n: int = BLOCK_N) -> torch.Tensor:
     """Run a mapped application over a channel-major batch
     ``[num_inputs, N]`` (on ``x``'s device): B5 for ``mode="specialized"``
     (compiled for this config, coefficients read from ``x`` as the
@@ -524,7 +526,7 @@ def vcgra_apply(grid: GridSpec, config: VCGRAConfig, x: torch.Tensor,
 
 
 def vcgra_apply_image(grid: GridSpec, config: VCGRAConfig, image, mode: str = "specialized",
-                      block_n: int = 1024, device="cuda") -> torch.Tensor:
+                      block_n: int = BLOCK_N, device="cuda") -> torch.Tensor:
     """Stencil-app convenience: ``[H, W]`` image -> ``[H, W]`` (or
     ``[K, H, W]``) output, on ``device``.
 

@@ -1,10 +1,11 @@
-"""The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py`` import
-neither JAX nor the reference package, and importing the entry points (the
-serving front-ends, the ``Pixie`` facade, the kernel packages, the
-preprocessor, the LM serving engine, the models, the serving CLI, the
-fault injector, the heartbeat, the synthesis front-end and the training
-path) pulls no JAX into the process.  (Only the tests import
-both.)"""
+"""The port stands alone: ``src/repro_torch/``, ``examples/torch_*.py`` and
+``chip_smoke.py`` import neither JAX nor the reference package, and
+importing the entry points (the serving front-ends, the ``Pixie`` facade,
+the kernel packages, the preprocessor, the LM serving engine, the models,
+the serving CLI, the fault injector, the heartbeat, the synthesis
+front-end, the training path, the resource and roofline analysis and the
+``examples/torch_*.py`` twins) pulls no JAX into the process.  (Only the
+tests import both.)"""
 
 import os
 import re
@@ -15,7 +16,9 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
+PORT_FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py")) + EXAMPLES
+              + [REPO / "chip_smoke.py"])
 FORBIDDEN = re.compile(
     r"^\s*(?:import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
     r"|from\s+repro\b(?!_torch))",
@@ -55,12 +58,18 @@ def test_serving_entry_point_imports_without_jax():
         "import repro_torch.checkpoint\n"
         "import repro_torch.optim\n"
         "import repro_torch.data.tokens\n"
+        "import repro_torch.core.analysis\n"
+        "import repro_torch.roofline.hlo_analysis\n"
+        "import importlib.util\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location(path.rsplit('/', 1)[-1][:-3], path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        [sys.executable, "-c", code, *map(str, EXAMPLES)], cwd=REPO, capture_output=True, text=True,
         env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr

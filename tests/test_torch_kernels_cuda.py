@@ -714,3 +714,26 @@ def test_train_step_on_the_card_equals_the_cpu(cuda):
                 ("v", v_card, v_cpu, 2e-4 * (1 - b2 ** 2) * g2)):
             assert float((got.cpu() - want).abs().max()) <= tol, kind
     assert int(o_card["count"]) == 2
+
+
+@pytest.mark.parametrize("dtype_name", ["int32", "float32"])
+def test_kernel_census_reads_b4_and_b5_on_the_card(cuda, dtype_name):
+    """The card's census of B4 on the Sobel grid and of B5 for sobel_x:
+    registers, shared memory and SASS instructions read from the built
+    kernels (cuobjdump / nvdisasm), every count positive, B5 holding its
+    values in registers (no shared memory) and B4 its value columns in
+    dynamic shared memory."""
+    from repro_torch.core.analysis import kernel_census
+
+    bits, float_pe = DTYPES[dtype_name]
+    grid = dataclasses.replace(sobel_grid(), data_bits=bits, float_pe=float_pe)
+    cfg = map_app(apps.sobel_x(), grid)
+    b4 = kernel_census("vcgra_conventional", grid)
+    b5 = kernel_census(SpecializedKernel(grid, cfg, False, "cuda"))
+    assert b4["kernel"] == "vcgra_conventional" and b5["kernel"] == "vcgra_specialized"
+    assert b4["dynamic_smem_bytes"] == conventional_launch(
+        bits // 8, grid.num_inputs, grid.pes_per_level, grid.num_outputs, 1024)[1] > 0
+    assert b4["registers_per_thread"] > 0 and b5["registers_per_thread"] > 0
+    assert b4["sass_instructions"] > 0 and b4["settings_pack_sass_instructions"] > 0
+    assert b5["sass_instructions"] > 0
+    assert b5["static_smem_bytes"] == 0 and b5["dynamic_smem_bytes"] == 0
