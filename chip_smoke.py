@@ -163,7 +163,23 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    (``roofline.hlo_analysis``), ``RooflineReport``'s terms at the H100's
    published peaks beside the measured step times; one ``roofline`` line.
    Phase 10 also profiles one single-app 1080p frame per ``Pixie`` mode
-   (the card's idle share).
+   (the card's idle share);
+19. the overlay mesh -- (a) ``PixieFleet``, ``FleetFrontend`` and
+   ``StreamingFrontend`` on ``MeshSpec(app=2, rows=2)`` serve the 8 x 1080p
+   flush, stamped requested (2, 2) and, on fewer than four cards, granted
+   (1, 1) and degraded, bitwise a ``MeshSpec()`` fleet; (b) the same flush
+   on logical meshes (four shards of the card) at (2, 1), (1, 2), (2, 2) and
+   (1, 4), sync and async ingest, the counters reset just before: B1 once
+   per shard and dispatch, B2 once per app shard on the named-channel
+   flush, the seam halo copies counted, bitwise the single-device run; (c)
+   the depth-3 chain at (1, 2) and (2, 2), B1 once per stage and shard,
+   bitwise the single-device B3 chain; (d) ``fallback_chain`` of the 2-D
+   hopper plan against the reference's ladder, and persistent faults on
+   the row-banded and the two-device plans served by the next step; (e)
+   real (2, 1) and (1, 2) meshes where there are two or more cards (else a
+   line says why not); then one dispatch on a single device and on each
+   logical mesh: CUDA-event medians, unshielded and shielded, and a
+   ``torch.profiler`` trace of the single-device and the (2, 2) dispatch.
 
 Then the kernel table line (each kernel also with its bf16 max error) and,
 last, ``{"ok": true, "device": {...}}``.
@@ -1025,20 +1041,21 @@ def phase_synthesis_case(svc):
 SHIELD_CYCLES = 2_000_000
 
 
-def cuda_ms(fn, reps, shield=False, before=None):
+def cuda_ms(fn, reps, shield=False, before=None, shield_cycles=SHIELD_CYCLES):
     """Median device time of ``fn`` over ``reps`` runs, by CUDA events."""
-    return statistics.median(cuda_times(fn, reps, shield, before))
+    return statistics.median(cuda_times(fn, reps, shield, before, shield_cycles))
 
 
-def cuda_times(fn, reps, shield=False, before=None):
+def cuda_times(fn, reps, shield=False, before=None, shield_cycles=SHIELD_CYCLES):
     """Device times (ms) of ``reps`` runs of ``fn`` after one warm-up, by
     CUDA events.  Unshielded, a run's interval also holds the host's time
     to enqueue its launches whenever the stream is idle meanwhile (what a
     caller waits for).  With ``shield`` a spin is queued on the stream just
     before each start event, the host enqueues ``fn``'s launches while the
     card spins, and the interval is the card's own time for them: a
-    kernel's time, without its Python wrapper's.  ``before``, if given,
-    runs ahead of each run, outside its interval (an L2 flush)."""
+    kernel's time, without its Python wrapper's, as long as the host's
+    enqueue fits in the ``shield_cycles`` of the spin.  ``before``, if
+    given, runs ahead of each run, outside its interval (an L2 flush)."""
     import torch
 
     fn()
@@ -1049,7 +1066,7 @@ def cuda_times(fn, reps, shield=False, before=None):
         if before is not None:
             before()
         if shield:
-            torch.cuda._sleep(SHIELD_CYCLES)
+            torch.cuda._sleep(shield_cycles)
         start.record()
         fn()
         end.record()
@@ -3232,6 +3249,271 @@ def phase_roofline(lm_times, memo, card):
     return rows
 
 
+#: Phase 19's logical meshes as (app, rows), and those it runs the chain on.
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2), (1, 4))
+MESH_CHAIN_SHAPES = ((1, 2), (2, 2))
+#: Shards of the one card a logical mesh holds.
+LOGICAL_SHARDS = 4
+#: The reference's ladder of ``OverlayPlan(grid=sobel_grid(), batched=True,
+#: fused=True, radius=1, backend="pallas", mesh=MeshSpec(app=2, rows=2),
+#: tile_rows="auto")`` by ``repro.core.plan.fallback_chain``, as keys (the
+#: script imports no JAX; ``tests/test_torch_mesh2d.py`` holds the port's
+#: ladder to the reference's own on the CPU).
+REFERENCE_LADDER_2D = (
+    "sobel-5x9|batched|fused:r1|xla|dev2|rows2|tile:auto",
+    "sobel-5x9|batched|fused:r1|xla|dev2|tile:auto",
+    "sobel-5x9|batched|fused:r1|xla|dev1|tile:auto",
+    "sobel-5x9|batched|fused:r1|xla|dev1",
+)
+
+
+def logical_mesh(device, shards=LOGICAL_SHARDS):
+    """``shards`` shards of ``device`` in place of the host's devices: the
+    logical mesh, restored on exit."""
+    from unittest import mock
+
+    import repro_torch.parallel.axes as axes
+
+    return mock.patch.object(axes, "local_devices", lambda kind="cuda": [device] * shards)
+
+
+def outputs(results):
+    return [np.asarray(r) for r in results]
+
+
+def assert_outputs(got, want, label):
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"{label}: output {i} differs from the single-device run")
+
+
+#: The spin before each shielded mesh dispatch (~10 ms): a logical mesh
+#: enqueues up to 39 launches a dispatch, 1-3 ms of host work.
+MESH_SHIELD_CYCLES = 20_000_000
+
+
+def dispatch_times(fn, profile=False):
+    """One dispatch's times: CUDA events unshielded (what a caller waits
+    for) and shielded by a spin long enough for a mesh's enqueue (the
+    card's own time), and with ``profile`` a ``torch.profiler`` trace of 5
+    dispatches: launches, the card's busy time and the costliest kernels
+    (a trace may drop kernel records; the shielded time does not)."""
+    out = {"ms": cuda_ms(fn, 10),
+           "device_ms": cuda_ms(fn, 10, shield=True, shield_cycles=MESH_SHIELD_CYCLES)}
+    if profile:
+        prof = profile_steps(fn, steps=5, top=8)
+        out["trace"] = {"launches": prof["kernel_launches_per_step"],
+                        "busy_ms": prof["device_busy_union_ms_per_step"],
+                        "top_kernels_ms": prof["top_kernels_ms_per_step"]}
+    return out
+
+
+def mesh_fleet_run(spec, ingest, requests, want, flushes, label):
+    """A hopper fleet on ``spec`` serves ``requests`` ``flushes`` times;
+    every output bitwise ``want``.  Returns the fleet, the launches of the
+    run and its halo and settings-replica copies."""
+    import torch
+    import repro_torch.parallel.axes as axes
+    from repro_torch.parallel import MeshSpec
+    from repro_torch.runtime.fleet import PixieFleet
+
+    fleet = PixieFleet(mesh=MeshSpec(*spec), ingest=ingest)
+    if fleet.stats.mesh_granted != spec or fleet.stats.mesh_degraded:
+        raise AssertionError(f"{label}: mesh {spec} not granted: {fleet.stats.mesh_granted}")
+    before = launch_counts()
+    axes.reset_copy_counts()
+    for _ in range(flushes):
+        assert_outputs(outputs(fleet.run_many(requests)), want, f"{label} {spec} {ingest}")
+    torch.cuda.synchronize()
+    assert_sound(fleet, f"{label} {spec} {ingest}")
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    return fleet, launches, axes.halo_copies, axes.replica_copies
+
+
+def phase_overlay_mesh(device, main_reqs, channel_requests, chain_reqs, pipe_grid, card):
+    """Phase 19, the overlay mesh: (a) a (2, 2) fleet and both front-ends
+    on this host, degraded and stamped when it has fewer than four cards,
+    bitwise a ``MeshSpec()`` fleet; (b) the 8 x 1080p flush on logical
+    meshes of four shards of the card, sync and async, B1 once per shard
+    and dispatch (B2 once per app shard on the named-channel flush); (c)
+    the depth-3 chain on logical meshes, B1 once per stage and shard,
+    bitwise the single-device B3 chain; (d) the ladder of a 2-D plan
+    against the reference's, and faults on the row-banded and the
+    two-device plans served by the next step; (e) real cards where there
+    are two or more; then the single-device and logical-mesh dispatches'
+    times (:func:`dispatch_times`)."""
+    import torch
+    import repro_torch.parallel.axes as axes
+    from repro_torch.core import applications as apps
+    from repro_torch.core.bitstream import VCGRAConfig
+    from repro_torch.core.grid import sobel_grid
+    from repro_torch.core.ingest import IngestPlan
+    from repro_torch.core.pixie import map_app
+    from repro_torch.core.plan import OverlayPlan, compile_plan, fallback_chain
+    from repro_torch.parallel import MeshSpec
+    from repro_torch.runtime import FaultInjector
+    from repro_torch.runtime.fleet import FleetRequest, PixieFleet
+    from repro_torch.serve import FleetFrontend, StreamingFrontend
+
+    t_phase = time.perf_counter()
+    requests = [FleetRequest(app=a, image=img) for a, img, _ in main_reqs]
+    chain_requests = [FleetRequest(pipeline=app, image=img, grid=grid)
+                      for app, img, grid in chain_reqs]
+    want = outputs(PixieFleet().run_many(requests))
+    want_channels = outputs(PixieFleet().run_many(channel_requests()))
+    want_chain = outputs(PixieFleet().run_many(chain_requests))
+    torch.cuda.empty_cache()
+
+    # (a) the mesh this host grants, stamped.
+    spec2d, cards = MeshSpec(app=2, rows=2), torch.cuda.device_count()
+    degraded = cards < spec2d.size
+    fleet = PixieFleet(mesh=spec2d)
+    stamp = {k: getattr(fleet.stats, k) for k in ("mesh_requested", "mesh_granted",
+                                                   "mesh_degraded", "devices")}
+    if stamp["mesh_requested"] != (2, 2) or stamp["mesh_degraded"] != degraded \
+            or stamp["mesh_granted"] != ((1, 1) if degraded else (2, 2)):
+        raise AssertionError(f"(2, 2) fleet on {cards} card(s) stamped {stamp}")
+    assert_outputs(outputs(fleet.run_many(requests)), want, "(a) PixieFleet")
+    svc = FleetFrontend(mesh=spec2d)
+    assert_outputs(serve(svc, main_reqs), want, "(a) FleetFrontend")
+    with StreamingFrontend(mesh=spec2d) as stream:
+        handles = [stream.submit(a, img) for a, img, _ in main_reqs]
+        assert_outputs([np.asarray(h.result(timeout=600)) for h in handles], want,
+                       "(a) StreamingFrontend")
+        stream_stamp = (stream.stats.mesh_granted, stream.stats.mesh_degraded)
+    if stream_stamp != (stamp["mesh_granted"], degraded) or svc.stats.mesh_degraded != degraded:
+        raise AssertionError(f"front-end stamps {stream_stamp}, {svc.stats.mesh_degraded}")
+    for f in (fleet, svc.fleet, stream.fleet):
+        assert_sound(f, "(a)")
+    del fleet, svc, stream
+    torch.cuda.empty_cache()
+
+    # (b) and (c): logical meshes of four shards of the card.
+    logical, chains = {}, {}
+    reset_launches()
+    with logical_mesh(device):
+        for spec in MESH_SHAPES:
+            for ingest, flushes in (("sync", 2), ("async", 3)):
+                fleet, launches, halos, replicas = mesh_fleet_run(
+                    spec, ingest, requests, want, flushes, "(b)")
+                app, rows = spec
+                if launches != no_launches(vcgra_fused_batched=flushes * app * rows) \
+                        or halos != flushes * app * 2 * (rows - 1) or replicas:
+                    raise AssertionError(f"(b) {spec} {ingest}: launches {launches}, "
+                                         f"halo copies {halos}, replicas {replicas}")
+                logical[f"{app}x{rows} {ingest}"] = dict(
+                    flushes=flushes, launches_b1=launches["vcgra_fused_batched"],
+                    halo_copies=halos, replica_copies=replicas,
+                    canvas_pool_device_hits=dict(fleet.stats.canvas_pool_device_hits),
+                    dispatch_plans=fleet.stats.dispatch_plans)
+                del fleet
+            fleet, launches, _, _ = mesh_fleet_run(
+                spec, "sync", channel_requests(), want_channels, 1, "(b) named channels")
+            if launches != no_launches(vcgra_batched=spec[0]):
+                raise AssertionError(f"(b) named channels {spec}: launches {launches}")
+            logical[f"{spec[0]}x{spec[1]} named channels"] = dict(
+                launches_b2=launches["vcgra_batched"], dispatch_plans=fleet.stats.dispatch_plans)
+            del fleet
+            torch.cuda.empty_cache()
+        for spec in MESH_CHAIN_SHAPES:
+            fleet, launches, halos, _ = mesh_fleet_run(
+                spec, "sync", chain_requests, want_chain, 1, "(c) chain")
+            app, rows = spec
+            if launches != no_launches(vcgra_fused_batched=len(CHAIN) * app * rows) \
+                    or halos != len(CHAIN) * app * 2 * (rows - 1):
+                raise AssertionError(f"(c) {spec}: launches {launches}, halo copies {halos}")
+            chains[f"{app}x{rows}"] = dict(launches_b1=launches["vcgra_fused_batched"],
+                                           halo_copies=halos,
+                                           dispatch_plans=fleet.stats.dispatch_plans)
+            del fleet
+            torch.cuda.empty_cache()
+        path_launches = launch_counts()
+        if not (path_launches["vcgra_fused_batched"] and path_launches["vcgra_batched"]):
+            raise AssertionError(f"(b)-(c) did not run B1 and B2: {path_launches}")
+
+        # (d) the ladder: the reference's steps, then persistent faults on
+        # the row-banded plans, and on every two-device plan, served by the
+        # next step on the card (the ladder's first step is the torch
+        # backend, so the survivors run eagerly and launch nothing).
+        plan = OverlayPlan(grid=sobel_grid(), batched=True, fused=True, radius=1,
+                           backend="hopper", mesh=spec2d, tile_rows="auto")
+        ladder = [step.key() for step in fallback_chain(plan)]
+        if ladder != [k.replace("|xla|", "|torch|") for k in REFERENCE_LADDER_2D]:
+            raise AssertionError(f"(d) ladder {ladder}")
+        routes = {}
+        for match, served_by in ((("|rows2|",), ladder[1]), (("|dev2|",), ladder[2])):
+            faults = FaultInjector(seed=0).inject("dispatch", transient=False, match=match)
+            fleet = PixieFleet(mesh=spec2d, faults=faults)
+            before = launch_counts()
+            assert_outputs(outputs(fleet.run_many(requests)), want, f"(d) faults on {match}")
+            served = [k.rsplit("|", 1)[0] for k in fleet.stats.dispatch_plans]
+            if (fleet.stats.fallback_dispatches, served, launch_counts()) != (
+                    1, [served_by], before):
+                raise AssertionError(f"(d) {match}: {fleet.stats.fallback_dispatches} "
+                                     f"fallbacks, served by {served}")
+            routes[match[0]] = served[0]
+            del fleet
+            torch.cuda.empty_cache()
+
+        # Times: one dispatch of the 8 x 1080p canvas on device-resident
+        # operands, single device against each logical mesh.
+        grid = sobel_grid()
+        cfgs = [map_app(apps.ALL_APPS[a](), grid) for a, _, _ in main_reqs]
+        stacked = VCGRAConfig.stack(cfgs, device=device)
+        ingests = IngestPlan.stack([c.ingest for c in cfgs], grid.dtype, device=device)
+        canvas = torch.zeros((len(cfgs), 2048, 2048), dtype=grid.dtype, device=device)
+        for i, (_, img, _) in enumerate(main_reqs):
+            canvas[i, :img.shape[0], :img.shape[1]] = torch.from_numpy(img).to(device)
+        single = OverlayPlan(grid=grid, batched=True, fused=True, radius=1, backend="hopper",
+                             tile_rows="auto")
+        base_fn = compile_plan(single)
+        base = base_fn(stacked, ingests, canvas)
+        times = {}
+        for spec in ((1, 1),) + MESH_SHAPES:
+            fn = compile_plan(OverlayPlan(grid=grid, batched=True, fused=True, radius=1,
+                                          backend="hopper", tile_rows="auto",
+                                          mesh=MeshSpec(*spec)))
+            if (fn.mesh is None) != (spec == (1, 1)) \
+                    or not torch.equal(fn(stacked, ingests, canvas), base):
+                raise AssertionError(f"times: {spec} dispatch differs from the single device")
+            times[f"{spec[0]}x{spec[1]}"] = dispatch_times(
+                lambda: fn(stacked, ingests, canvas), profile=spec in ((1, 1), (2, 2)))
+        del stacked, ingests, canvas, base
+        torch.cuda.empty_cache()
+
+    # (e) real cards.
+    if cards >= 2:
+        real = {}
+        for spec in ((2, 1), (1, 2)):
+            for ingest, flushes in (("sync", 1), ("async", 3)):
+                fleet, launches, halos, replicas = mesh_fleet_run(
+                    spec, ingest, requests, want, flushes, "(e) real cards")
+                real[f"{spec[0]}x{spec[1]} {ingest}"] = dict(
+                    launches_b1=launches["vcgra_fused_batched"], halo_copies=halos,
+                    replica_copies=replicas,
+                    canvas_pool_device_hits=dict(fleet.stats.canvas_pool_device_hits))
+                del fleet
+        multi_card = {"ran": True, "cards": cards, "runs": real}
+    else:
+        multi_card = {"ran": False, "cards": cards,
+                      "why": "one CUDA device visible: a real (2, 1) or (1, 2) mesh needs two "
+                             "cards, so only the logical mesh ran"}
+    emit({"phase": "overlay_mesh_multi_card", **multi_card})
+    emit({"phase": "overlay_mesh", "card": card, "degradation": {
+              "fleet": stamp, "streaming": list(stream_stamp)},
+          "logical_mesh": logical, "chain": chains, "ladder": ladder, "fault_routes": routes,
+          "launches": path_launches,
+          "dispatch_times_ms": times,
+          "times_note": "one dispatch of n8x2048x2048 int32 on sobel-5x9: CUDA events, "
+                        "median of 10 after one warm-up; ms includes the host's enqueue, "
+                        "device_ms is shielded by a ~10 ms spin; trace: torch.profiler over "
+                        "5 dispatches; a logical mesh runs its shards one after another on "
+                        "one card, so these are not multi-card scaling",
+          "checked_against": ["a MeshSpec() fleet on the card (B1, B2, B3)"],
+          "seconds": time.perf_counter() - t_phase})
+    return path_launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
@@ -3343,6 +3625,8 @@ def main() -> int:
     t0 = time.perf_counter()
     roofline = phase_roofline(lm_times, memo, card)
     roofline_s = time.perf_counter() - t0
+    mesh_launches = phase_overlay_mesh(device, main_reqs, channel_requests, chain_reqs,
+                                       pipe_grid, card)
 
     # Each kernel's launches come from the path it serves, counted from 0.
     launches = {"vcgra_fused_batched": main_launches["vcgra_fused_batched"],
@@ -3376,7 +3660,8 @@ def main() -> int:
                                            "lm_path": lm_launches,
                                            "lm_zoo": {arch: z["launches"]
                                                       for arch, z in zoo.items()},
-                                           "trained_weights_served": trained_launches},
+                                           "trained_weights_served": trained_launches,
+                                           "overlay_mesh": mesh_launches},
           "card": card, "end_to_end_flush_ms": e2e["median_ms"],
           "chain_flush_ms": chain_e2e["median_ms"],
           "staged_chain_ms": rows["vcgra_pipeline_batched"]["staged_ms"],

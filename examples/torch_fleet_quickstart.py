@@ -12,9 +12,9 @@ continuous-batching front-end, and a resilience epilogue replays it under
 seeded fault injection (transient faults retried, a poisoned tenant
 quarantined by bisection).
 
-The reference's fleet is built on a device mesh (``MeshSpec(app=2)``); the
-port has no mesh yet (ROADMAP Queue A item 6), so this fleet runs on one
-device and says so.
+As in the reference, the fleet is built on a device mesh
+(``MeshSpec(app=2)``): a host with fewer devices of the fleet's type
+degrades to the bitwise single-device path, and the stats say so.
 
     PYTHONPATH=src python examples/torch_fleet_quickstart.py [--device cpu]
 """
@@ -25,7 +25,7 @@ import time
 import numpy as np
 
 from repro_torch.core import applications as apps
-from repro_torch.core import sobel_grid
+from repro_torch.core import MeshSpec, sobel_grid
 from repro_torch.core.interpreter import check_device
 from repro_torch.runtime import FaultInjector, RetryPolicy
 from repro_torch.runtime.fleet import PixieFleet
@@ -41,9 +41,17 @@ def main(argv=None) -> int:
     device = check_device(args.device)
     print(f"=== Pixie fleet quickstart: multi-tenant overlay serving, on {device} ===\n")
     rng = np.random.default_rng(0)
-    fleet = PixieFleet(default_grid=sobel_grid(), device=device)
-    print("mesh: the MeshSpec(app=2) demo waits for the port's device mesh "
-          "(ROADMAP Queue A item 6); this fleet serves from one device")
+    # Device placement is a structured MeshSpec: `app` shards tenants,
+    # `rows` shards each frame into pixel-row bands (halo-exchanged).
+    # Hosts with too few devices degrade to the bitwise single-device
+    # fallback and the stats say so -- the request below is safe anywhere.
+    fleet = PixieFleet(default_grid=sobel_grid(), device=device, mesh=MeshSpec(app=2))
+    stats = fleet.stats
+    print(f"mesh: requested {stats.mesh_requested[0]}x"
+          f"{stats.mesh_requested[1]}, granted {stats.mesh_granted[0]}x"
+          f"{stats.mesh_granted[1]}"
+          + (" (degraded: single-device fallback, bitwise identical)"
+             if stats.mesh_degraded else ""))
     svc = FleetFrontend(fleet=fleet)
     print(f"service apps: {svc.available_apps()}")
 

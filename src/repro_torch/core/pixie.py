@@ -1,8 +1,8 @@
 """Pixie: the top-level VCGRA overlay accelerator facade.
 
-Twin of the reference package's ``core/pixie.py`` (single device; the mesh
-waits for the port's mesh).  It mirrors the paper's operational model end
-to end:
+Twin of the reference package's ``core/pixie.py``: its batched dispatches
+take the reference's app-axis mesh (``mesh=MeshSpec(app=k)``).  It mirrors
+the paper's operational model end to end:
 
   overlay compile (once)      <->  bind the conventional plan and run it
                                    once (builds the Hopper kernels)
@@ -20,6 +20,7 @@ mapping vs ~1200 s FPGA compile).
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -36,6 +37,7 @@ from repro_torch.core.place import place
 from repro_torch.core.plan import OverlayExecutable, OverlayPlan, PipelineSpec, compile_plan
 from repro_torch.core.route import route
 from repro_torch.core.tiling import pad_channels
+from repro_torch.parallel.axes import MeshSpec
 
 
 def map_app(dfg: DFG, grid: GridSpec) -> VCGRAConfig:
@@ -73,12 +75,52 @@ class Pixie:
                          :meth:`load`, and "torch" runs the eager
                          ``specialize.build_specialized_fn``.
                          ``bake_consts`` also burns the coefficients in.
+
+    ``mesh`` (a :class:`~repro_torch.parallel.axes.MeshSpec`) shards the app
+    axis of the conventional mode's batched dispatches (``run_many``,
+    ``run_pipeline``) over the local devices of ``device``'s type, bitwise
+    the single-device run.  Only the app axis: row sharding needs the
+    fleet's frame-canvas dispatch, so ``rows > 1`` is refused, and the
+    parameterized mode, one app's kernel, takes no mesh.  The bare
+    device-count kwarg survives as a DeprecationWarning shim for
+    ``mesh=MeshSpec(app=k)``.
     """
 
     def __init__(self, grid: GridSpec, mode: str = "conventional", bake_consts: bool = False,
-                 backend: str = "hopper", device="cuda"):
+                 backend: str = "hopper", device="cuda", mesh: Optional[MeshSpec] = None,
+                 devices: Optional[int] = None):
         if mode not in ("conventional", "parameterized"):
             raise ValueError(f"unknown mode {mode!r}")
+        if devices is not None:
+            d = int(devices)
+            if d < 1:
+                raise ValueError(f"devices must be >= 1, got {devices}")
+            if mesh is not None:
+                raise ValueError(
+                    "pass mesh=MeshSpec(...) or the deprecated bare device "
+                    "count, not both"
+                )
+            warnings.warn(
+                "the bare device-count kwarg of Pixie is deprecated: pass "
+                f"mesh=MeshSpec(app={d}) instead",
+                DeprecationWarning, stacklevel=2,
+            )
+            mesh = MeshSpec(app=d)
+        mesh = mesh or MeshSpec()
+        if not isinstance(mesh, MeshSpec):
+            raise ValueError(f"mesh must be a MeshSpec, got {mesh!r}")
+        if mesh.rows > 1:
+            raise ValueError(
+                "Pixie shards the app axis only; row sharding needs the "
+                "fleet's frame-canvas dispatch -- use PixieFleet with "
+                f"mesh=MeshSpec(app={mesh.app}, rows={mesh.rows})"
+            )
+        if mode == "parameterized" and mesh != MeshSpec():
+            raise ValueError(
+                "mesh applies to the conventional overlay plans only; the "
+                "parameterized path specializes per app"
+            )
+        self.mesh = mesh
         self.grid = grid
         self.mode = mode
         self.bake_consts = bake_consts
@@ -94,11 +136,21 @@ class Pixie:
         self._spec_fn: Optional[Callable] = None
         self.timings: Dict[str, float] = {}
 
+    @property
+    def devices(self) -> int:
+        """App-axis mesh width (the reading side of the deprecated bare
+        device-count surface)."""
+        return self.mesh.app
+
     def _plan(self, *, batched: bool = False, fused: bool = False,
               radius: Optional[int] = None) -> OverlayPlan:
-        """This instance's corner of the plan matrix."""
+        """This instance's corner of the plan matrix (the mesh only shards
+        batched dispatch: single-app plans have no app axis)."""
         return OverlayPlan(grid=self.grid, batched=batched, fused=fused, radius=radius,
-                           backend=self.backend)
+                           backend=self.backend, mesh=self.mesh if batched else MeshSpec())
+
+    def _compile(self, plan: OverlayPlan) -> OverlayExecutable:
+        return compile_plan(plan, self.device.type)
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
@@ -111,7 +163,7 @@ class Pixie:
         Hopper kernels on first use).  Only meaningful in conventional
         mode."""
         t0 = time.perf_counter()
-        self._overlay_fn = compile_plan(self._plan())
+        self._overlay_fn = self._compile(self._plan())
         if self.mode == "conventional":
             x = torch.zeros((self.grid.num_inputs, batch), dtype=self.grid.dtype,
                             device=self.device)
@@ -225,7 +277,7 @@ class Pixie:
             xs.append(pad_channels(x, self.grid.num_inputs))
         stacked, xstack, batches = interpreter.stack_for_dispatch(configs, xs, batch_pad)
         if self._batched_overlay_fn is None:
-            self._batched_overlay_fn = compile_plan(self._plan(batched=True))
+            self._batched_overlay_fn = self._compile(self._plan(batched=True))
         t0 = time.perf_counter()
         ys = self._batched_overlay_fn(stacked, xstack)
         _sync(self.device)
@@ -249,7 +301,7 @@ class Pixie:
         if self.mode == "conventional" and self.config.ingest is not None:
             radius = self.config.ingest.radius
             if radius not in self._fused_fns:
-                self._fused_fns[radius] = compile_plan(self._plan(fused=True, radius=radius))
+                self._fused_fns[radius] = self._compile(self._plan(fused=True, radius=radius))
             y = self._fused_fns[radius](self._config_t, self._ingest_t, image)
         else:
             taps = apps.stencil_inputs(image)
@@ -300,8 +352,8 @@ class Pixie:
             return self.run_image(image)
         fn = self._pipeline_fns.get(spec)
         if fn is None:
-            fn = compile_plan(OverlayPlan(grid=self.grid, batched=True, pipeline=(spec,),
-                                          backend=self.backend))
+            fn = self._compile(OverlayPlan(grid=self.grid, batched=True, pipeline=(spec,),
+                                           backend=self.backend, mesh=self.mesh))
             self._pipeline_fns[spec] = fn
         image = self._tensor(image)
         H, W = image.shape

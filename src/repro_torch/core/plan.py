@@ -1,23 +1,37 @@
 """OverlayPlan: the unified compile/dispatch pipeline for the overlay.
 
-Twin of the reference package's ``core/plan.py`` (single device; the
-ingest mode belongs to the fleet, which feeds the dispatch, and is no plan
-axis here):
+Twin of the reference package's ``core/plan.py`` (the ingest mode
+belongs to the fleet, which feeds the dispatch, and is no plan axis here):
 
   OverlayPlan        a frozen, hashable description of one dispatch: grid
                      structure, fused-vs-channel ingest (+ tap radius),
-                     single-vs-batched app axis, execution backend, the
-                     row-tile height and the pipeline axis (a chain of
-                     stages per app slot).  It is THE cache key: the
-                     fleet's executable LRU and its stats name dispatches
-                     by plan.
+                     single-vs-batched app axis, execution backend, device
+                     placement (a :class:`~repro_torch.parallel.axes.
+                     MeshSpec`), the row-tile height and the pipeline axis
+                     (a chain of stages per app slot).  It is THE cache
+                     key: the fleet's executable LRU and its stats name
+                     dispatches by plan.
   compile_plan       plan -> OverlayExecutable.  Looks the executor up in a
                      registry: the eager "torch" cells are registered here
                      (the chain cell specialized per app and stage), the
                      "hopper" kernel cells register themselves from
-                     ``repro_torch.kernels.vcgra.ops``.
-  OverlayExecutable  the callable artifact, carrying its plan.
+                     ``repro_torch.kernels.vcgra.ops``.  When the plan asks
+                     for a mesh the host can grant, the executor is wrapped
+                     to run per shard (``parallel/axes.py``).
+  OverlayExecutable  the callable artifact, carrying its plan and its mesh.
   fallback_chain     the self-healing fleet's degradation ladder of a plan.
+
+Device placement: ``MeshSpec(app=k)`` shards the app (N) axis of a batched
+plan over k devices -- each tenant's work is independent along N, so the
+result is bitwise the single-device one.  ``MeshSpec(app=k, rows=m)``
+also shards fused frames into m contiguous pixel-row bands, each band
+receiving its neighbours' ``radius`` edge rows (the seam halo) before the
+unchanged per-shard executor runs on it; H is padded to whole
+radius-floored bands inside the executable and sliced back off.  A host
+with fewer devices than the spec degrades to the single-device path
+(``OverlayExecutable.mesh`` is then None).  The deprecated bare
+device-count kwarg survives as a DeprecationWarning shim meaning
+``MeshSpec(app=k)``.
 
 PyTorch runs eagerly, so "compiling" a plan only binds the executor; the
 Hopper kernels themselves are built once per process at first launch.
@@ -27,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import warnings
 from functools import partial
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -37,7 +52,10 @@ from repro_torch.core import interpreter
 from repro_torch.core.bitstream import VCGRAConfig
 from repro_torch.core.grid import GridSpec
 from repro_torch.core.specialize import build_specialized_fn, const_value
-from repro_torch.core.tiling import check_tile_rows
+from repro_torch.core.tiling import check_tile_rows, row_band
+from repro_torch.parallel.axes import (
+    MeshSpec, build_mesh, shard_apps, shard_apps_rows, shard_pipeline_rows,
+)
 
 
 # -- the pipeline axis ---------------------------------------------------------
@@ -212,6 +230,12 @@ class OverlayPlan:
       dispatch, tap bank of ``radius``) vs pre-packed channels;
     * ``backend``    "torch" (the eager interpreter, the port's oracle) or
       "hopper" (the hand-written CUDA kernels);
+    * ``mesh``       the :class:`MeshSpec` device placement: ``MeshSpec()``
+      is one device, ``app`` > 1 shards the app axis (batched plans only),
+      ``rows`` > 1 row-bands fused frames with a seam halo exchange
+      (batched fused plans only).  The deprecated bare device-count
+      kwarg still constructs, with a DeprecationWarning, and means
+      ``MeshSpec(app=k)`` -- the same plan, key and cache entry;
     * ``tile_rows``  row tiling of fused dispatches: None, an int or
       ``tiling.TILE_AUTO``.  All values are bitwise-identical; the eager
       twin forms its tap bank per slab, the Hopper kernel's output does
@@ -231,10 +255,30 @@ class OverlayPlan:
     fused: bool = False
     radius: Optional[int] = None     # tap-bank radius; fused plans only
     backend: str = "torch"
+    mesh: MeshSpec = MeshSpec()
     tile_rows: Union[int, str, None] = None  # fused plans only
     pipeline: Optional[Tuple[PipelineSpec, ...]] = None
+    #: Deprecated spelling of ``mesh=MeshSpec(app=k)``.  Not a field: it
+    #: maps onto ``mesh`` at construction, so both spellings are ONE plan.
+    devices: dataclasses.InitVar[Optional[int]] = None
 
-    def __post_init__(self):
+    def __post_init__(self, devices):
+        if devices is not None:
+            d = int(devices)
+            if d < 1:
+                raise ValueError(f"devices must be >= 1, got {devices}")
+            if self.mesh != MeshSpec():
+                raise ValueError(
+                    "pass mesh=MeshSpec(...) or the deprecated bare device "
+                    "count, not both"
+                )
+            warnings.warn(
+                "the bare device-count kwarg of OverlayPlan is deprecated: "
+                f"pass mesh=MeshSpec(app={d}) instead",
+                DeprecationWarning,
+                stacklevel=3,
+            )
+            object.__setattr__(self, "mesh", MeshSpec(app=d))
         interpreter.check_backend(self.backend)
         if self.pipeline is not None:
             self._canonicalize_pipeline()
@@ -258,6 +302,20 @@ class OverlayPlan:
                     "structure to halo-tile)"
                 )
             object.__setattr__(self, "tile_rows", check_tile_rows(self.tile_rows))
+        if not isinstance(self.mesh, MeshSpec):
+            raise ValueError(f"mesh must be a MeshSpec, got {self.mesh!r}")
+        if self.mesh.app > 1 and not self.batched:
+            raise ValueError(
+                "an app-axis mesh width > 1 shards the app (N) axis, which "
+                "only batched plans have; set batched=True or app=1"
+            )
+        if self.mesh.rows > 1 and not (self.batched and self.fused):
+            raise ValueError(
+                "a rows-axis mesh width > 1 band-shards the pixel rows of "
+                "fused frames, which only batched fused plans have (pre-"
+                "packed channels carry no row structure); set fused=True "
+                "or rows=1"
+            )
 
     def _canonicalize_pipeline(self) -> None:
         specs = tuple(self.pipeline)
@@ -300,17 +358,20 @@ class OverlayPlan:
     def key(self) -> str:
         """Compact human-readable identity, in the reference's format with
         the port's backend name, e.g.
-        ``sobel-5x9|batched|fused:r1|hopper|dev1|tile:auto``.  The port
-        runs on one device, so the device segment is always ``dev1``."""
+        ``sobel-5x9|batched|fused:r1|hopper|dev2|rows2|tile:auto``: the
+        device segment names the app-axis width, and the rows segment
+        appears only for a 2-D mesh."""
         parts = [
             self.grid.name,
             "batched" if self.batched else "single",
             f"fused:r{self.radius}" if self.fused else "channels",
             self.backend,
-            "dev1",
+            f"dev{self.mesh.app}",
         ]
         if self.pipeline is not None:
             parts.append(f"pipe{pipeline_digest(self.pipeline)[:12]}")
+        if self.mesh.rows > 1:
+            parts.append(f"rows{self.mesh.rows}")
         if self.tile_rows is not None:
             parts.append(f"tile:{self.tile_rows}")
         return "|".join(parts)
@@ -330,11 +391,20 @@ class OverlayExecutable:
     stacked_ingests, out_ch)`` triple per stage (``out_ch`` int32 [N]);
     ``hw`` is int32 [N, 2] of per-app true ``(rows, cols)`` inside the
     canvas, outside which every intermediate is zeroed.
+
+    ``mesh`` is the :class:`~repro_torch.parallel.axes.Mesh` the dispatch
+    is sharded over (1-D for app-only specs, 2-D for row-banded ones), or
+    None for the single-device path, including a spec the host could not
+    grant.  A mesh executable takes its frames either as one tensor or as
+    a :class:`~repro_torch.parallel.axes.ShardedFrames` already split by
+    ``parallel.sharding.frame_sharding``, and returns its output on the
+    mesh's first device.
     """
 
-    def __init__(self, plan: OverlayPlan, fn: Callable):
+    def __init__(self, plan: OverlayPlan, fn: Callable, mesh=None):
         self.plan = plan
         self._fn = fn
+        self.mesh = mesh
 
     def __call__(self, *args):
         return self._fn(*args)
@@ -349,7 +419,7 @@ def replace_plan(plan: OverlayPlan, **overrides: Any) -> OverlayPlan:
     a plain ``replace`` does, raises)."""
     if plan.pipeline is not None:
         fields = dict(grid=plan.grid, batched=True, pipeline=plan.pipeline,
-                      backend=plan.backend, tile_rows=plan.tile_rows)
+                      backend=plan.backend, mesh=plan.mesh, tile_rows=plan.tile_rows)
         fields.update(overrides)
         return OverlayPlan(**fields)
     return dataclasses.replace(plan, **overrides)
@@ -362,10 +432,12 @@ def fallback_chain(plan: OverlayPlan) -> Tuple[OverlayPlan, ...]:
     step serves the exact same dispatch operands.
 
       1. ``backend="hopper"`` -> ``"torch"`` (the eager oracle);
-      2. ``tile_rows`` -> ``None`` (untiled pixel axis).
+      2. 2-D ``MeshSpec(app=a, rows=r)`` -> ``app_only()`` (drop the
+         halo-exchanging rows axis);
+      3. ``MeshSpec(app=a)`` -> one device;
+      4. ``tile_rows`` -> ``None`` (untiled pixel axis).
 
-    The reference's chain also steps a device mesh down between the two;
-    the port has no mesh yet.  Every step is bitwise-equal to the primary
+    Every step is bitwise-equal to the primary
     (the parity the port's tests hold each axis to), so a circuit breaker
     can degrade dispatch by dispatch without changing results, and each
     entry is just another plan-cache key."""
@@ -381,6 +453,10 @@ def fallback_chain(plan: OverlayPlan) -> Tuple[OverlayPlan, ...]:
 
     if cur.backend != "torch":
         step(backend="torch")
+    if cur.mesh.rows > 1:
+        step(mesh=cur.mesh.app_only())
+    if cur.mesh.app > 1:
+        step(mesh=MeshSpec())
     if cur.tile_rows is not None:
         step(tile_rows=None)
     return tuple(chain)
@@ -391,6 +467,7 @@ def fallback_chain(plan: OverlayPlan) -> Tuple[OverlayPlan, ...]:
 ExecutorBuilder = Callable[[OverlayPlan], Callable]
 _EXECUTOR_BUILDERS: Dict[Tuple[str, bool, bool], ExecutorBuilder] = {}
 _PIPELINE_BUILDERS: Dict[str, ExecutorBuilder] = {}
+_PIPELINE_STAGE_BUILDERS: Dict[str, ExecutorBuilder] = {}
 
 
 def register_executor(backend: str, *, batched: bool, fused: bool):
@@ -411,6 +488,21 @@ def register_pipeline_executor(backend: str):
 
     def deco(builder: ExecutorBuilder) -> ExecutorBuilder:
         _PIPELINE_BUILDERS[interpreter.check_backend(backend)] = builder
+        return builder
+
+    return deco
+
+
+def register_pipeline_stage(backend: str):
+    """Register the per-stage executor builder of one backend's chain on a
+    granted mesh: it takes a pipeline plan and returns ``stage_fn(radius,
+    configs, ingests, x) -> [N, K, H*W]``, one batched fused step.  On a
+    mesh the halo rows of the next stage live on other shards, so the
+    chain runs stage by stage (``parallel.axes.shard_pipeline_rows``)
+    instead of as one chain executor."""
+
+    def deco(builder: ExecutorBuilder) -> ExecutorBuilder:
+        _PIPELINE_STAGE_BUILDERS[interpreter.check_backend(backend)] = builder
         return builder
 
     return deco
@@ -492,9 +584,10 @@ def _pipeline_specialized_fn(plan: OverlayPlan) -> Callable:
     configured unit of each live PE, every VC select folded to direct
     wiring -- the reference's single-device XLA chain.  The inter-stage hop
     is a view and a mask; intermediates never leave the device.  Bitwise
-    equal to the operand-settings chain
-    (``interpreter.pipeline_batched_fused_step``, kept for the mesh): per
-    live PE both compute the same unit on the same operands.  The
+    equal to the operand-settings chain that a granted mesh runs
+    (``interpreter.pipeline_batched_fused_step`` over
+    :func:`_torch_pipeline_stage`): per live PE both compute the same unit
+    on the same operands.  The
     executable ignores ``stage_settings`` (its identity lives in the plan)
     and the row tile height."""
     grid = plan.grid
@@ -529,17 +622,129 @@ def _pipeline_specialized_fn(plan: OverlayPlan) -> Callable:
     return fn
 
 
-def compile_plan(plan: OverlayPlan) -> OverlayExecutable:
+@register_pipeline_stage("torch")
+def _torch_pipeline_stage(plan: OverlayPlan) -> Callable:
+    """The "torch" chain's stage on a mesh shard: the eager batched fused
+    step, row-tiled when the plan is."""
+    if plan.tile_rows is not None:
+        def stage(radius, configs, ingests, x):
+            return interpreter.tiled_batched_fused_overlay_step(
+                plan.grid, radius, plan.tile_rows, configs, ingests, x)
+
+        return stage
+
+    def stage(radius, configs, ingests, x):
+        return interpreter.batched_fused_overlay_step(plan.grid, radius, configs, ingests, x)
+
+    return stage
+
+
+# -- the mesh wrappers ----------------------------------------------------------
+
+
+def _replay_last(tree, pad: int):
+    """Every tensor of a (nested) tuple with its last app slot replayed
+    ``pad`` more times along the leading axis."""
+    if isinstance(tree, tuple):
+        return tuple(_replay_last(t, pad) for t in tree)
+    return torch.cat([tree, tree[-1:].expand((pad,) + tuple(tree.shape[1:]))])
+
+
+def _crop_rows(ys: torch.Tensor, padded_h: int, H: int, W: int) -> torch.Tensor:
+    """``[N, K, padded_h * W]`` -> the first ``H`` rows, ``[N, K, H * W]``."""
+    n, K = ys.shape[:2]
+    return ys.reshape(n, K, padded_h, W)[:, :, :H, :].reshape(n, K, H * W)
+
+
+def _with_app_padding(fn: Callable, devices: int) -> Callable:
+    """Pad the app axis of every operand to a multiple of the mesh width
+    by replaying the last app (always a valid config on valid inputs, so
+    no DIV by zero), and slice the output back."""
+
+    def padded(*args):
+        n = args[-1].shape[0]
+        pad = (-n) % devices
+        if not pad:
+            return fn(*args)
+        return fn(*_replay_last(args, pad))[:n]
+
+    return padded
+
+
+def _with_mesh_padding(fn: Callable, spec: MeshSpec, radius: int) -> Callable:
+    """The 2-D twin of :func:`_with_app_padding` for row-banded fused
+    dispatch ``fn(configs, ingests, images)`` or chain ``fn(stage_settings,
+    hw, images)``: pad the app axis of every operand to a multiple of
+    ``spec.app`` (replaying the last app) AND the frames' rows to
+    ``row_band(H, rows, radius) * rows`` zero rows, then slice both back
+    off the output.  The radius floor of the band keeps every seam exchange
+    single-hop; zero pad rows are read only as the bottom border (a chain's
+    ``hw`` keeps the true sizes, so its mask zeroes them between stages)
+    and their outputs are discarded, so the padding is bitwise exact.
+    Sharded frames arrive whole (the fleet rounds its canvas to bands), so
+    neither pad applies to them."""
+    app, rows = spec.app, spec.rows
+
+    def padded(*args):
+        n, H, W = args[-1].shape
+        pad_n = (-n) % app
+        if pad_n:
+            args = _replay_last(args, pad_n)
+        band = row_band(H, rows, radius)
+        pad_h = band * rows - H
+        if pad_h:
+            args = (*args[:-1], torch.nn.functional.pad(args[-1], (0, 0, 0, pad_h)))
+        ys = fn(*args)
+        if pad_h:
+            ys = _crop_rows(ys, band * rows, H, W)
+        return ys[:n] if pad_n else ys
+
+    return padded
+
+
+def _compile_pipeline(plan: OverlayPlan, mesh) -> OverlayExecutable:
+    """A depth > 1 chain as ONE executable ``fn(stage_settings, hw,
+    images)``.  On one device: the backend's chain executor (B3 on
+    ``hopper``, the specialized eager chain on ``torch``).  On a granted
+    mesh: the operand-settings chain, one batched fused step per stage on
+    each shard (B1 on ``hopper``), app-sharded or row-banded with a halo
+    exchange per stage.  Every path is bitwise equal to the staged
+    oracle."""
+    if mesh is None:
+        return OverlayExecutable(plan, _PIPELINE_BUILDERS[plan.backend](plan))
+    radii = plan.pipeline[0].radii
+    stage_fn = _PIPELINE_STAGE_BUILDERS[plan.backend](plan)
+    if plan.mesh.rows > 1:
+        fn = _with_mesh_padding(shard_pipeline_rows(stage_fn, mesh, radii), plan.mesh, plan.radius)
+    else:
+        chain = partial(interpreter.pipeline_batched_fused_step, plan.grid, radii, stage_fn)
+        fn = _with_app_padding(shard_apps(chain, mesh, 3), plan.mesh.app)
+    return OverlayExecutable(plan, fn, mesh=mesh)
+
+
+def compile_plan(plan: OverlayPlan, kind: str = "cuda") -> OverlayExecutable:
     """THE overlay entry point: plan -> executable.  Importing the kernel
     package (for ``backend="hopper"``) registers its cells; the CUDA
-    library itself is built at the first launch, never on import."""
+    library itself is built at the first launch, never on import.
+
+    A plan whose mesh asks for more than one device is realized against
+    the local devices of ``kind`` (``parallel.axes.build_mesh``; the fleet
+    passes its own device's type): granted, the executor is wrapped to run
+    per shard -- app-sharded (``shard_apps``) or app x row-band sharded
+    with a seam halo exchange (``shard_apps_rows``); not granted, the
+    single-device executor serves, bitwise the same."""
     if plan.backend == "hopper":
         import repro_torch.kernels.vcgra.ops  # noqa: F401
 
+    mesh = build_mesh(plan.mesh, kind)
     if plan.pipeline is not None:
-        return OverlayExecutable(plan, _PIPELINE_BUILDERS[plan.backend](plan))
+        return _compile_pipeline(plan, mesh)
     builder = _EXECUTOR_BUILDERS.get((plan.backend, plan.batched, plan.fused))
     if builder is None:  # pragma: no cover - registry covers the full matrix
         raise ValueError(f"no executor registered for plan {plan.key()}")
-    return OverlayExecutable(plan, builder(plan))
-
+    fn = builder(plan)
+    if mesh is not None and plan.mesh.rows > 1:
+        fn = _with_mesh_padding(shard_apps_rows(fn, mesh, plan.radius), plan.mesh, plan.radius)
+    elif mesh is not None:
+        fn = _with_app_padding(shard_apps(fn, mesh, 3 if plan.fused else 2), plan.mesh.app)
+    return OverlayExecutable(plan, fn, mesh=mesh)

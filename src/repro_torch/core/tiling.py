@@ -122,6 +122,20 @@ def halo_row_slabs(images: torch.Tensor, tile_rows: int, radius: int) -> torch.T
     )
 
 
+def row_band(H: int, rows: int, radius: int = 0) -> int:
+    """Rows per shard band of a 2-D ``(app, rows)`` mesh: ``ceil(H / rows)``,
+    floored at ``radius`` (and 1).
+
+    The floor keeps the seam halo exchange single-hop: a band's taps reach
+    at most ``radius`` rows past it, and
+    :func:`repro_torch.parallel.axes.halo_exchange_rows` fetches exactly
+    the neighbour band's ``radius`` edge rows, so no band needs rows from
+    two bands away.  Frames are padded to ``row_band(...) * rows`` rows
+    (``plan._with_mesh_padding``); the zero pad rows are read only as the
+    bottom border and their outputs are sliced off."""
+    return max(-(-int(H) // int(rows)), int(radius), 1)
+
+
 def round_up(n: int, tile: int) -> int:
     """Smallest multiple of ``tile`` that is >= ``n``."""
     return ((n + tile - 1) // tile) * tile

@@ -9,8 +9,8 @@ data-loader checkpoint) and the stream is identical across runs.
 ``batch_at(step)`` gives the full logical batch and ``host_shard_at(step,
 host_id, num_hosts)`` one host's slice, as numpy int32 arrays; the caller
 moves them to its device.  The reference's ``device_batch_at`` places a
-batch over a mesh, which the port does not have yet (ROADMAP Queue A
-item 6).
+batch over the LM mesh, which the port does not have yet (ROADMAP Queue
+A item 6b).
 """
 
 from __future__ import annotations

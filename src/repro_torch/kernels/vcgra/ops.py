@@ -20,7 +20,8 @@ fallback: for CUDA tensors it launches the kernel or raises.
 The module registers the ``backend="hopper"`` cells of the plan matrix:
 (batched, fused) runs B1, (batched, unfused) runs B2, the single-app cells
 ride them with N=1 (as the reference's Pallas cells do), and depth > 1
-pipeline plans run B3.  ``vcgra_apply`` runs one app over channel-major
+pipeline plans run B3 on one device and B1 once per stage on each shard
+of a granted mesh.  ``vcgra_apply`` runs one app over channel-major
 ``[C, N]`` through B5 (``mode="specialized"``) or B4
 (``mode="conventional"``).
 """
@@ -41,6 +42,7 @@ from repro_torch.core.ingest import IngestPlan
 from repro_torch.core.interpreter import apply_ingest, check_device, form_tap_bank, pack_inputs
 from repro_torch.core.plan import (
     OverlayPlan, lift_app_axis, register_executor, register_pipeline_executor,
+    register_pipeline_stage,
 )
 from repro_torch.core.tiling import check_tile_rows, pad_channels, resolve_tile_rows
 from repro_torch.kernels.build import load_library
@@ -594,6 +596,19 @@ def pipeline_fn(grid: GridSpec, radii, tile_rows=None):
 @register_pipeline_executor("hopper")
 def _plan_pipeline(plan: OverlayPlan):
     return pipeline_fn(plan.grid, plan.pipeline[0].radii, plan.tile_rows)
+
+
+@register_pipeline_stage("hopper")
+def _plan_pipeline_stage(plan: OverlayPlan):
+    """A chain's stage on a mesh shard: B1 on the shard's haloed band (the
+    halo rows of the next stage live on other shards, so the stages cannot
+    fold into one B3 launch)."""
+
+    def stage_fn(radius, stacked_configs, stacked_ingests, images):
+        return _batched_fused_fn(plan.grid, int(radius), plan.tile_rows)(
+            stacked_configs, stacked_ingests, images)
+
+    return stage_fn
 
 
 @register_executor("hopper", batched=True, fused=True)

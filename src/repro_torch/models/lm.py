@@ -39,7 +39,7 @@ from repro_torch.models.layers import (
 from repro_torch.tree import tree_map
 
 #: What the mesh-only options wait for.
-MESH_ITEM = "the multi-GPU mesh (ROADMAP Queue A item 6)"
+MESH_ITEM = "the LM mesh over torch.distributed (ROADMAP Queue A item 6b)"
 
 
 def _block_keys(cfg: ArchConfig):

@@ -138,6 +138,6 @@ def moe_ffn_ep(
     dropless: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's expert-parallel MoE (``shard_map`` over a mesh)
-    falls back to ``moe_ffn`` when there is no mesh.  The port has no mesh
-    yet (ROADMAP Queue A item 6), so this is ``moe_ffn``."""
+    falls back to ``moe_ffn`` when there is no mesh.  The port has no LM
+    mesh yet (ROADMAP Queue A item 6b), so this is ``moe_ffn``."""
     return moe_ffn(params, x, moe, mlp_type, dropless=dropless)

@@ -1,0 +1,420 @@
+"""The overlay device mesh: where the shards of a batched dispatch run.
+
+Twin of the overlay half of the reference package's ``parallel/axes.py``
+(the LM sharding constraints come with the LM mesh, ROADMAP Queue A item
+6b).  :class:`MeshSpec` is the device-placement axis of an
+``OverlayPlan``: ``app`` shards the leading app (N) axis of a batched
+dispatch, ``rows`` shards the pixel rows of fused frames into contiguous
+bands whose ``radius``-wide seam halos come from the neighbour band
+(:func:`halo_exchange_rows`), so one frame can span devices.
+
+The reference runs its mesh as one SPMD program (``shard_map``) in one
+process.  The port keeps the single controller: one process and one host
+thread issue every shard's launches, each shard inside
+``torch.cuda.device(d)`` on that device's current stream.  An operand
+chunk or a neighbour's edge rows reach another card by a peer copy
+(``Tensor.to(d, non_blocking=True)``), which PyTorch orders against the
+current streams of both devices; between two shards of one device it is
+no copy at all.
+
+:func:`local_devices` is the one place a mesh learns what the host has.
+Tests replace it by ``[cpu] * 4`` (and the chip smoke by ``[cuda:0] *
+4``) to run a *logical* mesh of several shards on one device, the twin of
+the reference CI's forced host device count.  ``build_mesh`` returns
+``None`` when the host has fewer devices than the spec asks for: callers
+fall back to the single-device path, which is bitwise identical.
+
+Every sharded result is bitwise equal to the single-device run: the
+per-app work is independent along N, a ``band + 2r``-row slab whose
+border rows are the neighbours' edge rows (zeros at the frame border)
+reads exactly like the frame around the band, and the executors' output
+does not depend on the frame's height.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import weakref
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+APP_AXIS = "app"
+ROW_AXIS = "rows"
+
+#: Cross-shard halo copies since the last :func:`reset_copy_counts`: one
+#: per neighbour slab a band receives (a radius-0 exchange makes none).
+halo_copies = 0
+#: Settings-bank chunks copied to another device (:func:`replica`).
+replica_copies = 0
+
+
+def reset_copy_counts() -> None:
+    global halo_copies, replica_copies
+    halo_copies = 0
+    replica_copies = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """The device-placement axis of an ``OverlayPlan``, as structured data.
+
+    ``app``  how many ways the leading app (N) axis of a batched dispatch
+             is sharded;
+    ``rows`` how many contiguous pixel-row bands a fused frame is split
+             into across devices -- each shard owns ``band = H / rows``
+             output rows and receives its neighbours' ``radius`` edge rows
+             (:func:`halo_exchange_rows`) before running the *unchanged*
+             per-shard executor.
+
+    Frozen and hashable: the spec lives inside the plan, so it is part of
+    the cache key.  ``MeshSpec()`` is the single-device identity.
+    """
+
+    app: int = 1
+    rows: int = 1
+
+    def __post_init__(self):
+        for name in ("app", "rows"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                raise ValueError(f"MeshSpec.{name} must be an int >= 1, got {v!r}")
+
+    @property
+    def size(self) -> int:
+        """Total devices the spec asks for (``app * rows``)."""
+        return self.app * self.rows
+
+    def app_only(self) -> "MeshSpec":
+        """The 1-D projection of this spec: the same app-axis width, no row
+        sharding.  Unfused dispatches use it (pre-packed channels carry no
+        row structure to band-shard)."""
+        return MeshSpec(app=self.app)
+
+    def shape(self) -> Tuple[int, int]:
+        """``(app, rows)`` -- the stats stamp of the spec."""
+        return (self.app, self.rows)
+
+    def __str__(self) -> str:
+        return f"{self.app}x{self.rows}"
+
+
+def local_devices(kind: str = "cuda") -> List[torch.device]:
+    """The devices of ``kind`` this process can use: every visible card
+    for ``"cuda"`` (none without one), the one CPU device for ``"cpu"``."""
+    if kind == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if kind == "cpu":
+        return [torch.device("cpu")]
+    raise ValueError(f"unknown device kind {kind!r}")
+
+
+def canonical(device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card, so a mesh,
+    its stream table and its settings replicas compare devices reliably."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A granted mesh: its devices as an ``[app]`` or ``[app, rows]`` grid.
+
+    ``devices[i][j]`` runs app shard ``i``'s row band ``j`` (a 1-D mesh
+    has one band per app shard).  Row neighbours are adjacent devices, so
+    seam copies stay between nearby cards.  The same device may appear
+    more than once: that is a logical mesh, whose shards run one after
+    another on one card."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+    axis_names: Tuple[str, ...]
+
+    @property
+    def app(self) -> int:
+        return len(self.devices)
+
+    @property
+    def rows(self) -> int:
+        return len(self.devices[0])
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, (self.app, self.rows)))
+
+    @property
+    def first(self) -> torch.device:
+        """The device the sharded executors return their output on."""
+        return self.devices[0][0]
+
+    def device_list(self) -> List[torch.device]:
+        """Every shard's device, app-major."""
+        return [d for row in self.devices for d in row]
+
+
+def build_mesh(spec: MeshSpec, kind: str = "cuda") -> Optional[Mesh]:
+    """Realize a :class:`MeshSpec` against :func:`local_devices` of
+    ``kind``: a 1-D ``("app",)`` mesh for ``rows == 1``, else a 2-D
+    ``("app", "rows")`` mesh whose consecutive devices form one app shard's
+    row bands.  ``None`` when the spec is the single-device identity or
+    the host has fewer devices than ``spec.size`` -- callers fall back to
+    the single-device path, and the fleet stamps the degradation."""
+    if spec.size <= 1:
+        return None
+    avail = local_devices(kind)
+    if len(avail) < spec.size:
+        return None
+    devs = tuple(canonical(d) for d in avail[: spec.size])
+    grid = tuple(devs[i * spec.rows:(i + 1) * spec.rows] for i in range(spec.app))
+    return Mesh(grid, (APP_AXIS,) if spec.rows == 1 else (APP_AXIS, ROW_AXIS))
+
+
+def app_mesh(devices: int, kind: str = "cuda") -> Optional[Mesh]:
+    """A 1-D mesh over the first ``devices`` local devices of ``kind``, or
+    ``None`` for ``devices <= 1`` or a host with fewer devices."""
+    if int(devices) <= 1:
+        return None
+    return build_mesh(MeshSpec(app=int(devices)), kind)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedFrames:
+    """A fused frame canvas ``[N, H, W]`` already split into its
+    ``(app, row-band)`` blocks, block ``[i][j]`` on ``mesh.devices[i][j]``
+    (:func:`repro_torch.parallel.sharding.frame_sharding`): the fleet's
+    sharded async ship path hands it to a mesh executable in place of one
+    canvas tensor, so no block is copied twice."""
+
+    blocks: Tuple[Tuple[torch.Tensor, ...], ...]
+    shape: Tuple[int, int, int]
+
+
+def on_device(device: torch.device):
+    """``device`` made current for the calling thread, on its current
+    stream (the shard's stream); a no-op for the CPU."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(device))
+    stack.enter_context(torch.cuda.stream(torch.cuda.current_stream(device)))
+    return stack
+
+
+def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``, contiguous: a peer copy between cards, nothing
+    between two shards of one device."""
+    if t.device != device:
+        t = t.to(device, non_blocking=True)
+    return t.contiguous()
+
+
+#: Replicas of settings tensors on other devices, by source tensor:
+#: ``id(src) -> {(src._version, device, lo, hi): replica}``.  An entry
+#: lives as long as its source (the fleet's bank cache holds those).
+_REPLICAS: Dict[int, Dict[Tuple, torch.Tensor]] = {}
+
+
+def replica(t: torch.Tensor, device: torch.device, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``lo:hi`` of the settings tensor ``t`` on ``device``.  A copy
+    to another device is made once per source tensor and device and reused
+    while ``t`` lives unmodified, so a repeat flush of a cached bank copies
+    nothing."""
+    global replica_copies
+    part = t[lo:hi]
+    if part.device == device:
+        return part
+    key = (t._version, device, lo, hi)
+    cache = _REPLICAS.get(id(t))
+    if cache is None:
+        cache = _REPLICAS[id(t)] = {}
+        weakref.finalize(t, _REPLICAS.pop, id(t), None)
+    hit = cache.get(key)
+    if hit is None:
+        hit = cache[key] = part.to(device, non_blocking=True)
+        replica_copies += 1
+    return hit
+
+
+def _tree_map(fn: Callable, tree):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, t) for t in tree)
+    return fn(tree)
+
+
+def _check_split(n: int, H: int, mesh: Mesh, radius: int) -> Tuple[int, int]:
+    if n % mesh.app or H % mesh.rows:
+        raise ValueError(
+            f"a [{n}, {H}, W] canvas does not split over a {mesh.app}x{mesh.rows} mesh; "
+            "pad it first (plan._with_mesh_padding)")
+    chunk, band = n // mesh.app, H // mesh.rows
+    if mesh.rows > 1 and band < radius:
+        raise ValueError(f"row band {band} is shallower than the radius {radius}: "
+                         "the seam exchange would need two hops")
+    return chunk, band
+
+
+def _block(images, mesh: Mesh, i: int, j: int, chunk: int, band: int) -> torch.Tensor:
+    """App shard ``i``'s row band ``j`` of a canvas (of a packed channel
+    stack on a 1-D mesh: ``band`` its whole second axis), on its device."""
+    if isinstance(images, ShardedFrames):
+        return images.blocks[i][j]
+    return _to(images[i * chunk:(i + 1) * chunk, j * band:(j + 1) * band], mesh.devices[i][j])
+
+
+def _gather(parts: Sequence[torch.Tensor], device: torch.device, dim: int) -> torch.Tensor:
+    return torch.cat([_to(p, device) for p in parts], dim=dim)
+
+
+def shard_apps(fn: Callable, mesh: Mesh, num_args: int) -> Callable:
+    """``fn`` run once per app shard of ``mesh``: every operand (nested
+    tuples of tensors, each leading with N) is split into ``mesh.app``
+    chunks along N, each chunk runs ``fn`` on its device, and the outputs
+    come back as one tensor on the mesh's first device.  The per-app work
+    of the batched executors is independent along N, so the result is
+    bitwise the single-device one.  Callers pad N to a multiple of the
+    mesh width first (``plan._with_app_padding``).  Settings operands (all
+    but the last) reach other devices through :func:`replica`."""
+
+    def sharded(*args):
+        if len(args) != num_args:
+            raise TypeError(f"expected {num_args} operands, got {len(args)}")
+        images = args[-1]
+        n = images.shape[0]
+        if n % mesh.app:
+            raise ValueError(f"{n} apps do not split over {mesh.app} shards; pad them first "
+                             "(plan._with_app_padding)")
+        chunk = n // mesh.app
+        outs = []
+        for i, row in enumerate(mesh.devices):
+            d, lo, hi = row[0], i * chunk, (i + 1) * chunk
+            with on_device(d):
+                settings = _tree_map(lambda t: replica(t, d, lo, hi), args[:-1])
+                outs.append(fn(*settings, _block(images, mesh, i, 0, chunk, images.shape[1])))
+        return _gather(outs, mesh.first, 0)
+
+    return sharded
+
+
+def halo_exchange_rows(bands: Sequence[torch.Tensor], radius: int) -> List[torch.Tensor]:
+    """The seam halos of one app shard's row bands ``[n, band, W]``.
+
+    Returns each band as ``[n, band + 2r, W]``: the ``r`` rows above it are
+    the previous band's last ``r`` rows, the ``r`` rows below it the next
+    band's first ``r`` rows, and at the frame's top and bottom border they
+    are zeros (``form_tap_bank``'s zero-pad semantics).  A neighbour's rows
+    come over by a peer copy to the band's device (no copy on a logical
+    mesh), each counted in :data:`halo_copies`.  Radius 0 returns the bands
+    themselves and copies nothing."""
+    global halo_copies
+    r = int(radius)
+    if r <= 0:
+        return list(bands)
+    out = []
+    last = len(bands) - 1
+    for j, band in enumerate(bands):
+        n, h, W = band.shape
+        if h < r:
+            raise ValueError(f"row band of {h} rows is shallower than the radius {r}")
+        zeros = band.new_zeros((n, r, W))
+        above = zeros if j == 0 else _to(bands[j - 1][:, h - r:, :], band.device)
+        below = zeros if j == last else _to(bands[j + 1][:, :r, :], band.device)
+        halo_copies += (j > 0) + (j < last)
+        out.append(torch.cat([above, band, below], dim=1))
+    return out
+
+
+def _crop(ys: torch.Tensor, chunk: int, band: int, r: int, W: int) -> torch.Tensor:
+    """The middle ``band`` rows of a haloed band's ``[n, K, (band+2r)*W]``
+    output: the dropped rows read the slab's synthetic border."""
+    K = ys.shape[1]
+    return ys.reshape(chunk, K, band + 2 * r, W)[:, :, r:r + band, :].reshape(chunk, K, band * W)
+
+
+def shard_apps_rows(fn: Callable, mesh: Mesh, radius: int) -> Callable:
+    """A batched *fused* executor ``fn(configs, ingests, images)`` over a
+    2-D ``(app, rows)`` mesh: apps shard N as in :func:`shard_apps`, rows
+    shard the frame into contiguous bands.  Each shard runs the UNCHANGED
+    executor on its haloed band (a ``[n, band + 2r, W]`` short frame) and
+    keeps the middle ``band`` output rows; the output's flat pixel axis is
+    row-major, so the bands concatenate back into ``[N, K, H * W]``.
+    Callers pad H to ``band * rows`` with ``band >= radius`` first
+    (``plan._with_mesh_padding``), so one single-hop exchange suffices.
+    The settings banks go to every shard's device as plain copies (the
+    reference's partitioner workaround has no counterpart here)."""
+    r = int(radius)
+
+    def sharded(configs, ingests, images):
+        n, H, W = images.shape
+        chunk, band = _check_split(n, H, mesh, r)
+        outs = []
+        for i, row in enumerate(mesh.devices):
+            lo, hi = i * chunk, (i + 1) * chunk
+            haloed = halo_exchange_rows(
+                [_block(images, mesh, i, j, chunk, band) for j in range(len(row))], r)
+            ys = []
+            for d, slab in zip(row, haloed):
+                with on_device(d):
+                    cfg, ing = _tree_map(lambda t: replica(t, d, lo, hi), (configs, ingests))
+                    ys.append(_crop(fn(cfg, ing, slab), chunk, band, r, W))
+            outs.append(_gather(ys, mesh.first, 2))
+        return torch.cat(outs, dim=0)
+
+    return sharded
+
+
+def _band_mask(hw: torch.Tensor, row0: int, band: int, W: int) -> torch.Tensor:
+    """``[n, band, W]``: which pixels of a band (global rows ``row0 +
+    arange(band)``) lie inside each app's true frame ``hw``."""
+    rows = row0 + torch.arange(band, dtype=torch.int32, device=hw.device)
+    cols = torch.arange(W, dtype=torch.int32, device=hw.device)
+    return (rows[None, :, None] < hw[:, 0][:, None, None]) & \
+        (cols[None, None, :] < hw[:, 1][:, None, None])
+
+
+def shard_pipeline_rows(stage_fn: Callable, mesh: Mesh, radii) -> Callable:
+    """Row-band sharding of a depth-S chain ``fn(stage_settings, hw,
+    images)``: the 2-D twin of :func:`shard_apps_rows` with a halo
+    exchange at each stage's own radius, so a chain's intermediates never
+    leave their shard.  ``stage_fn(radius, configs, ingests, x)`` runs one
+    stage on a haloed band; after every stage but the last the band's
+    forwarded channel is masked by each app's true frame ``hw`` at the
+    band's GLOBAL rows (``j * band + arange(band)``) and columns -- without
+    the mask, outputs on canvas padding would reach the next stage's
+    border, which the single-device chain reads as zeros.  Callers pad H
+    to ``band * rows`` with ``band >= max(radii)`` first
+    (``plan._with_mesh_padding``)."""
+    from repro_torch.core.interpreter import forward_stage_output
+
+    radii = tuple(int(r) for r in radii)
+    depth = len(radii)
+
+    def sharded(stage_settings, hw, images):
+        n, H, W = images.shape
+        chunk, band = _check_split(n, H, mesh, max(radii))
+        outs = []
+        for i, row in enumerate(mesh.devices):
+            lo, hi = i * chunk, (i + 1) * chunk
+            settings, valid = [], []
+            for j, d in enumerate(row):
+                with on_device(d):
+                    settings.append(_tree_map(lambda t: replica(t, d, lo, hi), stage_settings))
+                    valid.append(_band_mask(replica(hw, d, lo, hi), j * band, band, W))
+            x = [_block(images, mesh, i, j, chunk, band) for j in range(len(row))]
+            ys = []
+            for si, r in enumerate(radii):
+                haloed = halo_exchange_rows(x, r)
+                ys, nxt = [], []
+                for j, (d, slab) in enumerate(zip(row, haloed)):
+                    with on_device(d):
+                        configs, ingests, out_ch = settings[j][si]
+                        y = _crop(stage_fn(r, configs, ingests, slab), chunk, band, r, W)
+                        ys.append(y)
+                        if si < depth - 1:
+                            nxt.append(forward_stage_output(y, out_ch, valid[j]))
+                x = nxt
+            outs.append(_gather(ys, mesh.first, 2))
+        return torch.cat(outs, dim=0)
+
+    return sharded

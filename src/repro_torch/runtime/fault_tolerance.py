@@ -16,8 +16,9 @@ Twin of the reference package's ``runtime/fault_tolerance.py``:
   (data, model) meshes that nothing here dispatches.  For degrading a
   *serving* plan, use :func:`repro_torch.core.plan.fallback_chain`.
 
-The reference's ``shardings`` arguments place restored leaves over a
-mesh, which the port does not have yet (ROADMAP Queue A item 6).
+The reference's ``shardings`` arguments place restored leaves over the LM
+mesh, which the port does not have yet (ROADMAP Queue A item 6b; the
+overlay mesh of ``parallel/axes.py`` shards image dispatches only).
 """
 
 from __future__ import annotations

@@ -1,9 +1,14 @@
 """Pixie fleet: a multi-tenant batched scheduler for VCGRA overlays.
 
-Twin of the reference package's ``runtime/fleet.py`` (one device).  Every
-application mapped on a grid yields identically-shaped
-settings, so N *different* tenants stack (``VCGRAConfig.stack``) into one
-dispatch of a batched :class:`~repro_torch.core.plan.OverlayPlan`.
+Twin of the reference package's ``runtime/fleet.py``.  Every application
+mapped on a grid yields identically-shaped settings, so N *different*
+tenants stack (``VCGRAConfig.stack``) into one dispatch of a batched
+:class:`~repro_torch.core.plan.OverlayPlan`.  With a
+:class:`~repro_torch.parallel.axes.MeshSpec` the plan also shards every
+dispatch over local devices: ``MeshSpec(app=k)`` splits the app axis k
+ways, ``MeshSpec(app=k, rows=m)`` also row-bands fused frames with a seam
+halo exchange (both bitwise the single-device run).  A host with fewer
+devices degrades to one device, and ``FleetStats`` says so.
 
 Scheduling model (the reference's, rule for rule):
 
@@ -33,7 +38,8 @@ Scheduling model (the reference's, rule for rule):
 Dispatch is self-healing, rule for rule the reference's ladder for the
 faults it routes: transient failures retry with a deterministic backoff, a
 failing plan degrades down :func:`~repro_torch.core.plan.fallback_chain`
-(``hopper`` -> ``torch``, tiled -> untiled) behind per-plan circuit
+(``hopper`` -> ``torch``, 2-D mesh -> app-only -> one device, tiled ->
+untiled) behind per-plan circuit
 breakers, float outputs pass a NaN/Inf guard, and a request no plan can
 serve is isolated by bisection and fails only its own ticket
 (:class:`QuarantinedError`).  The ladder routes the faults of the chaos
@@ -43,7 +49,8 @@ of :meth:`PixieFleet.flush` and is never served around.  A grid wider than
 the Hopper kernels hold is refused at submit, to its own submitter.
 
 Banks and canvases live on the fleet's ``device`` (default ``"cuda"``,
-which raises when no card is visible).
+which raises when no card is visible); a mesh's shards copy the settings
+they need to their own devices once per bank (``parallel.axes.replica``).
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import contextlib
 import dataclasses
 import math
 import time
+import warnings
 import weakref
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -71,9 +79,11 @@ from repro_torch.core.plan import (
     OverlayExecutable, OverlayPlan, PipelineSpec, compile_plan, fallback_chain,
 )
 from repro_torch.core.tiling import (
-    TILE_AUTO, check_tile_rows, pad_batches, pad_channels, pow2_bucket, round_up,
+    TILE_AUTO, check_tile_rows, pad_batches, pad_channels, pow2_bucket, round_up, row_band,
 )
 from repro_torch.kernels.vcgra.ops import check_value_width
+from repro_torch.parallel.axes import MeshSpec, ShardedFrames, build_mesh, canonical
+from repro_torch.parallel.sharding import frame_sharding
 from repro_torch.runtime.chaos import FaultInjector, InjectedFault
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 from repro_torch.runtime.resilience import (
@@ -203,7 +213,14 @@ class FleetStats:
 
     backend: str = "hopper"      # execution backend of every dispatch
     device: str = "cuda"         # device of every dispatch
+    devices: int = 1             # app-axis mesh width of every dispatch
     ingest: str = "sync"         # ingest pipelining mode of every dispatch
+    # The (app, rows) mesh the fleet was ASKED for vs the one the host
+    # granted: build_mesh degrades to the single-device bitwise fallback
+    # when the host is short of devices, and the stamp says so.
+    mesh_requested: Tuple[int, int] = (1, 1)
+    mesh_granted: Tuple[int, int] = (1, 1)
+    mesh_degraded: bool = False
     # How async ingest observes completion: "cuda-event" (a torch.cuda.Event
     # polled with query()) or "always-ready" (a CPU fleet, where PyTorch
     # runs synchronously, so the overlap below stays 0); "none" when sync.
@@ -228,6 +245,9 @@ class FleetStats:
     overlay_cache_hits: int = 0
     stack_bank_hits: int = 0     # stacked settings banks reused across flushes
     canvas_pool_hits: int = 0    # frame canvases reused instead of allocated
+    # Canvas reuse of a sharded async fleet, by device: each mesh shard
+    # fills and ships its own pooled buffer.  Empty for unsharded fleets.
+    canvas_pool_device_hits: Dict[str, int] = dataclasses.field(default_factory=dict)
     # "<plan.key()>|<padded tile>" -> dispatch count.
     dispatch_plans: Dict[str, int] = dataclasses.field(default_factory=dict)
     evicted_plans: List[str] = dataclasses.field(default_factory=list)
@@ -235,8 +255,8 @@ class FleetStats:
     retries: int = 0             # re-dispatch attempts after a transient failure
     quarantined_requests: int = 0  # tickets isolated by bisection and failed
     # Dispatches served by a degraded plan of the fallback chain (hopper ->
-    # torch, tiled -> untiled) because the primary failed or its breaker
-    # was open.  The degraded plan's key is in dispatch_plans.
+    # torch, 2-D mesh -> app-only -> one device, tiled -> untiled) because
+    # the primary failed or its breaker was open.  The degraded plan's key is in dispatch_plans.
     fallback_dispatches: int = 0
     guard_failures: int = 0      # outputs rejected by the NaN/Inf guard
     straggler_flushes: int = 0   # flushes the HeartbeatMonitor flagged
@@ -308,10 +328,14 @@ class PixieFleet:
     used only when asked for (``device="cpu"``), and there the kernel
     wrappers compute their plain PyTorch versions.
 
-    ``faults``, ``retry``, ``breakers``, ``heartbeat`` and ``output_guard``
-    tune the self-healing ladder with the reference's defaults and arming
-    rules.  Every dispatch runs on the CUDA stream that was current when
-    the fleet was built, whichever thread flushes.
+    ``mesh`` (a :class:`~repro_torch.parallel.axes.MeshSpec`) shards every
+    dispatch over the local devices of the fleet's device type, as the
+    reference's does; the bare device-count kwarg is its deprecated
+    spelling for ``MeshSpec(app=k)``.  ``faults``, ``retry``, ``breakers``,
+    ``heartbeat`` and ``output_guard`` tune the self-healing ladder with
+    the reference's defaults and arming rules.  Every dispatch runs on the
+    CUDA streams that were current when the fleet was built -- one per
+    device of the granted mesh -- whichever thread flushes.
     """
 
     def __init__(
@@ -325,7 +349,9 @@ class PixieFleet:
         backend: str = "hopper",
         tile_rows: Union[int, str, None] = TILE_AUTO,
         device: Union[str, torch.device] = "cuda",
+        mesh: Optional[MeshSpec] = None,
         ingest: str = "sync",
+        devices: Optional[int] = None,
         faults: Optional[FaultInjector] = None,
         retry: Optional[RetryPolicy] = None,
         breakers: Optional[BreakerBoard] = None,
@@ -335,16 +361,51 @@ class PixieFleet:
         self.default_grid = default_grid or gridlib.sobel_grid()
         self.backend = interpreter.check_backend(backend)
         self.device = interpreter.check_device(device)
+        # Device placement of every dispatch (module docstring); the bare
+        # device-count kwarg is the deprecated spelling of MeshSpec(app=k).
+        if devices is not None:
+            d = int(devices)
+            if d < 1:
+                raise ValueError(f"devices must be >= 1, got {devices}")
+            if mesh is not None:
+                raise ValueError(
+                    "pass mesh=MeshSpec(...) or the deprecated bare device "
+                    "count, not both"
+                )
+            warnings.warn(
+                "the bare device-count kwarg of PixieFleet is deprecated: "
+                f"pass mesh=MeshSpec(app={d}) instead",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            mesh = MeshSpec(app=d)
+        if mesh is not None and not isinstance(mesh, MeshSpec):
+            raise ValueError(f"mesh must be a MeshSpec, got {mesh!r}")
+        self.mesh = mesh or MeshSpec()
+        # What the host grants, probed once here so the stats never name
+        # the requested shape as the effective one.
+        granted_mesh = build_mesh(self.mesh, self.device.type)
+        granted = self.mesh if granted_mesh is not None else MeshSpec()
         # "sync" packs, dispatches and copies back in strict order; "async"
         # double-buffers (module docstring).  Bitwise-identical; async
         # results are LazyOutput windows instead of eager numpy.
         self.ingest = check_ingest(ingest)
         # The stream every dispatch is issued on (the streaming worker
-        # flushes from its own thread) and the side stream of async
-        # host-to-device copies, made at first use.
+        # flushes from its own thread), one per device of the granted mesh,
+        # and the side streams of async host-to-device copies, made at
+        # first use.  A peer copy between two cards orders itself against
+        # the current streams of both, so making these current on every
+        # mesh device orders each shard's work after its operands.
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
-        self._copy_stream = None
+        self._streams: Dict[torch.device, Any] = {}
+        if self._stream is not None:
+            home = canonical(self.device)
+            mesh_devices = granted_mesh.device_list() if granted_mesh is not None else []
+            for d in mesh_devices:
+                self._streams[d] = torch.cuda.current_stream(d)
+            self._streams[home] = self._stream
+        self._copy_streams: Dict[torch.device, Any] = {}
         # The last async dispatch's readiness: overlap accounting polls it
         # when the next pack starts.
         self._inflight: Optional[ReadinessProbe] = None
@@ -352,6 +413,10 @@ class PixieFleet:
         # None.  All values are bitwise-identical (a plan-key axis).
         self.tile_rows = check_tile_rows(tile_rows)
         self.batch_tile = int(batch_tile)
+        # App-axis tiles also divide evenly across the mesh, so the plan
+        # executable never re-pads (padded_app_slots accounts for ALL
+        # padding).
+        self._app_tile = math.lcm(self.batch_tile, self.mesh.app)
         self.min_pixel_batch = int(min_pixel_batch)
         # Fused frame canvases bucket H and W separately; the floor keeps
         # the same ~min_pixel_batch pixels per tile as the unfused path.
@@ -370,8 +435,11 @@ class PixieFleet:
         readiness = "none"
         if self.ingest == "async":
             readiness = "cuda-event" if self.device.type == "cuda" else "always-ready"
-        self.stats = FleetStats(self.backend, str(self.device), self.ingest,
-                                ingest_readiness=readiness)
+        self.stats = FleetStats(
+            self.backend, str(self.device), self.mesh.app, self.ingest,
+            mesh_requested=self.mesh.shape(), mesh_granted=granted.shape(),
+            mesh_degraded=granted != self.mesh, ingest_readiness=readiness,
+        )
         self._pending: List[Tuple[int, _Prepared]] = []
         # Bounded: unredeemed tickets are evicted oldest-first.
         self._results: "OrderedDict[int, Any]" = OrderedDict()
@@ -405,6 +473,12 @@ class PixieFleet:
         # pack_s: host-side input preparation; dispatch_s: overlay
         # executions incl. output copies; flush_s: the most recent flush.
         self.timings: Dict[str, float] = {"pack_s": 0.0, "dispatch_s": 0.0}
+
+    @property
+    def devices(self) -> int:
+        """App-axis mesh width (the reading side of the deprecated bare
+        device-count surface)."""
+        return self.mesh.app
 
     # -- caches ---------------------------------------------------------------
 
@@ -450,15 +524,19 @@ class PixieFleet:
                           pipeline: Optional[Tuple[PipelineSpec, ...]] = None,
                           ) -> OverlayPlan:
         """The :class:`OverlayPlan` of one dispatch on this fleet: the
-        fleet contributes backend and tiling, the request group grid,
+        fleet contributes backend, mesh and tiling, the request group grid,
         fusion and radius (or, for chained dispatches, the per-tenant
-        pipeline specs, from which the radius derives)."""
+        pipeline specs, from which the radius derives).  Unfused dispatches
+        project the mesh to its app axis (pre-packed channels carry no row
+        structure to band-shard)."""
         if pipeline is not None:
             return OverlayPlan(grid=grid, batched=True, pipeline=pipeline,
-                               backend=self.backend, tile_rows=self.tile_rows)
+                               backend=self.backend, mesh=self.mesh,
+                               tile_rows=self.tile_rows)
         return OverlayPlan(
             grid=grid, batched=True, fused=fused, radius=radius,
             backend=self.backend,
+            mesh=self.mesh if fused else self.mesh.app_only(),
             tile_rows=self.tile_rows if fused else None,
         )
 
@@ -473,7 +551,7 @@ class PixieFleet:
             # Compile faults fire on cache MISSES only, and a failing build
             # is never cached, exactly like a real deterministic error.
             self.faults.fire("compile", (f"plan:{plan.key()}",))
-        fn = compile_plan(plan)
+        fn = compile_plan(plan, self.device.type)
         self.stats.overlay_builds += 1
         for evicted in self._overlays.put(plan, fn):
             self.stats.evicted_plans.append(evicted.key())
@@ -583,15 +661,15 @@ class PixieFleet:
         self._banks.put(bkey, stacked)
         return stacked
 
-    def _pooled(self, cache: LRUCache, shape: Tuple[int, ...],
-                dtype: torch.dtype) -> Tuple[_PooledBuffer, bool]:
+    def _pooled(self, cache: LRUCache, shape: Tuple[int, ...], dtype: torch.dtype,
+                slot: Optional[Tuple[int, int]] = None) -> Tuple[_PooledBuffer, bool]:
         """A host buffer from a reuse pool (pinned when the fleet runs on a
         card, so copies to and from the device are plain DMAs) and whether
         it was reused.  The pool is two deep under async ingest -- flush
         k+1 fills one buffer while flush k's copy of the other may be in
         flight -- and a reused buffer is released here (:meth:`_PooledBuffer.
-        release`)."""
-        key = (shape, dtype)
+        release`).  ``slot`` keys a mesh shard's own buffers."""
+        key = (shape, dtype) if slot is None else (shape, dtype, slot)
         pool = cache.get(key)
         if pool is None:
             pool = []
@@ -607,11 +685,19 @@ class PixieFleet:
         entry.release()
         return entry, True
 
-    def _canvas(self, shape: Tuple[int, ...], dtype: torch.dtype) -> _PooledBuffer:
-        """A zeroed host frame canvas from the canvas pool."""
-        entry, reused = self._pooled(self._canvas_pool, shape, dtype)
+    def _canvas(self, shape: Tuple[int, ...], dtype: torch.dtype,
+                slot: Optional[Tuple[int, int]] = None,
+                device: Optional[torch.device] = None) -> _PooledBuffer:
+        """A zeroed host frame canvas from the canvas pool.  A sharded
+        async fleet gives each mesh shard (``slot``, on ``device``) its own
+        buffers, so one shard's copy in flight never holds up another's
+        fill; their reuse is also counted per device."""
+        entry, reused = self._pooled(self._canvas_pool, shape, dtype, slot)
         if reused:
             self.stats.canvas_pool_hits += 1
+            if device is not None:
+                hits = self.stats.canvas_pool_device_hits
+                hits[str(device)] = hits.get(str(device), 0) + 1
             entry.buf.zero_()
         return entry
 
@@ -627,11 +713,16 @@ class PixieFleet:
             self.stats.ingest_overlap_s += time.perf_counter() - pack_started
 
     def _on_device(self):
-        """The fleet's device and dispatch stream, made current for the
-        calling thread."""
+        """The fleet's dispatch streams -- one per device of its granted
+        mesh -- made current for the calling thread, the fleet's own
+        device last (entering a stream also makes its device current)."""
         if self._stream is None:
             return contextlib.nullcontext()
         stack = contextlib.ExitStack()
+        home = canonical(self.device)
+        for d, stream in self._streams.items():
+            if d != home:
+                stack.enter_context(torch.cuda.stream(stream))
         stack.enter_context(torch.cuda.device(self.device))
         stack.enter_context(torch.cuda.stream(self._stream))
         return stack
@@ -737,16 +828,15 @@ class PixieFleet:
         fn = self.overlay_executable(plan)
         grid = plan.grid
         n = len(items)
-        n_tile = round_up(n, self.batch_tile)
-        Hb = pow2_bucket(max(p.hw[0] for _, p in items), self.min_image_side)
-        Wb = pow2_bucket(max(p.hw[1] for _, p in items), self.min_image_side)
+        n_tile = round_up(n, self._app_tile)
+        Hb, Wb = self._canvas_sides(plan, items)
         configs = [p.cfg for _, p in items]
         # Tile padding on the app axis: replay config[0] on a zero frame.
         configs += [configs[0]] * (n_tile - n)
         self.stats.padded_app_slots += n_tile - n
         self.stats.partial_tile_dispatches += 1 if n < n_tile else 0
         stacked, ingests = self._stacked_bank(grid, configs, fused=True)
-        frames = self._ship_frames(items, n_tile, Hb, Wb, grid.dtype)
+        frames = self._ship_frames(fn, items, n_tile, Hb, Wb, grid.dtype)
         self._note_overlap(t0)
         self.timings["pack_s"] += time.perf_counter() - t0
 
@@ -758,33 +848,80 @@ class PixieFleet:
         self._unpack_frames(fn.plan, items, ys, n_tile, Hb, Wb, out)
         self.timings["dispatch_s"] += time.perf_counter() - t0
 
-    def _ship_frames(self, items: List[Tuple[int, _Prepared]], n_tile: int,
-                     Hb: int, Wb: int, dtype: torch.dtype) -> torch.Tensor:
+    def _canvas_sides(self, plan: OverlayPlan,
+                      items: List[Tuple[int, _Prepared]]) -> Tuple[int, int]:
+        """The canvas ``(Hb, Wb)`` of a frame dispatch: pow-2 buckets of the
+        largest frame.  A row-sharded plan rounds Hb to whole
+        radius-floored bands, so the sharded ship path and the executable
+        agree on the band split and the executable's own row padding is a
+        no-op."""
+        Hb = pow2_bucket(max(p.hw[0] for _, p in items), self.min_image_side)
+        Wb = pow2_bucket(max(p.hw[1] for _, p in items), self.min_image_side)
+        if plan.mesh.rows > 1:
+            Hb = row_band(Hb, plan.mesh.rows, plan.radius) * plan.mesh.rows
+        return Hb, Wb
+
+    def _ship_frames(self, fn: OverlayExecutable, items: List[Tuple[int, _Prepared]],
+                     n_tile: int, Hb: int, Wb: int, dtype: torch.dtype):
         """Embed the raw frames top-left into one pooled zero canvas
         ``[n_tile, Hb, Wb]`` and copy it to the fleet's device (on a CPU
-        fleet the canvas itself; outputs never alias it).
-
-        Async on a card: the copy runs ``non_blocking`` on a side stream
-        into memory allocated there (and marked as used by the dispatch
-        stream), the dispatch stream waits on its event, and the canvas
-        keeps the event as its pending copy, waited for at reuse."""
+        fleet the canvas itself; outputs never alias it).  An async
+        dispatch on a granted mesh ships per shard instead
+        (:meth:`_ship_sharded_frames`)."""
+        if self.ingest == "async" and fn.mesh is not None:
+            return self._ship_sharded_frames(fn.mesh, items, n_tile, Hb, Wb, dtype)
         entry = self._canvas((n_tile, Hb, Wb), dtype)
-        canvas = entry.buf
         for i, (_, p) in enumerate(items):
             H, W = p.hw
-            canvas[i, :H, :W] = torch.from_numpy(np.ascontiguousarray(p.payload))
-        if self.ingest == "sync" or self.device.type != "cuda":
-            return canvas.to(self.device)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        main = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            frames = torch.empty(canvas.shape, dtype=dtype, device=self.device)
+            entry.buf[i, :H, :W] = torch.from_numpy(np.ascontiguousarray(p.payload))
+        if self.ingest == "sync":
+            return entry.buf.to(self.device)
+        return self._ship(entry, self.device)
+
+    def _ship(self, entry: _PooledBuffer, device: torch.device) -> torch.Tensor:
+        """Async copy of a pooled canvas to ``device``.  On a card the copy
+        runs ``non_blocking`` on the device's side stream into memory
+        allocated there (and marked as used by the device's dispatch
+        stream), the dispatch stream waits on its event, and the canvas
+        keeps the event as its pending copy, waited for at reuse."""
+        canvas = entry.buf
+        if device.type != "cuda":
+            return canvas.to(device)
+        copy = self._copy_streams.get(device)
+        if copy is None:
+            copy = self._copy_streams[device] = torch.cuda.Stream(device)
+        main = torch.cuda.current_stream(device)
+        with torch.cuda.stream(copy):
+            frames = torch.empty(canvas.shape, dtype=canvas.dtype, device=device)
             frames.copy_(canvas, non_blocking=True)
-            entry.pending = ReadinessProbe(self.device, self._copy_stream)
+            entry.pending = ReadinessProbe(device, copy)
         frames.record_stream(main)
         entry.pending.block(main)
         return frames
+
+    def _ship_sharded_frames(self, mesh, items: List[Tuple[int, _Prepared]], n_tile: int,
+                             Hb: int, Wb: int, dtype: torch.dtype) -> ShardedFrames:
+        """Per-shard canvas embed and ship for an async dispatch on a
+        granted mesh: each ``(app, row-band)`` block of the canvas
+        (``parallel.sharding.frame_sharding``) gets its own pooled pinned
+        buffer, holding that shard's slice of the tenant frames, and is
+        shipped to its own device -- so one shard's copy in flight never
+        gates another's fill.  The blocks reach the mesh executable as a
+        :class:`~repro_torch.parallel.axes.ShardedFrames`, split as it
+        splits, with no further copy.  Bitwise the single-canvas path."""
+        sharding = frame_sharding(mesh)
+        chunk, band = n_tile // mesh.app, Hb // mesh.rows
+        shipped = []
+        for b in sharding.blocks(n_tile, Hb):
+            entry = self._canvas((chunk, band, Wb), dtype, slot=(b.i, b.j), device=b.device)
+            for k, (_, p) in enumerate(items[b.apps.start:b.apps.stop]):
+                H, W = p.hw
+                h = min(H - b.rows.start, band)
+                if h > 0:
+                    rows = p.payload[b.rows.start:b.rows.start + h]
+                    entry.buf[k, :h, :W] = torch.from_numpy(np.ascontiguousarray(rows))
+            shipped.append(self._ship(entry, b.device))
+        return sharding.assemble((n_tile, Hb, Wb), shipped)
 
     def _unpack_frames(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
                        ys: torch.Tensor, n_tile: int, Hb: int, Wb: int,
@@ -854,8 +991,7 @@ class PixieFleet:
         n = len(items)
         specs = plan.pipeline
         n_tile = len(specs)
-        Hb = pow2_bucket(max(p.hw[0] for _, p in items), self.min_image_side)
-        Wb = pow2_bucket(max(p.hw[1] for _, p in items), self.min_image_side)
+        Hb, Wb = self._canvas_sides(plan, items)
         self.stats.padded_app_slots += n_tile - n
         self.stats.partial_tile_dispatches += 1 if n < n_tile else 0
         stage_settings = []
@@ -869,7 +1005,7 @@ class PixieFleet:
         for i, (_, p) in enumerate(items):
             hw[i] = p.hw
         hw = self._small_to_device(hw)
-        frames = self._ship_frames(items, n_tile, Hb, Wb, grid.dtype)
+        frames = self._ship_frames(fn, items, n_tile, Hb, Wb, grid.dtype)
         self._note_overlap(t0)
         self.timings["pack_s"] += time.perf_counter() - t0
 
@@ -890,7 +1026,7 @@ class PixieFleet:
         fn = self.overlay_executable(plan)
         grid = plan.grid
         n = len(items)
-        n_tile = round_up(n, self.batch_tile)
+        n_tile = round_up(n, self._app_tile)
         batch = pow2_bucket(max(p.payload.shape[-1] for _, p in items),
                             self.min_pixel_batch)
         configs = [p.cfg for _, p in items]
@@ -943,7 +1079,7 @@ class PixieFleet:
             return self.plan_for_dispatch(grid, fused=True, radius=key[2])
         if key[1] == "pipe":
             specs = [p.spec for _, p in items]
-            specs += [specs[0]] * (round_up(len(items), self.batch_tile) - len(items))
+            specs += [specs[0]] * (round_up(len(items), self._app_tile) - len(items))
             return self.plan_for_dispatch(grid, fused=True, pipeline=tuple(specs))
         return self.plan_for_dispatch(grid, fused=False)
 

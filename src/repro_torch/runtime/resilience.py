@@ -6,10 +6,10 @@ not import the reference package).  The fleet's plan-cache architecture
 (``OverlayPlan`` -> ``compile_plan``, one frozen hashable key per
 executable) is what makes *graceful degradation* cheap: when a plan keeps
 failing, the fleet re-dispatches the same work on a degraded sibling plan
-(``hopper -> torch``, tiled -> untiled; see
-:func:`repro_torch.core.plan.fallback_chain`) and the degraded executable
-is just another cache entry -- every step of the chain is bitwise-equal
-to the primary.  This module contributes the three policy pieces the
+(``hopper -> torch``, 2-D mesh -> app-only -> one device, tiled ->
+untiled; see :func:`repro_torch.core.plan.fallback_chain`) and the
+degraded executable is just another cache entry -- every step of the
+chain is bitwise-equal to the primary.  This module contributes the three policy pieces the
 fleet threads around that chain:
 
 * a typed exception hierarchy (:class:`ServiceError` and friends) shared

@@ -31,10 +31,35 @@ from repro_torch.core.dfg import DFG
 from repro_torch.core.grid import GridSpec
 from repro_torch.core.ingest import check_ingest
 from repro_torch.core.interpreter import check_backend
+from repro_torch.parallel.axes import MeshSpec
 from repro_torch.runtime.fleet import FleetRequest, PixieFleet
 from repro_torch.serve.service import (
     ImageJob, ImageService, JobHandle, LatencyStats, resolve_app,
 )
+
+
+def resolve_frontend_mesh(
+    mesh: Optional[MeshSpec], devices: Optional[int], owner: str,
+) -> Optional[MeshSpec]:
+    """The front-ends' deprecation shim for the bare device-count kwarg:
+    folds it into ``mesh=MeshSpec(app=k)`` with a warning, and refuses
+    both spellings at once."""
+    if devices is None:
+        return mesh
+    d = int(devices)
+    if d < 1:
+        raise ValueError(f"devices must be >= 1, got {devices}")
+    if mesh is not None:
+        raise ValueError(
+            "pass mesh=MeshSpec(...) or the deprecated bare device count, "
+            "not both"
+        )
+    warnings.warn(
+        f"the bare device-count kwarg of {owner} is deprecated: pass "
+        f"mesh=MeshSpec(app={d}) instead",
+        DeprecationWarning, stacklevel=3,
+    )
+    return MeshSpec(app=d)
 
 
 def build_fleet(
@@ -42,11 +67,12 @@ def build_fleet(
     backend: Optional[str],
     device: Union[str, torch.device, None],
     ingest: Optional[str] = None,
+    mesh: Optional[MeshSpec] = None,
 ) -> PixieFleet:
     """Resolve a front-end's fleet: pass-through with axis-conflict checks
     when one is provided, else a fresh fleet on the requested axes
-    (defaults: ``backend="hopper"``, ``device="cuda"``, ``ingest="sync"``).
-    Shared by the synchronous and streaming front-ends."""
+    (defaults: ``backend="hopper"``, ``device="cuda"``, ``ingest="sync"``,
+    ``MeshSpec()``).  Shared by the synchronous and streaming front-ends."""
     if backend is not None:
         check_backend(backend)
         if fleet is not None and fleet.backend != backend:
@@ -59,6 +85,11 @@ def build_fleet(
             f"device={device!r} conflicts with the provided fleet's device "
             f"{str(fleet.device)!r}; configure the PixieFleet instead"
         )
+    if mesh is not None and fleet is not None and fleet.mesh != mesh:
+        raise ValueError(
+            f"mesh={mesh} conflicts with the provided fleet's "
+            f"mesh {fleet.mesh}; configure the PixieFleet instead"
+        )
     if ingest is not None:
         check_ingest(ingest)
         if fleet is not None and fleet.ingest != ingest:
@@ -67,7 +98,7 @@ def build_fleet(
                 f"ingest {fleet.ingest!r}; configure the PixieFleet instead"
             )
     return fleet or PixieFleet(backend=backend or "hopper", device=device or "cuda",
-                               ingest=ingest or "sync")
+                               mesh=mesh, ingest=ingest or "sync")
 
 
 class FleetFrontend(ImageService):
@@ -90,8 +121,11 @@ class FleetFrontend(ImageService):
         backend: Optional[str] = None,
         device: Union[str, torch.device, None] = None,
         ingest: Optional[str] = None,
+        mesh: Optional[MeshSpec] = None,
+        devices: Optional[int] = None,
     ):
-        self.fleet = build_fleet(fleet, backend, device, ingest)
+        mesh = resolve_frontend_mesh(mesh, devices, "FleetFrontend")
+        self.fleet = build_fleet(fleet, backend, device, ingest, mesh)
         # Name -> DFG factory; defaults to the paper's application library.
         self.registry = dict(registry) if registry is not None else dict(app_lib.ALL_APPS)
         self._arrivals: Dict[int, Tuple[str, float]] = {}
@@ -209,6 +243,15 @@ class FleetFrontend(ImageService):
     @property
     def device(self) -> torch.device:
         return self.fleet.device
+
+    @property
+    def mesh(self) -> MeshSpec:
+        return self.fleet.mesh
+
+    @property
+    def devices(self) -> int:
+        """App-axis mesh width of the underlying fleet's dispatch plans."""
+        return self.fleet.devices
 
     @property
     def ingest(self) -> str:

@@ -1,8 +1,8 @@
 """Threaded continuous-batching streaming front-end with SLO scheduling.
 
-Twin of the reference package's ``serve/streaming.py`` (one device; the
-reference's mesh arguments wait for the port's multi-GPU mesh).  The
-synchronous :class:`~repro_torch.serve.fleet_frontend.FleetFrontend` only
+Twin of the reference package's ``serve/streaming.py``, mesh arguments
+included (``mesh=MeshSpec(...)`` and the deprecated bare device count
+reach the owned fleet).  The synchronous :class:`~repro_torch.serve.fleet_frontend.FleetFrontend` only
 dispatches when a caller drives it, so nothing overlaps request arrival
 with device execution and nothing bounds tail latency.  Here a worker
 thread owns a :class:`~repro_torch.runtime.fleet.PixieFleet` and
@@ -67,9 +67,10 @@ from repro_torch.core import applications as app_lib
 from repro_torch.core.dfg import DFG
 from repro_torch.core.grid import GridSpec
 from repro_torch.core.tiling import pow2_bucket
+from repro_torch.parallel.axes import MeshSpec
 from repro_torch.runtime.chaos import FaultInjector
 from repro_torch.runtime.fleet import FleetRequest, PixieFleet
-from repro_torch.serve.fleet_frontend import build_fleet
+from repro_torch.serve.fleet_frontend import build_fleet, resolve_frontend_mesh
 from repro_torch.serve.service import (
     AdmissionError, DispatchError, ImageJob, ImageService, JobHandle,
     JobTimeout, LatencyStats, resolve_app,
@@ -125,13 +126,16 @@ class StreamingFrontend(ImageService):
         max_linger_s: float = 0.002,
         backend: Optional[str] = None,
         device: Union[str, torch.device, None] = None,
+        mesh: Optional[MeshSpec] = None,
         ingest: Optional[str] = None,
+        devices: Optional[int] = None,
         autostart: bool = True,
         faults: Optional[FaultInjector] = None,
         request_timeout_s: Optional[float] = None,
         max_worker_restarts: int = 8,
     ):
-        self.fleet = build_fleet(fleet, backend, device, ingest)
+        mesh = resolve_frontend_mesh(mesh, devices, "StreamingFrontend")
+        self.fleet = build_fleet(fleet, backend, device, ingest, mesh)
         if faults is not None:
             # One injector serves BOTH layers: the fleet's hook points
             # (compile/dispatch/nan_output/transfer_stall) and the
@@ -317,6 +321,14 @@ class StreamingFrontend(ImageService):
     @property
     def device(self) -> torch.device:
         return self.fleet.device
+
+    @property
+    def mesh(self) -> MeshSpec:
+        return self.fleet.mesh
+
+    @property
+    def devices(self) -> int:
+        return self.fleet.devices
 
     @property
     def ingest(self) -> str:

@@ -5,8 +5,9 @@ Twin of the reference's ``train/step.py``.  The reference jits the step
 with the arch's sharding plan (params tensor-parallel, moments ZeRO-1)
 and donates the params and moments; here the step runs eagerly on one
 device and :func:`repro_torch.optim.adamw_update` writes the params and
-moments in place.  A sharding plan waits for the multi-GPU mesh (ROADMAP
-Queue A item 6): a ``plan`` raises, never a silent single-device run.
+moments in place.  A sharding plan waits for the LM mesh over
+``torch.distributed`` (ROADMAP Queue A item 6b): a ``plan`` raises, never
+a silent single-device run.
 """
 
 from __future__ import annotations

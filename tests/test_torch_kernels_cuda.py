@@ -737,3 +737,103 @@ def test_kernel_census_reads_b4_and_b5_on_the_card(cuda, dtype_name):
     assert b4["sass_instructions"] > 0 and b4["settings_pack_sass_instructions"] > 0
     assert b5["sass_instructions"] > 0
     assert b5["static_smem_bytes"] == 0 and b5["dynamic_smem_bytes"] == 0
+
+
+# -- the overlay mesh on the card ----------------------------------------------
+
+
+def _mesh_operands(cuda, grid, names, n, H, W, seed):
+    rng = np.random.default_rng(seed)
+    cfgs = [map_app(apps.ALL_APPS[names[i % len(names)]](), grid) for i in range(n)]
+    stacked = VCGRAConfig.stack(cfgs, device=cuda)
+    ingests = IngestPlan.stack([c.ingest for c in cfgs], grid.dtype, device=cuda)
+    frames = torch.as_tensor(rng.integers(0, 256, (n, H, W)), device=cuda).to(grid.dtype)
+    return stacked, ingests, frames
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_b1_and_b2_on_a_logical_mesh_equal_the_single_launch(cuda, dtype_name):
+    """B1 per (app, row-band) shard and B2 per app shard of a logical mesh
+    (four shards of cuda:0): bitwise the single-device launch, with one
+    launch per shard."""
+    from unittest import mock
+
+    import repro_torch.parallel.axes as axes
+    from repro_torch.core.plan import OverlayPlan, compile_plan
+    from repro_torch.parallel import MeshSpec
+
+    bits, float_pe = DTYPES[dtype_name]
+    grid = dataclasses.replace(sobel_grid(), data_bits=bits, float_pe=float_pe)
+    stacked, ingests, frames = _mesh_operands(cuda, grid, SOBEL_APPS, 6, 37, 53, 3)
+    xs = frames.reshape(6, 1, -1).expand(6, grid.num_inputs, -1).contiguous()
+    fused = OverlayPlan(grid=grid, batched=True, fused=True, radius=1, backend="hopper")
+    packed = OverlayPlan(grid=grid, batched=True, backend="hopper")
+    want = compile_plan(fused)(stacked, ingests, frames)
+    want_packed = compile_plan(packed)(stacked, xs)
+    with mock.patch.object(axes, "local_devices", lambda kind="cuda": [cuda] * 4):
+        for spec in (MeshSpec(app=2), MeshSpec(rows=2), MeshSpec(app=2, rows=2),
+                     MeshSpec(rows=4)):
+            fn = compile_plan(dataclasses.replace(fused, mesh=spec))
+            assert fn.mesh is not None
+            before = LAUNCHES["vcgra_fused_batched"]
+            assert_bitwise(fn(stacked, ingests, frames), want)
+            assert LAUNCHES["vcgra_fused_batched"] == before + spec.size
+        for spec in (MeshSpec(app=2), MeshSpec(app=4)):
+            before = LAUNCHES["vcgra_batched"]
+            got = compile_plan(dataclasses.replace(packed, mesh=spec))(stacked, xs)
+            assert_bitwise(got, want_packed)
+            assert LAUNCHES["vcgra_batched"] == before + spec.app
+
+
+def test_chain_on_a_logical_mesh_runs_b1_per_stage(cuda):
+    """A depth-3 chain on a logical (2, 2) mesh runs B1 once per stage and
+    shard, bitwise the single-device B3 chain."""
+    from unittest import mock
+
+    import repro_torch.parallel.axes as axes
+    from repro_torch.core.plan import OverlayPlan, PipelineSpec, compile_plan, replace_plan
+    from repro_torch.parallel import MeshSpec
+
+    chain = ["gauss3", "sobel_x", "threshold"]
+    demands = [level_demand(apps.ALL_APPS[n]()) for n in chain]
+    depth = max(len(d) for d in demands)
+    demands = [list(d) + [1] * (depth - len(d)) for d in demands]
+    grid = custom("pipe-shared", max(len(apps.ALL_APPS[n]().inputs) for n in chain),
+                  [max(d[lvl] for d in demands) + 1 for lvl in range(depth)], 1)
+    cfgs = [map_app(apps.ALL_APPS[n](), grid) for n in chain]
+    specs = (PipelineSpec.chain(cfgs),) * 4
+    settings = tuple((VCGRAConfig.stack([c] * 4, device=cuda),
+                      IngestPlan.stack([c.ingest] * 4, grid.dtype, device=cuda),
+                      torch.zeros(4, dtype=torch.int32, device=cuda)) for c in cfgs)
+    hw = torch.tensor([[40, 61], [33, 50], [40, 9], [1, 61]], dtype=torch.int32, device=cuda)
+    frames = torch.as_tensor(np.random.default_rng(5).integers(0, 256, (4, 40, 61)),
+                             device=cuda).to(grid.dtype)
+    plan = OverlayPlan(grid=grid, batched=True, pipeline=specs, backend="hopper")
+    before = dict(LAUNCHES)
+    want = compile_plan(plan)(settings, hw, frames)
+    assert LAUNCHES["vcgra_pipeline_batched"] == before["vcgra_pipeline_batched"] + 1
+    with mock.patch.object(axes, "local_devices", lambda kind="cuda": [cuda] * 4):
+        fn = compile_plan(replace_plan(plan, mesh=MeshSpec(app=2, rows=2)))
+        before = LAUNCHES["vcgra_fused_batched"]
+        assert_bitwise(fn(settings, hw, frames), want)
+    assert LAUNCHES["vcgra_fused_batched"] == before + 3 * 4
+
+
+def test_fleet_on_two_cards_equals_one(cuda):
+    """A real mesh over two cards, app- and row-sharded, sync and async
+    ingest: bitwise the single-card fleet, the mesh granted."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.parallel import MeshSpec
+    from repro_torch.runtime.fleet import FleetRequest, PixieFleet
+
+    rng = np.random.default_rng(41)
+    trace = [FleetRequest(app=a, image=rng.integers(0, 256, (97, 131)).astype(np.int32))
+             for a in SOBEL_APPS]
+    want = PixieFleet().run_many(trace)
+    for spec in (MeshSpec(app=2), MeshSpec(rows=2)):
+        for ingest in ("sync", "async"):
+            fleet = PixieFleet(mesh=spec, ingest=ingest)
+            assert fleet.stats.mesh_granted == spec.shape() and not fleet.stats.mesh_degraded
+            for got, w in zip(fleet.run_many(trace), want):
+                np.testing.assert_array_equal(np.asarray(got), w)
