@@ -181,6 +181,21 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    logical mesh: CUDA-event medians, unshielded and shielded, and a
    ``torch.profiler`` trace of the single-device and the (2, 2) dispatch.
 
+20. the LM mesh (no kernel of its own; a one-process NCCL group the phase
+   starts and destroys) -- (a) phase 15 (c)'s gemma-2b training setup on
+   ``make_host_mesh("cuda")`` through ``make_plan`` and the plan-based
+   ``make_train_step`` (parameters and moments DTensors laid out by the
+   plan; on one card every mesh dim is 1 wide, so every placement is
+   ``Replicate()``): 3 steps over fresh ``TokenPipeline.device_batch_at``
+   batches, each loss within 1e-5 of the no-plan step's from the same
+   state and batches, with both steps' times, launches, busy share and
+   peak memory; (c) the plan-placed parameters saved, then
+   ``restore(shardings=)`` and ``resume_or_init(shardings=)``, bitwise with
+   their placements, timed; (b) deepseek-moe-16b's MoE layer at full width
+   through ``moe_ffn_ep``'s per-shard (expert-parallel) path against
+   ``moe_ffn``; (d) the plan step on two cards where there are two (else a
+   line says why not).
+
 Then the kernel table line (each kernel also with its bf16 max error) and,
 last, ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -3514,6 +3529,232 @@ def phase_overlay_mesh(device, main_reqs, channel_requests, chain_reqs, pipe_gri
     return path_launches
 
 
+# -- phase 20: the LM mesh ---------------------------------------------------------------
+
+#: (a): the plan-based step against the no-plan step, phase 15 (c)'s setup
+#: (gemma-2b at full width and depth, float32 masters, bf16 compute,
+#: ``remat="full"``, batch 4 x 1,024, TF32 off) over fresh
+#: ``TokenPipeline`` batches; each loss within this relative gap of the
+#: no-plan step's (the CPU mesh tests' tolerance, tests/test_torch_lm_mesh.py).
+MESH_STEPS, MESH_LOSS_RTOL, MESH_LR = 3, 1e-5, 3e-4
+#: (b): deepseek-moe-16b's MoE layer at full width, float32, tokens a
+#: batch x sequence; ``moe_ffn_ep``'s per-shard path against ``moe_ffn``
+#: within tests/test_torch_lm_zoo.py's float32 tolerance (1e-5 of max(1,
+#: max |y|)) and the aux loss within the reference's 1e-6.
+MESH_MOE_ARCH, MESH_MOE_TOKENS, MESH_MOE_REL, MESH_MOE_AUX = "deepseek-moe-16b", (2, 512), \
+    1e-5, 1e-6
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_steps(step_fn, batch_fn):
+    """:data:`MESH_STEPS` timed steps (host clock, synchronized) over the
+    batches ``batch_fn(i)``, then a ``torch.profiler`` view of one more:
+    (losses, ms, profile)."""
+    import torch
+
+    losses, ms = [], []
+    for i in range(MESH_STEPS):
+        batch = batch_fn(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step_fn(batch)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    profiled = profile_steps(lambda: step_fn(batch_fn(MESH_STEPS)), steps=1, top=6)
+    return losses, ms, profiled
+
+
+def phase_lm_mesh(device, memo, card):
+    """(a) the plan-based train step on a one-card host mesh against the
+    no-plan step, (b) ``moe_ffn_ep``'s per-shard path against ``moe_ffn``,
+    (c) a sharded save, ``restore(shardings=)`` and ``resume_or_init(
+    shardings=)`` of (a)'s state, (d) two cards where there are two.  Starts
+    a one-process NCCL group and destroys it at the end."""
+    import os
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh, mesh_desc
+    from repro_torch.models import LM
+    from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_ep
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import lm_mesh, make_plan
+    from repro_torch.runtime import resume_or_init
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    os.environ["MASTER_ADDR"] = "127.0.0.1"
+    os.environ["MASTER_PORT"] = str(free_port())
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    root = ROOT / "build" / "chip_smoke_mesh_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        mesh = make_host_mesh("cuda")
+        cfg = get_arch(TRAIN_ARCH)
+        lm = LM(cfg, remat="full", loss_chunk=TRAIN_LOSS_CHUNK)
+        plan = make_plan(cfg, mesh)
+        pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=20)
+        ocfg = AdamWConfig(lr=MESH_LR, warmup_steps=0, schedule="constant")
+        runs = {}
+        for label in ("no_plan", "plan"):
+            use = plan if label == "plan" else None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, opt = init_train_state(lm, use, seed=0, device=device)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            step_fn, _ = make_train_step(lm, use, ocfg)
+            state = {"params": params, "opt": opt}
+
+            def one(batch, state=state, step_fn=step_fn):
+                state["params"], state["opt"], m = step_fn(state["params"], state["opt"], batch)
+                return m["loss"]
+
+            if use is None:
+                def batch_fn(i):
+                    return torch.as_tensor(pipe.batch_at(i), device=device)
+            else:
+                def batch_fn(i):
+                    return pipe.device_batch_at(i, mesh, plan.token_sharding().placements)
+            reset_launches()
+            losses, ms, profiled = mesh_steps(one, batch_fn)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            if launches != no_launches():
+                raise AssertionError(f"(a) {label}: training launched {launches}; its attention "
+                                     "is plain products")
+            step_ms = statistics.median(ms[1:])
+            runs[label] = {"losses": losses, "step_runs_ms": ms, "step_ms": step_ms,
+                           "init_state_s": init_s,
+                           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "kernel_launches_per_step": profiled["kernel_launches_per_step"],
+                           "device_ms_per_step": profiled["device_ms_per_step"],
+                           "device_busy_share": profiled["device_busy_share"],
+                           "device_idle_share": (None if profiled["device_ms_per_step"] is None
+                                                 else 1.0 - profiled["device_ms_per_step"]
+                                                 / step_ms),
+                           "top_kernels_ms_per_step": profiled["top_kernels_ms_per_step"]}
+            if use is None:
+                del params, opt, state
+        gaps = [abs(a - b) / abs(b) for a, b in zip(runs["plan"]["losses"],
+                                                     runs["no_plan"]["losses"])]
+        if not np.isfinite(runs["plan"]["losses"]).all() or max(gaps) > MESH_LOSS_RTOL:
+            raise AssertionError(f"(a): plan losses {runs['plan']['losses']} vs no-plan "
+                                 f"{runs['no_plan']['losses']}: gaps {gaps} over {MESH_LOSS_RTOL}")
+        placed = state["params"]
+        if not all(isinstance(t, DTensor) for t in leaves(placed)):
+            raise AssertionError("(a): the plan step's params are not DTensors on the mesh")
+        emit({"phase": "lm_mesh_train", "arch": TRAIN_ARCH, "mesh": mesh_desc(mesh),
+              "attn_mode": plan.attn_mode, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "steps": MESH_STEPS, "max_rel_gap": max(gaps), "rel_gaps": gaps,
+              "bitwise": runs["plan"]["losses"] == runs["no_plan"]["losses"],
+              "tolerance_rel": MESH_LOSS_RTOL, **runs,
+              "phase15_no_plan_step_ms": memo["step_ms"], "card": card})
+
+        # (c) the plan-placed params (and the step count) saved, restored
+        t0 = time.perf_counter()
+        tree = {"params": placed, "count": state["opt"]["count"]}
+        del state["opt"]
+        torch.cuda.empty_cache()
+        n_bytes = sum(t.numel() * t.element_size() for t in leaves(tree))
+        shardings = {"params": plan.param_shardings(placed),
+                     "count": plan.opt_shardings(placed)["count"]}
+        like = {"params": lm.abstract_params(),
+                "count": torch.empty((), dtype=torch.int32, device="meta")}
+        ck = Checkpointer(str(root))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ck.save(1, tree)
+        save_s = time.perf_counter() - t1
+
+        def held(restored, label):
+            for a, b in zip(leaves(restored), leaves(tree)):
+                if not (isinstance(a, DTensor) and a.placements == b.placements
+                        and torch.equal(a.to_local(), b.to_local())):
+                    raise AssertionError(f"(c) {label}: a leaf differs from the saved one or "
+                                         "left its placements")
+
+        t1 = time.perf_counter()
+        restored = ck.restore(1, like, shardings)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        held(restored, "restore")
+        del restored
+        t1 = time.perf_counter()
+        run = resume_or_init(ck, lambda: like, shardings=shardings)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t1
+        if not (run.resumed and run.step == 1):
+            raise AssertionError(f"(c): resume_or_init resumed={run.resumed} at {run.step}")
+        held(run.tree, "resume_or_init")
+        del run, tree, placed, state
+        torch.cuda.empty_cache()
+        ckpt = {"phase": "lm_mesh_checkpoint", "arch": TRAIN_ARCH, "leaves": "params and count",
+                "checkpoint_bytes": n_bytes, "save_s": save_s, "restore_shardings_s": restore_s,
+                "resume_or_init_shardings_s": resume_s, "bitwise": True,
+                "placements_kept": True, "seconds": time.perf_counter() - t0}
+        emit(ckpt)
+
+        # (b) moe_ffn_ep's per-shard path against moe_ffn, full width
+        moe_cfg = get_arch(MESH_MOE_ARCH)
+        gen = torch.Generator(device=device).manual_seed(20)
+        mp = init_moe(gen, moe_cfg.d_model, moe_cfg.d_ff, moe_cfg.moe, moe_cfg.mlp_type)
+        x = torch.randn((*MESH_MOE_TOKENS, moe_cfg.d_model), generator=gen, device=device)
+        want, want_aux = moe_ffn(mp, x, moe_cfg.moe, moe_cfg.mlp_type)
+        with lm_mesh(mesh):
+            got, aux = moe_ffn_ep(mp, x, moe_cfg.moe, moe_cfg.mlp_type)
+        got, aux = got.full_tensor(), aux.full_tensor()
+        tol = MESH_MOE_REL * max(1.0, float(want.abs().max()))
+        moe_err = float((got - want).abs().max())
+        aux_err = abs(float(aux) - float(want_aux))
+        if moe_err > tol or aux_err > MESH_MOE_AUX:
+            raise AssertionError(f"(b): moe_ffn_ep off by {moe_err} (tolerance {tol}), aux by "
+                                 f"{aux_err}")
+        del mp, x, want, got
+        torch.cuda.empty_cache()
+        moe = {"arch": MESH_MOE_ARCH, "experts": moe_cfg.moe.num_experts,
+               "top_k": moe_cfg.moe.top_k, "tokens": list(MESH_MOE_TOKENS),
+               "path": "expert-parallel (E % 1 == 0)", "max_abs_err": moe_err,
+               "tolerance": tol, "aux_err": aux_err, "aux_tolerance": MESH_MOE_AUX}
+        emit({"phase": "lm_mesh_moe", **moe})
+
+        # (d) two cards
+        if torch.cuda.device_count() >= 2:
+            r = subprocess.run([sys.executable, "-m", "pytest", "-q", "-m", "cuda",
+                                "tests/test_torch_kernels_cuda.py::"
+                                "test_plan_step_on_two_cards_equals_one"],
+                               cwd=ROOT, capture_output=True, text=True, timeout=600,
+                               env={**os.environ, "PYTHONPATH": str(SRC)})
+            if r.returncode != 0 or "1 passed" not in r.stdout:
+                raise AssertionError(f"(d): the two-card plan step failed:\n{r.stdout[-3000:]}")
+            two = {"ran": True, "result": r.stdout.strip().splitlines()[-1]}
+        else:
+            two = {"ran": False, "why": f"{torch.cuda.device_count()} CUDA device(s): the (1, 2) "
+                                        "mesh needs two"}
+        emit({"phase": "lm_mesh_two_cards", **two})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        dist.destroy_process_group()
+    out = {"train": runs, "max_rel_gap": max(gaps), "checkpoint": ckpt, "moe": moe,
+           "two_cards": two, "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "lm_mesh", "seconds": out["seconds"], "card": card})
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
@@ -3627,6 +3868,7 @@ def main() -> int:
     roofline_s = time.perf_counter() - t0
     mesh_launches = phase_overlay_mesh(device, main_reqs, channel_requests, chain_reqs,
                                        pipe_grid, card)
+    lm_mesh = phase_lm_mesh(device, memo, card)
 
     # Each kernel's launches come from the path it serves, counted from 0.
     launches = {"vcgra_fused_batched": main_launches["vcgra_fused_batched"],
@@ -3694,7 +3936,15 @@ def main() -> int:
           "examples_total_s": examples_s,
           "roofline_measured_over_roofline": {r["shape"]: r["measured_over_roofline"]
                                               for r in roofline},
-          "roofline_s": roofline_s})
+          "roofline_s": roofline_s,
+          "lm_mesh": {"max_rel_gap": lm_mesh["max_rel_gap"],
+                      "plan_step_ms": lm_mesh["train"]["plan"]["step_ms"],
+                      "no_plan_step_ms": lm_mesh["train"]["no_plan"]["step_ms"],
+                      "save_s": lm_mesh["checkpoint"]["save_s"],
+                      "restore_shardings_s": lm_mesh["checkpoint"]["restore_shardings_s"],
+                      "moe_max_abs_err": lm_mesh["moe"]["max_abs_err"],
+                      "two_cards_ran": lm_mesh["two_cards"]["ran"],
+                      "seconds": lm_mesh["seconds"]}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -25,7 +25,15 @@ Fault-tolerance contract (``runtime/fault_tolerance.py`` builds on this):
   next :meth:`Checkpointer.wait`;
 * restore reads every leaf and checks the count and shapes before it
   writes any, then copies them into ``like``'s tensors, in place, on their
-  devices and in their dtypes.
+  devices and in their dtypes; with ``shardings`` it places each leaf by
+  its sharding instead (a new DTensor, each rank keeping its own block).
+
+On an LM mesh (one process per card) every rank calls ``save``: a DTensor
+leaf is gathered whole (``full_tensor()``), and rank 0 alone writes.  A
+barrier after each commit (and in :meth:`Checkpointer.wait` for an async
+save) keeps every rank from reading a step rank 0 is still writing.  The
+layout on disk is the same, so a mesh's checkpoint restores on one device
+and in the reference, and back.
 
 A bf16 leaf is stored as the reference stores one: numpy has no bfloat16
 without ``ml_dtypes``, so the reference's ``np.savez`` writes its two raw
@@ -45,18 +53,33 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from repro_torch.tree import flatten_with_path, unflatten_like
+from repro_torch.parallel.sharding import is_sharding, place
+from repro_torch.tree import flatten_with_path, leaves, unflatten_like
 
 
 def _key(path) -> str:
     return "/".join(str(k) for k in path)
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _to_host(leaf) -> np.ndarray:
-    """A host copy of ``leaf`` that no later in-place update can reach."""
+    """A host copy of ``leaf`` that no later in-place update can reach (a
+    DTensor's whole value: a collective every rank joins)."""
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     leaf = leaf.detach().to("cpu", copy=True)
     if leaf.dtype == torch.bfloat16:
         return leaf.view(torch.int16).numpy().view("V2")
@@ -79,6 +102,16 @@ def _from_disk(arr: np.ndarray, dtype: str, key: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``src``, a leaf's whole value, into ``dst`` in place (a DTensor's
+    own block into its local tensor)."""
+    if isinstance(dst, DTensor):
+        block = distribute_tensor(src, dst.device_mesh, dst.placements, src_data_rank=None)
+        dst.to_local().copy_(block.to_local())
+        return dst
+    return dst.copy_(src)
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -90,16 +123,20 @@ class Checkpointer:
     # -- write ------------------------------------------------------------
 
     def save(self, step: int, tree, blocking: bool = True) -> None:
+        """Every rank calls it; rank 0 writes."""
         flat = [(_key(path), _to_host(leaf), _dtype_name(leaf))
                 for path, leaf in flatten_with_path(tree)]
         if blocking:
-            self._write(step, flat)
+            if _rank() == 0:
+                self._write(step, flat)
+            _barrier()
         else:
             self.wait()
-            self._thread = threading.Thread(
-                target=self._write_safe, args=(step, flat), daemon=True
-            )
-            self._thread.start()
+            if _rank() == 0:
+                self._thread = threading.Thread(
+                    target=self._write_safe, args=(step, flat), daemon=True
+                )
+                self._thread.start()
 
     def _write_safe(self, step: int, flat) -> None:
         try:
@@ -131,9 +168,11 @@ class Checkpointer:
         self._gc()
 
     def wait(self) -> None:
+        """Drain the async writer (every rank calls it)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
         if self._last_error is not None:
             err, self._last_error = self._last_error, None
             raise err
@@ -153,10 +192,13 @@ class Checkpointer:
                     out.append(int(name.split("_")[1]))
         return sorted(out)
 
-    def restore(self, step: int, like):
+    def restore(self, step: int, like, shardings=None):
         """Restore into ``like``, a tree of tensors: they are overwritten in
-        place, keeping their devices and dtypes, and returned in ``like``'s
-        structure."""
+        place, keeping their devices, dtypes and (a DTensor's) layouts, and
+        returned in ``like``'s structure.  With ``shardings``, a tree of
+        :class:`repro_torch.parallel.sharding.NamedSharding` in ``like``'s
+        structure, each leaf is placed by its sharding instead: a new
+        DTensor in ``like``'s dtype."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -172,21 +214,29 @@ class Checkpointer:
             if tuple(fl.shape) != tuple(t.shape):
                 raise ValueError(f"leaf {_key(path)!r}: checkpoint shape {tuple(t.shape)}, "
                                  f"target {tuple(fl.shape)}")
+        if shardings is not None:
+            return unflatten_like(like, [
+                place(t.to(fl.dtype), sh) for (_, fl), t, sh in
+                zip(flat_like, loaded, leaves(shardings, is_leaf=is_sharding))])
         with torch.no_grad():
-            return unflatten_like(like, [fl.copy_(t) for (_, fl), t in zip(flat_like, loaded)])
+            return unflatten_like(like, [_copy_into(fl, t) for (_, fl), t in
+                                         zip(flat_like, loaded)])
 
-    def restore_latest(self, like):
-        """(step, tree) from the newest readable checkpoint, or (None, None)."""
+    def restore_latest(self, like, shardings=None):
+        """(step, tree) from the newest readable checkpoint, or (None, None).
+        Every rank calls it and takes the same step."""
+        self.wait()
         for step in reversed(self.committed_steps()):
             try:
-                return step, self.restore(step, like)
+                return step, self.restore(step, like, shardings)
             except Exception:
                 continue  # torn checkpoint: fall back to the previous one
         return None, None
 
     def cleanup_tmp(self) -> int:
+        """Rank 0 deletes the uncommitted ``.tmp`` dirs; every rank calls it."""
         n = 0
-        for name in os.listdir(self.dir):
+        for name in os.listdir(self.dir) if _rank() == 0 else ():
             if name.endswith(".tmp"):
                 shutil.rmtree(os.path.join(self.dir, name), ignore_errors=True)
                 n += 1

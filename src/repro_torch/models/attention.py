@@ -18,8 +18,10 @@ bidirectional-prefix (PaliGemma-style prefix-LM over ``prefix_len``
 leading positions) on the prefill path.  Decode takes full attention, a
 window over the full cache (the window's rows gathered into a buffer of
 ``window`` rows that B7 reads), or the window kinds' ring cache
-(``attention_decode_ring``), which B7 reads as it stands.  The mesh
-constraints of the reference (``seq_shard``) are not ported.
+(``attention_decode_ring``), which B7 reads as it stands.  On an LM mesh
+``seq_shard`` shards the queries along the sequence over 'model'
+(sequence-parallel attention, the plan's 'seq' mode); off-mesh it is the
+identity.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import decode_attention
 from repro_torch.models.layers import Params, f32_matmul, rope, truncated_normal
+from repro_torch.parallel.axes import constrain
 
 NEG_INF = -2.0e38
 
@@ -117,15 +120,25 @@ def attention_train(
     prefix_len: int = 0,
     chunk_q: int = 512,
     return_kv: bool = False,
+    seq_shard: bool = False,
 ):
     """Full-sequence attention (training / prefill), query-chunked; with
-    grad enabled and more than one chunk, each chunk is rematerialised."""
+    grad enabled and more than one chunk, each chunk is rematerialised.
+
+    ``seq_shard``: sequence-parallel attention for archs whose head counts
+    don't divide the model axis -- keys and values gathered (small: G*hd a
+    token), queries sharded along the sequence over 'model', so the
+    scores are sharded on Sq with no score collectives."""
     B, S, _ = x.shape
     G = num_kv_heads
     Hg = num_heads // G
     positions = torch.arange(S, device=x.device)
 
     q, k, v = _project_qkv(params, x, G, Hg, head_dim, positions[None], rope_theta)
+    if seq_shard:
+        k = constrain(k, "batch", None, None, None)
+        v = constrain(v, "batch", None, None, None)
+        q = constrain(q, "batch", "model", None, None, None)
 
     # Query chunks of chunk_q rows, the last one ragged.  The reference
     # takes the largest divisor of S (pick_chunk), which is 1 for a prime S:
@@ -162,6 +175,8 @@ def attention_train(
         out = torch.cat(outs, dim=1)
 
     y = torch.einsum("bsghk,ghkd->bsd", out, params["wo"])
+    if seq_shard:
+        y = constrain(y, "batch", None, None)
     if return_kv:
         return y, (k, v)
     return y

@@ -14,8 +14,9 @@ hymba_g) with uniform plumbing:
 Window ("local"/"hymba") kinds keep a ring-buffer KV cache of
 ``min(window, seq)`` slots; the recurrent kinds keep float32 states.
 Decode updates every cache tensor in place and returns the same dict.
-The reference's mesh constraints (``constrain``,
-``constrain_time_mixer``) do nothing without a mesh and are not ported.
+On an LM mesh the recurrent mixers take their input batch-split over every
+divisible mesh axis (``constrain_time_mixer``: a time scan cannot use
+'model'); off-mesh that is the identity.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from repro_torch.models.layers import (
     Params, init_mlp, init_rmsnorm, log_sigmoid, mlp, promoted, rmsnorm, sigmoid, softplus,
     truncated_normal,
 )
+from repro_torch.parallel.axes import constrain_time_mixer
 
 ATTN_KINDS = ("dense", "local", "global", "moe")
 KINDS = ATTN_KINDS + ("mlstm", "slstm", "hymba", "hymba_g")
@@ -138,6 +140,9 @@ def _mlstm_seq(params, cfg: ArchConfig, h, state, return_state: bool = False):
     """mLSTM inner: up-proj, causal conv, per-head qk, chunked GLA, gate."""
     inner, H, dh = _mlstm_dims(cfg)
     B, L, _ = h.shape
+    if L > 1:
+        # recurrent chunk scan: keep S local, absorb idle axes into batch
+        h = constrain_time_mixer(h)
     up = h @ params["w_up"]
     u, z = torch.chunk(up, 2, dim=-1)
     if state is None:
@@ -183,6 +188,8 @@ def _hymba_ssm_seq(params, cfg: ArchConfig, h, state, return_state: bool = False
     inner, H, P = _hymba_dims(cfg)
     N = cfg.ssm.state_dim
     B, L, _ = h.shape
+    if L > 1:
+        h = constrain_time_mixer(h)  # chunk scan: keep S local
     xz = h @ params["ssm_in"]
     xs, z = torch.chunk(xz, 2, dim=-1)                          # [B,L,inner]
     bc = h @ params["ssm_bc"]
@@ -246,10 +253,11 @@ def _store_kv(k: torch.Tensor, cache_len: int, window: int) -> torch.Tensor:
 
 
 def _block_seq(params: Params, cfg: ArchConfig, kind: str, x: torch.Tensor, prefix_len: int,
-               chunk_q: int, cache_len=None):
+               chunk_q: int, cache_len=None, seq_shard: bool = False):
     """The full-sequence body shared by training and prefill: ``(x', aux,
     cache)``.  ``aux`` is the MoE load-balance loss (None for the other
-    kinds); the decode cache is built only when ``cache_len`` is given."""
+    kinds); the decode cache is built only when ``cache_len`` is given;
+    ``seq_shard`` is sequence-parallel attention on a mesh."""
     check_kind(kind)
     window = _window_for(cfg, kind)
     want_cache = cache_len is not None
@@ -262,6 +270,7 @@ def _block_seq(params: Params, cfg: ArchConfig, kind: str, x: torch.Tensor, pref
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
             window=window, prefix_len=prefix_len, chunk_q=chunk_q, return_kv=True,
+            seq_shard=seq_shard,
         )
         if want_cache:
             cache = {"k": _store_kv(k, cache_len, window), "v": _store_kv(v, cache_len, window)}
@@ -291,6 +300,8 @@ def _block_seq(params: Params, cfg: ArchConfig, kind: str, x: torch.Tensor, pref
 
     # slstm
     h = rmsnorm(params["ln"], x)
+    if x.shape[1] > 1:
+        h = constrain_time_mixer(h)  # time scan: keep S local
     h, (c, n, hs) = lrnn.slstm_scan(params["slstm"], h, cfg.num_heads)
     x = x + h
     h2 = mlp(params["mlp"], rmsnorm(params["ln_mlp"], x), "swiglu")
@@ -306,10 +317,11 @@ def block_train(
     x: torch.Tensor,
     prefix_len: int = 0,
     chunk_q: int = 512,
+    seq_shard: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block application.  Returns (x', aux_loss): the MoE
     kind's float32 load-balance loss, 0 for every other kind."""
-    x, aux, _ = _block_seq(params, cfg, kind, x, prefix_len, chunk_q)
+    x, aux, _ = _block_seq(params, cfg, kind, x, prefix_len, chunk_q, seq_shard=seq_shard)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -323,10 +335,11 @@ def block_prefill(
     cache_len: int,
     prefix_len: int = 0,
     chunk_q: int = 512,
+    seq_shard: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence application that also emits the decode cache (the MoE
     aux loss is dropped, as in the reference)."""
-    x, _, cache = _block_seq(params, cfg, kind, x, prefix_len, chunk_q, cache_len)
+    x, _, cache = _block_seq(params, cfg, kind, x, prefix_len, chunk_q, cache_len, seq_shard)
     return x, cache
 
 

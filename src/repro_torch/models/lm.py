@@ -29,6 +29,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -36,11 +37,8 @@ from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (
     embed, init_embedding, init_rmsnorm, rmsnorm, truncated_normal, unembed,
 )
+from repro_torch.parallel.axes import constrain
 from repro_torch.tree import tree_map
-
-#: What the mesh-only options wait for.
-MESH_ITEM = "the LM mesh over torch.distributed (ROADMAP Queue A item 6b)"
-
 
 def _block_keys(cfg: ArchConfig):
     return [f"{j}:{kind}" for j, kind in enumerate(cfg.pattern)]
@@ -95,6 +93,12 @@ def _unstack(tree, n: int) -> List[Dict]:
     return list(tree.unbind(0))
 
 
+def _vocab_sharded(logits) -> bool:
+    """Whether ``logits`` is a DTensor split along its last (vocab) dim."""
+    return isinstance(logits, DTensor) and any(
+        isinstance(p, Shard) and p.dim == logits.ndim - 1 for p in logits.placements)
+
+
 def _remat(fn):
     """``fn`` recomputed in backward instead of keeping its residuals."""
     def wrapped(*args):
@@ -110,16 +114,15 @@ class LM:
     loss_chunk: int = 512        # CE chunking along the sequence
     zloss: float = 0.0
     compute_dtype: Optional[torch.dtype] = torch.bfloat16  # None => keep f32
-    attn_seq_shard: bool = False  # mesh-only in the reference
-    seq_parallel: bool = False    # mesh-only in the reference (its default True)
+    attn_seq_shard: bool = False  # sequence-parallel attention (plan 'seq')
+    seq_parallel: bool = True     # Megatron-SP residual stream: between
+    # layers the [B, S, D] stream is sharded along S over 'model' (the
+    # dominant train-memory term); both options are the identity off-mesh
 
     def __post_init__(self):
         cfg = self.cfg
         if self.remat not in ("none", "full"):
             raise ValueError(f"remat must be 'none' or 'full', not {self.remat!r}")
-        for name in ("attn_seq_shard", "seq_parallel"):
-            if getattr(self, name):
-                raise ValueError(f"{name} shards over a mesh: it waits for {MESH_ITEM}")
         for kind in (*cfg.prefix_pattern, *cfg.pattern):
             blk.check_kind(kind)
         if cfg.modality not in ("text", "vision_stub", "audio_stub"):
@@ -153,6 +156,15 @@ class LM:
             for key, kind in zip(_block_keys(cfg), cfg.pattern)
         }
         return params
+
+    def abstract_params(self, seed: int = 0) -> Dict:
+        """The parameter tree's shapes and dtypes on ``meta``: nothing
+        allocated, nothing drawn (what a sharding plan reads)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            fake = self.init(torch.Generator().manual_seed(seed))
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
 
     def cast_params(self, params: Dict) -> Dict:
         return _cast_params(params, self.compute_dtype)
@@ -193,23 +205,33 @@ class LM:
         cfg = self.cfg
         params = self.cast_params(params)
         h, n_prefix = self._embed_inputs(params, tokens, prefix_embeds)
+        h = constrain(h, "batch", None, None)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         prefix_len = n_prefix if cfg.modality == "vision_stub" else 0
 
         def one_block(hh, p, kind):
-            return blk.block_train(p, cfg, kind, hh, prefix_len, self.chunk_q)
+            return blk.block_train(p, cfg, kind, hh, prefix_len, self.chunk_q,
+                                   self.attn_seq_shard)
 
         for p, kind in zip(params.get("prefix", ()), cfg.prefix_pattern):
             h, a = one_block(h, p, kind)
             aux = aux + a
 
-        layer = one_block
+        def sb_layer(hh, p, kind):
+            hh, a = one_block(hh, p, kind)
+            if self.seq_parallel:
+                hh = constrain(hh, "batch", "model", None)
+            return hh, a
+
+        layer = sb_layer
         if self.remat == "full" and len(cfg.pattern) > 1:
             # per-layer remat inside the superblock, as the reference's:
             # without it backward keeps a whole multi-layer body's residuals
-            layer = _remat(one_block)
+            layer = _remat(sb_layer)
 
         def sb_body(hh, ax, sb_params):
+            if self.seq_parallel:
+                hh = constrain(hh, "batch", "model", None)
             for key, kind in zip(_block_keys(cfg), cfg.pattern):
                 hh, a = layer(hh, sb_params[key], kind)
                 ax = ax + a
@@ -218,6 +240,7 @@ class LM:
         body = _remat(sb_body) if self.remat == "full" else sb_body
         for sb_params in _unstack(params["blocks"], cfg.n_superblocks):
             h, aux = body(h, aux, sb_params)
+        h = constrain(h, "batch", None, None)
         h = rmsnorm(params["final_norm"], h)
         return h, aux, n_prefix
 
@@ -243,8 +266,16 @@ class LM:
 
         def ce_chunk(hc, lc):
             logits = unembed(params["embed"], hc)           # f32 [B, c, V]
+            # keep the vocab shard on a mesh: no [B, c, V] all-gather
+            logits = constrain(logits, "batch", None, "model")
             lse = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, lc[..., None])[..., 0]
+            if _vocab_sharded(logits):
+                # the reference's one-hot pick: a partial sum over the
+                # sharded vocab dim, where a gather has no sharding rule
+                vocab = torch.arange(logits.shape[-1], device=lc.device)
+                gold = (logits * (lc[..., None] == vocab).to(logits.dtype)).sum(dim=-1)
+            else:
+                gold = logits.gather(-1, lc[..., None])[..., 0]
             return (lse - gold).sum() + lse.square().sum() * self.zloss
 
         # remat: backward recomputes each chunk's [B, c, V] logits instead of
@@ -277,6 +308,10 @@ class LM:
         }
         return cache
 
+    def abstract_cache(self, batch: int, seq: int) -> Dict:
+        """The decode cache's shapes and dtypes on ``meta``."""
+        return self.init_cache(batch, seq, device="meta")
+
     def prefill(
         self,
         params: Dict,
@@ -298,7 +333,7 @@ class LM:
             pcs = []
             for p, kind in zip(params["prefix"], cfg.prefix_pattern):
                 h, c = blk.block_prefill(p, cfg, kind, h, cache_len, prefix_len,
-                                         chunk_q=self.chunk_q)
+                                         self.chunk_q, self.attn_seq_shard)
                 pcs.append(c)
             cache["prefix"] = tuple(pcs)
 
@@ -307,7 +342,7 @@ class LM:
             for key, kind in zip(_block_keys(cfg), cfg.pattern):
                 sb = tree_map(lambda leaf: leaf[i], params["blocks"][key])
                 h, c = blk.block_prefill(sb, cfg, kind, h, cache_len, prefix_len,
-                                         chunk_q=self.chunk_q)
+                                         self.chunk_q, self.attn_seq_shard)
                 per_layer[key].append(c)
         cache["blocks"] = {
             key: {name: torch.stack([c[name] for c in cs]) for name in cs[0]}

@@ -18,17 +18,26 @@ Dispatch is scatter-based (no [T, E, C] one-hot tensor, no global sort):
 
 An auxiliary load-balance loss (Switch-style) is returned beside the
 output, as in the reference.
+
+On an LM mesh :func:`moe_ffn_ep` is the expert-parallel path, the twin of
+the reference's ``shard_map``: each rank dispatches its own data shard's
+tokens locally (no collective), computes its experts (or its slice of
+every expert's hidden dim), and one all-reduce over 'model' sums the
+partial outputs (:func:`_moe_local`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import Params, _gelu, init_mlp, mlp, truncated_normal
+from repro_torch.parallel.axes import ambient_mesh, axis_sizes, constrain, placements
 
 
 def init_moe(generator: torch.Generator, d: int, f: int, moe: MoEConfig,
@@ -73,6 +82,7 @@ def dispatch(expert_ids: torch.Tensor, E: int, C: int) -> Tuple[torch.Tensor, to
     expert, in token order; whether it fits the capacity ``C``)."""
     flat_ids = expert_ids.reshape(-1)
     onehot = F.one_hot(flat_ids, E).to(torch.int32)            # [T*k, E]
+    onehot = constrain(onehot, "batch", None)                  # rows ~ tokens
     pos_all = torch.cumsum(onehot, dim=0) - 1                  # exclusive count
     pos = pos_all.gather(1, flat_ids[:, None])[:, 0]
     return pos, pos < C
@@ -112,8 +122,15 @@ def moe_ffn(
     # dropped ones go to one spare row past the buffer (the reference's
     # out-of-range index under mode="drop"), with no host sync.
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
-    buf[torch.where(keep, slot, E * C)] = xt[token_idx]
+    buf[torch.where(keep, slot, E * C)] = constrain(xt[token_idx], "batch", None)
     buf = buf[:E * C].reshape(E, C, D)
+
+    # Shard the dispatch buffer: experts over 'model' (EP) when divisible,
+    # capacity over 'data' always, as the reference constrains it.
+    mesh = ambient_mesh()
+    if mesh is not None:
+        m = axis_sizes(mesh).get("model")
+        buf = constrain(buf, "model" if m and E % m == 0 else None, "batch", None)
 
     # Batched expert FFN.
     act = F.silu if mlp_type == "swiglu" else _gelu
@@ -123,11 +140,100 @@ def moe_ffn(
 
     # Gather back and combine the k expert outputs per token.
     out_flat = torch.where(keep[:, None], eo.reshape(E * C, D)[slot], 0.0)   # [T*k, D]
+    out_flat = constrain(out_flat, "batch", None)
     combined = (out_flat.reshape(T, k, D) * gate_vals[..., None].to(x.dtype)).sum(dim=1)
 
     if "shared" in params:
         combined = combined + mlp(params["shared"], xt, mlp_type)
     return combined.reshape(B, S, D), aux
+
+
+# -- expert parallelism on an LM mesh -----------------------------------------------
+#
+# A scatter has no sharding rule worth having (the reference measured GSPMD
+# replicating the [E, C, D] buffer), so the mesh path dispatches *locally
+# per data shard*, as the reference's shard_map does:
+#
+#   * routing + scatter run on each rank's data shard of the tokens,
+#     replicated over 'model' (identical cheap compute, no collective);
+#   * expert FFN: experts sharded over 'model' when E % |model| == 0 (each
+#     rank owns E/|model| experts and masks the rest), otherwise the FFN
+#     hidden dim is sharded (F-parallel fallback);
+#   * one all-reduce over 'model' sums the partial token outputs, and the
+#     aux loss's two means are averaged over the data axes.
+
+
+def _moe_local(
+    xt: torch.Tensor,            # [T_loc, D] this data-shard's tokens
+    router: torch.Tensor,        # [D, E] replicated
+    wg: torch.Tensor,            # [E_loc, D, F] or [E, D, F_loc]
+    wu: torch.Tensor,
+    wd: torch.Tensor,            # [E_loc, F, D] or [E, F_loc, D]
+    moe: MoEConfig,
+    mlp_type: str,
+    m_idx: int,                  # this rank's index on 'model' (EP only)
+    ep: bool,                    # True: experts sharded over 'model'
+    dropless: bool,
+):
+    """One rank's share: ``(partial output [T_loc, D], me [E], ce [E])``,
+    the output a partial sum over 'model', ``me``/``ce`` the aux loss's
+    per-expert means over this shard's tokens."""
+    T, D = xt.shape
+    E, k = moe.num_experts, moe.top_k
+
+    logits = (xt @ router).float()
+    probs, gate_vals, expert_ids = route(logits, k)
+    me = probs.mean(dim=0)
+    ce = torch.zeros((E,), dtype=torch.float32, device=xt.device).index_add(
+        0, expert_ids.reshape(-1),
+        torch.ones((T * k,), dtype=torch.float32, device=xt.device)) / (T * k)
+
+    C = capacity(T, moe, dropless)
+    if ep:
+        E_loc = wg.shape[0]
+        local = (expert_ids // E_loc) == m_idx                  # my experts only
+        eff_ids = torch.where(local, expert_ids % E_loc, E_loc)  # E_loc = drop
+        n_buckets = E_loc
+    else:
+        local = torch.ones_like(expert_ids, dtype=torch.bool)
+        eff_ids = expert_ids
+        n_buckets = E
+
+    flat_ids = eff_ids.reshape(T * k)
+    pos, fits = dispatch(eff_ids, n_buckets + 1, C)             # + the drop bucket
+    keep = fits & local.reshape(T * k)
+
+    slot = torch.where(keep, flat_ids * C + pos, n_buckets * C)
+    token_idx = torch.arange(T, device=xt.device).repeat_interleave(k)
+    # each kept slot is written once; the dropped ones go to the spare row
+    buf = torch.zeros((n_buckets * C + 1, D), dtype=xt.dtype, device=xt.device)
+    buf[slot] = xt[token_idx]
+    buf = buf[:n_buckets * C].reshape(n_buckets, C, D)
+
+    act = F.silu if mlp_type == "swiglu" else _gelu
+    g = act(torch.bmm(buf, wg))
+    u = torch.bmm(buf, wu)
+    eo = torch.bmm(g * u, wd)                                   # [buckets, C, D]
+
+    out_flat = torch.where(keep[:, None], eo.reshape(-1, D)[torch.clamp_max(
+        slot, n_buckets * C - 1)], 0.0)
+    combined = (out_flat.reshape(T, k, D) * gate_vals[..., None].to(xt.dtype)).sum(dim=1)
+    return combined, me, ce
+
+
+def _local(t, mesh, spec: Sequence) -> torch.Tensor:
+    """This rank's block of ``t`` laid out as ``spec`` (a plain tensor is
+    every rank's same full value).  Its grad is a partial sum over every
+    mesh dim the block is replicated on: the ranks there compute with
+    other tokens (over 'data') or other experts or hidden units (over
+    'model')."""
+    want = placements(tuple(spec), mesh)
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    if tuple(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    return t.to_local(grad_placements=[Partial() if isinstance(p, Replicate) else p
+                                       for p in want])
 
 
 def moe_ffn_ep(
@@ -137,7 +243,56 @@ def moe_ffn_ep(
     mlp_type: str,
     dropless: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's expert-parallel MoE (``shard_map`` over a mesh)
-    falls back to ``moe_ffn`` when there is no mesh.  The port has no LM
-    mesh yet (ROADMAP Queue A item 6b), so this is ``moe_ffn``."""
-    return moe_ffn(params, x, moe, mlp_type, dropless=dropless)
+    """Expert-parallel MoE on the ambient LM mesh; ``moe_ffn`` where the
+    reference falls back: no mesh or no 'model' axis, a batch that does
+    not split over the data axes, or neither the experts nor the hidden
+    dim splitting over 'model'."""
+    mesh = ambient_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return moe_ffn(params, x, moe, mlp_type, dropless=dropless)
+    names = mesh.mesh_dim_names
+    sizes = axis_sizes(mesh)
+    m = sizes["model"]
+    daxes = tuple(a for a in ("pod", "data") if a in names)
+    B, S, D = x.shape
+    n_data = math.prod(sizes[a] for a in daxes)
+    if B % n_data != 0:
+        return moe_ffn(params, x, moe, mlp_type, dropless=dropless)
+    ep = moe.num_experts % m == 0
+    F_ = params["w_gate"].shape[-1]
+    if not ep and F_ % m != 0:
+        return moe_ffn(params, x, moe, mlp_type, dropless=dropless)
+
+    lead = (daxes if len(daxes) > 1 else daxes[0]) if daxes else None
+    w_spec = ("model", None, None) if ep else (None, None, "model")
+    wd_spec = ("model", None, None) if ep else (None, "model", None)
+    xb = _local(x, mesh, (lead, None, None))
+    T_loc = xb.shape[0] * xb.shape[1]
+    y_loc, me, ce = _moe_local(
+        xb.reshape(T_loc, D), _local(params["router"], mesh, (None, None)),
+        _local(params["w_gate"], mesh, w_spec), _local(params["w_up"], mesh, w_spec),
+        _local(params["w_down"], mesh, wd_spec), moe, mlp_type,
+        mesh.get_local_rank("model"), ep, dropless)
+
+    # the psum over 'model' (partial outputs), and pmean over the data axes
+    def on_mesh(local, dims):
+        placed = [Replicate()] * mesh.ndim
+        for a, p in dims.items():
+            placed[names.index(a)] = p
+        t = DTensor.from_local(local, mesh, placed, run_check=False)
+        return t.redistribute(mesh, [Shard(0) if isinstance(p, Shard) else Replicate()
+                                     for p in placed])
+
+    y = on_mesh(y_loc.reshape(xb.shape), {**{a: Shard(0) for a in daxes}, "model": Partial()})
+    # every 'model' rank holds the same me: each adds its 1/|model| share,
+    # so the grad reaching the router counts the aux loss once
+    every = {a: Partial() for a in (*daxes, "model")}
+    me = on_mesh(me / (n_data * m), every)
+    ce = on_mesh(ce / n_data, {a: Partial() for a in daxes})
+    aux = moe.router_aux_weight * moe.num_experts * torch.sum(me * ce)
+    if "shared" in params:
+        shared = mlp(params["shared"], x, mlp_type)
+        if not isinstance(shared, DTensor):     # plain operands: every rank's same value
+            shared = DTensor.from_local(shared, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        y = y + shared
+    return y, aux

@@ -11,6 +11,11 @@ order (``tree.flatten_with_path``): the float32 sum of :func:`global_norm`
 and the decay mask's paths follow the reference's.  The step, the
 warmup, the cosine and the bias corrections are float32 tensors, as the
 reference's are.
+
+On an LM mesh the leaves are DTensors: the norm sums every shard (a
+partial sum reduced once), and a ZeRO-1 moment sharded over 'data' where
+its parameter is not takes the grad in its own layout, then the update
+goes back to the parameter's (``redistribute_like``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.parallel.axes import redistribute_like
 from repro_torch.tree import flatten_with_path, leaves, tree_map
 
 
@@ -106,14 +112,14 @@ def adamw_update(
                                   leaves(state["m"]), leaves(state["v"])):
         # the reference's expressions, one rounding an operation, with at
         # most three leaf-sized temporaries at a time
-        gf = g.float() * scale
+        gf = redistribute_like(g.float() * scale, m)
         m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
         del gf
         upd = torch.sqrt(v / b2c).add_(cfg.eps)
         upd = (m / b1c).div_(upd)
         if cfg.weight_decay and _decay_mask(path, p):
-            upd.add_(cfg.weight_decay * p.float())
-        p.copy_(p.float() - lr * upd)
+            upd.add_(cfg.weight_decay * redistribute_like(p.float(), upd))
+        p.copy_(p.float() - lr * redistribute_like(upd, p))
     state["count"] = count
     return params, state, {"lr": lr, "grad_norm": gnorm, "clip_scale": scale}

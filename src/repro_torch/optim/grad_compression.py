@@ -4,7 +4,8 @@ Twin of the reference's ``optim/grad_compression.py``, bitwise: before the
 data-parallel all-reduce, gradients are quantised to int8 with a
 per-tensor scale; the quantisation error is kept locally and added back
 into the next step's gradient (error feedback).  ``torch.round``, like
-``jnp.round``, rounds half to even.
+``jnp.round``, rounds half to even.  On an LM mesh a leaf is a DTensor and
+its scale the max over the whole leaf, every shard's.
 
     comp, new_err = compress(grads, err)      # int8 tree + carried error
     grads2        = decompress(comp)          # dequantised

@@ -1,28 +1,39 @@
-"""The overlay device mesh: where the shards of a batched dispatch run.
+"""Device meshes: the LM's sharding constraints and the overlay's
+placement of a batched dispatch.
 
-Twin of the overlay half of the reference package's ``parallel/axes.py``
-(the LM sharding constraints come with the LM mesh, ROADMAP Queue A item
-6b).  :class:`MeshSpec` is the device-placement axis of an
-``OverlayPlan``: ``app`` shards the leading app (N) axis of a batched
-dispatch, ``rows`` shards the pixel rows of fused frames into contiguous
-bands whose ``radius``-wide seam halos come from the neighbour band
-(:func:`halo_exchange_rows`), so one frame can span devices.
+Twin of the reference package's ``parallel/axes.py``.
 
-The reference runs its mesh as one SPMD program (``shard_map``) in one
-process.  The port keeps the single controller: one process and one host
-thread issue every shard's launches, each shard inside
+**The LM mesh** is a ``torch.distributed.device_mesh.DeviceMesh`` with the
+reference's axis names (``("data", "model")`` or ``("pod", "data",
+"model")``), one process per card.  :func:`lm_mesh` makes one ambient, as
+the reference's ``with mesh:`` does; then ``constrain(x, "batch", None,
+"model")`` redistributes a DTensor ``x`` to the placements those logical
+axes name (``"batch"`` is ``("pod", "data")``), the twin of
+``with_sharding_constraint``.  Off-mesh, or on a plain tensor, it is the
+identity, so model code can sprinkle constraints freely.
+
+**The overlay mesh** (:class:`MeshSpec`, :class:`Mesh`) places the shards
+of a batched image dispatch.  :class:`MeshSpec` is the device-placement
+axis of an ``OverlayPlan``: ``app`` shards the leading app (N) axis of a
+batched dispatch, ``rows`` shards the pixel rows of fused frames into
+contiguous bands whose ``radius``-wide seam halos come from the neighbour
+band (:func:`halo_exchange_rows`), so one frame can span devices.
+
+The reference runs its overlay mesh as one SPMD program (``shard_map``) in
+one process.  The port keeps the single controller: one process and one
+host thread issue every shard's launches, each shard inside
 ``torch.cuda.device(d)`` on that device's current stream.  An operand
 chunk or a neighbour's edge rows reach another card by a peer copy
 (``Tensor.to(d, non_blocking=True)``), which PyTorch orders against the
 current streams of both devices; between two shards of one device it is
 no copy at all.
 
-:func:`local_devices` is the one place a mesh learns what the host has.
-Tests replace it by ``[cpu] * 4`` (and the chip smoke by ``[cuda:0] *
-4``) to run a *logical* mesh of several shards on one device, the twin of
-the reference CI's forced host device count.  ``build_mesh`` returns
-``None`` when the host has fewer devices than the spec asks for: callers
-fall back to the single-device path, which is bitwise identical.
+:func:`local_devices` is the one place an overlay mesh learns what the
+host has.  Tests replace it by ``[cpu] * 4`` (and the chip smoke by
+``[cuda:0] * 4``) to run a *logical* mesh of several shards on one device,
+the twin of the reference CI's forced host device count.  ``build_mesh``
+returns ``None`` when the host has fewer devices than the spec asks for:
+callers fall back to the single-device path, which is bitwise identical.
 
 Every sharded result is bitwise equal to the single-device run: the
 per-app work is independent along N, a ``band + 2r``-row slab whose
@@ -35,10 +46,138 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+# -- the LM mesh: ambient mesh, spec placements, logical-axis constraints -------
+
+_AMBIENT = threading.local()
+
+
+@contextlib.contextmanager
+def lm_mesh(mesh):
+    """``mesh`` (a ``DeviceMesh``) ambient for the calling thread, as the
+    reference's ``with mesh:``; nests."""
+    stack = _AMBIENT.__dict__.setdefault("meshes", [])
+    stack.append(mesh)
+    try:
+        yield mesh
+    finally:
+        stack.pop()
+
+
+def ambient_mesh():
+    """The innermost :func:`lm_mesh` of the calling thread, or None off-mesh."""
+    stack = getattr(_AMBIENT, "meshes", None)
+    return stack[-1] if stack else None
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size, of a ``DeviceMesh`` (``mesh_dim_names`` and a
+    shape tuple) or of a shape-only mesh (``axis_names`` and a shape
+    dict, as the reference's ``Mesh`` has)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return {a: mesh.shape[a] for a in mesh.axis_names}
+
+
+def placements(spec: Sequence, mesh) -> tuple:
+    """``spec`` as DTensor placements over ``mesh`` (a ``DeviceMesh`` with
+    axis names): ``Shard(d)`` on every mesh dim that tensor dim ``d``
+    names, ``Replicate()`` on the others.  A dim named by several mesh
+    dims is split over them major first, as ``PartitionSpec`` splits it,
+    so their order in the spec must be the mesh's.  A mesh dim of size 1
+    holds the whole tensor, so it replicates (DTensor's view rules cannot
+    keep a shard on a size-1 tensor dim, which such a mesh dim allows)."""
+    names = tuple(mesh.mesh_dim_names)
+    sizes = tuple(mesh.shape)
+    out = [Replicate()] * len(names)
+    named = set()
+    for d, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        axes = tuple(a for a in axes if a is not None)
+        order = [names.index(a) for a in axes if a in names]
+        if order != sorted(order):
+            raise ValueError(f"spec {spec}: dim {d} names mesh axes {axes} out of the mesh's "
+                             f"order {names}")
+        for i in order:
+            if i in named:
+                raise ValueError(f"spec {spec}: mesh axis {names[i]!r} named twice")
+            named.add(i)
+            if sizes[i] > 1:
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+def _resolve(logical: Optional[str], names: Sequence[str]):
+    if logical is None:
+        return None
+    if logical == "batch":
+        axes = tuple(a for a in ("pod", "data") if a in names)
+        if not axes:
+            return None
+        return axes if len(axes) > 1 else axes[0]
+    return logical if logical in names else None
+
+
+def _redistribute(x: DTensor, spec) -> DTensor:
+    want = placements(spec, x.device_mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def constrain(x, *logical_axes: Optional[str]):
+    """``x`` laid out as the logical axes say, one per dim (None:
+    replicated): the twin of ``with_sharding_constraint``.  The identity
+    off-mesh and for a plain tensor."""
+    mesh = ambient_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    if len(logical_axes) != x.ndim:
+        raise ValueError(f"spec {logical_axes} vs rank {x.ndim}")
+    names = mesh.mesh_dim_names
+    return _redistribute(x, tuple(_resolve(a, names) for a in logical_axes))
+
+
+def redistribute_like(x, ref):
+    """``x`` laid out as ``ref`` is, where ``ref`` is a DTensor (an
+    in-place update keeps its target's layout, so the operand must take
+    it first); otherwise ``x`` itself."""
+    if isinstance(ref, DTensor) and isinstance(x, DTensor) and x.placements != ref.placements:
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
+
+def constrain_time_mixer(x):
+    """Batch-split a recurrent mixer's input over EVERY divisible mesh axis.
+
+    Recurrent scans (sLSTM steps, GLA chunks) cannot parallelise over
+    'model', so the model axis would sit idle computing replicas; instead
+    the batch dim absorbs it as extra data parallelism where divisibility
+    allows."""
+    mesh = ambient_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    sizes = axis_sizes(mesh)
+    axes = []
+    prod = 1
+    for a in ("pod", "data", "model"):
+        if a in sizes and x.shape[0] % (prod * sizes[a]) == 0:
+            axes.append(a)
+            prod *= sizes[a]
+    if not axes:
+        return x
+    return _redistribute(x, (tuple(axes) if len(axes) > 1 else axes[0],
+                             *([None] * (x.ndim - 1))))
+
+
+# -- the overlay mesh -----------------------------------------------------------
 
 APP_AXIS = "app"
 ROW_AXIS = "rows"

@@ -5,7 +5,8 @@ Twin of the reference package's ``runtime/fault_tolerance.py``:
 * ``RunState`` + ``resume_or_init``: crash-restart protocol on top of the
   atomic checkpointer -- a restarted job resumes from the newest committed
   step; torn/partial checkpoints are skipped and garbage-collected.
-  ``train/loop.py`` runs it.
+  ``train/loop.py`` runs it.  On an LM mesh every rank runs it, and
+  ``shardings`` places each restored leaf over the mesh.
 * ``HeartbeatMonitor``: wall-clock duration tracker with a robust
   (median * k) straggler threshold.  The training loop feeds it every
   step's wall time; ``PixieFleet._settle_flush`` every flush's, and a
@@ -15,10 +16,6 @@ Twin of the reference package's ``runtime/fault_tolerance.py``:
 * ``ElasticPlan``: DEPRECATED, as in the reference.  It plans LM-style
   (data, model) meshes that nothing here dispatches.  For degrading a
   *serving* plan, use :func:`repro_torch.core.plan.fallback_chain`.
-
-The reference's ``shardings`` arguments place restored leaves over the LM
-mesh, which the port does not have yet (ROADMAP Queue A item 6b; the
-overlay mesh of ``parallel/axes.py`` shards image dispatches only).
 """
 
 from __future__ import annotations
@@ -44,19 +41,21 @@ def resume_or_init(
     ckpt: Checkpointer,
     init_fn: Callable[[], object],
     like=None,
+    shardings=None,
 ) -> RunState:
     """Restart protocol: newest committed checkpoint wins; otherwise init.
     Without ``like``, ``init_fn()``'s tree is the template the checkpoint
-    is restored into."""
+    is restored into; ``shardings`` (``NamedSharding`` trees in the
+    template's structure) places the restored leaves over an LM mesh."""
     ckpt.cleanup_tmp()
     template = like
     if template is None:
         template = init_fn()
-        step, tree = ckpt.restore_latest(template)
+        step, tree = ckpt.restore_latest(template, shardings)
         if step is None:
             return RunState(step=0, tree=template, resumed=False)
         return RunState(step=step, tree=tree, resumed=True)
-    step, tree = ckpt.restore_latest(template)
+    step, tree = ckpt.restore_latest(template, shardings)
     if step is None:
         return RunState(step=0, tree=init_fn(), resumed=False)
     return RunState(step=step, tree=tree, resumed=True)

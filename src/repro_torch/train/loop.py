@@ -11,7 +11,9 @@ Twin of the reference's ``train/loop.py``, with the same protocol:
 
 Parameters are drawn from a ``torch.Generator`` seeded with
 ``LoopConfig.seed`` on ``device`` (the card unless the caller asks for the
-CPU).
+CPU).  With a ``plan`` every rank of the plan's mesh runs the loop: the
+state is laid out by the plan, each step's batch comes from
+``TokenPipeline.device_batch_at`` and the step is the plan-based one.
 """
 
 from __future__ import annotations
@@ -26,9 +28,9 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.core.interpreter import check_device
 from repro_torch.data import TokenPipeline
 from repro_torch.models.lm import LM
-from repro_torch.optim import AdamWConfig, init_opt_state
+from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import HeartbeatMonitor, resume_or_init
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import init_train_state, make_train_step
 
 
 @dataclasses.dataclass
@@ -55,8 +57,8 @@ def train_loop(
     device = check_device(device)
 
     def init_fn():
-        params = lm.init(torch.Generator(device=device).manual_seed(loop_cfg.seed))
-        return {"params": params, "opt": init_opt_state(params)}
+        params, opt = init_train_state(lm, plan, loop_cfg.seed, device)
+        return {"params": params, "opt": opt}
 
     ckpt = Checkpointer(loop_cfg.ckpt_dir) if loop_cfg.ckpt_dir else None
     if ckpt is not None:
@@ -72,7 +74,10 @@ def train_loop(
     last_saved = start if ckpt is not None else None
 
     for step in range(start, loop_cfg.steps):
-        batch = torch.as_tensor(pipeline.batch_at(step), device=device)
+        if plan is None:
+            batch = torch.as_tensor(pipeline.batch_at(step), device=device)
+        else:
+            batch = pipeline.device_batch_at(step, plan.mesh, plan.token_sharding().placements)
         pe = None
         if prefix_embed_fn is not None:
             pe = torch.as_tensor(prefix_embed_fn(step), device=device)

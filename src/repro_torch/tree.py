@@ -12,33 +12,41 @@ positional ``a{i}`` arrays, the float32 sum of ``optim.global_norm``
 
 from __future__ import annotations
 
-from typing import Any, Iterable, List, Tuple
+from typing import Any, Callable, Iterable, List, Optional, Tuple
 
 Path = Tuple[Any, ...]   # dict keys (str) and sequence indexes (int)
 
 
-def tree_map(fn, tree):
-    """``fn`` on every leaf of a tree of dicts, tuples and lists."""
+def tree_map(fn, tree, is_leaf: Optional[Callable[[Any], bool]] = None):
+    """``fn`` on every leaf of a tree of dicts, tuples and lists; a node
+    for which ``is_leaf`` holds is a leaf (a sharding spec is a tuple)."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
     return fn(tree)
 
 
-def flatten_with_path(tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
+def flatten_with_path(tree, prefix: Path = (),
+                      is_leaf: Optional[Callable[[Any], bool]] = None) -> List[Tuple[Path, Any]]:
     """``(path, leaf)`` pairs in JAX's flatten order: a dict's keys
     sorted, a tuple's or list's items in order."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
     if isinstance(tree, dict):
-        return [pair for k in sorted(tree) for pair in flatten_with_path(tree[k], prefix + (k,))]
+        return [pair for k in sorted(tree)
+                for pair in flatten_with_path(tree[k], prefix + (k,), is_leaf)]
     if isinstance(tree, (tuple, list)):
-        return [pair for i, v in enumerate(tree) for pair in flatten_with_path(v, prefix + (i,))]
+        return [pair for i, v in enumerate(tree)
+                for pair in flatten_with_path(v, prefix + (i,), is_leaf)]
     return [(prefix, tree)]
 
 
-def leaves(tree) -> list:
+def leaves(tree, is_leaf: Optional[Callable[[Any], bool]] = None) -> list:
     """The leaves in JAX's flatten order."""
-    return [leaf for _, leaf in flatten_with_path(tree)]
+    return [leaf for _, leaf in flatten_with_path(tree, is_leaf=is_leaf)]
 
 
 def unflatten_like(like, new_leaves: Iterable):

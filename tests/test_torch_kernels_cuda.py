@@ -837,3 +837,123 @@ def test_fleet_on_two_cards_equals_one(cuda):
             assert fleet.stats.mesh_granted == spec.shape() and not fleet.stats.mesh_degraded
             for got, w in zip(fleet.run_many(trace), want):
                 np.testing.assert_array_equal(np.asarray(got), w)
+
+
+# -- the LM mesh on the card ------------------------------------------------------------
+
+MESH_LR = 1e-3
+
+
+def _mesh_step_case(device, mesh, steps=2):
+    """(losses of the plan step, losses of the no-plan step, the plan's
+    params as full tensors, the no-plan params): reduced gemma-2b, float32
+    compute, from one seed and over the same ``device_batch_at`` batches."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import make_plan
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = reduced(ARCHS["gemma-2b"])
+    lm = LM(cfg, chunk_q=16, loss_chunk=20, compute_dtype=None)
+    plan = make_plan(cfg, mesh)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=48, global_batch=4, seed=3)
+    ocfg = AdamWConfig(lr=MESH_LR, warmup_steps=0)
+    step, _ = make_train_step(lm, plan, ocfg)
+    one_step, _ = make_train_step(lm, None, ocfg)
+    p, o = init_train_state(lm, plan, device=device)
+    q, r = init_train_state(lm, None, device=device)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    losses, one_losses = [], []
+    try:
+        for i in range(steps):
+            p, o, m = step(p, o, pipe.device_batch_at(i, mesh, plan.token_sharding().placements))
+            q, r, n = one_step(q, r, torch.as_tensor(pipe.batch_at(i), device=device))
+            losses.append(float(m["loss"]))
+            one_losses.append(float(n["loss"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    full = [t.full_tensor() if isinstance(t, DTensor) else t for t in leaves(p)]
+    return losses, one_losses, full, leaves(q)
+
+
+def _assert_mesh_step(losses, one_losses, params, one_params):
+    np.testing.assert_allclose(losses, one_losses, rtol=1e-5)
+    for got, want in zip(params, one_params):
+        tol = 1e-4 * float(want.abs().max()) + 0.05 * MESH_LR
+        assert float((got.float().cpu() - want.float().cpu()).abs().max()) <= tol
+
+
+def test_plan_step_on_the_card_equals_no_plan(cuda):
+    """``make_host_mesh("cuda")`` (a one-process NCCL group), the plan-based
+    step of reduced gemma-2b against the no-plan step over two fresh
+    ``device_batch_at`` batches: losses relative 1e-5, params within 1e-4
+    of their largest element plus 5% of the learning rate (the CPU mesh
+    tests' tolerances)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    started = not dist.is_initialized()
+    try:
+        _assert_mesh_step(*_mesh_step_case(cuda, make_host_mesh("cuda")))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _two_card_worker(rank: int, port: int, out: str) -> None:
+    """One rank of a ``(1, 2)`` ``("data", "model")`` NCCL mesh over two
+    cards; rank 0 saves the plan step's and the one-card step's results."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    try:
+        mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+        losses, one_losses, params, one_params = _mesh_step_case(torch.device("cuda", rank),
+                                                                 mesh)
+        if rank == 0:
+            np.savez(out, losses=losses, one_losses=one_losses,
+                     **{f"p{i}": t.float().cpu().numpy() for i, t in enumerate(params)},
+                     **{f"q{i}": t.float().cpu().numpy() for i, t in enumerate(one_params)})
+    finally:
+        dist.destroy_process_group()
+
+
+def test_plan_step_on_two_cards_equals_one(cuda, tmp_path):
+    """The plan step on a real two-card ``(1, 2)`` mesh (tensor-parallel over
+    'model', NCCL, one process a card) equals the one-card step."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    root = Path(__file__).resolve().parents[1]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = tmp_path / "two_cards.npz"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(root / "src"), str(root / "tests")])}
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               f"import test_torch_kernels_cuda as m; "
+                               f"m._two_card_worker({r}, {port}, {str(out)!r})"],
+                              cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs[0][-3000:] + logs[1][-3000:]
+    data = np.load(out)
+    n = len([k for k in data.files if k.startswith("p")])
+    _assert_mesh_step(data["losses"], data["one_losses"],
+                      [torch.from_numpy(data[f"p{i}"]) for i in range(n)],
+                      [torch.from_numpy(data[f"q{i}"]) for i in range(n)])

@@ -1,0 +1,597 @@
+"""The LM mesh on four CPU processes: a ``(2, 2)`` ``("data", "model")``
+``DeviceMesh`` over gloo, held to the port's one-device runs and to the
+reference's plan on a forced 4-device host mesh.
+
+One module-scoped run of four worker processes (``_worker``, this file
+run with ``-c``; a start costs ~11 s, so once a module) does every case
+and rank 0 writes each case's results under a temporary directory; a JAX
+subprocess, started at the same time, writes the reference's (the only
+JAX in this module).  The tests read both.
+
+- The plan-based train step (``make_train_step(lm, make_plan(cfg, mesh))``)
+  against the one-device step on the same parameters and batch, for
+  reduced configs covering the ``qheads``, ``heads`` and ``seq``
+  attention modes (asserted), ``seq_parallel=True`` (the default),
+  ``attn_seq_shard=True``, ``remat="full"``, a recurrent mixer (xlstm's
+  mLSTM and sLSTM) and deepseek's dense prefix with MoE (``moe_ffn_ep``'s
+  expert-parallel path), with and without ``grad_compress``.  Tolerances
+  are ``tests/test_torch_train.py``'s: loss relative 1e-5; every grad
+  leaf within 1e-4 of its largest element; every parameter after one
+  AdamW step within 1e-4 of its largest element plus 5% of the learning
+  rate (Adam's first update is ~lr * sign(g), so a grad element at
+  float32 noise may move by a share of one step).  After a compressed
+  step an element at an int8 rounding boundary may round to the
+  neighbouring level: at most 0.1% (and at least one) of a leaf's
+  elements may differ by up to one step (two learning rates).  The mesh
+  sums partial results in another order than one device (two sequential
+  all-reduces over a 2-D mesh), so nothing here is bitwise.
+- ``moe_ffn_ep`` against ``moe_ffn`` for the expert-parallel case (E=4)
+  and the hidden-dim fallback (E=3, 3 % 2 != 0): output atol 2e-5, aux
+  1e-6, the reference's numbers (``tests/test_moe.py``).
+- ``TokenPipeline.device_batch_at``: each rank's block equals the slice
+  of ``batch_at``.
+- Checkpoints: a sharded save, then ``restore(shardings=)`` and
+  ``resume_or_init(shardings=)``, bitwise with the placements kept; a
+  plain restore into placed tensors; a reference checkpoint restored
+  sharded, and the mesh's checkpoint restored by the reference.
+- ``train_loop(plan=...)`` with a checkpoint and a resume, against the
+  one-device loop.
+- The reference's plan step and ``moe_ffn_ep`` on a forced 4-device
+  ``(2, 2)`` host mesh: the port's mesh results within the same
+  tolerances.
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+WORLD = 4
+BATCH, SEQ, LR = 4, 24, 1e-3
+LM_KW = dict(remat="none", chunk_q=8, loss_chunk=10, compute_dtype=None)
+CUT = {"xlstm-1.3b": ("mlstm", "slstm")}
+#: case -> (arch, config overrides, LM options, grad_compress, attention mode)
+STEP_CASES = {
+    "gemma-2b": ("gemma-2b", {}, {}, False, "qheads"),
+    "gemma-2b-compressed": ("gemma-2b", {}, {}, True, "qheads"),
+    "gemma-2b-seq": ("gemma-2b", {"num_heads": 3}, {"attn_seq_shard": True}, False, "seq"),
+    "deepseek-moe-16b": ("deepseek-moe-16b", {}, {"remat": "full"}, False, "heads"),
+    "xlstm-1.3b": ("xlstm-1.3b", {}, {}, False, "heads"),
+}
+MOE_CASES = {4: "ep", 3: "f_fallback"}      # experts -> the path on a model axis of 2
+MOE_D, MOE_F, MOE_X = 32, 64, (4, 16, 32)
+LOSS_RTOL, GRAD_REL, LR_SHARE = 1e-5, 1e-4, 0.05
+MOE_ATOL, AUX_ATOL = 2e-5, 1e-6
+
+
+def _cfg(arch, **over):
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+
+    cfg = reduced(ARCHS[arch], **over)
+    if arch in CUT:
+        cfg = dataclasses.replace(cfg, pattern=CUT[arch], num_layers=len(CUT[arch]))
+    return cfg
+
+
+def _tokens(cfg):
+    return np.random.default_rng(3).integers(0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int64)
+
+
+def _moe_inputs(E):
+    """(MoEConfig, params on the CPU, x as numpy): the same on every rank."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import init_moe
+
+    moe = MoEConfig(num_experts=E, top_k=2, num_shared=1, capacity_factor=8.0)
+    params = init_moe(torch.Generator().manual_seed(E), MOE_D, MOE_F, moe, "swiglu")
+    x = np.random.default_rng(E).standard_normal(MOE_X).astype(np.float32)
+    return moe, params, x
+
+
+def _flat(tree) -> dict:
+    from repro_torch.tree import flatten_with_path
+
+    return {"/".join(map(str, path)): leaf for path, leaf in flatten_with_path(tree)}
+
+
+def _np(t) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().float().cpu().numpy()
+
+
+# -- the worker: one rank of the (2, 2) gloo mesh -------------------------------------
+
+
+def _loss_and_grads(lm, params, tokens):
+    from repro_torch.parallel.axes import redistribute_like
+    from repro_torch.tree import leaves, unflatten_like
+
+    flat = leaves(params)
+    diff = [p.detach().requires_grad_() for p in flat]
+    loss, _ = lm.loss(unflatten_like(params, diff), tokens)
+    grads = torch.autograd.grad(loss, diff, allow_unused=True, materialize_grads=True)
+    return loss, unflatten_like(params, [redistribute_like(g, p) for g, p in zip(grads, flat)])
+
+
+def _step_case(mesh, rank, out, name):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, init_error_state
+    from repro_torch.parallel import lm_mesh, make_plan, place
+    from repro_torch.train import init_train_state, make_train_step
+
+    arch, over, lm_kw, compressed, _ = STEP_CASES[name]
+    cfg = _cfg(arch, **over)
+    lm = LM(cfg, **{**LM_KW, **lm_kw})
+    plan = make_plan(cfg, mesh)
+    tokens = torch.from_numpy(_tokens(cfg))
+    ocfg = AdamWConfig(lr=LR, warmup_steps=0)
+    res = {"mode": plan.attn_mode}
+    params, opt = init_train_state(lm, plan, seed=0, device="cpu")
+    one_p, one_o = init_train_state(lm, None, seed=0, device="cpu")
+    if not compressed:
+        with lm_mesh(mesh), implicit_replication():
+            loss, grads = _loss_and_grads(lm, params, place(tokens, plan.token_sharding()))
+        one_loss, one_grads = _loss_and_grads(lm, one_p, tokens)
+        res["loss"], res["one_loss"] = _np(loss), _np(one_loss)
+        res.update({f"grad/{k}": _np(v) for k, v in _flat(grads).items()})
+        res.update({f"one_grad/{k}": _np(v) for k, v in _flat(one_grads).items()})
+    step, in_sh = make_train_step(lm, plan, ocfg, grad_compress=compressed)
+    one_step, _ = make_train_step(lm, None, ocfg, grad_compress=compressed)
+    if compressed:
+        params, opt, _, m = step(params, opt, tokens, None, init_error_state(one_p))
+        one_p, one_o, _, one_m = one_step(one_p, one_o, tokens, None, init_error_state(one_p))
+    else:
+        params, opt, m = step(params, opt, tokens)
+        one_p, one_o, one_m = one_step(one_p, one_o, tokens)
+    res["step_loss"], res["one_step_loss"] = _np(m["loss"]), _np(one_m["loss"])
+    res["placed"] = np.array([all(tuple(p.placements) == s.placements for p, s in zip(
+        _flat(params).values(), _flat_shardings(in_sh[0]))) and all(
+        tuple(p.placements) == s.placements for p, s in zip(_flat(opt).values(),
+                                                          _flat_shardings(in_sh[1])))])
+    res.update({f"param/{k}": _np(v) for k, v in _flat(params).items()})
+    res.update({f"one_param/{k}": _np(v) for k, v in _flat(one_p).items()})
+    if rank == 0:
+        np.savez(out / f"step_{name}.npz", **res)
+    return params, opt, plan, lm
+
+
+def _flat_shardings(tree):
+    from repro_torch.parallel.sharding import is_sharding
+    from repro_torch.tree import leaves
+
+    return leaves(tree, is_leaf=is_sharding)
+
+
+def _moe_case(mesh, rank, out, E):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.moe import moe_ffn, moe_ffn_ep
+    from repro_torch.parallel import NamedSharding, P, lm_mesh, place
+
+    moe, params, x = _moe_inputs(E)
+    xt = torch.from_numpy(x)
+    want, want_aux = moe_ffn(params, xt, moe, "swiglu")
+    with lm_mesh(mesh), implicit_replication():
+        y, aux = moe_ffn_ep(params, place(xt, NamedSharding(mesh, P("data", None, None))),
+                            moe, "swiglu")
+    res = dict(y=_np(y), aux=_np(aux), want=_np(want), want_aux=_np(want_aux))
+    if rank == 0:
+        np.savez(out / f"moe_{E}.npz", **res)
+
+
+def _tokens_case(mesh, rank, out):
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.data import TokenPipeline
+
+    pipe = TokenPipeline(vocab_size=256, seq_len=SEQ, global_batch=BATCH, seed=7)
+    layouts = {"batch over data": (Shard(0), Replicate()), "batch over both": (Shard(0), Shard(0)),
+               "batch x sequence": (Shard(0), Shard(1)), "replicated": (Replicate(), Replicate())}
+    ok = {}
+    for label, placements in layouts.items():
+        for step in (0, 5):
+            dt = pipe.device_batch_at(step, mesh, placements)
+            full = pipe.batch_at(step)
+            d, m = mesh.get_local_rank(0), mesh.get_local_rank(1)
+            if label == "batch over data":
+                want = full[d * 2:(d + 1) * 2]
+            elif label == "batch over both":
+                want = full[d * 2 + m:d * 2 + m + 1]
+            elif label == "batch x sequence":
+                want = full[d * 2:(d + 1) * 2, m * 12:(m + 1) * 12]
+            else:
+                want = full
+            ok[f"{label} step {step}"] = bool(
+                np.array_equal(dt.to_local().numpy(), want)
+                and np.array_equal(dt.full_tensor().numpy(), full)
+                and tuple(dt.shape) == full.shape)
+    every = [None] * WORLD
+    dist.all_gather_object(every, ok)
+    if rank == 0:
+        (out / "tokens.json").write_text(json.dumps(every))
+
+
+def _checkpoint_case(mesh, rank, out, params, opt, plan, lm):
+    """A sharded save of the stepped gemma state; restores; a reference
+    checkpoint restored sharded."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.runtime import resume_or_init
+    from repro_torch.train import init_train_state
+
+    state = {"params": params, "opt": opt}
+    shardings = {"params": plan.param_shardings(params), "opt": plan.opt_shardings(params)}
+    template = dict(zip(("params", "opt"), init_train_state(lm, None, seed=1, device="cpu")))
+    ck = Checkpointer(str(out / "ckpt"))
+    t0 = time.perf_counter()
+    ck.save(1, state)
+    ck.save(2, state, blocking=False)
+    ck.wait()
+    checks = {"save_s": time.perf_counter() - t0}
+
+    def same(a, b) -> bool:
+        return (isinstance(a, DTensor) and tuple(a.placements) == tuple(b.placements)
+                and a.to_local().dtype == b.to_local().dtype
+                and torch.equal(a.to_local(), b.to_local()))
+
+    def all_same(tree):
+        return all(same(a, b) for a, b in zip(_flat(tree).values(), _flat(state).values()))
+
+    checks["restore_shardings"] = all_same(ck.restore(1, template, shardings))
+    run = resume_or_init(ck, lambda: template, shardings=shardings)
+    checks["resume_or_init_shardings"] = run.resumed and run.step == 2 and all_same(run.tree)
+    placed = dict(zip(("params", "opt"), init_train_state(lm, plan, seed=1, device="cpu")))
+    checks["restore_in_place"] = all_same(ck.restore(1, placed)) and all_same(placed)
+    # the reference's checkpoint of the initial params (seed 0), sharded
+    deadline = time.monotonic() + 600
+    ref = out / "ref_ckpt"
+    while not (ref / "step_0" / "manifest.json").exists() and time.monotonic() < deadline:
+        time.sleep(0.5)
+    if (ref / "step_0" / "manifest.json").exists():
+        init = dict(zip(("params", "opt"), init_train_state(lm, plan, seed=0, device="cpu")))
+        got = Checkpointer(str(ref)).restore(0, {"params": template["params"]},
+                                             {"params": shardings["params"]})
+        checks["reference_restored_sharded"] = all(
+            same(a, b) for a, b in zip(_flat(got).values(), _flat(init["params"]).values()))
+    else:
+        checks["reference_restored_sharded"] = "no reference checkpoint appeared"
+    every = [None] * WORLD
+    dist.all_gather_object(every, checks)
+    saved = {k: _np(v) for k, v in _flat(state).items()}
+    if rank == 0:
+        (out / "checkpoint.json").write_text(json.dumps(every))
+        np.savez(out / "ckpt_state.npz", **saved)
+
+
+def _loop_case(mesh, rank, out):
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import make_plan
+    from repro_torch.train import LoopConfig, train_loop
+
+    cfg = _cfg("gemma-2b")
+    lm = LM(cfg, **LM_KW)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=SEQ, global_batch=BATCH, seed=5)
+    ocfg = AdamWConfig(lr=LR, warmup_steps=1, total_steps=4)
+    d = str(out / "loop")
+    first = train_loop(lm, LoopConfig(steps=3, ckpt_every=2, ckpt_dir=d, log_every=0), ocfg,
+                       pipe, plan=make_plan(cfg, mesh), device="cpu")
+    resumed = train_loop(lm, LoopConfig(steps=4, ckpt_every=2, ckpt_dir=d, log_every=0), ocfg,
+                         pipe, plan=make_plan(cfg, mesh), device="cpu")
+    if rank == 0:
+        straight = train_loop(lm, LoopConfig(steps=4, log_every=0), ocfg, pipe, device="cpu")
+        (out / "loop.json").write_text(json.dumps({
+            "mesh": first["loss"] + resumed["loss"], "mesh_steps": first["step"] + resumed["step"],
+            "one": straight["loss"]}))
+
+
+def _worker(rank: int, port: int, out: str) -> None:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    out = Path(out)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=WORLD)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        times = {}
+        for name in STEP_CASES:
+            t0 = time.perf_counter()
+            state = _step_case(mesh, rank, out, name)
+            if name == "gemma-2b":
+                gemma = state
+            times[name] = time.perf_counter() - t0
+        for E in MOE_CASES:
+            _moe_case(mesh, rank, out, E)
+        _tokens_case(mesh, rank, out)
+        _checkpoint_case(mesh, rank, out, *gemma)
+        t0 = time.perf_counter()
+        _loop_case(mesh, rank, out)
+        times["loop"] = time.perf_counter() - t0
+        if rank == 0:
+            (out / "times.json").write_text(json.dumps(times))
+    finally:
+        dist.destroy_process_group()
+
+
+# -- the reference on a forced 4-device host mesh --------------------------------------
+
+_REFERENCE = textwrap.dedent("""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    sys.path.insert(0, "src")
+    from pathlib import Path
+    import numpy as np
+    import jax, jax.numpy as jnp
+    from repro.checkpoint import Checkpointer
+    from repro.configs import ARCHS, MoEConfig, reduced
+    from repro.models import LM
+    from repro.models.moe import moe_ffn_ep
+    from repro.optim import AdamWConfig, init_opt_state
+    from repro.parallel.sharding import make_plan
+    from repro.train.step import make_train_step
+
+    out = Path(sys.argv[1])
+    init = np.load(out / "init.npz")
+
+    def key(path):
+        return "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
+
+    def fill(prefix, like):
+        return jax.tree_util.tree_map_with_path(
+            lambda path, _: jnp.asarray(init[prefix + key(path)]), like)
+
+    cfg = reduced(ARCHS["gemma-2b"])
+    lm = LM(cfg, remat="none", chunk_q=8, loss_chunk=10, compute_dtype=None)
+    params = fill("gemma/", lm.abstract_params())
+    Checkpointer(str(out / "ref_ckpt")).save(0, {"params": params})
+    mesh = jax.make_mesh((2, 2), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    plan = make_plan(cfg, mesh)
+    step, _ = make_train_step(lm, plan, AdamWConfig(lr=float(sys.argv[2]), warmup_steps=0))
+    with mesh:
+        p2, _, m = step(params, init_opt_state(params), jnp.asarray(init["tokens"]))
+    flat, _ = jax.tree_util.tree_flatten_with_path(p2)
+    np.savez(out / "jax_step.npz", loss=np.asarray(m["loss"]), mode=plan.attn_mode,
+             **{"param/" + key(p): np.asarray(v) for p, v in flat})
+    for E in (4, 3):
+        moe = MoEConfig(num_experts=E, top_k=2, num_shared=1, capacity_factor=8.0)
+        mp = {k: jnp.asarray(init[f"moe{E}/{k}"]) for k in ("router", "w_gate", "w_up", "w_down")}
+        mp["shared"] = {k: jnp.asarray(init[f"moe{E}/shared/{k}"])
+                        for k in ("w_gate", "w_up", "w_down")}
+        with mesh:
+            y, aux = jax.jit(lambda p, x: moe_ffn_ep(p, x, moe, "swiglu"))(
+                mp, jnp.asarray(init[f"moe{E}/x"]))
+        np.savez(out / f"jax_moe_{E}.npz", y=np.asarray(y), aux=np.asarray(aux))
+""")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def mesh_run(tmp_path_factory):
+    """Runs the four workers and the reference at once; returns the
+    directory of their results."""
+    from repro_torch.models import LM
+
+    out = tmp_path_factory.mktemp("lm_mesh")
+    cfg = _cfg("gemma-2b")
+    init = {f"gemma/{k}": v.numpy() for k, v in
+            _flat(LM(cfg, **LM_KW).init(torch.Generator().manual_seed(0))).items()}
+    init["tokens"] = _tokens(cfg)
+    for E in MOE_CASES:
+        _, params, x = _moe_inputs(E)
+        init.update({f"moe{E}/{k}": v.numpy() for k, v in _flat(params).items()})
+        init[f"moe{E}/x"] = x
+    np.savez(out / "init.npz", **init)
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]),
+           "OMP_NUM_THREADS": "1"}
+    logs = {}
+
+    def start(name, args):
+        logs[name] = open(out / f"{name}.log", "w")
+        return subprocess.Popen([sys.executable, "-c", *args], cwd=ROOT, env=env,
+                                stdout=logs[name], stderr=subprocess.STDOUT)
+
+    reference = start("reference", [_REFERENCE, str(out), str(LR)])
+    port = _free_port()
+    workers = [start(f"rank{r}", [f"import test_torch_lm_mesh as m; m._worker({r}, {port}, "
+                                  f"{str(out)!r})"]) for r in range(WORLD)]
+    try:
+        rcs = [p.wait(timeout=480) for p in workers + [reference]]
+    finally:
+        for p in workers + [reference]:
+            if p.poll() is None:
+                p.kill()
+        for f in logs.values():
+            f.close()
+    for name, rc in zip([*(f"rank{r}" for r in range(WORLD)), "reference"], rcs):
+        assert rc == 0, f"{name} exited {rc}:\n" + (out / f"{name}.log").read_text()[-4000:]
+    return out
+
+
+def _held(got, want, tol, budget=0.0, cap=None, label=""):
+    """Every element of ``got`` within ``tol`` of ``want``, except at most a
+    ``budget`` share of them (and at least one), which lie within ``cap``."""
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    off = d > tol
+    assert off.sum() <= (max(1, budget * off.size) if budget else 0), \
+        f"{label}: {off.mean():.2e} of the elements off by up to {d.max():.2e} (tol {tol:.2e})"
+    if off.any():
+        assert d.max() <= cap, f"{label}: off by up to {d.max():.2e} (cap {cap:.2e})"
+
+
+def _keys(data, prefix):
+    return sorted(k[len(prefix):] for k in data.files if k.startswith(prefix))
+
+
+@pytest.mark.parametrize("name", sorted(STEP_CASES))
+def test_plan_step_matches_one_device(mesh_run, name):
+    data = np.load(mesh_run / f"step_{name}.npz")
+    _, _, _, compressed, mode = STEP_CASES[name]
+    assert str(data["mode"]) == mode
+    assert bool(data["placed"][0]), "the step's outputs left the plan's placements"
+    np.testing.assert_allclose(data["step_loss"], data["one_step_loss"], rtol=LOSS_RTOL)
+    if not compressed:
+        np.testing.assert_allclose(data["loss"], data["one_loss"], rtol=LOSS_RTOL)
+        grads = _keys(data, "grad/")
+        assert grads == _keys(data, "one_grad/") and grads
+        for k in grads:
+            want = data[f"one_grad/{k}"]
+            _held(data[f"grad/{k}"], want, GRAD_REL * np.abs(want).max(), label=f"grad {k}")
+    for k in _keys(data, "one_param/"):
+        want = data[f"one_param/{k}"]
+        tol = GRAD_REL * np.abs(want).max() + LR_SHARE * LR
+        _held(data[f"param/{k}"], want, tol, budget=1e-3 if compressed else 0.0,
+              cap=2 * LR + tol, label=f"param {k}")
+
+
+def test_the_cases_cover_every_attention_mode():
+    assert {case[4] for case in STEP_CASES.values()} >= {"heads", "qheads", "seq"}
+
+
+@pytest.mark.parametrize("E", sorted(MOE_CASES))
+def test_moe_ffn_ep_matches_moe_ffn(mesh_run, E):
+    data = np.load(mesh_run / f"moe_{E}.npz")
+    np.testing.assert_allclose(data["y"], data["want"], atol=MOE_ATOL, rtol=0)
+    np.testing.assert_allclose(data["aux"], data["want_aux"], atol=AUX_ATOL, rtol=0)
+
+
+def test_device_batch_at_shards_are_batch_at_slices(mesh_run):
+    every = json.loads((mesh_run / "tokens.json").read_text())
+    assert len(every) == WORLD
+    for rank, ok in enumerate(every):
+        assert ok and all(ok.values()), (rank, ok)
+
+
+def test_sharded_save_and_restore_are_bitwise(mesh_run):
+    every = json.loads((mesh_run / "checkpoint.json").read_text())
+    for rank, checks in enumerate(every):
+        for name in ("restore_shardings", "resume_or_init_shardings", "restore_in_place",
+                     "reference_restored_sharded"):
+            assert checks[name] is True, (rank, name, checks[name])
+
+
+def test_the_reference_restores_the_mesh_checkpoint(mesh_run):
+    import jax.numpy as jnp
+
+    from repro.checkpoint import Checkpointer as RCheckpointer
+
+    saved = np.load(mesh_run / "ckpt_state.npz")
+    like = {"params": {}, "opt": {}}
+    for key in saved.files:
+        node = like
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = jnp.zeros(saved[key].shape, saved[key].dtype)
+    got = RCheckpointer(str(mesh_run / "ckpt")).restore(1, like)
+    import jax
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(got)
+    assert len(flat) == len(saved.files)
+    for path, leaf in flat:
+        key = "/".join(str(p.key) for p in path)
+        np.testing.assert_array_equal(np.asarray(leaf), saved[key])
+
+
+def test_train_loop_on_the_mesh_resumes_and_matches_one_device(mesh_run):
+    run = json.loads((mesh_run / "loop.json").read_text())
+    assert run["mesh_steps"] == [0, 1, 2, 3]
+    np.testing.assert_allclose(run["mesh"], run["one"], rtol=LOSS_RTOL)
+
+
+def test_plan_step_matches_the_reference_mesh(mesh_run):
+    want = np.load(mesh_run / "jax_step.npz")
+    got = np.load(mesh_run / "step_gemma-2b.npz")
+    assert str(want["mode"]) == str(got["mode"])
+    np.testing.assert_allclose(got["step_loss"], want["loss"], rtol=LOSS_RTOL)
+    keys = _keys(want, "param/")
+    assert keys == _keys(got, "param/")
+    for k in keys:
+        w = want[f"param/{k}"]
+        _held(got[f"param/{k}"], w, GRAD_REL * np.abs(w).max() + LR_SHARE * LR,
+              label=f"param {k}")
+
+
+@pytest.mark.parametrize("E", sorted(MOE_CASES))
+def test_moe_ffn_ep_matches_the_reference_mesh(mesh_run, E):
+    want, got = np.load(mesh_run / f"jax_moe_{E}.npz"), np.load(mesh_run / f"moe_{E}.npz")
+    np.testing.assert_allclose(got["y"], want["y"], atol=MOE_ATOL, rtol=0)
+    np.testing.assert_allclose(got["aux"], want["aux"], atol=AUX_ATOL, rtol=0)
+
+
+@pytest.fixture
+def host_mesh():
+    """``make_host_mesh("cpu")``: a one-process gloo group, torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    started = not dist.is_initialized()
+    yield make_host_mesh("cpu")
+    if started:
+        dist.destroy_process_group()
+
+
+def test_host_mesh_plan_step_equals_no_plan(host_mesh):
+    """The card's phase on the CPU: a ``(1, 1)`` host mesh, the plan-based
+    step of reduced gemma-2b over two fresh ``device_batch_at`` batches
+    against the no-plan step from the same state, at this file's
+    tolerances."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import mesh_desc
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import make_plan
+    from repro_torch.train import init_train_state, make_train_step
+
+    assert mesh_desc(host_mesh) == "1datax1model"
+    cfg = _cfg("gemma-2b")
+    lm = LM(cfg, **LM_KW)
+    plan = make_plan(cfg, host_mesh)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=SEQ, global_batch=BATCH, seed=2)
+    ocfg = AdamWConfig(lr=LR, warmup_steps=0)
+    step, _ = make_train_step(lm, plan, ocfg)
+    one_step, _ = make_train_step(lm, None, ocfg)
+    p, o = init_train_state(lm, plan, device="cpu")
+    q, r = init_train_state(lm, None, device="cpu")
+    for i in range(2):
+        tokens = pipe.device_batch_at(i, host_mesh, plan.token_sharding().placements)
+        assert isinstance(tokens, DTensor)
+        p, o, m = step(p, o, tokens)
+        q, r, n = one_step(q, r, torch.from_numpy(pipe.batch_at(i)))
+        np.testing.assert_allclose(float(m["loss"]), float(n["loss"]), rtol=LOSS_RTOL)
+    for k, want in _flat(q).items():
+        want = want.numpy()
+        _held(_np(_flat(p)[k]), want, GRAD_REL * np.abs(want).max() + LR_SHARE * LR,
+              label=f"param {k}")

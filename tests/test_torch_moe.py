@@ -145,6 +145,41 @@ def test_shared_expert_and_moe_ffn_ep():
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture
+def host_mesh():
+    """A one-process ``(1, 1)`` gloo mesh, its group torn down after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    started = not dist.is_initialized()
+    yield make_host_mesh("cpu")
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dropless", [False, True])
+def test_moe_ffn_ep_per_shard_path_on_a_host_mesh(host_mesh, dropless):
+    """On a ``(1, 1)`` mesh ``moe_ffn_ep`` takes its per-shard path (E % 1
+    == 0: expert-parallel), as the reference's does: ``moe_ffn``'s output
+    within 2e-5 and its aux loss within 1e-6 (the reference's numbers), the
+    output a DTensor on the mesh."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel import lm_mesh
+
+    rng = np.random.default_rng(506)
+    _, tmoe = _configs(8, 2, 1, 1.25)
+    _, tp = _params(_configs(8, 2, 1, 1.25)[0])
+    x = torch.from_numpy(rng.standard_normal((2, 7, D)).astype(np.float32))
+    want, want_aux = t_moe.moe_ffn(tp, x, tmoe, "swiglu", dropless=dropless)
+    with lm_mesh(host_mesh):
+        y, aux = t_moe.moe_ffn_ep(tp, x, tmoe, "swiglu", dropless=dropless)
+    assert isinstance(y, DTensor) and y.device_mesh == host_mesh
+    np.testing.assert_allclose(_np(y.full_tensor()), _np(want), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(float(aux.full_tensor()), float(want_aux), rtol=0, atol=1e-6)
+
+
 def test_moe_ffn_in_bf16_follows_the_reference():
     """bf16 weights and activations, as served: the router's logits are
     bf16 products, so the routing is compared where no token's k-th and

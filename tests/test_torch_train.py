@@ -361,17 +361,61 @@ def test_resume_from_a_reference_checkpoint(tmp_path):
     np.testing.assert_allclose(resumed["loss"], straight["loss"][5:], rtol=1e-4)
 
 
-def test_mesh_options_wait_for_the_mesh():
-    cfg = reduced(ARCHS["gemma-2b"])
-    for kw in (dict(seq_parallel=True), dict(attn_seq_shard=True)):
-        with pytest.raises(ValueError, match="item 6"):
-            LM(cfg, **kw)
+def test_remat_must_be_none_or_full():
     with pytest.raises(ValueError, match="remat"):
-        LM(cfg, remat="dots")
-    with pytest.raises(ValueError, match="item 6"):
-        make_train_step(LM(cfg), plan=object())
-    with pytest.raises(ValueError, match="item 6"):
-        init_train_state(LM(cfg), plan=object(), device="cpu")
+        LM(reduced(ARCHS["gemma-2b"]), remat="dots")
+
+
+@pytest.mark.parametrize("name", ["gemma-2b", "xlstm-1.3b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("option", ["seq_parallel", "attn_seq_shard"])
+def test_mesh_options_are_the_identity_off_mesh(option, name):
+    """``seq_parallel`` and ``attn_seq_shard`` shard over an LM mesh; off
+    it they change nothing: loss and every grad bitwise the same."""
+    _, zloss = PARITY[name]
+    cfg = _cfg(name, ARCHS, reduced)
+    params, tokens, _ = _case(name)
+
+    def run(**kw):
+        lm = LM(cfg, chunk_q=CHUNK_Q, loss_chunk=LOSS_CHUNK, zloss=zloss, compute_dtype=None, **kw)
+        diff = tree_map(lambda a: torch.tensor(a, requires_grad=True), params)
+        loss, _ = lm.loss(diff, torch.from_numpy(tokens))
+        return loss, torch.autograd.grad(loss, leaves(diff))
+
+    (on, g_on), (off, g_off) = run(**{option: True}), run(**{option: False})
+    assert torch.equal(on, off)
+    assert all(torch.equal(a, b) for a, b in zip(g_on, g_off))
+
+
+def test_no_plan_trains_on_one_device():
+    """``plan=None``: one device, plain tensors in and out, no shardings."""
+    cfg, lm, pipe = _setup()
+    step, shardings = make_train_step(lm, None, AdamWConfig(lr=1e-3, warmup_steps=0))
+    assert shardings is None
+    params, opt = init_train_state(lm, None, device="cpu")
+    params, opt, m = step(params, opt, torch.from_numpy(pipe.batch_at(0)))
+    assert bool(torch.isfinite(m["loss"])) and int(opt["count"]) == 1
+    assert all(type(t) is torch.Tensor for t in leaves(params) + leaves(opt))
+
+
+def test_a_plan_over_a_mesh_the_world_cannot_build_raises():
+    """A production mesh needs its whole world of processes, and a plan
+    over a shape-only mesh (no process group) cannot train."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import make_plan
+
+    for multi_pod, n in ((False, 256), (True, 512)):
+        with pytest.raises(ValueError, match=f"world of {n} processes"):
+            make_production_mesh(multi_pod=multi_pod, device="cpu")
+
+    class ShapeOnly:
+        shape, axis_names = {"data": 16, "model": 16}, ("data", "model")
+
+    cfg, lm, _ = _setup()
+    plan = make_plan(cfg, ShapeOnly())
+    with pytest.raises(ValueError, match="shape-only"):
+        make_train_step(lm, plan)
+    with pytest.raises(ValueError, match="shape-only"):
+        init_train_state(lm, plan, device="cpu")
 
 
 def test_cli_trains_on_the_cpu(tmp_path, capsys):
