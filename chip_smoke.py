@@ -195,6 +195,26 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    through ``moe_ffn_ep``'s per-shard (expert-parallel) path against
    ``moe_ffn``; (d) the plan step on two cards where there are two (else a
    line says why not).
+21. the dry run and serving under a plan -- (a) B7's sequence-split entry
+   over the 16 row blocks of one rank's share of gemma-2b's ``decode_32k``
+   cache (8 sequences of 32,768 rows, blocks with no valid row among
+   them), merged by the blocks' log-sum-exps, against B7 on the whole
+   cache and the plain version at ``parity``'s tolerance, each block
+   timed beside its bound; (b) gemma-2b at full width served under its
+   prefill and decode plans on the one-card host mesh (``make_serve_steps``,
+   a one-process NCCL group the phase starts and destroys): prefill and
+   8 greedy decode steps against the no-plan path, equal tokens and
+   logits, B7 18 launches a step, both paths' decode-step times and busy
+   shares, and the no-plan decode step with B7 through its torch op
+   against its direct launch; (c) ``python -m repro_torch.launch.dryrun`` for gemma-2b
+   ``train_4k`` and ``decode_32k`` on 16 x 16 and ``prefill_32k`` on 2 x
+   16 x 16, each in a subprocess (a fake world, ``meta`` tensors, nothing
+   on the card): every report present and without error; (d) the
+   live-bytes tracker on ``meta`` against the card: phase 15 (c)'s
+   training step without a plan and through the plan step on a one-rank
+   (1, 1) mesh, argument bytes equal to the card's params, moments and
+   tokens, peaks within 25% of phases 15 (c)'s and 20's
+   ``max_memory_allocated``, and where the plan step's extra bytes live.
 
 Then the kernel table line (each kernel also with its bf16 max error) and,
 last, ``{"ok": true, "device": {...}}``.
@@ -2226,15 +2246,12 @@ def planted_ring(extra_rows=0, slot_shift=0):
         G, Hg = num_kv_heads, num_heads // num_kv_heads
         k_cache, v_cache = cache
         W = k_cache.shape[1]
-        q, k_new, v_new = attention._project_qkv(params, x, G, Hg, head_dim,
-                                                 lengths[:, None], rope_theta)
-        rows = torch.arange(x.shape[0], device=x.device)
+        q, k_new, v_new = attention._decode_qkv(params, x, G, Hg, head_dim,
+                                                lengths[:, None], rope_theta)
         slots = (lengths.long() + slot_shift) % W
-        k_cache[rows, slots] = k_new[:, 0].to(k_cache.dtype)
-        v_cache[rows, slots] = v_new[:, 0].to(v_cache.dtype)
         n_rows = (lengths + 1 + extra_rows).clamp_max(W)
-        return attention._decode_out(params, q, k_cache, v_cache, n_rows, G, Hg, head_dim,
-                                     v_cache.dtype), (k_cache, v_cache)
+        out = attention._decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows)
+        return attention._decode_project_out(params, out, v_cache.dtype), (k_cache, v_cache)
 
     return ring
 
@@ -3755,6 +3772,392 @@ def phase_lm_mesh(device, memo, card):
     return out
 
 
+# -- phase 21: the dry run, B7's sequence-split entry, serving under a plan ----
+
+#: (a) one rank's share of gemma-2b's ``decode_32k`` cache on the 16 x 16
+#: mesh: 128 / 16 = 8 sequences, 32,768 rows in 16 blocks of 2,048 (one a
+#: 'model' rank), bf16, H 8, G 1, D 256; lengths that leave blocks with no
+#: valid row (0 everywhere for the first sequence).
+SPLIT_SHAPE = (8, 8, 1, 256, 32768, 16)
+SPLIT_LENGTHS = [0, 1, 2048, 5000, 17000, 30000, 32768, 777]
+#: (b) plan serving: phase 12's engine shape, 8 greedy decode steps.
+PLAN_SERVE_STEPS = 8
+#: (b) no-plan decode steps a turn when B7 is timed through its torch op
+#: against its direct launch (turns: direct, op, op, direct).
+DISPATCH_STEPS = 10
+#: (b) B7 calls a turn when its host time a call is taken the same way.
+DISPATCH_CALLS = 100
+#: (c) the dry-run cells: (shape, mesh).
+DRYRUN_CELLS = (("train_4k", "single"), ("decode_32k", "single"), ("prefill_32k", "multi"))
+#: (d) the tracker's peak against the card's ``max_memory_allocated``.
+TRACKER_PEAK_REL = 0.25
+
+
+def phase21_split(device):
+    """(a) B7's sequence-split entry over the 16 row blocks of one rank's
+    ``decode_32k`` cache, merged by the blocks' log-sum-exps, against B7 on
+    the whole cache and the plain version; per-block and merge times."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import ops, parity, ref
+
+    B, H, G, D, S, n = SPLIT_SHAPE
+    rows = S // n
+    rng = np.random.default_rng(21)
+    q, k, v = flash_inputs(rng, B, H, G, D, S, torch.bfloat16, torch.bfloat16, device)
+    lens = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device=device)
+    ks = [k[:, i * rows:(i + 1) * rows].contiguous() for i in range(n)]
+    vs = [v[:, i * rows:(i + 1) * rows].contiguous() for i in range(n)]
+
+    def block(i):
+        return ops.decode_attention_split(q, ks[i], vs[i], lens, i * rows, chunk=512)
+
+    reset_launches()
+    parts = [block(i) for i in range(n)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if launches != no_launches(flash_decode=n):
+        raise AssertionError(f"(a): the split launched {launches}, not B7 {n} times")
+    part_err = 0.0
+    empty_blocks = 0
+    for i, (out, lse) in enumerate(parts):
+        want_out, want_lse = ref.decode_partial_ref(q, ks[i], vs[i], lens, i * rows)
+        valid = [1 if x > i * rows else 0 for x in SPLIT_LENGTHS]
+        part_err = max(part_err, parity.check(out, want_out, valid, f"(a) block {i}")[0])
+        empty = torch.isneginf(want_lse)
+        if not torch.equal(torch.isneginf(lse), empty):
+            raise AssertionError(f"(a) block {i}: -inf lse where the plain partial has none")
+        if bool(((lse - want_lse).abs() > 2e-5 * (1 + want_lse.abs()))[~empty].any()):
+            raise AssertionError(f"(a) block {i}: lse off the plain partial's")
+        empty_blocks += int(0 in valid)
+    outs, lses = [p[0] for p in parts], [p[1] for p in parts]
+    got = ref.merge_ref(outs, lses, q.dtype)
+    whole = flash_attention.decode_attention(q, k, v, lens, chunk=512)
+    plain = flash_attention.decode_ref(q, k, v, lens)
+    torch.cuda.synchronize()
+    err_whole, share_whole = parity.check(got, whole, SPLIT_LENGTHS, "(a) merged vs whole B7")
+    err_plain, share_plain = parity.check(got, plain, SPLIT_LENGTHS, "(a) merged vs plain")
+    block_ms = [cuda_ms(lambda i=i: block(i), 20, shield=True) for i in range(n)]
+    merge_ms = cuda_ms(lambda: ref.merge_ref(outs, lses, q.dtype), 20, shield=True)
+    whole_ms = cuda_ms(lambda: flash_attention.decode_attention(q, k, v, lens, chunk=512), 20,
+                       shield=True)
+    bounds = [flash_bound(B, H, G, D, [min(max(x - i * rows, 0), rows) for x in SPLIT_LENGTHS],
+                          2)[0] for i in range(n)]
+    whole_bound = flash_bound(B, H, G, D, SPLIT_LENGTHS, 2)[0]
+    out = {"phase": "dryrun_split", "shape": f"q [{B}, {H}, {D}], k/v [{B}, {S}, {G}, {D}] "
+           f"bf16 in {n} blocks of {rows} rows", "lengths": SPLIT_LENGTHS,
+           "launches": launches["flash_decode"], "blocks_with_an_empty_sequence": empty_blocks,
+           "block_ms": block_ms, "block_bound_ms": bounds, "merge_ms": merge_ms,
+           "split_total_ms": sum(block_ms) + merge_ms, "whole_ms": whole_ms,
+           "whole_bound_ms": whole_bound, "max_abs_err_vs_whole": err_whole,
+           "max_abs_err_vs_plain": err_plain, "share_of_tolerance": max(share_whole, share_plain),
+           "partial_max_abs_err": part_err, "bound_by": "bytes"}
+    emit(out)
+    del q, k, v, ks, vs, parts, outs, lses, whole, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase21_plan_serving(device, card):
+    """(b) gemma-2b at full width served under a plan on the one-card host
+    mesh: plan prefill and 8 greedy decode steps against the no-plan path
+    from the same bf16 weights and prompts, tokens and logits; decode-step
+    times, B7's launches and the card's busy share for both; then the
+    no-plan decode step with B7 launched through its torch op's dispatch
+    against the direct launch the serving path takes."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import parity
+    from repro_torch.launch.mesh import make_host_mesh, mesh_desc
+    from repro_torch.models import LM
+    from repro_torch.models.lm import make_serve_steps
+    from repro_torch.parallel import make_plan
+    from repro_torch.parallel.sharding import place_tree
+
+    os.environ["MASTER_ADDR"] = "127.0.0.1"
+    os.environ["MASTER_PORT"] = str(free_port())
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh("cuda")
+        cfg = get_arch(LM_ARCH)
+        pre_plan = make_plan(cfg, mesh, kind="prefill")
+        dec_plan = make_plan(cfg, mesh, kind="decode")
+        lm = LM(cfg, attn_seq_shard=pre_plan.attn_mode == "seq")
+        params = lm.init(torch.Generator(device=device).manual_seed(0), cast=True)
+        prompts = torch.as_tensor(np.random.default_rng(12).integers(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)), device=device)
+        plan_prefill, _ = make_serve_steps(lm, pre_plan)
+        _, plan_decode = make_serve_steps(lm, dec_plan)
+        # placed once (on one card every placement is Replicate(), so the
+        # prefill plan's placing finds them in place)
+        placed = place_tree(params, dec_plan.param_shardings(params))
+        paths = {"no_plan": (params, lambda p, t, n: lm.prefill(p, t, cache_len=n),
+                             lm.decode_step),
+                 "plan": (placed, plan_prefill, plan_decode)}
+        runs = {}
+        for label, (params, prefill, decode) in paths.items():
+            torch.cuda.synchronize()
+            reset_launches()
+            with torch.no_grad():
+                logits, cache, lengths = prefill(params, prompts, LM_MAX_SEQ)
+                torch.cuda.synchronize()
+                prefill_launches = launch_counts()
+                all_logits, tokens, ms = [logits.full_tensor() if hasattr(logits, "full_tensor")
+                                          else logits], [], []
+                tok = all_logits[0].argmax(-1)[:, None]
+                for _ in range(PLAN_SERVE_STEPS):
+                    tokens.append(tok)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, cache, lengths = decode(params, tok, cache, lengths)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    logits = logits.full_tensor() if hasattr(logits, "full_tensor") else logits
+                    all_logits.append(logits)
+                    tok = logits.argmax(-1)[:, None]
+                torch.cuda.synchronize()
+                launches = launch_counts()
+                want = no_launches(flash_decode=cfg.num_layers * PLAN_SERVE_STEPS)
+                if launches != want or prefill_launches != no_launches():
+                    raise AssertionError(f"(b) {label}: launches {launches} (prefill "
+                                         f"{prefill_launches}), not B7 "
+                                         f"{cfg.num_layers} a decode step")
+                pos = lengths
+                profiled = profile_steps(lambda: decode(params, tok, cache, pos), steps=2, top=6)
+            runs[label] = {"logits": all_logits, "tokens": torch.cat(tokens, 1),
+                           "decode_step_runs_ms": ms, "decode_step_ms": statistics.median(ms[1:]),
+                           "b7_launches": launches["flash_decode"],
+                           "device_ms_per_step": profiled["device_ms_per_step"],
+                           "device_busy_share": profiled["device_busy_share"],
+                           "kernel_launches_per_step": profiled["kernel_launches_per_step"]}
+            del cache
+        # B7 through its torch op against the direct launch the serving path
+        # takes, on the no-plan decode step
+        from unittest import mock
+
+        from repro_torch.kernels.flash_attention import ops
+
+        params0, prefill0, decode0 = paths["no_plan"]
+        dispatch = {"direct": [], "op": []}
+        with torch.no_grad():
+            _, cache, lengths = prefill0(params0, prompts, LM_MAX_SEQ)
+            tok = prompts[:, -1:]
+            for label in ("direct", "op", "op", "direct"):
+                route = ops._direct if label == "direct" else (lambda *t: False)
+                with mock.patch.object(ops, "_direct", route):
+                    for _ in range(DISPATCH_STEPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        decode0(params0, tok, cache, lengths)
+                        torch.cuda.synchronize()
+                        dispatch[label].append((time.perf_counter() - t0) * 1e3)
+            del cache
+            # and the host time of one B7 call alone, at the engine's shape
+            q = torch.randn(LM_BATCH, cfg.num_heads, cfg.head_dim, device=device,
+                            dtype=torch.bfloat16)
+            kv = torch.randn(LM_BATCH, LM_MAX_SEQ, cfg.num_kv_heads, cfg.head_dim,
+                             device=device, dtype=torch.bfloat16)
+            lens = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32, device=device)
+            host_us = {"direct": [], "op": []}
+            for label in ("direct", "op", "op", "direct"):
+                route = ops._direct if label == "direct" else (lambda *t: False)
+                with mock.patch.object(ops, "_direct", route):
+                    for _ in range(DISPATCH_CALLS):
+                        t0 = time.perf_counter()
+                        ops.decode_attention(q, kv, kv, lens)
+                        host_us[label].append((time.perf_counter() - t0) * 1e6)
+                    torch.cuda.synchronize()
+        b7_dispatch = {**{f"{label}_decode_step_ms": statistics.median(ms)
+                          for label, ms in dispatch.items()},
+                       **{f"{label}_host_us_a_call": statistics.median(us)
+                          for label, us in host_us.items()}}
+        same_tokens = torch.equal(runs["plan"]["tokens"], runs["no_plan"]["tokens"])
+        if not same_tokens:
+            raise AssertionError("(b): the plan path's greedy tokens differ from the no-plan "
+                                 "path's")
+        err = 0.0
+        bitwise = True
+        for i, (a, b) in enumerate(zip(runs["plan"]["logits"], runs["no_plan"]["logits"])):
+            bitwise &= torch.equal(a, b)
+            err = max(err, parity.check(a, b, [1] * LM_BATCH, f"(b) logits {i}")[0])
+        out = {"phase": "dryrun_plan_serving", "arch": LM_ARCH, "mesh": mesh_desc(mesh),
+               "attn_mode": {"prefill": pre_plan.attn_mode, "decode": dec_plan.attn_mode},
+               "batch": LM_BATCH, "prompt": LM_PROMPT, "cache": LM_MAX_SEQ,
+               "decode_steps": PLAN_SERVE_STEPS, "same_tokens": same_tokens,
+               "logits_bitwise": bitwise, "logits_max_abs_err": err,
+               "tolerance": "flash_attention.parity float32 (2e-5 relative and absolute)",
+               **{label: {k: v for k, v in r.items() if k not in ("logits", "tokens")}
+                  for label, r in runs.items()},
+               "b7_dispatch": {**b7_dispatch, "steps": 2 * DISPATCH_STEPS,
+                               "calls": 2 * DISPATCH_CALLS, "order": "direct, op, op, direct"},
+               "card": card}
+        emit(out)
+        del params, placed, paths, runs
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def tracker_child(plan: bool) -> None:
+    """(d), run in a process of its own: gemma-2b's training step of phase
+    15 (c) (batch 4 x 1,024, ``remat="full"``, CE chunks of 512) on
+    ``meta`` under the live-bytes tracker, without a plan or, with
+    ``plan``, through the plan step on a one-rank world's (1, 1) mesh;
+    prints one JSON line."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.roofline.hlo_analysis import analyze_with_memory
+    from repro_torch.train import make_train_step
+
+    cfg = get_arch(TRAIN_ARCH)
+    lm = LM(cfg, remat="full", loss_chunk=TRAIN_LOSS_CHUNK)
+    params = lm.abstract_params()
+    opt = init_opt_state(params)
+    tokens = torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int64, device="meta")
+    ocfg = AdamWConfig(lr=MEMO_LR, warmup_steps=0, schedule="constant")
+    t0 = time.perf_counter()
+    if plan:
+        from repro_torch.launch.dryrun import fake_world
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.parallel import make_plan
+        from repro_torch.parallel.sharding import abstract_placed
+
+        fake_world(1)
+        mesh = make_host_mesh("cpu")
+        pl = make_plan(cfg, mesh)
+        params, opt = (abstract_placed(params, pl.param_shardings(params)),
+                       abstract_placed(opt, pl.opt_shardings(lm.abstract_params())))
+        tokens = abstract_placed(tokens, pl.token_sharding())
+        step, _ = make_train_step(lm, pl, ocfg)
+    else:
+        step, _ = make_train_step(lm, None, ocfg)
+    _, mem, _ = analyze_with_memory(step, params, opt, tokens)
+    print(json.dumps({"argument_bytes": mem.argument_bytes, "peak_bytes": mem.peak_bytes,
+                      "output_bytes": mem.output_bytes, "alias_bytes": mem.alias_bytes,
+                      "peak_by_op": dict(list(mem.peak_by_op.items())[:10]),
+                      "seconds": time.perf_counter() - t0}))
+
+
+def phase21_tracker_card_bytes(device):
+    """(d) the bytes the card holds for phase 15 (c)'s params, AdamW moments
+    and tokens, each distinct storage once."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    from repro_torch.train import init_train_state
+    from repro_torch.tree import leaves
+
+    lm = LM(get_arch(TRAIN_ARCH), remat="full", loss_chunk=TRAIN_LOSS_CHUNK)
+    params, opt = init_train_state(lm, None, seed=0, device=device)
+    tokens = torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int64, device=device)
+    seen, total = set(), 0
+    for t in leaves(params) + leaves(opt) + [tokens]:
+        st = t.untyped_storage()
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            total += st.nbytes()
+    del params, opt, tokens
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_dryrun(device, memo, lm_mesh, card):
+    """Phase 21: (a) B7's sequence-split entry on the card, (b) serving
+    under a plan on the one-card mesh, (c) dry-run cells of gemma-2b on the
+    fake 256- and 512-rank worlds (each in a subprocess: one world a
+    process), (d) the live-bytes tracker against the card's
+    ``max_memory_allocated`` of phases 15 (c) and 20."""
+    import os
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    split = phase21_split(device)
+    serving = phase21_plan_serving(device, card)
+    card_bytes = phase21_tracker_card_bytes(device)
+
+    # (c) and (d): CPU work in subprocesses, all at once
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    t0 = time.perf_counter()
+    procs = {}
+    for shape, mesh in DRYRUN_CELLS:
+        procs[(shape, mesh)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM_ARCH, "--shape",
+             shape, "--mesh", mesh, "--out", str(out_dir)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for label in ("no_plan", "plan"):
+        code = f"import chip_smoke; chip_smoke.tracker_child({label == 'plan'})"
+        procs[label] = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    results = {}
+    try:
+        for key, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"(c)/(d) {key} exited {p.returncode}:\n"
+                                     f"{(stdout or '')[-3000:]}{(stderr or '')[-3000:]}")
+            results[key] = stdout
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    cells = []
+    for shape, mesh in DRYRUN_CELLS:
+        path = out_dir / f"{LM_ARCH}__{shape}__{mesh}.json"
+        if not path.exists():
+            raise AssertionError(f"(c) no report for {shape} {mesh}")
+        r = json.loads(path.read_text())
+        if "error" in r or r.get("skipped"):
+            raise AssertionError(f"(c) {shape} {mesh}: {r.get('error') or r.get('reason')}")
+        cells.append({k: r[k] for k in (
+            "arch", "shape", "mesh", "chips", "attn_mode", "bottleneck", "t_compute_s",
+            "t_memory_s", "t_collective_s", "step_time_s", "flops_per_device",
+            "xla_cost_analysis_flops", "bytes_per_device", "coll_breakdown", "t_lower_s")}
+            | {"peak_gib": r["memory_analysis"]["peak_bytes_per_device"] / 2 ** 30,
+               "argument_gib": r["memory_analysis"]["argument_size_in_bytes"] / 2 ** 30,
+               "peak_by_op": r["memory_analysis"]["peak_by_op"]})
+    shutil.rmtree(out_dir, ignore_errors=True)
+    dryrun_s = time.perf_counter() - t0
+    emit({"phase": "dryrun_cells", "cells": cells, "seconds_all_cells": dryrun_s,
+          "note": "per rank of a fake 256- or 512-rank world; t_* at the H100's published "
+                  "peaks; nothing runs on the card"})
+
+    # (d) the tracker against the card
+    tracked = {label: json.loads(results[label].strip().splitlines()[-1])
+               for label in ("no_plan", "plan")}
+    card_peaks = {"no_plan": memo["peak_gb"] * 1e9,
+                  "plan": lm_mesh["train"]["plan"]["peak_gb"] * 1e9}
+    for label, t in tracked.items():
+        if t["argument_bytes"] != card_bytes:
+            raise AssertionError(f"(d) {label}: the tracker's argument bytes "
+                                 f"{t['argument_bytes']} are not the card's {card_bytes}")
+        rel = t["peak_bytes"] / card_peaks[label] - 1
+        t["card_peak_bytes"] = card_peaks[label]
+        t["peak_rel_to_card"] = rel
+        if abs(rel) > TRACKER_PEAK_REL:
+            raise AssertionError(f"(d) {label}: tracked peak {t['peak_bytes'] / 1e9:.2f} GB "
+                                 f"against the card's {card_peaks[label] / 1e9:.2f} GB "
+                                 f"({rel:+.1%}, limit {TRACKER_PEAK_REL:.0%})")
+    extra = {op: tracked["plan"]["peak_by_op"].get(op, 0) - tracked["no_plan"]["peak_by_op"]
+             .get(op, 0) for op in set(tracked["plan"]["peak_by_op"])
+             | set(tracked["no_plan"]["peak_by_op"])}
+    tracker = {"card_argument_bytes": card_bytes, **tracked,
+               "plan_minus_no_plan_at_peak_by_op": dict(sorted(
+                   extra.items(), key=lambda kv: -abs(kv[1]))[:8])}
+    emit({"phase": "dryrun_tracker", **tracker, "limit_rel": TRACKER_PEAK_REL, "card": card})
+    out = {"split": split, "serving": serving, "cells": cells, "tracker": tracker,
+           "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "dryrun", "seconds": out["seconds"], "card": card})
+    return out
+
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
@@ -3869,6 +4272,7 @@ def main() -> int:
     mesh_launches = phase_overlay_mesh(device, main_reqs, channel_requests, chain_reqs,
                                        pipe_grid, card)
     lm_mesh = phase_lm_mesh(device, memo, card)
+    dryrun = phase_dryrun(device, memo, lm_mesh, card)
 
     # Each kernel's launches come from the path it serves, counted from 0.
     launches = {"vcgra_fused_batched": main_launches["vcgra_fused_batched"],
@@ -3876,7 +4280,7 @@ def main() -> int:
                 "vcgra_pipeline_batched": chain_launches["vcgra_pipeline_batched"],
                 **{k: single_launches[k] for k in
                    ("vcgra_conventional", "vcgra_specialized", "stencil_fused")},
-                "flash_decode": lm_launches["flash_decode"]}
+                "flash_decode": lm_launches["flash_decode"] + dryrun["split"]["launches"]}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
@@ -3891,6 +4295,11 @@ def main() -> int:
         })
     b7 = next(k for k in kernels if k["name"] == "flash_decode")
     b7["launches_lm_zoo"] = {arch: z["launches"]["flash_decode"] for arch, z in zoo.items()}
+    b7["launches_lm_path"] = lm_launches["flash_decode"]
+    b7["launches_seq_split"] = dryrun["split"]["launches"]
+    b7["launches_plan_serving"] = dryrun["serving"]["plan"]["b7_launches"]
+    b7["seq_split_block_ms"] = statistics.median(dryrun["split"]["block_ms"])
+    b7["seq_split_block_bound_ms"] = max(dryrun["split"]["block_bound_ms"])
     emit({"kernels": kernels, "launches": {"main_path": main_launches,
                                            "chain_path": chain_launches,
                                            "synthesis_case": synthesis_launches,
@@ -3944,7 +4353,18 @@ def main() -> int:
                       "restore_shardings_s": lm_mesh["checkpoint"]["restore_shardings_s"],
                       "moe_max_abs_err": lm_mesh["moe"]["max_abs_err"],
                       "two_cards_ran": lm_mesh["two_cards"]["ran"],
-                      "seconds": lm_mesh["seconds"]}})
+                      "seconds": lm_mesh["seconds"]},
+          "dryrun": {"split_total_ms": dryrun["split"]["split_total_ms"],
+                     "split_whole_ms": dryrun["split"]["whole_ms"],
+                     "plan_decode_step_ms": dryrun["serving"]["plan"]["decode_step_ms"],
+                     "no_plan_decode_step_ms": dryrun["serving"]["no_plan"]["decode_step_ms"],
+                     "plan_logits_bitwise": dryrun["serving"]["logits_bitwise"],
+                     "cells": {f"{c['shape']} {c['mesh']}": {"bottleneck": c["bottleneck"],
+                                                             "peak_gib": c["peak_gib"]}
+                               for c in dryrun["cells"]},
+                     "tracker_peak_rel_to_card": {k: dryrun["tracker"][k]["peak_rel_to_card"]
+                                                  for k in ("no_plan", "plan")},
+                     "seconds": dryrun["seconds"]}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -16,6 +16,13 @@
 // denominator floor does.  A split that lies wholly past lengths[b]
 // writes an empty partial (m = -1e30, l = 0) without reading k or v.
 //
+// The sequence-split entry: on a mesh that shards the cache's S over
+// 'model', each rank runs this kernel on its own block of rows, masked by
+// the wrapper to clamp(lengths - r0, 0, S_local) valid rows, and the
+// combine also writes each head's float32 log-sum-exp of its scaled scores
+// (-inf for no valid row) beside a float32 output; the ranks merge their
+// blocks' outputs weighted by exp(lse - max lse) (ops.decode_attention_split).
+//
 // Bound: the bytes of k and v up to lengths[b] (each read once); at the
 // `decode_32k` shape of one gemma-2b layer (B 128, S 32768, G 1, D 256,
 // bf16) that is 4.29 GB, 1.28 ms at 3.35 TB/s.  Two bodies compute a
@@ -584,8 +591,8 @@ __device__ float block_reduce(float x, float* scratch) {
 template <typename OT>
 __global__ void __launch_bounds__(COMBINE_THREADS) flash_decode_combine(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, OT* __restrict__ out, int G, int Hg, int D,
-    int n_splits) {
+    const float* __restrict__ part_acc, OT* __restrict__ out, float* __restrict__ lse, int G,
+    int Hg, int D, int n_splits) {
   extern __shared__ float weight[];  // [n_splits]: exp(m_s - max), 0 for an empty split
   __shared__ float scratch[COMBINE_THREADS / 32];
   const int h = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
@@ -603,6 +610,10 @@ __global__ void __launch_bounds__(COMBINE_THREADS) flash_decode_combine(
     sum += ls * w;
   }
   sum = block_reduce<false>(sum, scratch);  // its barrier also publishes weight[]
+  // the log-sum-exp of the scaled scores over the valid rows; -inf for none
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[((long long)b * G + g) * Hg + h] =
+        sum > 0.f ? mx + logf(sum) : __int_as_float(0xff800000);  // -inf
   for (int d = threadIdx.x; d < D; d += COMBINE_THREADS) {
     float a = 0.f;
     for (int s = 0; s < n_splits; ++s)
@@ -613,30 +624,28 @@ __global__ void __launch_bounds__(COMBINE_THREADS) flash_decode_combine(
 
 template <typename OT>
 cudaError_t launch_combine(const float* part_m, const float* part_l, const float* part_acc,
-                           void* out, int B, int G, int Hg, int D, int n_splits,
+                           void* out, float* lse, int B, int G, int Hg, int D, int n_splits,
                            cudaStream_t stream) {
   flash_decode_combine<OT>
       <<<dim3(Hg, G, B), COMBINE_THREADS, n_splits * sizeof(float), stream>>>(
-          part_m, part_l, part_acc, static_cast<OT*>(out), G, Hg, D, n_splits);
+          part_m, part_l, part_acc, static_cast<OT*>(out), lse, G, Hg, D, n_splits);
   return cudaGetLastError();
 }
 
 template <typename QT, typename KT, int VEC, int HG>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
-                   float* part_m, float* part_l, float* part_acc, void* out, int B, int S,
+                   float* part_m, float* part_l, float* part_acc, int B, int S,
                    int G, int Hg, int D, int split_len, int n_splits, float scale,
                    cudaStream_t stream) {
   flash_decode_partial<QT, KT, VEC, HG><<<dim3(n_splits, G, B), THREADS, 0, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v), lengths,
       part_m, part_l, part_acc, S, G, Hg, D, split_len, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_combine<QT>(part_m, part_l, part_acc, out, B, G, Hg, D, n_splits, stream);
+  return cudaGetLastError();
 }
 
 template <typename QT, int D, int NT>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* lengths,
-                      float* part_m, float* part_l, float* part_acc, void* out, int B, int S,
+                      float* part_m, float* part_l, float* part_acc, int B, int S,
                       int G, int Hg, int split_len, int n_splits, float scale,
                       cudaStream_t stream) {
   constexpr int QP = sizeof(QT) == 4 ? 3 : 1;  // bf16 parts of q
@@ -649,22 +658,20 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* le
       static_cast<const QT*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), lengths, part_m, part_l, part_acc, S, G, Hg,
       split_len, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_combine<QT>(part_m, part_l, part_acc, out, B, G, Hg, D, n_splits, stream);
+  return cudaGetLastError();
 }
 
 template <typename QT>
 cudaError_t launch_tc_shape(const void* q, const void* k, const void* v, const int* lengths,
-                            float* part_m, float* part_l, float* part_acc, void* out, int B,
+                            float* part_m, float* part_l, float* part_acc, int B,
                             int S, int G, int Hg, int D, int split_len, int n_splits,
                             float scale, cudaStream_t stream) {
   if (Hg < 1 || Hg > 16 || split_len % TC_ROWS) return cudaErrorInvalidValue;
 #define FLASH_DECODE_TC(DV)                                                                 \
   case DV:                                                                                  \
-    return Hg <= 8 ? launch_tc<QT, DV, 1>(q, k, v, lengths, part_m, part_l, part_acc, out, \
+    return Hg <= 8 ? launch_tc<QT, DV, 1>(q, k, v, lengths, part_m, part_l, part_acc, \
                                           B, S, G, Hg, split_len, n_splits, scale, stream)  \
-                   : launch_tc<QT, DV, 2>(q, k, v, lengths, part_m, part_l, part_acc, out, \
+                   : launch_tc<QT, DV, 2>(q, k, v, lengths, part_m, part_l, part_acc, \
                                           B, S, G, Hg, split_len, n_splits, scale, stream);
   switch (D) {
     FLASH_DECODE_TC(16)
@@ -710,13 +717,13 @@ int group_size(int Hg, int vec) {
 
 template <typename QT, typename KT, int VEC>
 cudaError_t launch_group(const void* q, const void* k, const void* v, const int* lengths,
-                         float* part_m, float* part_l, float* part_acc, void* out, int B,
+                         float* part_m, float* part_l, float* part_acc, int B,
                          int S, int G, int Hg, int D, int split_len, int n_splits, float scale,
                          cudaStream_t stream) {
 #define FLASH_DECODE_HG(HGV)                                                                \
   case HGV:                                                                                 \
     if constexpr (HGV * 32 * VEC <= GROUP_FLOATS)                                           \
-      return launch<QT, KT, VEC, HGV>(q, k, v, lengths, part_m, part_l, part_acc, out, B, \
+      return launch<QT, KT, VEC, HGV>(q, k, v, lengths, part_m, part_l, part_acc, B, \
                                       S, G, Hg, D, split_len, n_splits, scale, stream);     \
     return cudaErrorInvalidValue;
   switch (group_size(Hg, VEC)) {
@@ -734,11 +741,11 @@ cudaError_t launch_group(const void* q, const void* k, const void* v, const int*
 template <typename QT, typename KT>
 cudaError_t launch_vec(int vec, const void* q, const void* k, const void* v,
                        const int* lengths, float* part_m, float* part_l, float* part_acc,
-                       void* out, int B, int S, int G, int Hg, int D, int split_len,
+                       int B, int S, int G, int Hg, int D, int split_len,
                        int n_splits, float scale, cudaStream_t stream) {
 #define FLASH_DECODE_VEC(V)                                                             \
   case V:                                                                               \
-    return launch_group<QT, KT, V>(q, k, v, lengths, part_m, part_l, part_acc, out, B, \
+    return launch_group<QT, KT, V>(q, k, v, lengths, part_m, part_l, part_acc, B, \
                                    S, G, Hg, D, split_len, n_splits, scale, stream);
   switch (vec) {
     FLASH_DECODE_VEC(1)
@@ -782,43 +789,65 @@ int flash_decode_tc_regs(int q_dtype, int Hg, int D) {
   return attr.numRegs;
 }
 
-// q [B, Hg * G, D] (dtype code 0 float32, 1 bfloat16), k and v [B, S, G, D]
-// (same codes; bfloat16 q takes a bfloat16 cache only), lengths int32 [B];
-// scratch part_m, part_l float32 [B, G, n_splits, Hg] and part_acc
-// [B, G, n_splits, Hg, D]; out like q.  n_splits * split_len >= S.
-// tensor_cores = 1 runs the tensor-core body (a bfloat16 cache, D in
-// {16, 32, 64, 128, 256}, Hg <= 16, split_len a multiple of TC_ROWS),
-// 0 the CUDA-core body.  Returns the first CUDA error of the launches, or
-// 0; a shape the chosen body does not take returns cudaErrorInvalidValue
-// without launching.
-int flash_decode(int tensor_cores, int q_dtype, int kv_dtype, int vec, const void* q,
-                 const void* k, const void* v, const void* lengths, void* part_m, void* part_l,
-                 void* part_acc, void* out, int B, int S, int G, int Hg, int D, int split_len,
-                 int n_splits, float scale, void* stream) {
-  const int* len = static_cast<const int*>(lengths);
-  float *pm = static_cast<float*>(part_m), *pl = static_cast<float*>(part_l),
-        *pa = static_cast<float*>(part_acc);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+// The splits' partials of one launch: the body flash_decode picks.
+cudaError_t launch_partials(int tensor_cores, int q_dtype, int kv_dtype, int vec, const void* q,
+                            const void* k, const void* v, const int* len, float* pm, float* pl,
+                            float* pa, int B, int S, int G, int Hg, int D, int split_len,
+                            int n_splits, float scale, cudaStream_t st) {
   if (tensor_cores) {
     if (kv_dtype != 1) return cudaErrorInvalidValue;
     if (q_dtype == 0)
-      return launch_tc_shape<float>(q, k, v, len, pm, pl, pa, out, B, S, G, Hg, D, split_len,
+      return launch_tc_shape<float>(q, k, v, len, pm, pl, pa, B, S, G, Hg, D, split_len,
                                     n_splits, scale, st);
     if (q_dtype == 1)
-      return launch_tc_shape<__nv_bfloat16>(q, k, v, len, pm, pl, pa, out, B, S, G, Hg, D,
+      return launch_tc_shape<__nv_bfloat16>(q, k, v, len, pm, pl, pa, B, S, G, Hg, D,
                                             split_len, n_splits, scale, st);
     return cudaErrorInvalidValue;
   }
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch_vec<float, float>(vec, q, k, v, len, pm, pl, pa, out, B, S, G, Hg, D,
+    return launch_vec<float, float>(vec, q, k, v, len, pm, pl, pa, B, S, G, Hg, D,
                                     split_len, n_splits, scale, st);
   if (q_dtype == 0 && kv_dtype == 1)
-    return launch_vec<float, __nv_bfloat16>(vec, q, k, v, len, pm, pl, pa, out, B, S, G, Hg,
+    return launch_vec<float, __nv_bfloat16>(vec, q, k, v, len, pm, pl, pa, B, S, G, Hg,
                                             D, split_len, n_splits, scale, st);
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch_vec<__nv_bfloat16, __nv_bfloat16>(vec, q, k, v, len, pm, pl, pa, out, B, S,
+    return launch_vec<__nv_bfloat16, __nv_bfloat16>(vec, q, k, v, len, pm, pl, pa, B, S,
                                                     G, Hg, D, split_len, n_splits, scale, st);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q [B, Hg * G, D] (dtype code 0 float32, 1 bfloat16), k and v [B, S, G, D]
+// (same codes; bfloat16 q takes a bfloat16 cache only), lengths int32 [B];
+// scratch part_m, part_l float32 [B, G, n_splits, Hg] and part_acc
+// [B, G, n_splits, Hg, D].  n_splits * split_len >= S.
+// tensor_cores = 1 runs the tensor-core body (a bfloat16 cache, D in
+// {16, 32, 64, 128, 256}, Hg <= 16, split_len a multiple of TC_ROWS),
+// 0 the CUDA-core body; then the combine writes out [B, Hg * G, D], like q
+// or, with out_f32 = 1, float32, and, where lse is not null, the float32
+// log-sum-exp [B, Hg * G] of each head's scaled scores over its valid rows
+// (-inf where a sequence has none): the sequence-split entry, whose
+// partial results of several row blocks merge by their lse.  Returns the
+// first CUDA error of the launches, or 0; a shape the chosen body does not
+// take returns cudaErrorInvalidValue without launching.
+int flash_decode(int tensor_cores, int q_dtype, int kv_dtype, int vec, const void* q,
+                 const void* k, const void* v, const void* lengths, void* part_m, void* part_l,
+                 void* part_acc, void* out, int B, int S, int G, int Hg, int D, int split_len,
+                 int n_splits, float scale, int out_f32, void* lse, void* stream) {
+  float *pm = static_cast<float*>(part_m), *pl = static_cast<float*>(part_l),
+        *pa = static_cast<float*>(part_acc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_partials(tensor_cores, q_dtype, kv_dtype, vec, q, k, v,
+                                    static_cast<const int*>(lengths), pm, pl, pa, B, S, G, Hg,
+                                    D, split_len, n_splits, scale, st);
+  if (err != cudaSuccess) return err;
+  float* l = static_cast<float*>(lse);
+  if (out_f32 || q_dtype == 0)
+    return launch_combine<float>(pm, pl, pa, out, l, B, G, Hg, D, n_splits, st);
+  return launch_combine<__nv_bfloat16>(pm, pl, pa, out, l, B, G, Hg, D, n_splits, st);
 }
 
 }  // extern "C"

@@ -19,6 +19,18 @@ Two bodies compute a split (``csrc/flash_decode.cu``), picked by
 the head dim: the tensor-core body (a bf16 cache) or the CUDA-core body (a
 float32 cache, or a head dim the tensor cores do not take).  The choice is
 explicit; a launch failure of either raises.
+
+B7 is a torch op, ``repro_torch::flash_decode``: the kernel on CUDA
+tensors, ``ref.decode_ref`` on CPU tensors, an output of q's shape on
+``meta`` and fake tensors (so a census or a dry run passes through it),
+and a census formula (:func:`census_op_cost`, which
+``roofline.hlo_analysis`` reads).  Its sequence-split entry,
+``repro_torch::flash_decode_split`` (:func:`decode_attention_split`),
+attends over one block of a cache whose rows are split over a mesh and
+returns the float32 output with its log-sum-exp; :func:`merge_splits`
+merges the ranks' blocks with functional collectives, ``ref.merge_ref``
+merges a list of them.  Plain CUDA tensors, the serving path's, launch
+the kernel without the op's dispatch (:func:`_direct`).
 """
 
 from __future__ import annotations
@@ -107,13 +119,21 @@ def split_length(B: int, S: int, G: int, sm_count: int, max_splits: int) -> int:
     return split
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor, chunk: int = 512) -> torch.Tensor:
-    """GQA decode attention: q ``[B, H, D]`` over cache k/v ``[B, S, G, D]``
-    masked to each sequence's first ``lengths[b]`` rows."""
-    B, H, D, S, G = _check(q, k, v, lengths, chunk)
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
-        return ref.decode_ref(q, k, v, lengths)
+def census_cost(B: int, H: int, G: int, D: int, rows: int, itemsize: int) -> Tuple[float, float]:
+    """(operations, bytes) of one B7 call over ``rows`` cache rows in all:
+    q, those k/v rows and the output moved once (in the cache's itemsize)
+    and the int32 lengths, and 4 D operations (a multiply-add each for the
+    score and the weighted sum) per row and query head."""
+    return 4.0 * D * H * rows, float(2 * B * H * D * itemsize + 2 * rows * G * D * itemsize
+                                     + 4 * B)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+            split_entry: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B7 on the card: ``(out, lse)``, out like q and lse None; with
+    ``split_entry`` a float32 out and the float32 log-sum-exp ``[B, H]``."""
+    B, H, D = q.shape
+    _, S, G, _ = k.shape
     if {q.device, k.device, v.device, lengths.device} != {q.device} or q.device.type != "cuda":
         raise ValueError("the Hopper kernel runs on CUDA tensors on one device; got q "
                          f"{q.device}, k {k.device}, v {v.device}, lengths {lengths.device}")
@@ -141,9 +161,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     align = 16 if tensor_cores else vec * k.element_size()
     if k.data_ptr() % align or v.data_ptr() % align:
         raise ValueError(f"k and v must be {align}-byte aligned for the kernel's vector loads")
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if split_entry else q.dtype)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if split_entry else None
     if out.numel() == 0:
-        return out
+        return out, lse
     split = split_length(B, S, G, _sm_count(q.device.index or 0),
                          lib.flash_decode_max_splits())
     n_splits = -(-S // split)
@@ -155,8 +176,118 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(tensor_cores), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], vec, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), out.data_ptr(), B, S, G, Hg, D, split, n_splits,
-            float(D ** -0.5), torch.cuda.current_stream().cuda_stream)
+            float(D ** -0.5), int(split_entry), 0 if lse is None else lse.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {rc}")
     LAUNCHES["flash_decode"] += 1
-    return out
+    return out, lse
+
+
+# -- the torch ops: the CPU plain version, the CUDA kernel, a meta shape ---------
+
+
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=(), device_types="cpu")
+def flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """B7 as a torch op: the plain version on the CPU (registered below: the
+    kernel on CUDA, a shape on meta and fake tensors)."""
+    return ref.decode_ref(q, k, v, lengths)
+
+
+@flash_decode_op.register_kernel("cuda")
+def _flash_decode_cuda(q, k, v, lengths):
+    return _launch(q, k, v, lengths, split_entry=False)[0]
+
+
+@flash_decode_op.register_fake
+def _flash_decode_fake(q, k, v, lengths):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::flash_decode_split", mutates_args=(), device_types="cpu")
+def flash_decode_split_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lengths: torch.Tensor, r0: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B7's sequence-split entry as a torch op: k/v hold global rows ``r0 ..
+    r0 + S - 1`` and ``lengths`` count global rows."""
+    return ref.decode_partial_ref(q, k, v, lengths, r0)
+
+
+@flash_decode_split_op.register_kernel("cuda")
+def _flash_decode_split_cuda(q, k, v, lengths, r0):
+    rows = (lengths - r0).clamp(0, k.shape[1]).to(torch.int32)
+    return _launch(q, k, v, rows, split_entry=True)
+
+
+@flash_decode_split_op.register_fake
+def _flash_decode_split_fake(q, k, v, lengths, r0):
+    return (torch.empty_like(q, dtype=torch.float32),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+def census_op_cost(q, k, v, lengths, r0=None) -> Tuple[float, float]:
+    """(operations, bytes) of one call of either B7 op over all of its S
+    rows, as the reference's einsum decode reads them; the split entry also
+    writes its float32 log-sum-exp."""
+    B, H, D = q.shape
+    ops, nbytes = census_cost(B, H, k.shape[2], D, B * k.shape[1], k.element_size())
+    return ops, nbytes + (0.0 if r0 is None else 4.0 * B * H)
+
+
+def _direct(*tensors: torch.Tensor) -> bool:
+    """Whether B7 may launch without the op's dispatch: plain CUDA tensors
+    and no dispatch mode (a census) active.  The main serving path takes
+    this route; meta, fake and CPU tensors and DTensors go through the op."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    return (all(type(t) is torch.Tensor and t.is_cuda for t in tensors)
+            and _get_current_dispatch_mode() is None)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """GQA decode attention: q ``[B, H, D]`` over cache k/v ``[B, S, G, D]``
+    masked to each sequence's first ``lengths[b]`` rows."""
+    _check(q, k, v, lengths, chunk)
+    if _direct(q, k, v, lengths):
+        return _launch(q, k, v, lengths, split_entry=False)[0]
+    return flash_decode_op(q, k, v, lengths)
+
+
+def decode_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor, r0: int,
+                           chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequence-split entry: q ``[B, H, D]`` over one block of a cache,
+    k/v ``[B, S, G, D]`` holding its global rows ``r0 .. r0 + S - 1``, each
+    sequence masked to ``clamp(lengths[b] - r0, 0, S)`` rows.  Returns the
+    float32 output ``[B, H, D]`` normalised over the block's rows and the
+    float32 log-sum-exp ``[B, H]`` of the scaled scores over them (-inf,
+    and an output of 0, where a sequence has none): what :func:`merge_splits`
+    and ``ref.merge_ref`` merge."""
+    _check(q, k, v, lengths, chunk)
+    if _direct(q, k, v, lengths):
+        return _flash_decode_split_cuda(q, k, v, lengths, int(r0))
+    return flash_decode_split_op(q, k, v, lengths, int(r0))
+
+
+def merge_splits(out: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block ``(out, lse)`` of :func:`decode_attention_split`
+    merged with the other blocks of the process group ``group`` (a
+    ``(DeviceMesh, dim)``): an all-gather of the lse, the weights
+    ``exp(lse_i - max)``, and an all-reduce of the weighted outputs, all
+    functional collectives.  Returns the float32 merged output."""
+    import torch.distributed._functional_collectives as funcol
+
+    lses = funcol.all_gather_tensor(lse, gather_dim=0, group=group)
+    lses = lses.reshape(-1, *lse.shape)
+    top = lses.amax(dim=0)
+    w_all = _weights(lses, top)
+    w = _weights(lse, top)
+    num = funcol.all_reduce(out * w[..., None], "sum", group)
+    return num / w_all.sum(dim=0).clamp_min(1e-30)[..., None]
+
+
+def _weights(lse: torch.Tensor, top: torch.Tensor) -> torch.Tensor:
+    """exp(lse - top), 0 for a block with no valid row (lse = -inf)."""
+    empty = torch.isneginf(lse)
+    return torch.where(empty, 0.0, torch.exp(torch.where(empty, 0.0, lse - top)))

@@ -22,6 +22,17 @@ window over the full cache (the window's rows gathered into a buffer of
 ``seq_shard`` shards the queries along the sequence over 'model'
 (sequence-parallel attention, the plan's 'seq' mode); off-mesh it is the
 identity.
+
+Decode on a mesh (a DTensor cache laid out by ``ShardingPlan.cache_specs``)
+works rank by rank and never gathers the cache: each projection runs on
+the rank's block of its weight, q and the new k/v rows (one token) are
+then gathered to whole heads, each rank writes the new rows that fall in
+its block of the cache and B7 reads that block.  Where the cache's
+sequence dim is split over 'model', each rank runs B7's sequence-split
+entry on its rows and the ranks merge their outputs by their
+log-sum-exps (``ops.merge_splits``: an all-gather of ``[B, H]`` float32
+and an all-reduce of the weighted outputs); the output projection runs
+on the rank's block of ``wo``.
 """
 
 from __future__ import annotations
@@ -29,11 +40,13 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import decode_attention
+from repro_torch.kernels.flash_attention.ops import decode_attention_split, merge_splits
 from repro_torch.models.layers import Params, f32_matmul, rope, truncated_normal
-from repro_torch.parallel.axes import constrain
+from repro_torch.parallel.axes import constrain, from_block, local_block, whole_local
 
 NEG_INF = -2.0e38
 
@@ -108,6 +121,47 @@ def _sdpa(q, k, v, mask):
     return torch.einsum("bghqk,bkgd->bqghd", p.to(v.dtype), v)
 
 
+def _attend(q, k, v, q0: int, window: int, prefix_len: int, chunk_q: int):
+    """Causal (windowed, prefix-LM) attention of the queries ``q`` ``[B,
+    Sq, G, Hg, hd]`` at positions ``q0 .. q0 + Sq - 1`` over the keys and
+    values ``[B, Sk, G, hd]`` at positions ``0 .. Sk - 1``; with grad
+    enabled and more than one chunk, each chunk is rematerialised."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    pos_q = q0 + torch.arange(Sq, device=q.device)
+    pos_k = torch.arange(Sk, device=q.device)
+    # Query chunks of chunk_q rows, the last one ragged.  The reference
+    # takes the largest divisor of S (pick_chunk), which is 1 for a prime S:
+    # a query's scores never depend on its chunk, so the function is the
+    # same, without S chunks a layer for a prime-length prompt.
+    cq = min(chunk_q, Sq)
+    n_chunks = -(-Sq // cq)
+    # banded K/V: a sliding-window chunk only sees the last (window + cq)
+    # keys, as in the reference.
+    band = window + cq
+    use_band = window > 0 and prefix_len == 0 and band < Sk and n_chunks > 1
+
+    if n_chunks == 1:
+        return _sdpa(q, k, v, _mask(pos_q, pos_k, window, prefix_len))
+    outs = []
+    for i in range(0, Sq, cq):
+        qb = q[:, i:i + cq]
+        if use_band:
+            start = min(max(q0 + i - window, 0), Sk - band)
+            kb, vb = k[:, start:start + band], v[:, start:start + band]
+            kpos = pos_k[start:start + band]
+        else:
+            kb, vb, kpos = k, v, pos_k
+        mask = _mask(pos_q[i:i + cq], kpos, window, prefix_len)
+        if torch.is_grad_enabled():
+            # remat, as the reference's: backward recomputes the chunk's
+            # scores and softmax instead of keeping [B, Hq, cq, S] float32
+            # residuals a chunk
+            outs.append(checkpoint(_sdpa, qb, kb, vb, mask, use_reentrant=False))
+        else:
+            outs.append(_sdpa(qb, kb, vb, mask))
+    return torch.cat(outs, dim=1)
+
+
 def attention_train(
     params: Params,
     x: torch.Tensor,             # [B, S, D]
@@ -128,73 +182,210 @@ def attention_train(
     ``seq_shard``: sequence-parallel attention for archs whose head counts
     don't divide the model axis -- keys and values gathered (small: G*hd a
     token), queries sharded along the sequence over 'model', so the
-    scores are sharded on Sq with no score collectives."""
+    scores are sharded on Sq with no score collectives.  On a mesh it runs
+    on each rank's block (:func:`_seq_parallel`); off-mesh it changes
+    nothing.  In the other modes a mesh gathers the sequence before the
+    projections (Megatron's sequence parallelism)."""
     B, S, _ = x.shape
     G = num_kv_heads
     Hg = num_heads // G
+    if isinstance(x, DTensor):
+        if seq_shard:
+            return _seq_parallel(params, x, G, Hg, head_dim, rope_theta, window, prefix_len,
+                                 chunk_q, return_kv)
+        x = constrain(x, "batch", None, None)
     positions = torch.arange(S, device=x.device)
-
     q, k, v = _project_qkv(params, x, G, Hg, head_dim, positions[None], rope_theta)
-    if seq_shard:
-        k = constrain(k, "batch", None, None, None)
-        v = constrain(v, "batch", None, None, None)
-        q = constrain(q, "batch", "model", None, None, None)
-
-    # Query chunks of chunk_q rows, the last one ragged.  The reference
-    # takes the largest divisor of S (pick_chunk), which is 1 for a prime S:
-    # a query's scores never depend on its chunk, so the function is the
-    # same, without S chunks a layer for a prime-length prompt.
-    cq = min(chunk_q, S)
-    n_chunks = -(-S // cq)
-    # banded K/V: a sliding-window chunk only sees the last (window + cq)
-    # keys, as in the reference.
-    band = window + cq
-    use_band = window > 0 and prefix_len == 0 and band < S and n_chunks > 1
-
-    if n_chunks == 1:
-        out = _sdpa(q, k, v, _mask(positions, positions, window, prefix_len))
-    else:
-        outs = []
-        for i in range(0, S, cq):
-            qb = q[:, i:i + cq]
-            pos_q = positions[i:i + cq]
-            if use_band:
-                start = min(max(i - window, 0), S - band)
-                kb, vb = k[:, start:start + band], v[:, start:start + band]
-                pos_k = positions[start:start + band]
-            else:
-                kb, vb, pos_k = k, v, positions
-            mask = _mask(pos_q, pos_k, window, prefix_len)
-            if torch.is_grad_enabled():
-                # remat, as the reference's: backward recomputes the chunk's
-                # scores and softmax instead of keeping [B, Hq, cq, S] float32
-                # residuals a chunk
-                outs.append(checkpoint(_sdpa, qb, kb, vb, mask, use_reentrant=False))
-            else:
-                outs.append(_sdpa(qb, kb, vb, mask))
-        out = torch.cat(outs, dim=1)
-
+    out = _attend(q, k, v, 0, window, prefix_len, chunk_q)
     y = torch.einsum("bsghk,ghkd->bsd", out, params["wo"])
-    if seq_shard:
-        y = constrain(y, "batch", None, None)
     if return_kv:
         return y, (k, v)
     return y
 
 
-def _decode_out(params, q, k_rows, v_rows, n_rows, G, Hg, head_dim, out_dtype):
-    """B7 over ``k_rows``/``v_rows`` ``[B, R, G, hd]`` masked to each
-    sequence's first ``n_rows`` rows, then the output projection."""
-    B = q.shape[0]
-    R = k_rows.shape[1]
-    out = decode_attention(q.reshape(B, G * Hg, head_dim), k_rows, v_rows,
-                           n_rows.to(torch.int32), chunk=pick_chunk(R, 512))
-    out = out.to(out_dtype).reshape(B, 1, G, Hg, head_dim)
-    # bf16 attention into float32 weights (compute_dtype=None) promotes, as
-    # in JAX; torch.einsum takes one dtype.
-    wo = params["wo"]
-    dtype = torch.promote_types(out.dtype, wo.dtype)
-    return torch.einsum("bsghk,ghkd->bsd", out.to(dtype), wo.to(dtype))
+def _seq_parallel(params, x: DTensor, G, Hg, head_dim, rope_theta, window, prefix_len,
+                  chunk_q, return_kv):
+    """Sequence-parallel attention on a mesh, rank by rank: this rank's
+    rows of the sequence (split over 'model' where it divides) project its
+    queries, keys and values with the whole (replicated) weights; the keys
+    and values are gathered along the sequence over 'model' (a functional
+    all-gather, differentiable); the queries attend; the output projection
+    stays on the rank's rows.  No collective touches the scores, and no
+    DTensor reshape meets a split sequence."""
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = x.device_mesh
+    B, S, _ = x.shape
+    model = mesh.mesh_dim_names.index("model")
+    x = constrain(x, "batch", "model" if S % mesh.shape[model] == 0 else None, None)
+    layout = tuple(x.placements)
+    (_, ns, _), (_, s0, _) = local_block(x.shape, mesh, layout)
+    w = {name: whole_local(params[name], x) for name in ("wq", "wk", "wv", "wo")}
+    xl = x.to_local()
+    positions = s0 + torch.arange(ns, device=xl.device)
+    q, k, v = _project_qkv(w, xl, G, Hg, head_dim, positions[None], rope_theta)
+    if layout[model] != Replicate():
+        k = funcol.all_gather_tensor_autograd(k, gather_dim=1, group=(mesh, model))
+        v = funcol.all_gather_tensor_autograd(v, gather_dim=1, group=(mesh, model))
+    out = _attend(q, k, v, s0, window, prefix_len, chunk_q)
+    y = torch.einsum("bsghk,ghkd->bsd", out, w["wo"])
+    y = from_block(y, mesh, layout, (B, S, y.shape[-1]))
+    if not return_kv:
+        return y
+    kv_layout = tuple(Replicate() if i == model else p for i, p in enumerate(layout))
+    shape = (B, S, G, head_dim)
+    return y, (from_block(k, mesh, kv_layout, shape), from_block(v, mesh, kv_layout, shape))
+
+
+#: Each projection weight's dims -> the dims of its product (None: the
+#: contracted d_model).
+_Q_DIMS, _KV_DIMS = (None, 2, 3, 4), (None, 2, 3)
+
+
+def _model_block(w):
+    """This rank's block of weight ``w`` and its split over 'model': a
+    DTensor gathered over every mesh dim but 'model' (FSDP's split); a
+    plain tensor is the whole weight, unsplit."""
+    if not isinstance(w, DTensor):
+        return w, Replicate(), None
+    mesh = w.device_mesh
+    model = mesh.mesh_dim_names.index("model")
+    split = w.placements[model]
+    split = split if isinstance(split, Shard) else Replicate()
+    keep = tuple(split if i == model else Replicate() for i in range(mesh.ndim))
+    if tuple(w.placements) != keep:
+        w = w.redistribute(mesh, keep)
+    return w, split, model
+
+
+def _project(eq: str, x, w, dims, shape):
+    """``einsum(eq, x, w)`` for one decode token.  On a mesh, rank by rank:
+    x's rows (laid out by its batch split, whole elsewhere) times this
+    rank's block of ``w``, the product laid out as x (a split of w's heads
+    or head dim over 'model' gathered, a split of its contracted dim
+    summed): no weight is gathered along 'model' and no DTensor reshape
+    meets a split dim."""
+    block, split, model = _model_block(w)
+    if not isinstance(x, DTensor):
+        return torch.einsum(eq, x, block)
+    rows = tuple(x.placements)
+    y = torch.einsum(eq, x.to_local(), block.to_local())
+    out = Replicate() if split == Replicate() else (
+        Partial() if dims[split.dim] is None else Shard(dims[split.dim]))
+    layout = tuple(out if i == model else p for i, p in enumerate(rows))
+    y = from_block(y, x.device_mesh, layout, shape)
+    return y if layout == rows else y.redistribute(x.device_mesh, rows)
+
+
+def _decode_qkv(params, x, G, Hg, head_dim, positions, rope_theta):
+    """:func:`_project_qkv` for one decode token (each projection by
+    :func:`_project`); on a mesh q, k and v come out whole per sequence
+    (tiny: one token), laid out by x's batch split."""
+    B, S, _ = x.shape
+    if isinstance(x, DTensor):
+        rows = _batch_rows(x.placements)
+        if tuple(x.placements) != rows:
+            x = x.redistribute(x.device_mesh, rows)
+    q = _project("bsd,dghk->bsghk", x, params["wq"], _Q_DIMS, (B, S, G, Hg, head_dim))
+    k = _project("bsd,dgk->bsgk", x, params["wk"], _KV_DIMS, (B, S, G, head_dim))
+    v = _project("bsd,dgk->bsgk", x, params["wv"], _KV_DIMS, (B, S, G, head_dim))
+    q = rope(q.reshape(B, S, G * Hg, head_dim), positions, rope_theta).reshape(
+        B, S, G, Hg, head_dim)
+    return q, rope(k, positions, rope_theta), v
+
+
+def _decode_project_out(params, out, out_dtype):
+    """The output projection of one token's attention ``[B, 1, G, Hg, hd]``:
+    on a mesh this rank's heads (or head dims) through its block of ``wo``,
+    the product a partial sum over 'model' where ``wo`` is split there.
+    bf16 attention into float32 weights (compute_dtype=None) promotes, as
+    in JAX; torch.einsum takes one dtype."""
+    wo, split, model = _model_block(params["wo"])
+    if not isinstance(out, DTensor):
+        o = out.to(out_dtype)
+        dtype = torch.promote_types(o.dtype, wo.dtype)
+        return torch.einsum("bsghk,ghkd->bsd", o.to(dtype), wo.to(dtype))
+    mesh = out.device_mesh
+    block = wo.to_local()
+    o = out.to_local().to(out_dtype)
+    if isinstance(split, Shard) and split.dim < 3:
+        off = local_block(wo.shape, mesh, wo.placements)[1][split.dim]
+        o = o.narrow(split.dim + 2, off, block.shape[split.dim])
+    dtype = torch.promote_types(o.dtype, block.dtype)
+    y = torch.einsum("bsghk,ghkd->bsd", o.to(dtype), block.to(dtype))
+    p = (Replicate() if split == Replicate()
+         else Shard(2) if split.dim == 3 else Partial())
+    layout = tuple(p if i == model else q for i, q in enumerate(out.placements))
+    return from_block(y, mesh, layout, (*out.shape[:2], y.shape[-1]))
+
+
+def _batch_rows(layout) -> tuple:
+    """``layout`` with its batch split kept and every other split whole."""
+    return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in layout)
+
+
+def _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows):
+    """One token's attention over the cache ``[B, S, G, hd]``, its new k/v
+    rows written in place first.  ``q`` is ``[B, 1, G, Hg, hd]``,
+    ``k_new``/``v_new`` ``[B, 1, G, hd]``, ``slots`` each sequence's cache
+    row, ``n_rows`` its valid rows.  Returns the attention output ``[B, 1,
+    G, Hg, hd]`` in q's dtype.
+
+    On a mesh (a DTensor cache) each rank works on its block of the cache,
+    which is never gathered: it writes the new rows whose slots its block
+    holds and runs B7 on its rows; where the cache's sequence is split, B7's
+    sequence-split entry runs on them and the ranks merge by their
+    log-sum-exps.  The output is laid out by the cache's batch split.  A
+    plain cache is the one-block case."""
+    mesh = None
+    k_loc, v_loc, q_loc = k_cache, v_cache, q
+    nb, ns = k_cache.shape[:2]
+    r0, seq = 0, []
+    if isinstance(k_cache, DTensor):
+        mesh, layout = k_cache.device_mesh, tuple(k_cache.placements)
+        if any(isinstance(p, Shard) and p.dim > 1 for p in layout):
+            raise ValueError(f"a decode cache split on its heads or head dim ({layout}); the "
+                             "plan splits its batch and sequence dims only")
+        (nb, ns, _, _), (b0, r0, _, _) = local_block(k_cache.shape, mesh, layout)
+        seq = [i for i, p in enumerate(layout) if isinstance(p, Shard) and p.dim == 1]
+        if len(seq) > 1:
+            raise ValueError(f"the cache's sequence split over {len(seq)} mesh dims; one at most")
+        rows_layout = _batch_rows(layout)
+        k_loc, v_loc = k_cache.to_local(), v_cache.to_local()
+
+    def mine(t):
+        """This rank's sequences of a per-sequence tensor (leading dim B)."""
+        if mesh is None:
+            return t
+        if isinstance(t, DTensor):
+            return (t if tuple(t.placements) == rows_layout
+                    else t.redistribute(mesh, rows_layout)).to_local()
+        return t[b0:b0 + nb]
+
+    q_loc = mine(q)
+    rows = torch.arange(nb, device=k_loc.device)
+    local = mine(slots).long() - r0
+    for block, new in ((k_loc, k_new), (v_loc, v_new)):
+        new = mine(new)[:, 0].to(block.dtype)
+        if seq:
+            # only the rank whose rows hold a sequence's slot writes it
+            inside = ((local >= 0) & (local < ns))[:, None, None]
+            idx = local.clamp(0, ns - 1)
+            block[rows, idx] = torch.where(inside, new, block[rows, idx])
+        else:
+            block[rows, local] = new
+
+    nq, _, G, Hg, hd = q_loc.shape
+    lengths = mine(n_rows).to(torch.int32)
+    qh = q_loc.reshape(nq, G * Hg, hd)
+    if seq:
+        out, lse = decode_attention_split(qh, k_loc, v_loc, lengths, r0,
+                                          chunk=pick_chunk(ns, 512))
+        out = merge_splits(out, lse, (mesh, seq[0]))
+    else:
+        out = decode_attention(qh, k_loc, v_loc, lengths, chunk=pick_chunk(ns, 512))
+    out = out.to(q_loc.dtype).reshape(q_loc.shape)
+    return out if mesh is None else from_block(out, mesh, rows_layout, q.shape)
 
 
 def attention_decode(
@@ -222,26 +413,28 @@ def attention_decode(
     k_cache, v_cache = cache
     S = k_cache.shape[1]
 
-    q, k_new, v_new = _project_qkv(params, x, G, Hg, head_dim, lengths[:, None], rope_theta)
-
+    q, k_new, v_new = _decode_qkv(params, x, G, Hg, head_dim, lengths[:, None], rope_theta)
     # In place: row lengths[b] of sequence b.  The reference's
     # dynamic_update_slice clamps a start past the end to S - 1; so does this.
-    rows = torch.arange(B, device=x.device)
     slots = lengths.long().clamp(0, S - 1)
-    k_cache[rows, slots] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, slots] = v_new[:, 0].to(v_cache.dtype)
-
     if window > 0:
+        if isinstance(k_cache, DTensor):
+            raise NotImplementedError("a window over a full cache on a mesh; the window kinds "
+                                      "keep a ring cache (attention_decode_ring)")
+        rows = torch.arange(B, device=x.device)
+        k_cache[rows, slots] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[rows, slots] = v_new[:, 0].to(v_cache.dtype)
         # rows max(0, lengths + 1 - window) .. min(lengths, S - 1)
         first = (lengths.long() + 1 - window).clamp_min(0)
         n_rows = torch.minimum(lengths.long(), torch.full_like(first, S - 1)) - first + 1
         idx = (first[:, None] + torch.arange(window, device=x.device)).clamp_max(S - 1)
-        k_rows, v_rows = k_cache[rows[:, None], idx], v_cache[rows[:, None], idx]
+        out = decode_attention(q.reshape(B, G * Hg, head_dim), k_cache[rows[:, None], idx],
+                               v_cache[rows[:, None], idx], n_rows.to(torch.int32),
+                               chunk=pick_chunk(window, 512)).to(q.dtype).reshape(q.shape)
     else:
         # The reference masks keys at pos <= lengths, B7 at pos < lengths: + 1.
-        k_rows, v_rows, n_rows = k_cache, v_cache, lengths + 1
-    y = _decode_out(params, q, k_rows, v_rows, n_rows, G, Hg, head_dim, v_cache.dtype)
-    return y, (k_cache, v_cache)
+        out = _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, lengths + 1)
+    return _decode_project_out(params, out, v_cache.dtype), (k_cache, v_cache)
 
 
 def attention_decode_ring(
@@ -263,19 +456,12 @@ def attention_decode_ring(
     and eviction enforces the window.  The reference masks slots ``<=
     lengths`` (all of them once wrapped); B7 reads rows ``< min(lengths +
     1, W)``, the same set."""
-    B = x.shape[0]
     G = num_kv_heads
     Hg = num_heads // G
     k_cache, v_cache = cache
     W = k_cache.shape[1]
 
-    q, k_new, v_new = _project_qkv(params, x, G, Hg, head_dim, lengths[:, None], rope_theta)
-
-    rows = torch.arange(B, device=x.device)
-    slots = lengths.long() % W
-    k_cache[rows, slots] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, slots] = v_new[:, 0].to(v_cache.dtype)
-
-    n_rows = (lengths + 1).clamp_max(W)
-    y = _decode_out(params, q, k_cache, v_cache, n_rows, G, Hg, head_dim, v_cache.dtype)
-    return y, (k_cache, v_cache)
+    q, k_new, v_new = _decode_qkv(params, x, G, Hg, head_dim, lengths[:, None], rope_theta)
+    out = _decode_attend(q, k_new, v_new, k_cache, v_cache, lengths.long() % W,
+                         (lengths + 1).clamp_max(W))
+    return _decode_project_out(params, out, v_cache.dtype), (k_cache, v_cache)

@@ -34,7 +34,9 @@ from repro_torch.models.layers import (
     Params, init_mlp, init_rmsnorm, log_sigmoid, mlp, promoted, rmsnorm, sigmoid, softplus,
     truncated_normal,
 )
-from repro_torch.parallel.axes import constrain_time_mixer
+from repro_torch.parallel.axes import (
+    batch_only, constrain, constrain_time_mixer, map_block, redistribute_like, whole_local,
+)
 
 ATTN_KINDS = ("dense", "local", "global", "moe")
 KINDS = ATTN_KINDS + ("mlstm", "slstm", "hymba", "hymba_g")
@@ -143,10 +145,14 @@ def _mlstm_seq(params, cfg: ArchConfig, h, state, return_state: bool = False):
     if L > 1:
         # recurrent chunk scan: keep S local, absorb idle axes into batch
         h = constrain_time_mixer(h)
-    up = h @ params["w_up"]
+    # on a mesh: whole channels, which the head reshapes below need (DTensor
+    # may split the product's columns over 'model')
+    up = batch_only(h @ params["w_up"])
     u, z = torch.chunk(up, 2, dim=-1)
     if state is None:
-        c = lrnn.causal_conv1d(u, params["conv_w"])
+        # on a mesh, rank by rank: u is whole but along its batch split
+        w = params["conv_w"]
+        c = map_block(lambda ul: lrnn.causal_conv1d(ul, whole_local(w, u)), u, u.shape)
         conv_buf = None
     else:
         (gla_state, conv_buf) = state
@@ -154,8 +160,14 @@ def _mlstm_seq(params, cfg: ArchConfig, h, state, return_state: bool = False):
         c = c[:, None]
     c = F.silu(c)
     ch = c.reshape(B, L, H, dh)
-    q = torch.einsum("blhd,hde->blhe", *promoted(ch, params["w_q"]))
-    k = torch.einsum("blhd,hde->blhe", *promoted(ch, params["w_k"])) * (dh ** -0.5)
+    w_q, w_k = params["w_q"], params["w_k"]
+    if state is not None:
+        # on a mesh, one token a sequence: the per-head products split over
+        # 'model' along their output dim (the weights are whole on every
+        # rank, so the split is a local slice), q and k then gathered whole
+        w_q, w_k = (constrain(w, None, None, "model") for w in (w_q, w_k))
+    q = batch_only(torch.einsum("blhd,hde->blhe", *promoted(ch, w_q)))
+    k = batch_only(torch.einsum("blhd,hde->blhe", *promoted(ch, w_k))) * (dh ** -0.5)
     v = u.reshape(B, L, H, dh)
     gates = u @ params["w_gates"] + params["b_gates"]          # [B,L,2H]
     f_raw, i_raw = torch.chunk(gates, 2, dim=-1)
@@ -176,9 +188,11 @@ def _mlstm_seq(params, cfg: ArchConfig, h, state, return_state: bool = False):
             q[:, 0], k[:, 0], v[:, 0], log_f[:, 0], i_gate[:, 0],
             gla_state, normalize=True,
         )
-        y = y1[:, None]
+        # on a mesh: whole heads (the state's split of dv gathered)
+        y = batch_only(y1[:, None])
         new_state = (new_gla, conv_buf)
-    y = y.reshape(B, L, inner) * F.silu(z)
+    # on a mesh: the gradient into the head reshape whole as well
+    y = batch_only(y.reshape(B, L, inner)) * F.silu(z)
     out = y @ params["w_down"]
     return out, new_state
 
@@ -211,7 +225,7 @@ def _hymba_ssm_seq(params, cfg: ArchConfig, h, state, return_state: bool = False
             q[:, 0], k[:, 0], v[:, 0], log_f[:, 0], i_gate[:, 0],
             state, normalize=False,
         )
-        y = y1[:, None]
+        y = batch_only(y1[:, None])
     y = y.reshape(B, L, inner) * F.silu(z)
     return y, new_state
 
@@ -235,7 +249,15 @@ def _store_kv(k: torch.Tensor, cache_len: int, window: int) -> torch.Tensor:
     Full-attention kinds: left-aligned into a [B, cache_len, ...] buffer.
     Window kinds: ring layout -- the last min(W, S) positions at slot
     pos % W with W = min(cache_len, window), matching
-    ``attention_decode_ring``'s indexing."""
+    ``attention_decode_ring``'s indexing.  On a mesh each rank packs its
+    own block, laid out as k is (``attention_train`` returns k whole along
+    the sequence)."""
+    B, S, G, hd = k.shape
+    rows = min(cache_len, window) if window > 0 else cache_len
+    return map_block(lambda kk: _pack_kv(kk, cache_len, window), k, (B, rows, G, hd))
+
+
+def _pack_kv(k: torch.Tensor, cache_len: int, window: int) -> torch.Tensor:
     B, S, G, hd = k.shape
     k = k.to(torch.bfloat16)
     if window > 0:
@@ -275,20 +297,24 @@ def _block_seq(params: Params, cfg: ArchConfig, kind: str, x: torch.Tensor, pref
         if want_cache:
             cache = {"k": _store_kv(k, cache_len, window), "v": _store_kv(v, cache_len, window)}
         if kind in ATTN_KINDS:
-            x = x + a
-            h = rmsnorm(params["ln_mlp"], x)
+            # on a mesh: each branch's output reduced into the residual's
+            # layout, the whole sequence into the MLP (Megatron's sequence
+            # parallelism)
+            x = x + redistribute_like(a, x)
+            h = constrain(rmsnorm(params["ln_mlp"], x), "batch", None, None)
             if kind == "moe":
                 h, aux = moe_lib.moe_ffn_ep(params["moe"], h, cfg.moe, cfg.mlp_type)
             else:
                 h = mlp(params["mlp"], h, cfg.mlp_type)
-            return x + h, aux, cache
+            return x + redistribute_like(h, x), aux, cache
         # hymba / hymba_g
         s, state = _hymba_ssm_seq(params, cfg, h, state=None, return_state=want_cache)
-        x = x + _hymba_mix(params, a, s)
-        h2 = mlp(params["mlp"], rmsnorm(params["ln_mlp"], x), cfg.mlp_type)
+        x = x + redistribute_like(_hymba_mix(params, a, s), x)
+        h2 = mlp(params["mlp"], constrain(rmsnorm(params["ln_mlp"], x), "batch", None, None),
+                 cfg.mlp_type)
         if want_cache:
             cache["S"], cache["n"] = state
-        return x + h2, aux, cache
+        return x + redistribute_like(h2, x), aux, cache
 
     if kind == "mlstm":
         y, state = _mlstm_seq(params, cfg, rmsnorm(params["ln"], x), state=None,
@@ -296,18 +322,19 @@ def _block_seq(params: Params, cfg: ArchConfig, kind: str, x: torch.Tensor, pref
         if want_cache:
             (S, n), conv = state
             cache = {"S": S, "n": n, "conv": conv}
-        return x + y, aux, cache
+        return x + redistribute_like(y, x), aux, cache
 
     # slstm
     h = rmsnorm(params["ln"], x)
     if x.shape[1] > 1:
         h = constrain_time_mixer(h)  # time scan: keep S local
     h, (c, n, hs) = lrnn.slstm_scan(params["slstm"], h, cfg.num_heads)
-    x = x + h
-    h2 = mlp(params["mlp"], rmsnorm(params["ln_mlp"], x), "swiglu")
+    x = x + redistribute_like(h, x)
+    h2 = mlp(params["mlp"], constrain(rmsnorm(params["ln_mlp"], x), "batch", None, None),
+             "swiglu")
     if want_cache:
         cache = {"c": c, "n": n, "h": hs}
-    return x + h2, aux, cache
+    return x + redistribute_like(h2, x), aux, cache
 
 
 def block_train(
@@ -349,7 +376,7 @@ def block_prefill(
 def _write(cache: Dict[str, torch.Tensor], **new: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The new recurrent states into the cache tensors, in place."""
     for name, value in new.items():
-        cache[name].copy_(value)
+        cache[name].copy_(redistribute_like(value, cache[name]))
     return cache
 
 
@@ -366,13 +393,14 @@ def block_decode(
     if kind in ATTN_KINDS:
         h = rmsnorm(params["ln_attn"], x)
         h = _attn_decode(params["attn"], cfg, kind, h, cache, lengths)
-        x = x + h
+        # on a mesh: each branch's partial sums reduced into the residual's layout
+        x = x + redistribute_like(h, x)
         h = rmsnorm(params["ln_mlp"], x)
         if kind == "moe":
             h, _ = moe_lib.moe_ffn_ep(params["moe"], h, cfg.moe, cfg.mlp_type, dropless=True)
         else:
             h = mlp(params["mlp"], h, cfg.mlp_type)
-        return x + h, cache
+        return x + redistribute_like(h, x), cache
 
     if kind == "mlstm":
         state = ((cache["S"], cache["n"]), cache["conv"])

@@ -15,6 +15,9 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.parallel.axes import from_block, local_block
 
 Params = Dict[str, torch.Tensor]
 
@@ -159,13 +162,52 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int, tie: bool) ->
 
 
 def embed(params: Params, tokens: torch.Tensor, scale: bool, d: int) -> torch.Tensor:
-    x = params["table"][tokens]
+    table = params["table"]
+    if isinstance(table, DTensor):
+        x = _vocab_parallel_embed(table, tokens)
+    else:
+        x = table[tokens]
     if scale:
         # sqrt(d) rounded to the table's dtype first, as the reference does
         # (bf16 at d = 2048: 45.25, not 45.2548); the product of two bf16
         # values is exact in float32, so rounding it once gives the bf16 product.
         x = x * float(torch.tensor(d ** 0.5, dtype=x.dtype))
     return x
+
+
+def _vocab_parallel_embed(table: DTensor, tokens) -> DTensor:
+    """The embedding of ``tokens`` on a mesh, rank by rank (Megatron's
+    vocab-parallel embedding): the table whole over every mesh dim but
+    'model' (gathered where FSDP splits it), its rows split over 'model'
+    where the plan splits them; each rank gathers the rows it holds, zero
+    for the others' tokens, and the result is a partial sum over 'model'
+    (a replica where the rows are whole).  Its backward writes each rank's
+    rows only; DTensor's own rules for an indexed gather's backward differ
+    between torch versions, so none is asked for."""
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    rows_split = tuple(i for i, p in enumerate(table.placements)
+                       if isinstance(p, Shard) and p.dim == 0 and names[i] == "model")
+    layout = tuple(Shard(0) if i in rows_split else Replicate() for i in range(mesh.ndim))
+    if tuple(table.placements) != layout:
+        table = table.redistribute(mesh, layout)
+    block = table.to_local(grad_placements=tuple(
+        Shard(0) if i in rows_split else Partial() for i in range(mesh.ndim)))
+    (nv, _), (v0, _) = local_block(table.shape, mesh, layout)
+    if isinstance(tokens, DTensor):
+        keep = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                     for p in tokens.placements)
+        if tuple(tokens.placements) != keep:
+            tokens = tokens.redistribute(mesh, keep)
+        tok, tok_layout, shape = tokens.to_local(), keep, tuple(tokens.shape)
+    else:
+        tok, tok_layout, shape = tokens, (Replicate(),) * mesh.ndim, tuple(tokens.shape)
+    local = tok.long() - v0
+    inside = (local >= 0) & (local < nv)
+    x = F.embedding(local.clamp(0, nv - 1), block)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    out_layout = tuple(Partial() if i in rows_split else p for i, p in enumerate(tok_layout))
+    return from_block(x, mesh, out_layout, (*shape, block.shape[1]))
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:

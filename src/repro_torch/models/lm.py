@@ -21,6 +21,12 @@ each layer of a multi-layer superblock), as the reference's
 chunks, each recomputed in backward, so no ``[B, chunk, V]`` float32
 logits are kept.  Decode writes each layer's new k/v and recurrent state
 into the cache in place.
+
+:func:`make_serve_steps` runs prefill and decode under a
+``ShardingPlan`` (the twin of the reference dry run's jitted serving
+steps): parameters, tokens and the cache laid out by the plan as DTensors,
+each layer's emitted cache put straight into the plan's cache layout, the
+decode cache updated in place.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (
     embed, init_embedding, init_rmsnorm, rmsnorm, truncated_normal, unembed,
 )
-from repro_torch.parallel.axes import constrain
+from repro_torch.parallel.axes import batch_divides, constrain
 from repro_torch.tree import tree_map
 
 def _block_keys(cfg: ArchConfig):
@@ -318,13 +324,18 @@ class LM:
         tokens: torch.Tensor,
         cache_len: int,
         prefix_embeds: Optional[torch.Tensor] = None,
+        cache_layout=None,
     ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
         """Run the prompt, build the cache.  Returns (last-token logits,
         cache, lengths).  A ``vision_stub`` model attends bidirectionally
-        over its leading non-token positions (the prefix-LM mask)."""
+        over its leading non-token positions (the prefix-LM mask).
+        ``cache_layout``, where given, takes each layer's emitted cache dict
+        and returns it laid out for serving (a plan's cache layout)."""
         cfg = self.cfg
         params = self.cast_params(params)
         h, n_prefix = self._embed_inputs(params, tokens, prefix_embeds)
+        batch = "batch" if batch_divides(h.shape[0]) else None
+        h = constrain(h, batch, None, None)
         prefix_len = n_prefix if cfg.modality == "vision_stub" else 0
         B, S, _ = h.shape
         cache: Dict = {}
@@ -334,7 +345,7 @@ class LM:
             for p, kind in zip(params["prefix"], cfg.prefix_pattern):
                 h, c = blk.block_prefill(p, cfg, kind, h, cache_len, prefix_len,
                                          self.chunk_q, self.attn_seq_shard)
-                pcs.append(c)
+                pcs.append(cache_layout(c) if cache_layout else c)
             cache["prefix"] = tuple(pcs)
 
         per_layer = {key: [] for key in _block_keys(cfg)}
@@ -343,13 +354,14 @@ class LM:
                 sb = tree_map(lambda leaf: leaf[i], params["blocks"][key])
                 h, c = blk.block_prefill(sb, cfg, kind, h, cache_len, prefix_len,
                                          self.chunk_q, self.attn_seq_shard)
-                per_layer[key].append(c)
+                per_layer[key].append(cache_layout(c) if cache_layout else c)
         cache["blocks"] = {
             key: {name: torch.stack([c[name] for c in cs]) for name in cs[0]}
             for key, cs in per_layer.items()
         }
         h = rmsnorm(params["final_norm"], h[:, -1:])
-        logits = unembed(params["embed"], h)
+        # on a mesh: the vocab split over 'model', as the training loss keeps it
+        logits = constrain(unembed(params["embed"], h), batch, None, "model")
         lengths = torch.full((B,), S, dtype=torch.int32, device=h.device)
         return logits[:, 0], cache, lengths
 
@@ -365,14 +377,65 @@ class LM:
         cfg = self.cfg
         params = self.cast_params(params)
         h = embed(params["embed"], tokens, cfg.scale_embed, cfg.d_model)
+        # on a mesh: the batch split as the cache's where it divides (the
+        # reference's tokens are replicated and GSPMD propagates the cache's
+        # batch split)
+        batch = "batch" if batch_divides(h.shape[0]) else None
+        h = constrain(h, batch, None, None)
         for p, kind, c in zip(params.get("prefix", ()), cfg.prefix_pattern,
                               cache.get("prefix", ())):
             h, _ = blk.block_decode(p, cfg, kind, h, c, lengths)
+            h = constrain(h, batch, None, None)   # a mesh's partial sums reduced
         for i in range(cfg.n_superblocks):
             for key, kind in zip(_block_keys(cfg), cfg.pattern):
                 sb = tree_map(lambda leaf: leaf[i], params["blocks"][key])
                 layer_cache = tree_map(lambda leaf: leaf[i], cache["blocks"][key])
                 h, _ = blk.block_decode(sb, cfg, kind, h, layer_cache, lengths)
+                h = constrain(h, batch, None, None)
         h = rmsnorm(params["final_norm"], h)
         logits = unembed(params["embed"], h)
         return logits[:, 0], cache, lengths + 1
+
+
+def make_serve_steps(lm: LM, plan, seq_shard_min: int = 8192):
+    """``(prefill, decode_step)``: :meth:`LM.prefill` and
+    :meth:`LM.decode_step` under ``plan`` (a ``ShardingPlan`` over a
+    ``DeviceMesh``), as the reference's dry run lowers them.  Each places
+    its inputs (a plain tensor is the full value, the same on every rank):
+    params by ``plan.param_specs``, prompt tokens by ``plan.batch_spec(2)``
+    and prefix embeddings by ``batch_spec(3)``, decode tokens ``[B, 1]`` and
+    lengths replicated, the cache by ``plan.cache_specs`` (its sequence dims
+    split over 'model' from ``seq_shard_min`` rows); then runs on the plan's
+    mesh.  Prefill lays each layer's emitted cache out by the cache specs as
+    it goes (the reference pins its output to them); decode writes the new
+    rows and states into the placed cache in place and returns it (the
+    reference donates it).  Call them under ``torch.no_grad()``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.parallel.axes import lm_mesh
+    from repro_torch.parallel.sharding import NamedSharding, P, place, place_tree
+
+    mesh = plan.mesh
+
+    def layout(tree):
+        return place_tree(tree, plan.cache_shardings(tree, seq_shard_min))
+
+    def prefill(params, tokens, cache_len: int, prefix_embeds=None):
+        params = place_tree(params, plan.param_shardings(params))
+        tokens = place(tokens, NamedSharding(mesh, plan.batch_spec(2)))
+        if prefix_embeds is not None:
+            prefix_embeds = place(prefix_embeds, NamedSharding(mesh, plan.batch_spec(3)))
+        with lm_mesh(mesh), implicit_replication():
+            logits, cache, lengths = lm.prefill(params, tokens, cache_len, prefix_embeds,
+                                                cache_layout=layout)
+            return logits, layout(cache), lengths
+
+    def decode_step(params, tokens, cache, lengths):
+        params = place_tree(params, plan.param_shardings(params))
+        cache = layout(cache)
+        tokens = place(tokens, NamedSharding(mesh, P(None, None)))
+        lengths = place(lengths, NamedSharding(mesh, P(None)))
+        with lm_mesh(mesh), implicit_replication():
+            return lm.decode_step(params, tokens, cache, lengths)
+
+    return prefill, decode_step

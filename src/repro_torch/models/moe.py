@@ -244,9 +244,11 @@ def moe_ffn_ep(
     dropless: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE on the ambient LM mesh; ``moe_ffn`` where the
-    reference falls back: no mesh or no 'model' axis, a batch that does
-    not split over the data axes, or neither the experts nor the hidden
-    dim splitting over 'model'."""
+    reference falls back: no mesh or no 'model' axis, or neither the
+    experts nor the hidden dim splitting over 'model'.  A batch that does
+    not split over the data axes runs whole on every data rank (each
+    rank's output a 1/|data| share of a partial sum, so its grads add up
+    once)."""
     mesh = ambient_mesh()
     if mesh is None or "model" not in mesh.mesh_dim_names:
         return moe_ffn(params, x, moe, mlp_type, dropless=dropless)
@@ -256,14 +258,13 @@ def moe_ffn_ep(
     daxes = tuple(a for a in ("pod", "data") if a in names)
     B, S, D = x.shape
     n_data = math.prod(sizes[a] for a in daxes)
-    if B % n_data != 0:
-        return moe_ffn(params, x, moe, mlp_type, dropless=dropless)
+    split = B % n_data == 0
     ep = moe.num_experts % m == 0
     F_ = params["w_gate"].shape[-1]
     if not ep and F_ % m != 0:
         return moe_ffn(params, x, moe, mlp_type, dropless=dropless)
 
-    lead = (daxes if len(daxes) > 1 else daxes[0]) if daxes else None
+    lead = (daxes if len(daxes) > 1 else daxes[0]) if daxes and split else None
     w_spec = ("model", None, None) if ep else (None, None, "model")
     wd_spec = ("model", None, None) if ep else (None, "model", None)
     xb = _local(x, mesh, (lead, None, None))
@@ -283,7 +284,11 @@ def moe_ffn_ep(
         return t.redistribute(mesh, [Shard(0) if isinstance(p, Shard) else Replicate()
                                      for p in placed])
 
-    y = on_mesh(y_loc.reshape(xb.shape), {**{a: Shard(0) for a in daxes}, "model": Partial()})
+    if split:
+        y = on_mesh(y_loc.reshape(xb.shape), {**{a: Shard(0) for a in daxes}, "model": Partial()})
+    else:
+        y = on_mesh(y_loc.reshape(xb.shape) / n_data,
+                    {**{a: Partial() for a in daxes}, "model": Partial()})
     # every 'model' rank holds the same me: each adds its 1/|model| share,
     # so the grad reaching the router counts the aux loss once
     every = {a: Partial() for a in (*daxes, "model")}

@@ -51,7 +51,7 @@ import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 # -- the LM mesh: ambient mesh, spec placements, logical-axis constraints -------
 
@@ -125,6 +125,19 @@ def _resolve(logical: Optional[str], names: Sequence[str]):
     return logical if logical in names else None
 
 
+def batch_divides(n: int) -> bool:
+    """Whether a batch of ``n`` splits evenly over the ambient mesh's batch
+    axes (``("pod", "data")``); True off-mesh."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return True
+    sizes = axis_sizes(mesh)
+    total = 1
+    for a in ("pod", "data"):
+        total *= sizes.get(a, 1)
+    return n % total == 0
+
+
 def _redistribute(x: DTensor, spec) -> DTensor:
     want = placements(spec, x.device_mesh)
     if tuple(x.placements) == want:
@@ -134,24 +147,99 @@ def _redistribute(x: DTensor, spec) -> DTensor:
 
 def constrain(x, *logical_axes: Optional[str]):
     """``x`` laid out as the logical axes say, one per dim (None:
-    replicated): the twin of ``with_sharding_constraint``.  The identity
-    off-mesh and for a plain tensor."""
+    replicated): the twin of ``with_sharding_constraint``, except that a
+    dim the named axes do not divide stays whole (an uneven split is never
+    asked for).  The identity off-mesh and for a plain tensor."""
     mesh = ambient_mesh()
     if mesh is None or not isinstance(x, DTensor):
         return x
     if len(logical_axes) != x.ndim:
         raise ValueError(f"spec {logical_axes} vs rank {x.ndim}")
     names = mesh.mesh_dim_names
-    return _redistribute(x, tuple(_resolve(a, names) for a in logical_axes))
+    sizes = axis_sizes(mesh)
+    spec = []
+    for n, a in zip(x.shape, logical_axes):
+        axes = _resolve(a, names)
+        width = 1
+        for ax in (axes if isinstance(axes, tuple) else (axes,)):
+            width *= sizes.get(ax, 1) if ax is not None else 1
+        spec.append(axes if n % width == 0 else None)
+    return _redistribute(x, tuple(spec))
+
+
+def batch_only(x):
+    """A DTensor ``x`` whole but along a split of its leading (batch) dim:
+    every other split gathered, partial sums reduced; anything else
+    itself.  Always a redistribution (free where ``x`` is laid out so
+    already), so the gradient flowing back through it takes that layout as
+    well: a reshape of ``x`` before it never meets a split in backward."""
+    if not isinstance(x, DTensor):
+        return x
+    want = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in x.placements)
+    return x.redistribute(x.device_mesh, want)
 
 
 def redistribute_like(x, ref):
-    """``x`` laid out as ``ref`` is, where ``ref`` is a DTensor (an
-    in-place update keeps its target's layout, so the operand must take
-    it first); otherwise ``x`` itself."""
-    if isinstance(ref, DTensor) and isinstance(x, DTensor) and x.placements != ref.placements:
-        return x.redistribute(ref.device_mesh, ref.placements)
+    """``x`` laid out as ``ref`` is (whole where ``ref`` holds partial
+    sums), where ``ref`` is a DTensor (an in-place update keeps its
+    target's layout, so the operand must take it first); otherwise ``x``
+    itself."""
+    if isinstance(ref, DTensor) and isinstance(x, DTensor):
+        want = tuple(Replicate() if p.is_partial() else p for p in ref.placements)
+        if tuple(x.placements) != want:
+            return x.redistribute(ref.device_mesh, want)
     return x
+
+
+def contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    strides, n = [], 1
+    for d in reversed(tuple(shape)):
+        strides.append(n)
+        n *= int(d)
+    return tuple(reversed(strides))
+
+
+def local_block(shape: Sequence[int], mesh, layout: Sequence) -> Tuple[Tuple[int, ...],
+                                                                    Tuple[int, ...]]:
+    """``(shape, offset)`` of this rank's block of a global ``shape`` laid
+    out by the DTensor placements ``layout`` over ``mesh``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    local, offset = compute_local_shape_and_global_offset(tuple(shape), mesh, tuple(layout))
+    return tuple(local), tuple(offset)
+
+
+def from_block(local: torch.Tensor, mesh, layout: Sequence, shape: Sequence[int]) -> DTensor:
+    """The DTensor of global ``shape`` whose block on this rank is
+    ``local``, laid out by ``layout``: no communication."""
+    return DTensor.from_local(local, mesh, tuple(layout), run_check=False, shape=tuple(shape),
+                              stride=contiguous_strides(shape))
+
+
+def whole_local(w, x):
+    """The whole of a DTensor weight ``w`` on this rank (gathered where the
+    plan splits it, e.g. FSDP over 'data'), as a plain tensor for a product
+    with the rank's block of the DTensor activation ``x``: its grad is a
+    partial sum over the mesh dims that split ``x`` and whole over the
+    others.  A plain ``w`` is itself."""
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    if any(not p.is_replicate() for p in w.placements):
+        w = w.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    return w.to_local(grad_placements=tuple(Partial() if isinstance(p, Shard) else Replicate()
+                                            for p in x.placements))
+
+
+def map_block(fn: Callable, x, shape: Sequence[int]):
+    """``fn`` on ``x``'s block: a DTensor of global ``shape`` laid out as
+    ``x`` is (``fn`` keeps the sizes of ``x``'s sharded dims); ``fn(x)``
+    for a plain tensor."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    return from_block(fn(x.to_local()), x.device_mesh, x.placements, shape)
 
 
 def constrain_time_mixer(x):

@@ -39,8 +39,10 @@ import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.parallel.axes import Mesh, ShardedFrames, axis_sizes, placements
-from repro_torch.tree import flatten_with_path, tree_map, unflatten_like
+from repro_torch.parallel.axes import (
+    Mesh, ShardedFrames, axis_sizes, from_block, local_block, placements,
+)
+from repro_torch.tree import flatten_with_path, leaves, tree_map, unflatten_like
 
 MODEL_AXIS = "model"
 
@@ -108,6 +110,27 @@ def place(t: torch.Tensor, sharding: NamedSharding) -> DTensor:
     if isinstance(t, DTensor):
         return t if tuple(t.placements) == want else t.redistribute(sharding.mesh, want)
     return distribute_tensor(t.detach(), sharding.mesh, want, src_data_rank=None)
+
+
+def place_tree(tree, shardings):
+    """Every tensor of ``tree`` placed (:func:`place`) by its
+    :class:`NamedSharding` in ``shardings`` (a tree of the same structure)."""
+    return unflatten_like(tree, [place(t, s) for t, s in
+                                 zip(leaves(tree), leaves(shardings, is_leaf=is_sharding))])
+
+
+def abstract_placed(tree, shardings):
+    """``tree``'s shapes and dtypes as DTensors on ``meta`` laid out by
+    ``shardings``, each built from this rank's block alone (no global
+    tensor, nothing allocated): the operands of a dry run."""
+    def one(t: torch.Tensor, s: NamedSharding) -> DTensor:
+        layout = s.placements
+        shape, _ = local_block(t.shape, s.mesh, layout)
+        return from_block(torch.empty(shape, dtype=t.dtype, device="meta"), s.mesh, layout,
+                          t.shape)
+
+    return unflatten_like(tree, [one(t, s) for t, s in
+                                 zip(leaves(tree), leaves(shardings, is_leaf=is_sharding))])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,9 +325,9 @@ class ShardingPlan:
         return unflatten_like(abstract_cache, [spec(path, leaf) for path, leaf
                                                in flatten_with_path(abstract_cache)])
 
-    def cache_shardings(self, abstract_cache):
+    def cache_shardings(self, abstract_cache, seq_shard_min: int = 8192):
         return tree_map(lambda s: NamedSharding(self.mesh, s),
-                        self.cache_specs(abstract_cache), is_leaf=is_spec)
+                        self.cache_specs(abstract_cache, seq_shard_min), is_leaf=is_spec)
 
 
 def choose_attn_mode(cfg: ArchConfig, mesh, kind: str = "train") -> str:

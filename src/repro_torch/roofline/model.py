@@ -71,8 +71,9 @@ COLLECTIVE_OPS = {
     "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
     "alltoall_base_": "all-to-all",
     "send": "collective-permute", "recv_": "collective-permute",
+    "shard_dim_alltoall": "all-to-all",
 }
-_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d")
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd", "c10d", "_dtensor")
 
 
 def collective_kind(op_name: str) -> Optional[str]:

@@ -22,7 +22,7 @@ from repro_torch.core.interpreter import check_device
 from repro_torch.models.lm import LM
 from repro_torch.optim import AdamWConfig, adamw_update, compress, decompress, init_opt_state
 from repro_torch.parallel.axes import lm_mesh, redistribute_like
-from repro_torch.parallel.sharding import NamedSharding, ShardingPlan, is_sharding, place
+from repro_torch.parallel.sharding import NamedSharding, ShardingPlan, place, place_tree
 from repro_torch.tree import leaves, unflatten_like
 
 
@@ -73,11 +73,6 @@ def _mesh_of(plan: ShardingPlan):
     return mesh
 
 
-def _placed(tree, shardings):
-    return unflatten_like(tree, [place(t, s) for t, s in
-                                 zip(leaves(tree), leaves(shardings, is_leaf=is_sharding))])
-
-
 def make_train_step(lm: LM, plan=None, opt_cfg: AdamWConfig = AdamWConfig(),
                     grad_compress: bool = False):
     """Returns ``(step, in_shardings)``: ``step(params, opt_state, tokens,
@@ -107,13 +102,13 @@ def make_train_step(lm: LM, plan=None, opt_cfg: AdamWConfig = AdamWConfig(),
         in_sh.append(in_sh[0])                        # error tree ~ param specs
 
     def step(params, opt_state, tokens, prefix_embeds=None, err_state=None):
-        params = _placed(params, in_sh[0])
-        opt_state = _placed(opt_state, in_sh[1])
+        params = place_tree(params, in_sh[0])
+        opt_state = place_tree(opt_state, in_sh[1])
         tokens = place(tokens, in_sh[2])
         if prefix_embeds is not None:
             prefix_embeds = place(prefix_embeds, prefix_sh)
         if err_state is not None:
-            err_state = _placed(err_state, in_sh[0])
+            err_state = place_tree(err_state, in_sh[0])
         with lm_mesh(mesh), implicit_replication():
             return train_step(lm, opt_cfg, params, opt_state, tokens, prefix_embeds,
                               grad_compress=grad_compress, err_state=err_state)
@@ -133,5 +128,5 @@ def init_train_state(lm: LM, plan=None, seed: int = 0, device="cuda"):
         return params, opt_state
     if _mesh_of(plan).device_type != device.type:
         raise ValueError(f"the plan's mesh is on {plan.mesh.device_type}, not {device.type}")
-    return (_placed(params, plan.param_shardings(params)),
-            _placed(opt_state, plan.opt_shardings(params)))
+    return (place_tree(params, plan.param_shardings(params)),
+            place_tree(opt_state, plan.opt_shardings(params)))

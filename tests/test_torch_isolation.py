@@ -60,6 +60,7 @@ def test_serving_entry_point_imports_without_jax():
         "import repro_torch.data.tokens\n"
         "import repro_torch.core.analysis\n"
         "import repro_torch.roofline.hlo_analysis\n"
+        "import repro_torch.launch.dryrun\n"
         "import importlib.util\n"
         "for path in sys.argv[1:]:\n"
         "    spec = importlib.util.spec_from_file_location(path.rsplit('/', 1)[-1][:-3], path)\n"

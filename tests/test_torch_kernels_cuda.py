@@ -498,6 +498,50 @@ def test_flash_decode_matches_plain_version(cuda, q_dtype, kv_dtype):
             parity.check(got, want, lengths, f"B7 {(B, H, G, D, S, chunk)} lengths {lengths}")
 
 
+@pytest.mark.parametrize("q_dtype,kv_dtype", parity.DTYPES)
+def test_flash_decode_split_matches_whole_b7(cuda, q_dtype, kv_dtype):
+    """B7's sequence-split entry over 1, 3 and 16 row blocks of each cache
+    of the case table, merged by their log-sum-exps (``ref.merge_ref``),
+    against B7 over the whole cache and the plain version, at ``parity``'s
+    tolerance; each block's partial against the plain partial
+    (``ref.decode_partial_ref``: float32 outputs at 2e-5, the lse within
+    2e-5 relative, -inf and an output of 0 exactly where a block holds no
+    valid row)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    rng = np.random.default_rng(21)
+    for B, H, G, D, S, chunk in parity.CASES:
+        q = torch.as_tensor(rng.standard_normal((B, H, D)), dtype=torch.float32,
+                            device=cuda).to(q_dtype)
+        k, v = (torch.as_tensor(rng.standard_normal((B, S, G, D)), dtype=torch.float32,
+                                device=cuda).to(kv_dtype) for _ in range(2))
+        lengths = parity.lengths(rng, B, S)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        whole = flash_attention.decode_attention(q, k, v, lens, chunk=chunk)
+        for n in (1, 3, 16):
+            bounds = sorted({round(i * S / n) for i in range(n + 1)})
+            outs, lses = [], []
+            for a, b in zip(bounds, bounds[1:]):
+                kb, vb = k[:, a:b].contiguous(), v[:, a:b].contiguous()
+                before = flash_attention.LAUNCHES["flash_decode"]
+                out, lse = ops.decode_attention_split(q, kb, vb, lens, a, chunk=1)
+                assert flash_attention.LAUNCHES["flash_decode"] == before + 1
+                want_out, want_lse = ref.decode_partial_ref(q, kb, vb, lens, a)
+                torch.cuda.synchronize()
+                assert out.dtype == torch.float32 and lse.shape == (B, H)
+                parity.check(out, want_out, [0 if int(x) <= a else 1 for x in lens],
+                             f"B7 split block {a}:{b} of {(B, H, G, D, S)}")
+                empty = torch.isneginf(want_lse)
+                assert torch.equal(torch.isneginf(lse), empty)
+                torch.testing.assert_close(lse[~empty], want_lse[~empty], rtol=2e-5, atol=2e-5)
+                outs.append(out)
+                lses.append(lse)
+            got = ref.merge_ref(outs, lses, q_dtype)
+            label = f"B7 split into {n} of {(B, H, G, D, S)} lengths {lengths}"
+            parity.check(got, whole, lengths, label + " against whole B7")
+            parity.check(got, flash_attention.decode_ref(q, k, v, lens), lengths, label)
+
+
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 def test_flash_decode_over_a_ring_matches_plain_version(cuda, q_dtype):
     """B7 over the window kinds' 1,024-slot rings (gemma3-12b's Hg 2 at D

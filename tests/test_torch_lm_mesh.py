@@ -39,6 +39,18 @@ JAX in this module).  The tests read both.
 - The reference's plan step and ``moe_ffn_ep`` on a forced 4-device
   ``(2, 2)`` host mesh: the port's mesh results within the same
   tolerances.
+- Serving under a plan (``make_serve_steps``): prefill under the prefill
+  plan, then 3 decode steps under the decode plan, over caches whose
+  sequence dim is split over 'model' (``seq_shard_min`` 8 rows, so B7's
+  sequence-split entry and the lse merge run), against ``LM.prefill`` and
+  ``LM.decode_step`` on one device from the same parameters and tokens.
+  The cases cover every decode attention mode (``qheads``, ``heads``,
+  ``head_dim``, and ``replicate`` forced by ``make_plan(attn_mode=)``),
+  gemma3's ring caches and xlstm's recurrent states.  Logits are held at
+  ``tests/test_torch_lm.py``'s tolerance (2% of the largest |logit| plus
+  2e-3) and the caches at two bf16 units of their largest element (both
+  sides compute in float32 over the same bf16 cache; the mesh sums in
+  another order).  The decode steps update the placed cache in place.
 """
 
 import json
@@ -71,6 +83,17 @@ MOE_CASES = {4: "ep", 3: "f_fallback"}      # experts -> the path on a model axi
 MOE_D, MOE_F, MOE_X = 32, 64, (4, 16, 32)
 LOSS_RTOL, GRAD_REL, LR_SHARE = 1e-5, 1e-4, 0.05
 MOE_ATOL, AUX_ATOL = 2e-5, 1e-6
+#: case -> (arch, config overrides, forced decode attention mode or None,
+#: the decode attention mode on the (2, 2) mesh)
+SERVE_CASES = {
+    "gemma-2b": ("gemma-2b", {}, None, "qheads"),
+    "gemma-2b-head-dim": ("gemma-2b", {"num_heads": 3}, None, "head_dim"),
+    "gemma-2b-replicate": ("gemma-2b", {}, "replicate", "replicate"),
+    "gemma3-12b": ("gemma3-12b", {}, None, "heads"),
+    "xlstm-1.3b": ("xlstm-1.3b", {}, None, "heads"),
+}
+SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS, SEQ_SHARD_MIN = 2, 12, 32, 3, 8
+BF16_EPS = 2.0 ** -8
 
 
 def _cfg(arch, **over):
@@ -178,21 +201,22 @@ def _flat_shardings(tree):
     return leaves(tree, is_leaf=is_sharding)
 
 
-def _moe_case(mesh, rank, out, E):
+def _moe_case(mesh, rank, out, E, unsplit=False):
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.models.moe import moe_ffn, moe_ffn_ep
     from repro_torch.parallel import NamedSharding, P, lm_mesh, place
 
     moe, params, x = _moe_inputs(E)
-    xt = torch.from_numpy(x)
+    xt = torch.from_numpy(x[:1] if unsplit else x)
     want, want_aux = moe_ffn(params, xt, moe, "swiglu")
     with lm_mesh(mesh), implicit_replication():
-        y, aux = moe_ffn_ep(params, place(xt, NamedSharding(mesh, P("data", None, None))),
-                            moe, "swiglu")
+        # a batch the data axis does not split arrives whole
+        spec = P(None, None, None) if unsplit else P("data", None, None)
+        y, aux = moe_ffn_ep(params, place(xt, NamedSharding(mesh, spec)), moe, "swiglu")
     res = dict(y=_np(y), aux=_np(aux), want=_np(want), want_aux=_np(want_aux))
     if rank == 0:
-        np.savez(out / f"moe_{E}.npz", **res)
+        np.savez(out / f"moe_{E}{'_unsplit' if unsplit else ''}.npz", **res)
 
 
 def _tokens_case(mesh, rank, out):
@@ -305,6 +329,54 @@ def _loop_case(mesh, rank, out):
             "one": straight["loss"]}))
 
 
+def _serve_case(mesh, rank, out, name):
+    """Plan prefill and 3 plan decode steps against one device."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.models import LM
+    from repro_torch.models.lm import make_serve_steps
+    from repro_torch.parallel import make_plan
+    from repro_torch.tree import leaves
+
+    arch, over, mode, _ = SERVE_CASES[name]
+    cfg = _cfg(arch, **over)
+    pre_plan = make_plan(cfg, mesh, kind="prefill")
+    dec_plan = make_plan(cfg, mesh, attn_mode=mode, kind="decode")
+    lm = LM(cfg, remat="none", chunk_q=8, compute_dtype=None,
+            attn_seq_shard=pre_plan.attn_mode == "seq")
+    params = lm.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(11)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)))
+    forced = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_STEPS))
+    prefill, _ = make_serve_steps(lm, pre_plan, seq_shard_min=SEQ_SHARD_MIN)
+    _, decode = make_serve_steps(lm, dec_plan, seq_shard_min=SEQ_SHARD_MIN)
+    res = {"mode": dec_plan.attn_mode}
+    with torch.no_grad():
+        logits, cache, lengths = prefill(params, prompt, SERVE_CACHE)
+        one, one_cache, one_len = lm.prefill(params, prompt, SERVE_CACHE)
+        res["prefill"], res["one_prefill"] = _np(logits), _np(one)
+        kv = [t for path, t in _flat(cache).items() if path.rsplit("/", 1)[-1] in ("k", "v")]
+        res["seq_split"] = np.array([bool(kv) and all(
+            any(isinstance(p, Shard) and p.dim == t.ndim - 3 for p in t.placements)
+            for t in kv)])
+        in_place = True
+        for t in range(SERVE_STEPS):
+            tok = torch.from_numpy(forced[:, t:t + 1])
+            before = leaves(cache)
+            logits, cache, lengths = decode(params, tok, cache, lengths)
+            if t:
+                in_place &= all(a is b for a, b in zip(before, leaves(cache)))
+            one, one_cache, one_len = lm.decode_step(params, tok, one_cache, one_len)
+            res[f"decode{t}"], res[f"one_decode{t}"] = _np(logits), _np(one)
+        res["in_place"] = np.array([in_place and all(isinstance(x, DTensor)
+                                                     for x in leaves(cache))])
+        res["lengths"], res["one_lengths"] = _np(lengths), _np(one_len)
+        res.update({f"cache/{k}": _np(v) for k, v in _flat(cache).items()})
+        res.update({f"one_cache/{k}": _np(v) for k, v in _flat(one_cache).items()})
+    if rank == 0:
+        np.savez(out / f"serve_{name}.npz", **res)
+
+
 def _worker(rank: int, port: int, out: str) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -324,6 +396,11 @@ def _worker(rank: int, port: int, out: str) -> None:
             times[name] = time.perf_counter() - t0
         for E in MOE_CASES:
             _moe_case(mesh, rank, out, E)
+        _moe_case(mesh, rank, out, 4, unsplit=True)
+        for name in SERVE_CASES:
+            t0 = time.perf_counter()
+            _serve_case(mesh, rank, out, name)
+            times[f"serve {name}"] = time.perf_counter() - t0
         _tokens_case(mesh, rank, out)
         _checkpoint_case(mesh, rank, out, *gemma)
         t0 = time.perf_counter()
@@ -477,8 +554,10 @@ def test_the_cases_cover_every_attention_mode():
     assert {case[4] for case in STEP_CASES.values()} >= {"heads", "qheads", "seq"}
 
 
-@pytest.mark.parametrize("E", sorted(MOE_CASES))
+@pytest.mark.parametrize("E", [*sorted(MOE_CASES), "4_unsplit"])
 def test_moe_ffn_ep_matches_moe_ffn(mesh_run, E):
+    """Also a batch of 1, which the data axis cannot split: every data rank
+    runs it whole."""
     data = np.load(mesh_run / f"moe_{E}.npz")
     np.testing.assert_allclose(data["y"], data["want"], atol=MOE_ATOL, rtol=0)
     np.testing.assert_allclose(data["aux"], data["want_aux"], atol=AUX_ATOL, rtol=0)
@@ -595,3 +674,73 @@ def test_host_mesh_plan_step_equals_no_plan(host_mesh):
         want = want.numpy()
         _held(_np(_flat(p)[k]), want, GRAD_REL * np.abs(want).max() + LR_SHARE * LR,
               label=f"param {k}")
+
+
+def _logit_tol(want):
+    return 0.02 * float(np.abs(want).max()) + 2e-3
+
+
+@pytest.mark.parametrize("name", sorted(SERVE_CASES))
+def test_plan_prefill_and_decode_match_one_device(mesh_run, name):
+    data = np.load(mesh_run / f"serve_{name}.npz")
+    assert str(data["mode"]) == SERVE_CASES[name][3]
+    assert bool(data["in_place"][0]), "decode left the placed cache or made a new one"
+    if name != "xlstm-1.3b":
+        assert bool(data["seq_split"][0]), "the caches' sequence dims are not split"
+    for step in ["prefill"] + [f"decode{t}" for t in range(SERVE_STEPS)]:
+        want = data[f"one_{step}"]
+        np.testing.assert_allclose(data[step], want, rtol=0, atol=_logit_tol(want),
+                                   err_msg=f"{name} {step}")
+    np.testing.assert_array_equal(data["lengths"], data["one_lengths"])
+    keys = _keys(data, "one_cache/")
+    assert keys == _keys(data, "cache/") and keys
+    for k in keys:
+        want = data[f"one_cache/{k}"]
+        np.testing.assert_allclose(data[f"cache/{k}"], want, rtol=0,
+                                   atol=2 * BF16_EPS * max(1.0, float(np.abs(want).max())),
+                                   err_msg=f"{name} cache {k}")
+
+
+def test_serve_cases_cover_every_decode_mode():
+    assert {case[3] for case in SERVE_CASES.values()} == {"heads", "qheads", "head_dim",
+                                                           "replicate"}
+
+
+_CONSTRAIN = """
+import json
+import torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate
+from repro_torch.parallel.axes import constrain, from_block, lm_mesh
+
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
+mesh = init_device_mesh("cpu", (4, 4), mesh_dim_names=("data", "model"))
+x = from_block(torch.zeros(6, 8, device="meta"), mesh, (Replicate(), Replicate()), (6, 8))
+with lm_mesh(mesh):
+    got = {"batch_model": constrain(x, "batch", "model").placements,
+           "model_batch": constrain(x.t(), "model", "batch").placements,
+           "none": constrain(x, None, None).placements}
+plain = torch.zeros(6, 8)
+with lm_mesh(mesh):
+    same = constrain(plain, "batch", "model") is plain
+print(json.dumps({"same": same, "off_mesh": constrain(x, "batch", "model") is x,
+                  **{k: [str(p) for p in v] for k, v in got.items()}}))
+"""
+
+
+def test_constrain_leaves_a_dim_its_axes_do_not_divide_whole():
+    """``constrain`` on a fake (4, 4) world: a dim of 6 over the 4 'data'
+    ranks stays whole (no uneven split is asked for) while a dim of 8 over
+    the 4 'model' ranks splits; off-mesh and on a plain tensor it is the
+    identity."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", _CONSTRAIN], cwd=root, capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["same"] and got["off_mesh"]
+    assert got["batch_model"] == ["R", "S(1)"]
+    assert got["model_batch"] == ["R", "S(0)"]
+    assert got["none"] == ["R", "R"]

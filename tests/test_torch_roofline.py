@@ -187,3 +187,71 @@ def test_model_flops_estimate_matches_reference(shape):
     assert got == ref_model_flops_estimate(REF_ARCHS["gemma-2b"], REF_SHAPES[shape], n)
     want = 6 * n * 256 * 4096 if shape == "train_4k" else 2 * n * 128
     assert got == pytest.approx(want)
+
+
+_DTENSOR_CENSUS = """
+import json, sys
+import torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard
+from repro_torch.parallel.axes import from_block
+from repro_torch.roofline.hlo_analysis import analyze, analyze_with_memory
+
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
+mesh = init_device_mesh("cpu", (4, 4), mesh_dim_names=("data", "model"))
+x = from_block(torch.zeros(16, 32, device="meta"), mesh, (Shard(0), Replicate()), (64, 32))
+w = from_block(torch.zeros(32, 12, device="meta"), mesh, (Replicate(), Shard(1)), (32, 48))
+matmul = analyze(lambda a, b: a @ b, x, w)
+gathered = analyze(lambda a: a.redistribute(mesh, (Replicate(), Replicate())), x)
+census, memory, out = analyze_with_memory(lambda a, b: (a @ b).float() * 2.0, x, w)
+print(json.dumps({"flops": matmul.flops, "ops": matmul.op_counts, "bytes": matmul.hbm_bytes,
+                  "gathered": gathered.coll_breakdown, "out_shape": list(out.shape),
+                  "memory": [memory.argument_bytes, memory.output_bytes, memory.alias_bytes,
+                             memory.peak_bytes]}))
+"""
+
+
+def test_census_counts_what_one_rank_executes_on_dtensors():
+    """A DTensor matmul on a fake (4, 4) world: the census counts the rank's
+    local product (16 x 32 by 32 x 12), not the global one (64 x 32 by 32 x
+    48, 16 times more), the all-gather a redistribution issues, and the
+    rank's bytes (in a process of its own: one world a process)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", _DTENSOR_CENSUS], cwd=root, capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["flops"] == 2 * 16 * 32 * 12
+    assert got["ops"] == {"mm": 1}
+    assert got["bytes"] == 4 * (16 * 32 + 32 * 12 + 16 * 12)
+    assert got["gathered"]["all-gather"] == 64 * 32 * 4
+    assert got["out_shape"] == [64, 48]
+    # arguments: the two blocks; the output: the rank's 16 x 12 block; the
+    # peak holds the arguments, the product and the output at once
+    assert got["memory"][:3] == [4 * (16 * 32 + 32 * 12), 4 * 16 * 12, 0]
+    assert got["memory"][3] == 4 * (16 * 32 + 32 * 12) + 2 * 4 * 16 * 12
+
+
+def test_per_rank_hook_leaves_a_plain_census_unchanged():
+    """On plain tensors the census with the per-rank hook installed equals
+    the bare dispatch mode's, op for op."""
+    from repro_torch.roofline import hlo_analysis as H
+
+    def step(a, b):
+        return torch.softmax(a @ b, -1).sum()
+
+    a, b = torch.ones(8, 16), torch.ones(16, 4)
+    bare = H._CensusMode()
+    with bare:
+        step(a, b)
+    hooked = analyze(step, a, b)
+    assert hooked.to_dict() == H._census(bare).to_dict()
+    assert hooked.records == bare.records
