@@ -1954,14 +1954,15 @@ def slot_tokens_vs_engine(lm, params, prompts, tokens, served, device):
     return equal, compared
 
 
-def flash_bound(B, H, G, D, lengths, itemsize):
-    """B7's least time, by :func:`bound`: q, the k/v rows up to each length
-    and the output moved once (and the int32 lengths), or 4 D float32
-    operations (a multiply-add each for the score and the weighted sum) per
-    valid row and query head."""
-    rows = sum(lengths)
-    bytes_moved = 2 * B * H * D * itemsize + 2 * rows * G * D * itemsize + 4 * B
-    return (*bound(bytes_moved, 4 * D * H * rows), bytes_moved)
+def flash_bound(B, H, G, D, lengths, itemsize, Dv=None):
+    """B7's least time, by :func:`bound`: q, the k rows up to each length,
+    their v columns (``Dv`` of them, ``D`` by default) and the output moved
+    once (and the int32 lengths), or 2 D + 2 Dv float32 operations (a
+    multiply-add each for the score and the weighted sum) per valid row and
+    query head."""
+    rows, Dv = sum(lengths), D if Dv is None else Dv
+    bytes_moved = B * H * (D + Dv) * itemsize + rows * G * (D + Dv) * itemsize + 4 * B
+    return (*bound(bytes_moved, 2 * (D + Dv) * H * rows), bytes_moved)
 
 
 #: The ``record_function`` range around the profiled steps.
@@ -3787,8 +3788,24 @@ PLAN_SERVE_STEPS = 8
 DISPATCH_STEPS = 10
 #: (b) B7 calls a turn when its host time a call is taken the same way.
 DISPATCH_CALLS = 100
-#: (c) the dry-run cells: (shape, mesh).
-DRYRUN_CELLS = (("train_4k", "single"), ("decode_32k", "single"), ("prefill_32k", "multi"))
+#: (a) B7's split entry over a column block of v: gemma3-12b's global layers
+#: at ``long_500k``'s batch of one on 16 x 16 -- q [1, 16, 256], one
+#: 'model' rank's 1,024 of the cache's 16,384 rows (the ninth block), G 8,
+#: bf16 -- v's head dim split over the 16 'data' ranks (Dv 16) and over 2
+#: (Dv 128), the last block of columns; lengths that fill the rank's rows
+#: and that end inside them.
+COLUMN_SHAPE = (1, 16, 8, 256, 16384, 16)
+COLUMN_BLOCK = 8
+COLUMN_DVS = (16, 128)
+COLUMN_LENGTHS = (16384, 8192 + 517)
+#: (c) the dry-run cells of gemma-2b at full width: (shape, mesh).
+DRYRUN_CELLS = (("train_4k", "single"), ("decode_32k", "single"), ("prefill_32k", "multi"),
+                ("train_4k", "multi"))
+#: (c) the reduced zoo's cells that torch 2.11's DTensor once refused,
+#: through ``tests/test_torch_dryrun.py``'s zoo (its cut shapes).
+ZOO_211_CELLS = tuple(f"{arch}/{shape}/{mesh}" for arch, shape in (
+    ("hymba-1.5b", "train_4k"), ("xlstm-1.3b", "train_4k"), ("xlstm-1.3b", "prefill_32k"))
+    for mesh in ("single", "multi"))
 #: (d) the tracker's peak against the card's ``max_memory_allocated``.
 TRACKER_PEAK_REL = 0.25
 
@@ -3854,6 +3871,66 @@ def phase21_split(device):
            "partial_max_abs_err": part_err, "bound_by": "bytes"}
     emit(out)
     del q, k, v, ks, vs, parts, outs, lses, whole, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase21_columns(device):
+    """(a) B7's split entry over a column block of v at gemma3-12b's batch-one
+    shape (:data:`COLUMN_SHAPE`): for each ``Dv`` of :data:`COLUMN_DVS` and
+    each length, against the plain partial over the same columns and the
+    matching columns of the whole-head-dim split entry (the tensor-core
+    body), output and lse; its time, its plain version's and its bound."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, parity, ref
+
+    B, H, G, D, S, m = COLUMN_SHAPE
+    rows = S // m
+    r0 = COLUMN_BLOCK * rows
+    rng = np.random.default_rng(25)
+    q, k, v = flash_inputs(rng, B, H, G, D, rows, torch.bfloat16, torch.bfloat16, device)
+    runs, launches = [], 0
+    for Dv in COLUMN_DVS:
+        c0 = D - Dv
+        block = v[..., c0:c0 + Dv]
+        err = 0.0
+        for n in COLUMN_LENGTHS:
+            lens = torch.tensor([n], dtype=torch.int32, device=device)
+            whole, whole_lse = ops.decode_attention_split(q, k, v, lens, r0, chunk=512)
+            reset_launches()
+            out, lse = ops.decode_attention_split(q, k, block, lens, r0, chunk=512)
+            torch.cuda.synchronize()
+            if launch_counts() != no_launches(flash_decode=1):
+                raise AssertionError(f"(a) columns: launched {launch_counts()}, not B7 once")
+            launches += 1
+            want, want_lse = ref.decode_partial_ref(q, k, block, lens, r0)
+            valid = [1 if n > r0 else 0]
+            label = f"(a) columns {c0}..{D} at length {n}"
+            err = max(err, parity.check(out, want, valid, label + " vs plain")[0],
+                      parity.check(out, whole[..., c0:].contiguous(), valid,
+                                   label + " vs whole B7's")[0])
+            for other in (want_lse, whole_lse):
+                if not torch.allclose(lse, other, rtol=2e-5, atol=2e-5):
+                    raise AssertionError(f"{label}: lse {lse.tolist()} against {other.tolist()}")
+        lens = torch.tensor([COLUMN_LENGTHS[0]], dtype=torch.int32, device=device)
+        valid_rows = min(max(COLUMN_LENGTHS[0] - r0, 0), rows)
+        ms = cuda_ms(lambda: ops.decode_attention_split(q, k, block, lens, r0, chunk=512), 20,
+                     shield=True)
+        plain_ms = cuda_ms(lambda: ref.decode_partial_ref(q, k, block, lens, r0), 20,
+                           shield=True)
+        whole_ms = cuda_ms(lambda: ops.decode_attention_split(q, k, v, lens, r0, chunk=512), 20,
+                           shield=True)
+        b_ms, b_by, _ = flash_bound(B, H, G, D, [valid_rows], 2, Dv)
+        runs.append({"Dv": Dv, "columns": [c0, D], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "whole_head_dim_ms": whole_ms,
+                     "whole_head_dim_bound_ms": flash_bound(B, H, G, D, [valid_rows], 2)[0],
+                     "max_abs_err": err})
+    out = {"phase": "dryrun_columns", "shape": f"q [{B}, {H}, {D}], k [{B}, {rows}, {G}, {D}] "
+           f"(rows {r0}..{r0 + rows - 1} of {S}) bf16, v a column block",
+           "lengths": list(COLUMN_LENGTHS), "launches": launches, "runs": runs,
+           "tolerance": "float32 outputs |d| <= 2e-5 (1 + |ref|); lse 2e-5"}
+    emit(out)
+    del q, k, v
     torch.cuda.empty_cache()
     return out
 
@@ -4076,8 +4153,11 @@ def phase_dryrun(device, memo, lm_mesh, card):
     import shutil
     import tempfile
 
+    import torch
+
     t_phase = time.perf_counter()
     split = phase21_split(device)
+    columns = phase21_columns(device)
     serving = phase21_plan_serving(device, card)
     card_bytes = phase21_tracker_card_bytes(device)
 
@@ -4095,6 +4175,10 @@ def phase_dryrun(device, memo, lm_mesh, card):
         code = f"import chip_smoke; chip_smoke.tracker_child({label == 'plan'})"
         procs[label] = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
                                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs["zoo"] = subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "test_torch_dryrun.py"), "--jobs",
+         str(len(ZOO_211_CELLS)), *ZOO_211_CELLS], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     results = {}
     try:
         for key, p in procs.items():
@@ -4124,7 +4208,14 @@ def phase_dryrun(device, memo, lm_mesh, card):
                "peak_by_op": r["memory_analysis"]["peak_by_op"]})
     shutil.rmtree(out_dir, ignore_errors=True)
     dryrun_s = time.perf_counter() - t0
+    peaks = {c["mesh"]: c["peak_gib"] for c in cells if c["shape"] == "train_4k"}
+    if peaks["multi"] > peaks["single"]:
+        raise AssertionError(f"(c) train_4k: {peaks['multi']:.2f} GiB a rank on two pods, more "
+                             f"than one pod's {peaks['single']:.2f}")
+    zoo = [line for line in results["zoo"].splitlines() if line.split(" ", 1)[0] in ZOO_211_CELLS]
     emit({"phase": "dryrun_cells", "cells": cells, "seconds_all_cells": dryrun_s,
+          "train_4k_peak_gib": peaks, "reduced_zoo_cells": zoo,
+          "torch": torch.__version__,
           "note": "per rank of a fake 256- or 512-rank world; t_* at the H100's published "
                   "peaks; nothing runs on the card"})
 
@@ -4151,8 +4242,8 @@ def phase_dryrun(device, memo, lm_mesh, card):
                "plan_minus_no_plan_at_peak_by_op": dict(sorted(
                    extra.items(), key=lambda kv: -abs(kv[1]))[:8])}
     emit({"phase": "dryrun_tracker", **tracker, "limit_rel": TRACKER_PEAK_REL, "card": card})
-    out = {"split": split, "serving": serving, "cells": cells, "tracker": tracker,
-           "seconds": time.perf_counter() - t_phase}
+    out = {"split": split, "columns": columns, "serving": serving, "cells": cells,
+           "tracker": tracker, "seconds": time.perf_counter() - t_phase}
     emit({"phase": "dryrun", "seconds": out["seconds"], "card": card})
     return out
 
@@ -4280,7 +4371,7 @@ def main() -> int:
                 "vcgra_pipeline_batched": chain_launches["vcgra_pipeline_batched"],
                 **{k: single_launches[k] for k in
                    ("vcgra_conventional", "vcgra_specialized", "stencil_fused")},
-                "flash_decode": lm_launches["flash_decode"] + dryrun["split"]["launches"]}
+                "flash_decode": lm_launches["flash_decode"]}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
@@ -4295,11 +4386,13 @@ def main() -> int:
         })
     b7 = next(k for k in kernels if k["name"] == "flash_decode")
     b7["launches_lm_zoo"] = {arch: z["launches"]["flash_decode"] for arch, z in zoo.items()}
-    b7["launches_lm_path"] = lm_launches["flash_decode"]
     b7["launches_seq_split"] = dryrun["split"]["launches"]
     b7["launches_plan_serving"] = dryrun["serving"]["plan"]["b7_launches"]
     b7["seq_split_block_ms"] = statistics.median(dryrun["split"]["block_ms"])
     b7["seq_split_block_bound_ms"] = max(dryrun["split"]["block_bound_ms"])
+    b7["launches_column_block"] = dryrun["columns"]["launches"]
+    b7["column_block"] = {r["Dv"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
+                          for r in dryrun["columns"]["runs"]}
     emit({"kernels": kernels, "launches": {"main_path": main_launches,
                                            "chain_path": chain_launches,
                                            "synthesis_case": synthesis_launches,

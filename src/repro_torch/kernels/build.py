@@ -95,7 +95,7 @@ SIGNATURES = {
     ),
     "flash_decode": (
         ("flash_decode",
-         [_INT] * 4 + [_VOID_P] * 8 + [_INT] * 7 + [ctypes.c_float, _INT, _VOID_P, _VOID_P]),
+         [_INT] * 4 + [_VOID_P] * 8 + [_INT] * 8 + [ctypes.c_float, _INT, _VOID_P, _VOID_P]),
         ("flash_decode_supported", [_INT, _INT]),
         ("flash_decode_max_splits", []),
         ("flash_decode_tc_rows", []),

@@ -22,6 +22,10 @@
 // combine also writes each head's float32 log-sum-exp of its scaled scores
 // (-inf for no valid row) beside a float32 output; the ranks merge their
 // blocks' outputs weighted by exp(lse - max lse) (ops.decode_attention_split).
+// There v may be a column block of the rank's cache: Dv of its D columns
+// (Dv divides D), v's pointer at the block's first column and its rows
+// strided as k's.  The scores run over k's whole D; the weighted sum, the
+// partials and the output over the Dv columns (the CUDA-core body only).
 //
 // Bound: the bytes of k and v up to lengths[b] (each read once); at the
 // `decode_32k` shape of one gemma-2b layer (B 128, S 32768, G 1, D 256,
@@ -123,7 +127,8 @@ template <typename QT, typename KT, int VEC, int HG>
 __global__ void __launch_bounds__(THREADS) flash_decode_partial(
     const QT* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
     const int* __restrict__ lengths, float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ part_acc, int S, int G, int Hg, int D, int split_len, float scale) {
+    float* __restrict__ part_acc, int S, int G, int Hg, int D, int Dv, int split_len,
+    float scale) {
   static_assert(HG * 32 * VEC <= GROUP_FLOATS, "a lane's q and acc exceed the budget");
   constexpr int DMAX = 32 * VEC;
   __shared__ float sm_m[WARPS][HG];
@@ -146,6 +151,10 @@ __global__ void __launch_bounds__(THREADS) flash_decode_partial(
 
   const int d0 = lane * VEC;
   const bool active = d0 < D;  // only lanes past D when D < 32
+  // v's columns d0 .. d0 + VEC - 1 of the Dv: all of them, some (Dv < VEC,
+  // one lane, element by element) or none
+  const bool vactive = d0 < Dv;
+  const bool vpacked = d0 + VEC <= Dv;
   const QT* qg = q + ((long long)b * G + g) * Hg * D;
   // Heads Hg..HG-1 (HG is Hg rounded up to a power of two) hold q = 0:
   // their scores and sums are computed and never written.
@@ -167,11 +176,17 @@ __global__ void __launch_bounds__(THREADS) flash_decode_partial(
   using P = Pack<KT, VEC>;
   const long long row_stride = (long long)G * D;
   const KT* kb = k + ((long long)b * S * G + g) * D + d0;
-  const KT* vb = v + ((long long)b * S * G + g) * D + d0;
+  const KT* vb = v + ((long long)b * S * G + g) * D + (vactive ? d0 : 0);
   auto fetch = [&](int row, P& kr, P& vr) {
     if (row < end && active) {
       kr = *reinterpret_cast<const P*>(kb + row * row_stride);
-      vr = *reinterpret_cast<const P*>(vb + row * row_stride);
+      if (vpacked) {
+        vr = *reinterpret_cast<const P*>(vb + row * row_stride);
+      } else if (vactive) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          vr.v[i] = d0 + i < Dv ? vb[row * row_stride + i] : from_float<KT>(0.f);
+      }
     }
   };
   P k1{}, v1{}, k2{}, v2{};
@@ -184,9 +199,9 @@ __global__ void __launch_bounds__(THREADS) flash_decode_partial(
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       kf1[i] = active ? to_float(k1.v[i]) : 0.f;
-      vf1[i] = active ? to_float(v1.v[i]) : 0.f;
+      vf1[i] = vactive ? to_float(v1.v[i]) : 0.f;
       kf2[i] = (active && second) ? to_float(k2.v[i]) : 0.f;
-      vf2[i] = (active && second) ? to_float(v2.v[i]) : 0.f;
+      vf2[i] = (vactive && second) ? to_float(v2.v[i]) : 0.f;
     }
     fetch(t + 2 * WARPS, k1, v1);
     fetch(t + 3 * WARPS, k2, v2);
@@ -234,22 +249,23 @@ __global__ void __launch_bounds__(THREADS) flash_decode_partial(
         sm_m[warp][h] = m[h];
         sm_l[warp][h] = l[h];
       }
-      if (active) {
+      if (vactive) {
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) sm_acc[warp][h * D + d0 + i] = acc[h][i];
+        for (int i = 0; i < VEC; ++i)
+          if (d0 + i < Dv) sm_acc[warp][h * Dv + d0 + i] = acc[h][i];
       }
     }
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < Hg * D; idx += THREADS) {
-    const int h = idx / D;
+  for (int idx = threadIdx.x; idx < Hg * Dv; idx += THREADS) {
+    const int h = idx / Dv;
     float mx = NEG_INF;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][h]);
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) a += sm_acc[w][idx] * expf(sm_m[w][h] - mx);
-    part_acc[part * Hg * D + idx] = a;
+    part_acc[part * Hg * Dv + idx] = a;
   }
   if (threadIdx.x < Hg) {
     const int h = threadIdx.x;
@@ -635,11 +651,11 @@ cudaError_t launch_combine(const float* part_m, const float* part_l, const float
 template <typename QT, typename KT, int VEC, int HG>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
                    float* part_m, float* part_l, float* part_acc, int B, int S,
-                   int G, int Hg, int D, int split_len, int n_splits, float scale,
+                   int G, int Hg, int D, int Dv, int split_len, int n_splits, float scale,
                    cudaStream_t stream) {
   flash_decode_partial<QT, KT, VEC, HG><<<dim3(n_splits, G, B), THREADS, 0, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v), lengths,
-      part_m, part_l, part_acc, S, G, Hg, D, split_len, scale);
+      part_m, part_l, part_acc, S, G, Hg, D, Dv, split_len, scale);
   return cudaGetLastError();
 }
 
@@ -718,13 +734,13 @@ int group_size(int Hg, int vec) {
 template <typename QT, typename KT, int VEC>
 cudaError_t launch_group(const void* q, const void* k, const void* v, const int* lengths,
                          float* part_m, float* part_l, float* part_acc, int B,
-                         int S, int G, int Hg, int D, int split_len, int n_splits, float scale,
-                         cudaStream_t stream) {
+                         int S, int G, int Hg, int D, int Dv, int split_len, int n_splits,
+                         float scale, cudaStream_t stream) {
 #define FLASH_DECODE_HG(HGV)                                                                \
   case HGV:                                                                                 \
     if constexpr (HGV * 32 * VEC <= GROUP_FLOATS)                                           \
       return launch<QT, KT, VEC, HGV>(q, k, v, lengths, part_m, part_l, part_acc, B, \
-                                      S, G, Hg, D, split_len, n_splits, scale, stream);     \
+                                      S, G, Hg, D, Dv, split_len, n_splits, scale, stream); \
     return cudaErrorInvalidValue;
   switch (group_size(Hg, VEC)) {
     FLASH_DECODE_HG(1)
@@ -741,12 +757,12 @@ cudaError_t launch_group(const void* q, const void* k, const void* v, const int*
 template <typename QT, typename KT>
 cudaError_t launch_vec(int vec, const void* q, const void* k, const void* v,
                        const int* lengths, float* part_m, float* part_l, float* part_acc,
-                       int B, int S, int G, int Hg, int D, int split_len,
+                       int B, int S, int G, int Hg, int D, int Dv, int split_len,
                        int n_splits, float scale, cudaStream_t stream) {
 #define FLASH_DECODE_VEC(V)                                                             \
   case V:                                                                               \
     return launch_group<QT, KT, V>(q, k, v, lengths, part_m, part_l, part_acc, B, \
-                                   S, G, Hg, D, split_len, n_splits, scale, stream);
+                                   S, G, Hg, D, Dv, split_len, n_splits, scale, stream);
   switch (vec) {
     FLASH_DECODE_VEC(1)
     FLASH_DECODE_VEC(2)
@@ -794,10 +810,11 @@ namespace {
 // The splits' partials of one launch: the body flash_decode picks.
 cudaError_t launch_partials(int tensor_cores, int q_dtype, int kv_dtype, int vec, const void* q,
                             const void* k, const void* v, const int* len, float* pm, float* pl,
-                            float* pa, int B, int S, int G, int Hg, int D, int split_len,
-                            int n_splits, float scale, cudaStream_t st) {
+                            float* pa, int B, int S, int G, int Hg, int D, int Dv,
+                            int split_len, int n_splits, float scale, cudaStream_t st) {
+  if (Dv < 1 || Dv > D || D % Dv) return cudaErrorInvalidValue;
   if (tensor_cores) {
-    if (kv_dtype != 1) return cudaErrorInvalidValue;
+    if (kv_dtype != 1 || Dv != D) return cudaErrorInvalidValue;
     if (q_dtype == 0)
       return launch_tc_shape<float>(q, k, v, len, pm, pl, pa, B, S, G, Hg, D, split_len,
                                     n_splits, scale, st);
@@ -807,26 +824,29 @@ cudaError_t launch_partials(int tensor_cores, int q_dtype, int kv_dtype, int vec
     return cudaErrorInvalidValue;
   }
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch_vec<float, float>(vec, q, k, v, len, pm, pl, pa, B, S, G, Hg, D,
+    return launch_vec<float, float>(vec, q, k, v, len, pm, pl, pa, B, S, G, Hg, D, Dv,
                                     split_len, n_splits, scale, st);
   if (q_dtype == 0 && kv_dtype == 1)
     return launch_vec<float, __nv_bfloat16>(vec, q, k, v, len, pm, pl, pa, B, S, G, Hg,
-                                            D, split_len, n_splits, scale, st);
+                                            D, Dv, split_len, n_splits, scale, st);
   if (q_dtype == 1 && kv_dtype == 1)
     return launch_vec<__nv_bfloat16, __nv_bfloat16>(vec, q, k, v, len, pm, pl, pa, B, S,
-                                                    G, Hg, D, split_len, n_splits, scale, st);
+                                                    G, Hg, D, Dv, split_len, n_splits, scale,
+                                                    st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q [B, Hg * G, D] (dtype code 0 float32, 1 bfloat16), k and v [B, S, G, D]
-// (same codes; bfloat16 q takes a bfloat16 cache only), lengths int32 [B];
-// scratch part_m, part_l float32 [B, G, n_splits, Hg] and part_acc
-// [B, G, n_splits, Hg, D].  n_splits * split_len >= S.
+// q [B, Hg * G, D] (dtype code 0 float32, 1 bfloat16), k [B, S, G, D] and
+// v the columns c .. c + Dv - 1 of a [B, S, G, D] tensor strided as k (v
+// points at column c; Dv divides D, Dv = D the whole of it; same codes;
+// bfloat16 q takes a bfloat16 cache only), lengths int32 [B]; scratch
+// part_m, part_l float32 [B, G, n_splits, Hg] and part_acc
+// [B, G, n_splits, Hg, Dv].  n_splits * split_len >= S.
 // tensor_cores = 1 runs the tensor-core body (a bfloat16 cache, D in
-// {16, 32, 64, 128, 256}, Hg <= 16, split_len a multiple of TC_ROWS),
-// 0 the CUDA-core body; then the combine writes out [B, Hg * G, D], like q
+// {16, 32, 64, 128, 256}, Hg <= 16, split_len a multiple of TC_ROWS, Dv =
+// D), 0 the CUDA-core body; then the combine writes out [B, Hg * G, Dv], like q
 // or, with out_f32 = 1, float32, and, where lse is not null, the float32
 // log-sum-exp [B, Hg * G] of each head's scaled scores over its valid rows
 // (-inf where a sequence has none): the sequence-split entry, whose
@@ -835,19 +855,20 @@ cudaError_t launch_partials(int tensor_cores, int q_dtype, int kv_dtype, int vec
 // take returns cudaErrorInvalidValue without launching.
 int flash_decode(int tensor_cores, int q_dtype, int kv_dtype, int vec, const void* q,
                  const void* k, const void* v, const void* lengths, void* part_m, void* part_l,
-                 void* part_acc, void* out, int B, int S, int G, int Hg, int D, int split_len,
-                 int n_splits, float scale, int out_f32, void* lse, void* stream) {
+                 void* part_acc, void* out, int B, int S, int G, int Hg, int D, int Dv,
+                 int split_len, int n_splits, float scale, int out_f32, void* lse,
+                 void* stream) {
   float *pm = static_cast<float*>(part_m), *pl = static_cast<float*>(part_l),
         *pa = static_cast<float*>(part_acc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_partials(tensor_cores, q_dtype, kv_dtype, vec, q, k, v,
                                     static_cast<const int*>(lengths), pm, pl, pa, B, S, G, Hg,
-                                    D, split_len, n_splits, scale, st);
+                                    D, Dv, split_len, n_splits, scale, st);
   if (err != cudaSuccess) return err;
   float* l = static_cast<float*>(lse);
   if (out_f32 || q_dtype == 0)
-    return launch_combine<float>(pm, pl, pa, out, l, B, G, Hg, D, n_splits, st);
-  return launch_combine<__nv_bfloat16>(pm, pl, pa, out, l, B, G, Hg, D, n_splits, st);
+    return launch_combine<float>(pm, pl, pa, out, l, B, G, Hg, Dv, n_splits, st);
+  return launch_combine<__nv_bfloat16>(pm, pl, pa, out, l, B, G, Hg, Dv, n_splits, st);
 }
 
 }  // extern "C"

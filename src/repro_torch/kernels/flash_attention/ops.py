@@ -29,8 +29,12 @@ and a census formula (:func:`census_op_cost`, which
 attends over one block of a cache whose rows are split over a mesh and
 returns the float32 output with its log-sum-exp; :func:`merge_splits`
 merges the ranks' blocks with functional collectives, ``ref.merge_ref``
-merges a list of them.  Plain CUDA tensors, the serving path's, launch
-the kernel without the op's dispatch (:func:`_direct`).
+merges a list of them.  Its v may be a column block of the cache's v (``Dv``
+of its ``D`` columns, a divisor, as a view strided as k: no copy): the
+scores run over k's whole head dim, the weighted sum and the output over
+those columns, on the CUDA-core body (:func:`tensor_core_route`).  Plain
+CUDA tensors, the serving path's, launch the kernel without the op's
+dispatch (:func:`_direct`).
 """
 
 from __future__ import annotations
@@ -66,10 +70,15 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(q, k, v, lengths, chunk) -> Tuple[int, int, int, int, int]:
-    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"q must be [B, H, D] and k, v [B, S, G, D]; got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+def _check(q, k, v, lengths, chunk, columns: bool = False) -> Tuple[int, int, int, int, int]:
+    """``(B, H, D, S, G)`` of a call; with ``columns`` v may hold ``Dv``
+    columns of the cache's head dim, a divisor of ``D``."""
+    if (q.dim() != 3 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]
+            or not (v.shape[3] == k.shape[3] or columns and v.shape[3] >= 1
+                    and k.shape[3] % v.shape[3] == 0)):
+        want = "v [B, S, G, Dv], Dv dividing D" if columns else "v [B, S, G, D]"
+        raise ValueError(f"q must be [B, H, D], k [B, S, G, D] and {want}; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, D = q.shape
     _, S, G, _ = k.shape
     if k.shape[0] != B or k.shape[3] != D:
@@ -90,11 +99,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def tensor_core_route(kv_dtype: torch.dtype, Hg: int, D: int) -> bool:
+def tensor_core_route(kv_dtype: torch.dtype, Hg: int, D: int, Dv: int = None) -> bool:
     """True where the tensor-core body computes the split: a bf16 cache,
-    ``D`` in :data:`TC_HEAD_DIMS` and at most :data:`TC_MAX_HEADS` query
-    heads a group; else the CUDA-core body does."""
-    return kv_dtype == torch.bfloat16 and D in TC_HEAD_DIMS and 1 <= Hg <= TC_MAX_HEADS
+    ``D`` in :data:`TC_HEAD_DIMS`, at most :data:`TC_MAX_HEADS` query heads
+    a group and v's whole head dim (``Dv`` None or ``D``); else the
+    CUDA-core body does, a column block of v included."""
+    return (kv_dtype == torch.bfloat16 and D in TC_HEAD_DIMS and 1 <= Hg <= TC_MAX_HEADS
+            and Dv in (None, D))
 
 
 def tc_smem_bytes(q_dtype: torch.dtype, Hg: int, D: int) -> int:
@@ -119,21 +130,26 @@ def split_length(B: int, S: int, G: int, sm_count: int, max_splits: int) -> int:
     return split
 
 
-def census_cost(B: int, H: int, G: int, D: int, rows: int, itemsize: int) -> Tuple[float, float]:
-    """(operations, bytes) of one B7 call over ``rows`` cache rows in all:
-    q, those k/v rows and the output moved once (in the cache's itemsize)
-    and the int32 lengths, and 4 D operations (a multiply-add each for the
-    score and the weighted sum) per row and query head."""
-    return 4.0 * D * H * rows, float(2 * B * H * D * itemsize + 2 * rows * G * D * itemsize
-                                     + 4 * B)
+def census_cost(B: int, H: int, G: int, D: int, rows: int, itemsize: int,
+                Dv: int = None) -> Tuple[float, float]:
+    """(operations, bytes) of one B7 call over ``rows`` cache rows in all,
+    v's ``Dv`` columns (``D`` by default) read: q, those k rows, their v
+    columns and the output moved once (in the cache's itemsize) and the
+    int32 lengths, and 2 D operations (a multiply-add each) for the score
+    and 2 Dv for the weighted sum per row and query head."""
+    Dv = D if Dv is None else Dv
+    return (2.0 * (D + Dv) * H * rows,
+            float(B * H * (D + Dv) * itemsize + rows * G * (D + Dv) * itemsize + 4 * B))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
             split_entry: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """B7 on the card: ``(out, lse)``, out like q and lse None; with
-    ``split_entry`` a float32 out and the float32 log-sum-exp ``[B, H]``."""
+    ``split_entry`` a float32 out ``[B, H, Dv]`` over v's ``Dv`` columns and
+    the float32 log-sum-exp ``[B, H]``."""
     B, H, D = q.shape
     _, S, G, _ = k.shape
+    Dv = v.shape[3]
     if {q.device, k.device, v.device, lengths.device} != {q.device} or q.device.type != "cuda":
         raise ValueError("the Hopper kernel runs on CUDA tensors on one device; got q "
                          f"{q.device}, k {k.device}, v {v.device}, lengths {lengths.device}")
@@ -144,24 +160,27 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Te
                         "bfloat16 cache")
     if lengths.dtype != torch.int32:
         raise TypeError(f"lengths must be int32, got {lengths.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
-            and lengths.is_contiguous()):
-        raise ValueError("q, k, v and lengths must be contiguous")
+    if not (q.is_contiguous() and k.is_contiguous() and lengths.is_contiguous()
+            and (v.is_contiguous() if Dv == D else v.stride() == k.stride())):
+        raise ValueError("q, k, v and lengths must be contiguous (v may be a column block of "
+                         "a tensor strided as k)")
     vec = 1 if D <= 32 else D // 32
     if vec * 32 != max(D, 32) or vec not in (1, 2, 4, 8):
         raise ValueError(f"head dim {D}; the kernel takes D <= 32, 64, 128 or 256")
     Hg = H // G
     lib = load_library("flash_decode")
-    tensor_cores = tensor_core_route(k.dtype, Hg, D)
+    tensor_cores = tensor_core_route(k.dtype, Hg, D, Dv)
     if not tensor_cores and not lib.flash_decode_supported(Hg, vec):
         raise ValueError(f"{Hg} query heads per KV group at D={D}: the kernel takes at most "
                          "16 heads a group, rounded up to a power of two, times D <= 2048")
     if B > 65535 or G > 65535:
         raise ValueError(f"B={B}, G={G}: the launch grid takes at most 65535 of each")
     align = 16 if tensor_cores else vec * k.element_size()
-    if k.data_ptr() % align or v.data_ptr() % align:
-        raise ValueError(f"k and v must be {align}-byte aligned for the kernel's vector loads")
-    out = torch.empty_like(q, dtype=torch.float32 if split_entry else q.dtype)
+    v_align = align if Dv >= vec else k.element_size()  # fewer: element by element
+    if k.data_ptr() % align or v.data_ptr() % v_align:
+        raise ValueError(f"k and v must be {align}- and {v_align}-byte aligned for the "
+                         "kernel's vector loads")
+    out = q.new_empty((B, H, Dv), dtype=torch.float32 if split_entry else q.dtype)
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if split_entry else None
     if out.numel() == 0:
         return out, lse
@@ -170,12 +189,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Te
     n_splits = -(-S // split)
     part_m = torch.empty((B, G, n_splits, Hg), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, G, n_splits, Hg, D), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((B, G, n_splits, Hg, Dv), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.flash_decode(
             int(tensor_cores), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], vec, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), lengths.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), out.data_ptr(), B, S, G, Hg, D, split, n_splits,
+            part_acc.data_ptr(), out.data_ptr(), B, S, G, Hg, D, Dv, split, n_splits,
             float(D ** -0.5), int(split_entry), 0 if lse is None else lse.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -209,7 +228,8 @@ def _flash_decode_fake(q, k, v, lengths):
 def flash_decode_split_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lengths: torch.Tensor, r0: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """B7's sequence-split entry as a torch op: k/v hold global rows ``r0 ..
-    r0 + S - 1`` and ``lengths`` count global rows."""
+    r0 + S - 1`` (v all of the head dim or a column block) and ``lengths``
+    count global rows."""
     return ref.decode_partial_ref(q, k, v, lengths, r0)
 
 
@@ -221,16 +241,17 @@ def _flash_decode_split_cuda(q, k, v, lengths, r0):
 
 @flash_decode_split_op.register_fake
 def _flash_decode_split_fake(q, k, v, lengths, r0):
-    return (torch.empty_like(q, dtype=torch.float32),
+    return (q.new_empty((*q.shape[:2], v.shape[3]), dtype=torch.float32),
             q.new_empty(q.shape[:2], dtype=torch.float32))
 
 
 def census_op_cost(q, k, v, lengths, r0=None) -> Tuple[float, float]:
     """(operations, bytes) of one call of either B7 op over all of its S
-    rows, as the reference's einsum decode reads them; the split entry also
-    writes its float32 log-sum-exp."""
+    rows and v's columns, as the reference's einsum decode reads them; the
+    split entry also writes its float32 log-sum-exp."""
     B, H, D = q.shape
-    ops, nbytes = census_cost(B, H, k.shape[2], D, B * k.shape[1], k.element_size())
+    ops, nbytes = census_cost(B, H, k.shape[2], D, B * k.shape[1], k.element_size(),
+                              v.shape[3])
     return ops, nbytes + (0.0 if r0 is None else 4.0 * B * H)
 
 
@@ -258,13 +279,15 @@ def decode_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths: torch.Tensor, r0: int,
                            chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sequence-split entry: q ``[B, H, D]`` over one block of a cache,
-    k/v ``[B, S, G, D]`` holding its global rows ``r0 .. r0 + S - 1``, each
-    sequence masked to ``clamp(lengths[b] - r0, 0, S)`` rows.  Returns the
-    float32 output ``[B, H, D]`` normalised over the block's rows and the
+    k ``[B, S, G, D]`` and v ``[B, S, G, Dv]`` holding its global rows ``r0
+    .. r0 + S - 1`` (v all of the head dim, ``Dv = D``, or a column block of
+    it, ``Dv`` a divisor of ``D``, as a view strided as k), each sequence
+    masked to ``clamp(lengths[b] - r0, 0, S)`` rows.  Returns the float32
+    output ``[B, H, Dv]`` normalised over the block's rows and the
     float32 log-sum-exp ``[B, H]`` of the scaled scores over them (-inf,
     and an output of 0, where a sequence has none): what :func:`merge_splits`
     and ``ref.merge_ref`` merge."""
-    _check(q, k, v, lengths, chunk)
+    _check(q, k, v, lengths, chunk, columns=True)
     if _direct(q, k, v, lengths):
         return _flash_decode_split_cuda(q, k, v, lengths, int(r0))
     return flash_decode_split_op(q, k, v, lengths, int(r0))

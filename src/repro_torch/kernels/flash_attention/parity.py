@@ -46,6 +46,15 @@ CASES: List[Tuple[int, int, int, int, int, int]] = [
 RING_CASES: List[Tuple[int, int, int, int, int, int]] = [
     (8, 16, 8, 256, 1024, 512), (3, 25, 5, 64, 1024, 512),
 ]
+#: (B, H, G, D, S, Dv): the sequence-split entry over a column block of v --
+#: gemma3-12b's global layers at a batch of one (Hg 2, D 256), one rank's
+#: 1,024 rows, Dv 16 (16 'data' ranks) and 128 (2); columns of 1 and 4,
+#: fewer than a lane's 8 elements (loaded one by one); MQA at D 16, GQA at
+#: D 64, each over a cache of 200 rows.
+COLUMN_CASES: List[Tuple[int, int, int, int, int, int]] = [
+    (1, 16, 8, 256, 1024, 16), (1, 16, 8, 256, 1024, 128), (2, 16, 8, 256, 320, 1),
+    (2, 16, 8, 256, 320, 4), (3, 4, 1, 16, 200, 4), (3, 8, 2, 64, 200, 8),
+]
 #: (q dtype, cache dtype) pairs the kernel takes.
 DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float32, torch.bfloat16)]

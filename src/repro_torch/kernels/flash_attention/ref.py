@@ -34,15 +34,16 @@ def decode_ref(
 def decode_partial_ref(
     q: torch.Tensor,        # [B, H, D]
     k: torch.Tensor,        # [B, S, G, D]: global rows r0 .. r0 + S - 1
-    v: torch.Tensor,        # [B, S, G, D]
+    v: torch.Tensor,        # [B, S, G, Dv]: D or a column block of it
     lengths: torch.Tensor,  # [B] global lengths
     r0: int,
 ):
     """One block of a sequence-split cache: each sequence's rows of the
     block below its length (``clamp(lengths - r0, 0, S)`` of them), in
-    float32.  Returns the output normalised over those rows, float32 ``[B,
-    H, D]`` (0 where there are none), and the log-sum-exp of their scaled
-    scores, float32 ``[B, H]`` (-inf where there are none)."""
+    float32, the scores over k's whole head dim and the weighted sum over
+    v's ``Dv`` columns.  Returns the output normalised over those rows,
+    float32 ``[B, H, Dv]`` (0 where there are none), and the log-sum-exp of
+    their scaled scores, float32 ``[B, H]`` (-inf where there are none)."""
     B, H, D = q.shape
     _, S, G, _ = k.shape
     Hg = H // G
@@ -55,7 +56,7 @@ def decode_partial_ref(
     p = torch.where(mask, torch.exp(scores - torch.where(torch.isneginf(lse), 0.0, lse)[..., None]),
                     0.0)
     out = torch.einsum("bghs,bsgd->bghd", p, v.float())
-    return out.reshape(B, H, D), lse.reshape(B, H)
+    return out.reshape(B, H, v.shape[3]), lse.reshape(B, H)
 
 
 def merge_ref(outs, lses, dtype: torch.dtype) -> torch.Tensor:

@@ -31,8 +31,13 @@ its block of the cache and B7 reads that block.  Where the cache's
 sequence dim is split over 'model', each rank runs B7's sequence-split
 entry on its rows and the ranks merge their outputs by their
 log-sum-exps (``ops.merge_splits``: an all-gather of ``[B, H]`` float32
-and an all-reduce of the weighted outputs); the output projection runs
-on the rank's block of ``wo``.
+and an all-reduce of the weighted outputs).  Where the cache's batch is
+then whole over the other mesh dims (the data axes: a batch of one, or
+one they do not divide), those ranks split v's head dim instead, as XLA's
+partitioner does: each takes
+the weighted sum over its own column block of v (a local slice; the
+scores stay whole) and the merged outputs are gathered over the data axes.
+The output projection runs on the rank's block of ``wo``.
 """
 
 from __future__ import annotations
@@ -324,6 +329,26 @@ def _batch_rows(layout) -> tuple:
     return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in layout)
 
 
+def _column_layout(layout, mesh, hd: int):
+    """The layout of a decode output ``[B, 1, G, Hg, hd]`` whose head dim
+    the data axes split, for a cache laid out by ``layout`` whose sequence
+    is split and whose batch is whole over them (every mesh dim that does
+    not split the sequence): over the innermost of them whose sizes'
+    product divides ``hd`` ('data', then 'pod'); None where the batch is
+    split or none of them divides."""
+    if any(isinstance(p, Shard) and p.dim == 0 for p in layout):
+        return None
+    data, n = [], 1
+    for i in reversed(range(len(layout))):
+        size = mesh.shape[i]
+        if not isinstance(layout[i], Shard) and size > 1 and hd % (n * size) == 0:
+            data.append(i)
+            n *= size
+    if not data:
+        return None
+    return tuple(Shard(4) if i in data else Replicate() for i in range(len(layout)))
+
+
 def _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows):
     """One token's attention over the cache ``[B, S, G, hd]``, its new k/v
     rows written in place first.  ``q`` is ``[B, 1, G, Hg, hd]``,
@@ -335,8 +360,11 @@ def _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows):
     which is never gathered: it writes the new rows whose slots its block
     holds and runs B7 on its rows; where the cache's sequence is split, B7's
     sequence-split entry runs on them and the ranks merge by their
-    log-sum-exps.  The output is laid out by the cache's batch split.  A
-    plain cache is the one-block case."""
+    log-sum-exps, and where its batch is whole over the data axes each of
+    their ranks takes its own column block of v (:func:`_column_layout`)
+    and the outputs are gathered over them.  The output is laid out by the
+    cache's batch split.  A plain cache is the one-block, one-column-block
+    case."""
     mesh = None
     k_loc, v_loc, q_loc = k_cache, v_cache, q
     nb, ns = k_cache.shape[:2]
@@ -378,14 +406,22 @@ def _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows):
     nq, _, G, Hg, hd = q_loc.shape
     lengths = mine(n_rows).to(torch.int32)
     qh = q_loc.reshape(nq, G * Hg, hd)
+    cols = _column_layout(layout, mesh, hd) if seq else None
+    c0, dv = 0, hd
+    if cols is not None:
+        (*_, dv), (*_, c0) = local_block(q.shape, mesh, cols)
     if seq:
-        out, lse = decode_attention_split(qh, k_loc, v_loc, lengths, r0,
+        out, lse = decode_attention_split(qh, k_loc, v_loc[..., c0:c0 + dv], lengths, r0,
                                           chunk=pick_chunk(ns, 512))
         out = merge_splits(out, lse, (mesh, seq[0]))
     else:
         out = decode_attention(qh, k_loc, v_loc, lengths, chunk=pick_chunk(ns, 512))
-    out = out.to(q_loc.dtype).reshape(q_loc.shape)
-    return out if mesh is None else from_block(out, mesh, rows_layout, q.shape)
+    out = out.to(q_loc.dtype).reshape(nq, 1, G, Hg, dv)
+    if mesh is None:
+        return out
+    if cols is None:
+        return from_block(out, mesh, rows_layout, q.shape)
+    return from_block(out, mesh, cols, q.shape).redistribute(mesh, rows_layout)
 
 
 def attention_decode(

@@ -25,6 +25,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -35,7 +36,8 @@ from repro_torch.models.layers import (
     truncated_normal,
 )
 from repro_torch.parallel.axes import (
-    batch_only, constrain, constrain_time_mixer, map_block, redistribute_like, whole_local,
+    batch_only, constrain, constrain_time_mixer, from_block, local_block, map_block,
+    redistribute_like, whole_local,
 )
 
 ATTN_KINDS = ("dense", "local", "global", "moe")
@@ -138,8 +140,119 @@ def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str) -> Params
 # -- sequence mixers ---------------------------------------------------------------
 
 
+def _channel_split(u: DTensor, H: int, dh: int):
+    """How 'model' splits the ``inner = H dh`` channels of a mixer whose
+    input ``u`` (``[B, L, inner]``) is whole but along its batch split, as
+    XLA's partitioner splits these heads: where 'model' holds the whole
+    batch (m ranks) each rank takes a block of ``inner / m`` channels,
+    whole heads or a column block of one.  Returns ``(layout, mi, m,
+    channels, heads, cols)``: ``u``'s placements, the 'model' mesh dim (or
+    None) and its split (1: none), the placements of a tensor split along
+    its last dim there, and this rank's head and column slices.  ``u``'s
+    placements count only for its batch split."""
+    mesh = u.device_mesh
+    inner = H * dh
+    layout = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                   for p in u.placements)
+    names = tuple(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+    m = mesh.shape[mi] if mi is not None and layout[mi] == Replicate() else 1
+    blk = inner // m
+    if inner % m or (dh % blk and blk % dh):
+        m, blk = 1, inner
+    channels = tuple(Shard(2) if m > 1 and i == mi else p for i, p in enumerate(layout))
+    (*_, off) = local_block((u.shape[0], u.shape[1], inner), mesh, channels)[1]
+    nh, nc = max(blk // dh, 1), min(blk, dh)
+    return (layout, mi, m, channels, slice(off // dh, off // dh + nh),
+            slice(off % dh, off % dh + nc))
+
+
+def _gla_on_mesh(q, k, v, log_f, i_gate, split, normalize: bool, chunk: int,
+                 return_state: bool):
+    """:func:`lrnn.gla_chunked` over a full sequence on a mesh, rank by rank
+    (DTensor sees no op of the scan, whose cumsum's backward torch 2.11's
+    DTensor has no rule for): ``q``, ``k`` ``[B, L, H, dk]`` and the gates
+    ``[B, L, H]`` whole but along the batch split, ``v`` ``[B, L, H dv]``
+    likewise, ``split`` from :func:`_channel_split`.  Each rank runs its
+    heads over its columns of v (the recurrence's value columns are
+    independent of each other; the normaliser reads q and k only).  Returns
+    ``y`` ``[B, L, H dv]`` split over 'model' along its channels and, with
+    ``return_state``, the final state ``(S, n)`` whole over 'model' (a
+    prefill's, gathered), else None."""
+    layout, mi, m, channels, heads, cols = split
+    mesh = v.device_mesh
+    B, L, H, dk = q.shape
+    dv = v.shape[-1] // H
+    nh, nc = heads.stop - heads.start, cols.stop - cols.start
+    # an operand every rank of the split reads whole: its grad there is a
+    # partial sum over 'model' (each rank's share)
+    whole = tuple(p if isinstance(p, Shard) else Partial() if m > 1 and i == mi
+                  else Replicate() for i, p in enumerate(layout))
+    q, k, f, ig = (batch_only(t).to_local(grad_placements=whole)[:, :, heads]
+                   for t in (q, k, log_f, i_gate))
+    v = batch_only(v)
+    v = (v.redistribute(mesh, channels) if m > 1 else v).to_local()
+    b = v.shape[0]
+    y, (S, n) = lrnn.gla_chunked(q, k, v.reshape(b, L, nh, nc), f, ig, normalize=normalize,
+                                 chunk=chunk)
+    y = from_block(y.reshape(b, L, nh * nc), mesh, channels, (B, L, H * dv))
+    if not return_state:
+        return y, None
+    if m > 1:
+        # every rank's block of the state, assembled whole: S [b, nh, dk,
+        # nc] a block of heads x columns, n [b, nh, dk] the same on each
+        # rank of a head's block
+        import torch.distributed._functional_collectives as funcol
+
+        mh, mv = H // nh, dv // nc
+        S = funcol.all_gather_tensor(S, gather_dim=0, group=(mesh, mi)).reshape(
+            mh, mv, b, nh, dk, nc).permute(2, 0, 3, 4, 1, 5).reshape(b, H, dk, dv)
+        n = funcol.all_gather_tensor(n, gather_dim=0, group=(mesh, mi)).reshape(
+            mh, mv, b, nh, dk)[:, 0].permute(1, 0, 2, 3).reshape(b, H, dk)
+    return y, (from_block(S, mesh, layout, (B, H, dk, dv)),
+               from_block(n, mesh, layout, (B, H, dk)))
+
+
+def _mlstm_heads_on_mesh(params, ch, u, log_f, i_gate, chunk: int, return_state: bool):
+    """The mLSTM's per-head products and chunked GLA over a full sequence on
+    a mesh, rank by rank: ``ch`` ``[B, L, H, dh]`` and ``u`` ``[B, L,
+    inner]`` DTensors whole but along their batch split.  Where 'model'
+    splits the channels (:func:`_channel_split`) the q/k products split
+    their output columns over it (each rank's block of ``w_q``/``w_k`` a
+    local slice) and q and k are gathered whole for :func:`_gla_on_mesh`."""
+    mesh = u.device_mesh
+    B, L, H, dh = ch.shape
+    split = _channel_split(u, H, dh)
+    layout, mi, m = split[:3]
+    e_split = m > 1 and dh % m == 0 and isinstance(params["w_q"], DTensor)
+    cols = tuple(Shard(3) if e_split and i == mi else p for i, p in enumerate(layout))
+
+    def weight_block(w):
+        """This rank's output columns of a ``[H, dh, dh]`` weight where
+        they split, whole elsewhere; its grad split as they are and
+        partial over the batch split."""
+        if not isinstance(w, DTensor):
+            return w
+        want = tuple(Shard(2) if e_split and i == mi else Replicate() for i in range(mesh.ndim))
+        if tuple(w.placements) != want:
+            w = w.redistribute(mesh, want)
+        return w.to_local(grad_placements=tuple(
+            Shard(2) if e_split and i == mi else Partial() if isinstance(p, Shard)
+            else Replicate() for i, p in enumerate(layout)))
+
+    ch_loc = ch.to_local(grad_placements=tuple(
+        Partial() if e_split and i == mi else p for i, p in enumerate(layout)))
+    q, k = (batch_only(from_block(
+        torch.einsum("blhd,hde->blhe", *promoted(ch_loc, weight_block(params[w]))),
+        mesh, cols, (B, L, H, dh))) for w in ("w_q", "w_k"))
+    return _gla_on_mesh(q, k * (dh ** -0.5), u, log_f, i_gate, split, True, chunk,
+                        return_state)
+
+
 def _mlstm_seq(params, cfg: ArchConfig, h, state, return_state: bool = False):
-    """mLSTM inner: up-proj, causal conv, per-head qk, chunked GLA, gate."""
+    """mLSTM inner: up-proj, causal conv, per-head qk, chunked GLA, gate.
+    On a mesh a full sequence's heads run rank by rank
+    (:func:`_mlstm_heads_on_mesh`)."""
     inner, H, dh = _mlstm_dims(cfg)
     B, L, _ = h.shape
     if L > 1:
@@ -160,29 +273,31 @@ def _mlstm_seq(params, cfg: ArchConfig, h, state, return_state: bool = False):
         c = c[:, None]
     c = F.silu(c)
     ch = c.reshape(B, L, H, dh)
-    w_q, w_k = params["w_q"], params["w_k"]
-    if state is not None:
-        # on a mesh, one token a sequence: the per-head products split over
-        # 'model' along their output dim (the weights are whole on every
-        # rank, so the split is a local slice), q and k then gathered whole
-        w_q, w_k = (constrain(w, None, None, "model") for w in (w_q, w_k))
-    q = batch_only(torch.einsum("blhd,hde->blhe", *promoted(ch, w_q)))
-    k = batch_only(torch.einsum("blhd,hde->blhe", *promoted(ch, w_k))) * (dh ** -0.5)
-    v = u.reshape(B, L, H, dh)
     gates = u @ params["w_gates"] + params["b_gates"]          # [B,L,2H]
     f_raw, i_raw = torch.chunk(gates, 2, dim=-1)
     log_f = log_sigmoid(f_raw)
     i_gate = sigmoid(i_raw)
-    if state is None:
-        y, gla_final = lrnn.gla_chunked(
-            q, k, v, log_f, i_gate, normalize=True,
-            chunk=min(cfg.ssm.chunk if cfg.ssm else 256, L),
-        )
+    chunk = min(cfg.ssm.chunk if cfg.ssm else 256, L)
+    if state is None and isinstance(u, DTensor):
+        y, gla_final = _mlstm_heads_on_mesh(params, ch, u, log_f, i_gate, chunk, return_state)
         new_state = None
         if return_state:
-            pad = max(0, (CONV_K - 1) - L)
-            tail = F.pad(u, (0, 0, pad, 0))[:, -(CONV_K - 1):]
-            new_state = (gla_final, tail.float())
+            # on a mesh, rank by rank (the conv's window of the last tokens)
+            new_state = (gla_final, map_block(lambda ul: _conv_tail(ul).float(), u,
+                                              (B, CONV_K - 1, inner)))
+        return (batch_only(y) * F.silu(z)) @ params["w_down"], new_state
+    # on a mesh (one token a sequence here): the per-head products split
+    # over 'model' along their output dim (the weights are whole on every
+    # rank, so the split is a local slice), q and k then gathered whole
+    w_q, w_k = (constrain(params[w], None, None, "model") for w in ("w_q", "w_k"))
+    q = batch_only(torch.einsum("blhd,hde->blhe", *promoted(ch, w_q)))
+    k = batch_only(torch.einsum("blhd,hde->blhe", *promoted(ch, w_k))) * (dh ** -0.5)
+    v = u.reshape(B, L, H, dh)
+    if state is None:
+        y, gla_final = lrnn.gla_chunked(q, k, v, log_f, i_gate, normalize=True, chunk=chunk)
+        new_state = None
+        if return_state:
+            new_state = (gla_final, _conv_tail(u).float())
     else:
         y1, new_gla = lrnn.gla_step(
             q[:, 0], k[:, 0], v[:, 0], log_f[:, 0], i_gate[:, 0],
@@ -191,10 +306,16 @@ def _mlstm_seq(params, cfg: ArchConfig, h, state, return_state: bool = False):
         # on a mesh: whole heads (the state's split of dv gathered)
         y = batch_only(y1[:, None])
         new_state = (new_gla, conv_buf)
-    # on a mesh: the gradient into the head reshape whole as well
-    y = batch_only(y.reshape(B, L, inner)) * F.silu(z)
+    y = y.reshape(B, L, inner) * F.silu(z)
     out = y @ params["w_down"]
     return out, new_state
+
+
+def _conv_tail(u: torch.Tensor) -> torch.Tensor:
+    """The causal conv's state after a sequence: its last ``CONV_K - 1``
+    inputs ``[B, CONV_K - 1, C]``, zeros in front of a shorter one."""
+    pad = max(0, (CONV_K - 1) - u.shape[1])
+    return F.pad(u, (0, 0, pad, 0))[:, -(CONV_K - 1):]
 
 
 def _hymba_ssm_seq(params, cfg: ArchConfig, h, state, return_state: bool = False):
@@ -212,9 +333,14 @@ def _hymba_ssm_seq(params, cfg: ArchConfig, h, state, return_state: bool = False
     a = -torch.exp(params["ssm_a_log"])                         # [H] (< 0)
     log_f = dt * a
     i_gate = dt
-    v = xs.reshape(B, L, H, P)
     k = bmat * (N ** -0.5)
     q = cmat
+    if state is None and isinstance(xs, DTensor):
+        # on a mesh, rank by rank
+        y, final = _gla_on_mesh(q, k, xs, log_f, i_gate, _channel_split(xs, H, P), False,
+                                min(cfg.ssm.chunk, L), return_state)
+        return batch_only(y) * F.silu(z), final
+    v = xs.reshape(B, L, H, P)
     if state is None:
         y, final = lrnn.gla_chunked(
             q, k, v, log_f, i_gate, normalize=False, chunk=min(cfg.ssm.chunk, L)
@@ -237,6 +363,13 @@ def _hymba_mix(params, a, s):
     beta = sigmoid(params["mix_beta"]) * 2.0
     an = rmsnorm(params["norm_attn_out"], a)
     sn = rmsnorm(params["norm_ssm_out"], s) @ params["ssm_out"]
+    if an.shape[1] > 1:
+        # on a mesh, over a sequence: the SSM branch into the attention
+        # branch's layout by a redistribution autograd sees, so its
+        # gradient comes back in its own layout (an implicit one in the sum
+        # would hand the product's backward a sequence split to flatten,
+        # which torch 2.11's DTensor refuses)
+        sn = redistribute_like(sn, an)
     return (0.5 * (beta[0] * an + beta[1] * sn)).to(a.dtype)
 
 

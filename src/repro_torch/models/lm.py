@@ -35,15 +35,17 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (
-    embed, init_embedding, init_rmsnorm, rmsnorm, truncated_normal, unembed,
+    embed, f32_matmul, init_embedding, init_rmsnorm, rmsnorm, truncated_normal, unembed,
 )
-from repro_torch.parallel.axes import batch_divides, constrain
+from repro_torch.parallel.axes import (
+    batch_divides, batch_only, constrain, from_block, local_block,
+)
 from repro_torch.tree import tree_map
 
 def _block_keys(cfg: ArchConfig):
@@ -99,10 +101,81 @@ def _unstack(tree, n: int) -> List[Dict]:
     return list(tree.unbind(0))
 
 
-def _vocab_sharded(logits) -> bool:
-    """Whether ``logits`` is a DTensor split along its last (vocab) dim."""
-    return isinstance(logits, DTensor) and any(
-        isinstance(p, Shard) and p.dim == logits.ndim - 1 for p in logits.placements)
+def chunk_ce(embed_params: Dict, hc: torch.Tensor, lc: torch.Tensor,
+             zloss: float) -> torch.Tensor:
+    """One chunk's summed next-token CE plus ``zloss`` times its summed
+    squared log-sum-exps: hidden states ``hc`` ``[B, c, D]``, labels ``lc``
+    ``[B, c]``, the float32 logits from ``embed_params`` (the tied table or
+    the unembedding).  On a mesh (a DTensor ``hc``) rank by rank
+    (:func:`_vocab_parallel_ce`)."""
+    if isinstance(hc, DTensor):
+        return _vocab_parallel_ce(embed_params, hc, lc, zloss)
+    logits = unembed(embed_params, hc)                  # f32 [B, c, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc[..., None])[..., 0]
+    return (lse - gold).sum() + lse.square().sum() * zloss
+
+
+def _vocab_parallel_ce(embed_params: Dict, hc: DTensor, lc, zloss: float) -> torch.Tensor:
+    """:func:`chunk_ce` on a mesh, rank by rank (Megatron's vocab-parallel
+    cross-entropy): each rank takes its sequences' hidden states (``hc``
+    whole but along its batch split) against its block of the vocabulary
+    (the weight's split over 'model', whole over every other mesh dim), so
+    its logits are the ``[B_local, c, V / m]`` block; each rank's own
+    log-sum-exp combines over the vocab split (the max, then the sum of
+    exponentials) and the gold logit is picked on the rank that holds it,
+    a partial sum.  Backward writes each rank's logits block only; DTensor's
+    own rules for a pick over a split vocab copy the whole logits' grad.
+    Where the plan leaves the vocabulary whole the combine is exact (exp(0)
+    is 1 and log(1) is 0), so a one-card mesh's loss and grads are the plain
+    ones, bit for bit."""
+    table = embed_params.get("unembed")
+    tied = table is None
+    w = embed_params["table"] if tied else table
+    vdim = 0 if tied else 1
+    V = w.shape[vdim]
+    mesh = hc.device_mesh
+    names = mesh.mesh_dim_names
+    split = tuple(i for i, p in enumerate(getattr(w, "placements", ()))
+                  if isinstance(p, Shard) and p.dim == vdim and names[i] == "model")
+    hc = batch_only(hc)
+    rows = tuple(hc.placements)
+    if isinstance(w, DTensor):
+        layout = tuple(Shard(vdim) if i in split else Replicate() for i in range(mesh.ndim))
+        if tuple(w.placements) != layout:
+            w = w.redistribute(mesh, layout)
+        w = w.to_local(grad_placements=tuple(
+            Shard(vdim) if i in split else Partial() if isinstance(p, Shard) else Replicate()
+            for i, p in enumerate(rows)))
+    (nv,), (v0,) = local_block((V,), mesh, tuple(Shard(0) if i in split else Replicate()
+                                                 for i in range(mesh.ndim)))
+    B, c = hc.shape[:2]
+    h = hc.to_local(grad_placements=tuple(
+        p if isinstance(p, Shard) else Partial() if i in split else Replicate()
+        for i, p in enumerate(rows)))
+    if isinstance(lc, DTensor):
+        if tuple(lc.placements) != rows:
+            lc = lc.redistribute(mesh, rows)
+        lc = lc.to_local()
+    else:
+        (nb, _), (b0, _) = local_block((B, c), mesh, rows)
+        lc = lc[b0:b0 + nb]
+    logits = f32_matmul(h, w.t() if tied else w)      # f32 [b, c, nv]
+
+    def across(t, op: str) -> DTensor:
+        """A per-token value of this rank's vocab block reduced over the
+        vocab split: ``[B, c]`` laid out as ``hc``'s rows."""
+        part = tuple(Partial(op) if i in split else p for i, p in enumerate(rows))
+        return from_block(t, mesh, part, (B, c)).redistribute(mesh, rows)
+
+    lse_loc = torch.logsumexp(logits, dim=-1)
+    top = across(lse_loc.detach(), "max")
+    lse = top + torch.log(across(torch.exp(lse_loc - top.to_local()), "sum"))
+    local = lc.long() - v0
+    inside = (local >= 0) & (local < nv)
+    gold = logits.gather(-1, local.clamp(0, nv - 1)[..., None])[..., 0]
+    gold = across(torch.where(inside, gold, 0.0), "sum")
+    return (lse - gold).sum() + lse.square().sum() * zloss
 
 
 def _remat(fn):
@@ -271,18 +344,7 @@ class LM:
         labels = tokens[:, 1:].long()
 
         def ce_chunk(hc, lc):
-            logits = unembed(params["embed"], hc)           # f32 [B, c, V]
-            # keep the vocab shard on a mesh: no [B, c, V] all-gather
-            logits = constrain(logits, "batch", None, "model")
-            lse = torch.logsumexp(logits, dim=-1)
-            if _vocab_sharded(logits):
-                # the reference's one-hot pick: a partial sum over the
-                # sharded vocab dim, where a gather has no sharding rule
-                vocab = torch.arange(logits.shape[-1], device=lc.device)
-                gold = (logits * (lc[..., None] == vocab).to(logits.dtype)).sum(dim=-1)
-            else:
-                gold = logits.gather(-1, lc[..., None])[..., 0]
-            return (lse - gold).sum() + lse.square().sum() * self.zloss
+            return chunk_ce(params["embed"], hc, lc, self.zloss)
 
         # remat: backward recomputes each chunk's [B, c, V] logits instead of
         # keeping them (V up to 262k: ~4 GB a chunk at batch 4 x 1024)

@@ -57,6 +57,7 @@ CELLS = [
     ("deepseek-moe-16b", "train_4k", "single"), ("gemma3-12b", "decode_32k", "single"),
     ("xlstm-1.3b", "decode_32k", "single"), ("paligemma-3b", "prefill_32k", "single"),
     ("gemma-2b", "long_500k", "single"), ("gemma3-12b", "long_500k", "single"),
+    ("xlstm-1.3b", "train_4k", "single"),
 ]
 FLOPS_RATIO = (0.5, 1.5)
 
@@ -224,42 +225,80 @@ def test_cell_id_is_the_reference_rule():
     assert cell_id("a", "b", "multi", "v2") == "a__b__multi__v2"
 
 
-def _zoo(jobs: int = 8) -> int:
+def _zoo(jobs: int = 8, reference: bool = False, cells=None) -> int:
     """The port's half alone, on every config of the zoo, reduced, at this
-    module's cut shapes, on both meshes: one subprocess (one fake world)
-    per cell, ``jobs`` at a time.  Needs no JAX and no card; run with
-    ``PYTHONPATH=src python tests/test_torch_dryrun.py``.  Prints one line
-    a cell and exits 1 if any cell raised."""
+    module's cut shapes, on both meshes (or on ``cells``, ``arch/shape/mesh``
+    names): one subprocess (one fake world) per cell, ``jobs`` at a time.
+    Needs no JAX and no card; run with ``PYTHONPATH=src python
+    tests/test_torch_dryrun.py``.  With ``reference`` (``--reference``;
+    needs JAX) each cell's reference half runs too, in a subprocess of its
+    own with this module's patches, and each line gains the per-rank FLOPs
+    ratio, port over reference, flagged where it leaves ``FLOPS_RATIO``.
+    Prints one line a cell and exits 1 if any cell of the port raised."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import ARCHS
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
-    groups = [[[arch, shape, mesh]] for mesh in ("single", "multi") for arch in sorted(ARCHS)
-              for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+    if cells:
+        groups = [[c.split("/")] for c in cells]
+    else:
+        groups = [[[arch, shape, mesh]] for mesh in ("single", "multi") for arch in sorted(ARCHS)
+                  for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
 
     def run(cells, tmp):
-        path = Path(tmp) / ("_".join(cells[0]) + ".json")
-        proc = subprocess.run([sys.executable, "-c", _PORT, str(path), json.dumps(cells)],
-                              cwd=ROOT, env=env, capture_output=True, text=True)
-        return cells, proc, (json.loads(path.read_text()) if proc.returncode == 0 else None)
+        reports = []
+        for name, program in [("port", _PORT)] + ([("ref", _REFERENCE)] if reference else []):
+            path = Path(tmp) / ("_".join(cells[0]) + f".{name}.json")
+            proc = subprocess.run([sys.executable, "-c", program, str(path), json.dumps(cells)],
+                                  cwd=ROOT, env=env, capture_output=True, text=True)
+            reports.append((proc, json.loads(path.read_text()) if proc.returncode == 0
+                            else None))
+        return cells, reports
 
-    failed = 0
+    failed, out_of_band = 0, []
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(jobs) as pool:
-        for cells, proc, reports in pool.map(lambda c: run(c, tmp), groups):
-            if reports is None:
+        for cells, reports in pool.map(lambda c: run(c, tmp), groups):
+            (proc, port), ref = reports[0], (reports[1] if reference else (None, None))
+            name = "/".join(cells[0])
+            if port is None:
                 failed += 1
-                print(f"FAILED {'/'.join(cells[0])}: {proc.stderr.strip()[-2000:]}")
+                print(f"FAILED {name}: {proc.stderr.strip()[-2000:]}")
                 continue
-            for cell in cells:
-                r = reports["/".join(cell)]
-                print("/".join(cell), "skipped" if r.get("skipped") else
-                      f"ok {r['t_lower_s']:.1f} s, {r['xla_cost_analysis_flops']:.4g} FLOPs, "
-                      f"peak {r['memory_analysis']['peak_bytes_per_device']:.4g} B", flush=True)
+            r = port[name]
+            line = "skipped" if r.get("skipped") else (
+                f"ok {r['t_lower_s']:.1f} s, {r['xla_cost_analysis_flops']:.4g} FLOPs, "
+                f"peak {r['memory_analysis']['peak_bytes_per_device']:.4g} B")
+            if reference:
+                rproc, rrep = ref
+                if rrep is None:
+                    line += f"; the reference raised: {rproc.stderr.strip()[-300:]}"
+                elif bool(rrep[name].get("skipped")) != bool(r.get("skipped")):
+                    line += "; the reference's skip differs"
+                    out_of_band.append(name)
+                elif not r.get("skipped"):
+                    ratio = r["xla_cost_analysis_flops"] / rrep[name]["flops_per_device"]
+                    inside = FLOPS_RATIO[0] <= ratio <= FLOPS_RATIO[1]
+                    line += (f"; reference {rrep[name]['flops_per_device']:.4g} FLOPs, "
+                             f"{ratio:.3f}x" + ("" if inside else " OUT OF BAND"))
+                    if not inside:
+                        out_of_band.append(name)
+            print(name, line, flush=True)
     print(f"{len(groups) - failed} of {len(groups)} cells passed")
+    if reference:
+        print(f"{len(out_of_band)} outside {FLOPS_RATIO[0]}-{FLOPS_RATIO[1]}x of the reference: "
+              f"{', '.join(out_of_band) or 'none'}")
     return 1 if failed else 0
 
 
 if __name__ == "__main__":
-    sys.exit(_zoo())
+    import argparse
+
+    parser = argparse.ArgumentParser(description=_zoo.__doc__.split(".")[0])
+    parser.add_argument("--reference", action="store_true",
+                        help="also run each cell's reference half and print the FLOPs ratio")
+    parser.add_argument("--jobs", type=int, default=8)
+    parser.add_argument("cells", nargs="*", help="arch/shape/mesh names (default: every cell)")
+    args = parser.parse_args()
+    sys.exit(_zoo(args.jobs, args.reference, args.cells))

@@ -6,7 +6,12 @@ on CPU tensors) over 1, 2, 3 and 16 row blocks of a cache, merged by
 suite's), a block with no valid row and a sequence of length 0 included;
 ``ops.merge_splits``' collective merge on a one-process group equals the
 plain merge; the torch ops' fake implementations give the kernel's shapes
-and dtypes on ``meta`` and the census counts them by B7's formula."""
+and dtypes on ``meta`` and the census counts them by B7's formula.  The
+split entry over a column block of v (``Dv`` of the head dim's ``D``
+columns, a view strided as k): the blocks' partials merged equal those
+columns of ``decode_ref``, at the same tolerance; its fake gives ``[B, H,
+Dv]`` and the census counts the scores over ``D`` and the weighted sum
+and v's bytes over ``Dv``."""
 
 import numpy as np
 import pytest
@@ -62,6 +67,50 @@ def test_partials_merged_equal_the_whole_cache(shape, n):
         assert empty_blocks, "the case table must hold a block with no valid row"
 
 
+#: (B, H, G, D, S, Dv): gemma3-12b's global layers cut (Hg 2) at a column of
+#: one, 16 and 128 of D 256 (16 and 32 'data' ranks, and 2), MQA at D 16
+#: split in 16 and 4, GQA 4:1 at D 64 in 8.
+COLUMN_SHAPES = [(1, 4, 2, 256, 64, 1), (1, 4, 2, 256, 64, 16), (1, 4, 2, 256, 64, 128),
+                 (2, 4, 1, 16, 48, 1), (2, 4, 1, 16, 48, 4), (3, 8, 2, 64, 40, 8)]
+
+
+@pytest.mark.parametrize("n", (1, 3))
+@pytest.mark.parametrize("shape", COLUMN_SHAPES, ids=[str(s) for s in COLUMN_SHAPES])
+def test_a_column_block_of_v_merged_equals_those_columns(shape, n):
+    """Every column block of v, each over ``n`` row blocks merged, equals
+    its columns of the whole cache's output; the blocks put side by side
+    equal all of it."""
+    B, H, G, D, S, Dv = shape
+    q, k, v, lengths = _inputs(B, H, G, D, S, seed=Dv)
+    want = decode_ref(q, k, v, lengths)
+    cols = []
+    for c0 in range(0, D, Dv):
+        outs, lses = [], []
+        for a, b in zip(_bounds(S, n), _bounds(S, n)[1:]):
+            kb, vb = k[:, a:b].contiguous(), v[:, a:b].contiguous()
+            block = vb[..., c0:c0 + Dv]
+            assert not block.is_contiguous() or Dv == D
+            out, lse = ops.decode_attention_split(q, kb, block, lengths, a, chunk=1)
+            assert out.shape == (B, H, Dv) and out.dtype == torch.float32
+            whole_out, whole_lse = ref.decode_partial_ref(q, kb, vb, lengths, a)
+            torch.testing.assert_close(lse, whole_lse, rtol=0, atol=0)
+            outs.append(out)
+            lses.append(lse)
+        got = ref.merge_ref(outs, lses, q.dtype)
+        parity.check(got, want[..., c0:c0 + Dv].contiguous(), lengths.tolist(),
+                     f"columns {c0}..{c0 + Dv} of {D}, {n} row blocks")
+        cols.append(got)
+    parity.check(torch.cat(cols, dim=-1), want, lengths.tolist(), "the column blocks")
+
+
+def test_a_column_block_must_divide_the_head_dim():
+    q, k, v, lengths = _inputs(1, 4, 2, 64, 16)
+    with pytest.raises(ValueError, match="Dv dividing D"):
+        ops.decode_attention_split(q, k, v[..., :24], lengths, 0, chunk=1)
+    with pytest.raises(ValueError, match="v \\[B, S, G, D\\]"):
+        ops.decode_attention(q, k, v[..., :16], lengths, chunk=1)
+
+
 def test_partial_lse_is_the_log_sum_exp_of_the_scores():
     q, k, v, lengths = _inputs(2, 4, 2, 16, 32, seed=3)
     out, lse = ref.decode_partial_ref(q, k, v, lengths, 0)
@@ -104,6 +153,9 @@ def test_fake_implementations_give_the_shapes_on_meta():
     out, lse = ops.decode_attention_split(q, k, k, lengths, 2048)
     assert out.device.type == "meta" and out.shape == q.shape and out.dtype == torch.float32
     assert lse.shape == (8, 8) and lse.dtype == torch.float32
+    out, lse = ops.decode_attention_split(q, k, k[..., 32:48], lengths, 0)
+    assert out.device.type == "meta" and out.shape == (8, 8, 16)
+    assert out.dtype == torch.float32 and lse.shape == (8, 8)
 
 
 def test_the_census_counts_b7_by_its_formula():
@@ -121,3 +173,30 @@ def test_the_census_counts_b7_by_its_formula():
     split = analyze(ops.decode_attention_split, q, k, k, lengths, 0)
     assert split.hbm_bytes == whole.hbm_bytes + 4 * B * H
     assert split.flops == whole.flops
+    # a column block: the scores over D, the weighted sum over Dv
+    Dv = 16
+    cols = analyze(ops.decode_attention_split, q, k, k[..., :Dv], lengths, 0)
+    assert cols.flops_by_dtype == {"float32": 2.0 * D * H * B * S + 2.0 * Dv * H * B * S}
+    assert cols.hbm_bytes == (B * H * (D + Dv) * 2 + B * S * G * (D + Dv) * 2 + 4 * B
+                              + 4 * B * H)
+
+
+@pytest.mark.parametrize("Dv", [None, 16, 128])
+def test_the_smoke_bound_counts_what_the_census_counts(Dv):
+    """``chip_smoke.flash_bound`` keeps its own formula for B7's bound; it
+    reads the census's operations and bytes, a column block of v included."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = smoke          # its dataclasses look their module up
+    try:
+        spec.loader.exec_module(smoke)
+    finally:
+        del sys.modules[spec.name]
+    B, H, G, D, lengths = 1, 16, 8, 256, [1024]
+    flops, nbytes = ops.census_cost(B, H, G, D, sum(lengths), 2, Dv)
+    assert smoke.flash_bound(B, H, G, D, lengths, 2, Dv) == (*smoke.bound(nbytes, flops), nbytes)

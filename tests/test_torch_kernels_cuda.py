@@ -542,6 +542,54 @@ def test_flash_decode_split_matches_whole_b7(cuda, q_dtype, kv_dtype):
             parity.check(got, flash_attention.decode_ref(q, k, v, lens), lengths, label)
 
 
+@pytest.mark.parametrize("q_dtype,kv_dtype", parity.DTYPES)
+def test_flash_decode_split_over_a_column_block(cuda, q_dtype, kv_dtype):
+    """B7's sequence-split entry over a column block of v (a view strided as
+    k: the first and the last ``Dv`` of its ``D`` columns), over 1 and 3 row
+    blocks: each block's partial against the plain partial over the same
+    columns, and the blocks merged against those columns of whole B7 and of
+    the plain version, at ``parity``'s tolerance."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    rng = np.random.default_rng(25)
+    for B, H, G, D, S, Dv in parity.COLUMN_CASES:
+        assert not ops.tensor_core_route(kv_dtype, H // G, D, Dv)
+        q = torch.as_tensor(rng.standard_normal((B, H, D)), dtype=torch.float32,
+                            device=cuda).to(q_dtype)
+        k, v = (torch.as_tensor(rng.standard_normal((B, S, G, D)), dtype=torch.float32,
+                                device=cuda).to(kv_dtype) for _ in range(2))
+        lengths = parity.lengths(rng, B, S)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        whole = flash_attention.decode_attention(q, k, v, lens, chunk=1)
+        plain = flash_attention.decode_ref(q, k, v, lens)
+        for c0 in sorted({0, D - Dv}):
+            for n in (1, 3):
+                bounds = sorted({round(i * S / n) for i in range(n + 1)})
+                outs, lses = [], []
+                for a, b in zip(bounds, bounds[1:]):
+                    kb, vb = k[:, a:b].contiguous(), v[:, a:b].contiguous()
+                    block = vb[..., c0:c0 + Dv]
+                    before = flash_attention.LAUNCHES["flash_decode"]
+                    out, lse = ops.decode_attention_split(q, kb, block, lens, a, chunk=1)
+                    assert flash_attention.LAUNCHES["flash_decode"] == before + 1
+                    want_out, want_lse = ref.decode_partial_ref(q, kb, block, lens, a)
+                    torch.cuda.synchronize()
+                    assert out.shape == (B, H, Dv) and out.dtype == torch.float32
+                    label = f"B7 columns {c0}+{Dv} rows {a}:{b} of {(B, H, G, D, S)}"
+                    parity.check(out, want_out, [0 if int(x) <= a else 1 for x in lens], label)
+                    empty = torch.isneginf(want_lse)
+                    assert torch.equal(torch.isneginf(lse), empty)
+                    torch.testing.assert_close(lse[~empty], want_lse[~empty], rtol=2e-5,
+                                               atol=2e-5)
+                    outs.append(out)
+                    lses.append(lse)
+                got = ref.merge_ref(outs, lses, q_dtype)
+                label = f"B7 columns {c0}+{Dv} in {n} of {(B, H, G, D, S)} lengths {lengths}"
+                cols = slice(c0, c0 + Dv)
+                parity.check(got, whole[..., cols].contiguous(), lengths, label + " vs whole")
+                parity.check(got, plain[..., cols].contiguous(), lengths, label)
+
+
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 def test_flash_decode_over_a_ring_matches_plain_version(cuda, q_dtype):
     """B7 over the window kinds' 1,024-slot rings (gemma3-12b's Hg 2 at D

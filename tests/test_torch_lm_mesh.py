@@ -14,7 +14,11 @@ JAX in this module).  The tests read both.
   attention modes (asserted), ``seq_parallel=True`` (the default),
   ``attn_seq_shard=True``, ``remat="full"``, a recurrent mixer (xlstm's
   mLSTM and sLSTM) and deepseek's dense prefix with MoE (``moe_ffn_ep``'s
-  expert-parallel path), with and without ``grad_compress``.  Tolerances
+  expert-parallel path), with and without ``grad_compress``; and the mLSTM
+  at a batch of 2, which leaves 'model' to its heads' products (split over
+  whole heads, and over a column block of one head at ``num_heads`` 1),
+  and hymba's attention and SSM branches at a batch of 2.
+  Tolerances
   are ``tests/test_torch_train.py``'s: loss relative 1e-5; every grad
   leaf within 1e-4 of its largest element; every parameter after one
   AdamW step within 1e-4 of its largest element plus 5% of the learning
@@ -25,6 +29,14 @@ JAX in this module).  The tests read both.
   elements may differ by up to one step (two learning rates).  The mesh
   sums partial results in another order than one device (two sequential
   all-reduces over a 2-D mesh), so nothing here is bitwise.
+- The CE chunk on the mesh (``models.lm.chunk_ce``: the vocab-parallel
+  cross-entropy, rank by rank) against one device: loss and grads of the
+  tied table, of an untied unembedding and of a whole (unsplit) table with
+  a batch the data axis cannot split, at the step's tolerances.
+- B7's batch-one decode plan (``models.attention._decode_attend`` over a
+  float32 cache of batch 1 whose rows 'model' splits): each 'data' rank
+  takes its half of v's head dim, at ``flash_attention.parity``'s float32
+  tolerance against one device.
 - ``moe_ffn_ep`` against ``moe_ffn`` for the expert-parallel case (E=4)
   and the hidden-dim fallback (E=3, 3 % 2 != 0): output atol 2e-5, aux
   1e-6, the reference's numbers (``tests/test_moe.py``).
@@ -46,7 +58,9 @@ JAX in this module).  The tests read both.
   ``LM.decode_step`` on one device from the same parameters and tokens.
   The cases cover every decode attention mode (``qheads``, ``heads``,
   ``head_dim``, and ``replicate`` forced by ``make_plan(attn_mode=)``),
-  gemma3's ring caches and xlstm's recurrent states.  Logits are held at
+  gemma3's ring caches and xlstm's recurrent states, and gemma3 at a
+  batch of one (the cache's batch whole over 'data', v's head dim split
+  there).  Logits are held at
   ``tests/test_torch_lm.py``'s tolerance (2% of the largest |logit| plus
   2e-3) and the caches at two bf16 units of their largest element (both
   sides compute in float32 over the same bf16 cache; the mesh sums in
@@ -70,7 +84,7 @@ ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
 BATCH, SEQ, LR = 4, 24, 1e-3
 LM_KW = dict(remat="none", chunk_q=8, loss_chunk=10, compute_dtype=None)
-CUT = {"xlstm-1.3b": ("mlstm", "slstm")}
+CUT = {"xlstm-1.3b": ("mlstm", "slstm"), "hymba-1.5b": ("hymba_g", "hymba")}
 #: case -> (arch, config overrides, LM options, grad_compress, attention mode)
 STEP_CASES = {
     "gemma-2b": ("gemma-2b", {}, {}, False, "qheads"),
@@ -78,7 +92,12 @@ STEP_CASES = {
     "gemma-2b-seq": ("gemma-2b", {"num_heads": 3}, {"attn_seq_shard": True}, False, "seq"),
     "deepseek-moe-16b": ("deepseek-moe-16b", {}, {"remat": "full"}, False, "heads"),
     "xlstm-1.3b": ("xlstm-1.3b", {}, {}, False, "heads"),
+    "xlstm-1.3b-heads": ("xlstm-1.3b", {}, {}, False, "heads"),
+    "xlstm-1.3b-columns": ("xlstm-1.3b", {"num_heads": 1}, {}, False, "qheads"),
+    "hymba-1.5b": ("hymba-1.5b", {}, {}, False, "heads"),
 }
+#: step cases at another batch: 2 leaves 'model' to the mixers' heads
+STEP_BATCH = {"xlstm-1.3b-heads": 2, "xlstm-1.3b-columns": 2, "hymba-1.5b": 2}
 MOE_CASES = {4: "ep", 3: "f_fallback"}      # experts -> the path on a model axis of 2
 MOE_D, MOE_F, MOE_X = 32, 64, (4, 16, 32)
 LOSS_RTOL, GRAD_REL, LR_SHARE = 1e-5, 1e-4, 0.05
@@ -91,7 +110,10 @@ SERVE_CASES = {
     "gemma-2b-replicate": ("gemma-2b", {}, "replicate", "replicate"),
     "gemma3-12b": ("gemma3-12b", {}, None, "heads"),
     "xlstm-1.3b": ("xlstm-1.3b", {}, None, "heads"),
+    "gemma3-12b-batch-one": ("gemma3-12b", {}, None, "heads"),
 }
+#: serve cases at another batch
+SERVE_BATCH_OF = {"gemma3-12b-batch-one": 1}
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS, SEQ_SHARD_MIN = 2, 12, 32, 3, 8
 BF16_EPS = 2.0 ** -8
 
@@ -107,8 +129,8 @@ def _cfg(arch, **over):
     return cfg
 
 
-def _tokens(cfg):
-    return np.random.default_rng(3).integers(0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int64)
+def _tokens(cfg, batch: int = BATCH):
+    return np.random.default_rng(3).integers(0, cfg.vocab_size, (batch, SEQ)).astype(np.int64)
 
 
 def _moe_inputs(E):
@@ -162,7 +184,7 @@ def _step_case(mesh, rank, out, name):
     cfg = _cfg(arch, **over)
     lm = LM(cfg, **{**LM_KW, **lm_kw})
     plan = make_plan(cfg, mesh)
-    tokens = torch.from_numpy(_tokens(cfg))
+    tokens = torch.from_numpy(_tokens(cfg, STEP_BATCH.get(name, BATCH)))
     ocfg = AdamWConfig(lr=LR, warmup_steps=0)
     res = {"mode": plan.attn_mode}
     params, opt = init_train_state(lm, plan, seed=0, device="cpu")
@@ -346,8 +368,9 @@ def _serve_case(mesh, rank, out, name):
             attn_seq_shard=pre_plan.attn_mode == "seq")
     params = lm.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(11)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)))
-    forced = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_STEPS))
+    batch = SERVE_BATCH_OF.get(name, SERVE_BATCH)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, SERVE_PROMPT)))
+    forced = rng.integers(0, cfg.vocab_size, (batch, SERVE_STEPS))
     prefill, _ = make_serve_steps(lm, pre_plan, seq_shard_min=SEQ_SHARD_MIN)
     _, decode = make_serve_steps(lm, dec_plan, seq_shard_min=SEQ_SHARD_MIN)
     res = {"mode": dec_plan.attn_mode}
@@ -377,6 +400,96 @@ def _serve_case(mesh, rank, out, name):
         np.savez(out / f"serve_{name}.npz", **res)
 
 
+def _ce_case(mesh, rank, out):
+    """The CE chunk on the mesh against one device: the tied table split
+    over 'model', an untied unembedding split there, and a whole table
+    with a batch of 3 (whole over 'data')."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.lm import chunk_ce
+    from repro_torch.parallel import NamedSharding, P, lm_mesh, place
+
+    g = torch.Generator().manual_seed(26)
+    V, D, C = 64, 32, 6
+    table, unembed = torch.randn(V, D, generator=g), torch.randn(D, V, generator=g) * 0.2
+    cases = {"tied": (4, {"table": P("model", None)}),
+             "untied": (4, {"table": P("model", None), "unembed": P(None, "model")}),
+             "whole": (3, {"table": P(None, None)})}
+    res = {}
+    for name, (B, specs) in cases.items():
+        params = {"table": table, "unembed": unembed}
+        params = {k: params[k] for k in sorted(specs)}
+        h = torch.randn(B, C, D, generator=g)
+        labels = torch.randint(0, V, (B, C), generator=g)
+
+        def loss_grads(params, h, labels):
+            diff = [params[k].detach().requires_grad_() for k in params]
+            hd = h.detach().requires_grad_()
+            loss = chunk_ce(dict(zip(params, diff)), hd, labels, 1e-3)
+            grads = torch.autograd.grad(loss, diff + [hd], allow_unused=True,
+                                        materialize_grads=True)
+            return loss, dict(zip([*params, "h"], grads))
+
+        one_loss, one_grads = loss_grads(params, h, labels)
+        rows = P("data", None) if B % 2 == 0 else P(None, None)
+        with lm_mesh(mesh), implicit_replication():
+            placed = {k: place(v, NamedSharding(mesh, specs[k])) for k, v in params.items()}
+            loss, grads = loss_grads(placed, place(h, NamedSharding(mesh, P(*rows, None))),
+                                     place(labels, NamedSharding(mesh, rows)))
+        res[f"{name}/loss"], res[f"{name}/one_loss"] = _np(loss), _np(one_loss)
+        for k in grads:
+            res[f"{name}/grad/{k}"], res[f"{name}/one_grad/{k}"] = _np(grads[k]), _np(one_grads[k])
+    if rank == 0:
+        np.savez(out / "ce.npz", **res)
+
+
+#: (lengths) of the batch-one column case: rows in the first 'model'
+#: block only, in both, all of them.
+COLUMN_LENGTHS = (5, 20, 32)
+
+
+def _column_case(mesh, rank, out):
+    """B7's batch-one plan: ``_decode_attend`` over a float32 cache ``[1,
+    32, 2, 16]`` whose rows 'model' splits and whose batch 'data' leaves
+    whole, against one device; the head dims B7's split entry was handed
+    are recorded (8: v's 16 over the 2 'data' ranks)."""
+    from repro_torch.models import attention
+    from repro_torch.parallel import NamedSharding, P, place
+
+    seen = []
+    entry = attention.decode_attention_split
+
+    def spy(q, k, v, *args, **kw):
+        seen.append(v.shape[-1])
+        return entry(q, k, v, *args, **kw)
+
+    g = torch.Generator().manual_seed(25)
+    B, S, G, Hg, hd = 1, 32, 2, 2, 16
+    k, v = (torch.randn(B, S, G, hd, generator=g) for _ in range(2))
+    q = torch.randn(B, 1, G, Hg, hd, generator=g)
+    k_new, v_new = (torch.randn(B, 1, G, hd, generator=g) for _ in range(2))
+
+    def whole(t):
+        return place(t, NamedSharding(mesh, P(*([None] * t.ndim))))
+
+    res = {}
+    attention.decode_attention_split = spy
+    try:
+        for n in COLUMN_LENGTHS:
+            slots, n_rows = torch.tensor([n - 1]), torch.tensor([n])
+            want = attention._decode_attend(q, k_new, v_new, k.clone(), v.clone(), slots, n_rows)
+            rows = NamedSharding(mesh, P(None, "model", None, None))
+            got = attention._decode_attend(whole(q), whole(k_new), whole(v_new),
+                                           place(k.clone(), rows), place(v.clone(), rows),
+                                           slots, n_rows)
+            res[f"got{n}"], res[f"want{n}"] = _np(got), _np(want)
+    finally:
+        attention.decode_attention_split = entry
+    res["dv"] = np.array(seen)
+    if rank == 0:
+        np.savez(out / "columns.npz", **res)
+
+
 def _worker(rank: int, port: int, out: str) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -401,6 +514,8 @@ def _worker(rank: int, port: int, out: str) -> None:
             t0 = time.perf_counter()
             _serve_case(mesh, rank, out, name)
             times[f"serve {name}"] = time.perf_counter() - t0
+        _ce_case(mesh, rank, out)
+        _column_case(mesh, rank, out)
         _tokens_case(mesh, rank, out)
         _checkpoint_case(mesh, rank, out, *gemma)
         t0 = time.perf_counter()
@@ -676,6 +791,41 @@ def test_host_mesh_plan_step_equals_no_plan(host_mesh):
               label=f"param {k}")
 
 
+@pytest.mark.parametrize("vocab", ["split", "whole"])
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
+def test_one_card_mesh_ce_is_the_plain_ce_bit_for_bit(host_mesh, vocab, tied):
+    """On a ``(1, 1)`` host mesh the vocab-parallel CE's combine over the
+    vocab split is exact, whether the plan splits the vocabulary over the
+    one-rank 'model' dim or leaves it whole: the loss and the grads of the
+    hidden states and the table equal :func:`chunk_ce`'s plain ones, bit for
+    bit (the card's one-card plan phase holds its losses to that)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.lm import chunk_ce
+
+    rng = np.random.default_rng(7)
+    B, c, D, V = 2, 5, 8, 24
+    h0 = torch.from_numpy(rng.standard_normal((B, c, D)).astype(np.float32))
+    w0 = torch.from_numpy(rng.standard_normal((V, D) if tied else (D, V)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, V, (B, c)))
+    key = "table" if tied else "unembed"
+    vdim = 0 if tied else 1
+
+    h, w = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+    want = chunk_ce({key: w}, h, labels, 1e-4)
+    want.backward()
+
+    model = Shard(vdim) if vocab == "split" else Replicate()
+    hd = distribute_tensor(h0, host_mesh, [Replicate(), Replicate()]).requires_grad_()
+    wd = distribute_tensor(w0, host_mesh, [Replicate(), model]).requires_grad_()
+    got = chunk_ce({key: wd}, hd, labels, 1e-4)
+    got = got.full_tensor() if hasattr(got, "full_tensor") else got
+    got.backward()
+    assert torch.equal(got.detach(), want.detach())
+    assert torch.equal(hd.grad.full_tensor(), h.grad)
+    assert torch.equal(wd.grad.full_tensor(), w.grad)
+
+
 def _logit_tol(want):
     return 0.02 * float(np.abs(want).max()) + 2e-3
 
@@ -699,6 +849,29 @@ def test_plan_prefill_and_decode_match_one_device(mesh_run, name):
         np.testing.assert_allclose(data[f"cache/{k}"], want, rtol=0,
                                    atol=2 * BF16_EPS * max(1.0, float(np.abs(want).max())),
                                    err_msg=f"{name} cache {k}")
+
+
+def test_the_mesh_ce_matches_one_device(mesh_run):
+    data = np.load(mesh_run / "ce.npz")
+    for name in ("tied", "untied", "whole"):
+        np.testing.assert_allclose(data[f"{name}/loss"], data[f"{name}/one_loss"],
+                                   rtol=LOSS_RTOL, err_msg=name)
+        grads = _keys(data, f"{name}/one_grad/")
+        assert grads == _keys(data, f"{name}/grad/") and "h" in grads
+        for k in grads:
+            want = data[f"{name}/one_grad/{k}"]
+            _held(data[f"{name}/grad/{k}"], want, GRAD_REL * max(np.abs(want).max(), 1e-30),
+                  label=f"{name} grad {k}")
+
+
+def test_batch_one_decode_splits_v_columns_over_data(mesh_run):
+    from repro_torch.kernels.flash_attention import parity
+
+    data = np.load(mesh_run / "columns.npz")
+    assert data["dv"].size and set(data["dv"].tolist()) == {8}, data["dv"]
+    for n in COLUMN_LENGTHS:
+        parity.check(torch.from_numpy(data[f"got{n}"]), torch.from_numpy(data[f"want{n}"]), [n],
+                     f"batch-one decode over {n} rows")
 
 
 def test_serve_cases_cover_every_decode_mode():
