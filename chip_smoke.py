@@ -21,6 +21,20 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    and 11, ragged ``hw`` down to (1, 1) and every tile height, and frames
    of several of the kernel's output tiles (2 x 200 x 331, 3 x 130 x 67),
    ragged in both directions;
+2b. wide grids and deep chains (:func:`phase_wide_and_deep`, ~30-60 s) --
+   with the counters reset just before, in every grid dtype, the 98-wide
+   ``conv7-exact`` grid (a 7 x 7 convolution, radius-3 fused ingest)
+   through ``PixieFleet`` (two image requests and one named-channel
+   request), ``Pixie`` in both modes and ``vcgra_apply`` conventional, then
+   a mixed 1080p flush on pipe-shared holding a 17-stage gauss3 chain (two
+   B3 segments), a depth-3 chain and single-stage requests, equal to the
+   staged numpy oracle and ``backend="torch"``, the ladder at 0; each conv7
+   output bitwise the same entry point on the CPU (the plain versions);
+   B1, B2 and B4 bitwise on a 600-value grid (value banks in device
+   memory); B3 on chains of R = 17, 33 and a lone radius-20 stage, and on
+   the 98- and 600-value grids, one launch a segment; B3's time at the
+   17-stage chain and B1's at the 98-wide grid beside their bounds, and
+   B1's and B2's on both sides of the switch to device-memory value banks;
 3. the main path -- ``FleetFrontend()`` (``device="cuda"``,
    ``backend="hopper"``) serves 8 x 1080p requests, a ragged 4K/720p/480p/
    1080p flush, all nine library apps on the all-apps grid, and one
@@ -38,7 +52,7 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
 6. the resilience path, each case one flush with the counters reset just
    before it -- at 1080p: a non-transient dispatch fault on the hopper plan
    served by the torch plan, a transient fault retried on B1, a poisoned
-   float32 ticket quarantined alone, a 65-wide grid refused at submit and
+   float32 ticket quarantined alone, a 65-wide grid served by B1 and
    a faulted depth-3 chain served by torch -- every output bitwise a sound
    flush's, every degradation stamped;
 7. the streaming path -- ``StreamingFrontend()`` serves 48 1080p requests
@@ -216,14 +230,21 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    tokens, peaks within 25% of phases 15 (c)'s and 20's
    ``max_memory_allocated``, and where the plan step's extra bytes live.
 
-Then the kernel table line (each kernel also with its bf16 max error) and,
-last, ``{"ok": true, "device": {...}}``.
+Then the kernel table line (each kernel also with its bf16 max error, the
+image kernels with their launches on phase 2b's path, B1 and B3 with phase
+2b's times) and, last, ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --table-times [ROOT]`` times only B1-B4 at the
+kernel table's shapes (``PERF.md`` section 6) from the port under ROOT/src
+(default: this checkout) and prints one JSON line, so that a parent commit
+unpacked beside the checkout can be timed in turns with it in one session.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -429,8 +450,9 @@ def phase_device_and_build():
 
 
 def wide_grid(width=40):
-    """A grid ``width`` values wide (40: past 32; 64: the kernels' limit)
-    that every library app maps on."""
+    """A grid ``width`` values wide (40: past 32; 64: the widest before the
+    kernels took any width; 600: value banks in device memory) that every
+    library app maps on."""
     from repro_torch.core.grid import custom
 
     return custom(f"wide-{width}", width, [width, 11, 7, 5, 3, 3, 2], 1)
@@ -568,6 +590,381 @@ def phase_pipeline_vs_plain(device, all_grid, tally):
                 tally.check("vcgra_pipeline_batched", got, want, dtype_name)
 
 
+#: The wide-and-deep phase's chains, (app, stage radius): R = 17 (two B3
+#: segments), R = 33 and a lone radius-20 stage between window segments.
+DEEP_CHAINS = {
+    "r17": [("gauss3", 1)] * 17,
+    "r33": [("gauss3", 1), ("sobel_x", 15), ("threshold", 1), ("gauss3", 16)],
+    "lone_r20": [("gauss3", 1), ("threshold", 0), ("sobel_x", 20), ("gauss3", 1),
+                 ("threshold", 1)],
+}
+#: The chains the wide grids run: one window (R = 3), two segments (R =
+#: 17) and a lone radius-20 stage between window segments.
+WIDE_CHAINS = {"r3": [(app, 1) for app in CHAIN], "r17": DEEP_CHAINS["r17"],
+               "lone_r20": DEEP_CHAINS["lone_r20"]}
+#: A grid past what even a 32-thread block of B1-B4 holds in shared memory.
+DEVICE_BANK_VALUES = 600
+#: Grids on which B1 and B2 are timed on both sides of the switch between
+#: value banks in shared memory (64 and 32 threads a block) and in device
+#: memory (``ops.SHARED_BANK_THREADS``).
+SWITCH_WIDTHS = (80, 150)
+#: B2's pixels a channel there.
+SWITCH_B2_BATCH = 2 ** 18
+
+
+def conv7_dfg():
+    """A 7 x 7 convolution built as ``applications.conv3x3`` builds its
+    3 x 3 (a tap and a coefficient const a product, a left-paired sum
+    tree): 98 values wide on its exact grid."""
+    from repro_torch.core import applications as apps
+    from repro_torch.core.dfg import DFG
+
+    g = DFG("conv7")
+    prods = []
+    for dj in range(-3, 4):
+        for di in range(-3, 4):
+            k = g.const(f"k{dj + 3}{di + 3}", float((dj + 4) * (di + 5) % 7 - 3))
+            prods.append(g.mul(g.input(apps.tap_name(dj, di)), k))
+    g.output(apps._sum_tree(g, prods))
+    return g
+
+
+def conv7_case(dtype_name):
+    """The ``conv7-exact`` grid in one dtype and conv7 mapped on it, with the
+    fused ingest of a radius-3 tap bank."""
+    from repro_torch.core.grid import for_dfg
+    from repro_torch.core.ingest import plan_for
+    from repro_torch.core.pixie import map_app
+
+    grid = retyped(for_dfg(conv7_dfg(), shape="exact"), dtype_name)
+    cfg = map_app(conv7_dfg(), grid)
+    cfg.ingest = plan_for(cfg.input_order, cfg.const_values, grid.num_inputs, radius=3)
+    return grid, cfg
+
+
+def live_random_settings(grid, n, device, rng):
+    """Dense settings for ``n`` apps with every PE and channel of ``grid``
+    live: random selects over each level's whole input, output muxes over
+    the last level, opcodes from every code on integer grids and from those
+    that keep float values finite (no MUL or DIV) on float grids."""
+    import torch
+
+    L, max_w, K = grid.num_levels, max(grid.pes_per_level), grid.num_outputs
+    floats = grid.dtype in (torch.float32, torch.bfloat16)
+    codes = [1, 2, 5, 6, 7, 8, 9, 10] if floats else list(range(13))
+    ops = np.zeros((n, L, max_w), np.int32)
+    sel = np.zeros((n, L, max_w, 2), np.int32)
+    for lvl, width in enumerate(grid.pes_per_level):
+        fan_in = grid.num_inputs if lvl == 0 else grid.pes_per_level[lvl - 1]
+        ops[:, lvl, :width] = rng.choice(codes, (n, width))
+        sel[:, lvl, :width] = rng.integers(0, fan_in, (n, width, 2))
+    out = rng.integers(0, grid.pes_per_level[-1], (n, K))
+    return tuple(torch.as_tensor(a, dtype=torch.int32, device=device) for a in (ops, sel, out))
+
+
+@contextlib.contextmanager
+def shared_bank_threads(ladder):
+    """B1-B4 blocks keep their value banks in shared memory only at the
+    thread counts of ``ladder`` (``ops.SHARED_BANK_THREADS``; ``()``: always
+    in device memory), to time both sides of the switch."""
+    from repro_torch.kernels.vcgra import ops
+
+    saved, ops.SHARED_BANK_THREADS = ops.SHARED_BANK_THREADS, tuple(ladder)
+    try:
+        yield
+    finally:
+        ops.SHARED_BANK_THREADS = saved
+
+
+def phase_wide_and_deep(device, pipe_grid, tally):
+    """Requests past 64 values and past one B3 window (16 px), which the
+    port's card path refused before: (a) the path, the launch counters
+    reset just before and read just after -- in every dtype, two
+    ``conv7-exact`` image requests and one named-channel request through
+    ``PixieFleet`` (B1, B2), ``Pixie`` conventional (``run_image`` B1,
+    ``run_raw`` B2), ``Pixie`` parameterized (B5) and ``vcgra_apply``
+    conventional (B4) on conv7; then a mixed 1080p flush on pipe-shared (a
+    17-stage gauss3 chain, a depth-3 chain, single-stage requests), every
+    output equal to the staged numpy oracle and ``backend="torch"``, the
+    ladder at 0; (b) each served conv7 output bitwise the same entry point
+    on the CPU (the kernels' plain versions); (c) B1, B2 and B4 bitwise to
+    their plain versions on a 600-value grid (value banks in device
+    memory), library settings with random runtime ingests as phase 2 draws
+    them and random settings that keep every PE live; (d) B3 on chains of R
+    = 17, 33 and a lone radius-20 stage on pipe-shared (one and two
+    outputs), and of R = 3, 17 and the lone radius-20 stage on the 98- and
+    600-value grids, every dtype, launches equal to segments; (e) times: B3
+    at the 17-stage chain (``n8x2048x2048``) and B1 at the 98-wide grid
+    (``n8x1080x1920``), each beside its bound (live PEs), and B1 on both
+    sides of the switch to device-memory value banks at 98 values
+    (conv7) and, with library and dense settings, B1 and B2 at 80 and 150
+    values."""
+    import torch
+    from repro_torch.core import Pixie
+    from repro_torch.core import applications as apps
+    from repro_torch.core.bitstream import VCGRAConfig
+    from repro_torch.core.ingest import IngestPlan
+    from repro_torch.core.pixie import map_app
+    from repro_torch.core.tiling import itemsize
+    from repro_torch.kernels.vcgra import (
+        pack_settings_batched, vcgra_apply, vcgra_batched, vcgra_batched_ref,
+        vcgra_conventional, vcgra_conventional_ref, vcgra_fused_batched,
+        vcgra_fused_batched_ref, vcgra_pipeline_batched, vcgra_pipeline_batched_ref,
+    )
+    from repro_torch.kernels.vcgra.ops import (
+        batched_launch, chain_segments, fused_launch, ingest_image,
+    )
+    from repro_torch.runtime.fleet import FleetRequest, PixieFleet
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(26)
+    cases = {d: conv7_case(d) for d in DTYPE_NAMES}
+    conv7_frames = {d: [rng.integers(0, 256, hw).astype(
+        np.float32 if cases[d][0].float_pe else np.int32) for hw in ((270, 480), (97, 301))]
+        for d in DTYPE_NAMES}
+
+    def conv7_requests(dtype_name):
+        _, cfg = cases[dtype_name]
+        imgs = conv7_frames[dtype_name]
+        taps = apps.stencil_inputs(torch.from_numpy(imgs[1]), radius=3)
+        return [FleetRequest(app=cfg, image=img) for img in imgs] + [FleetRequest(
+            app=cfg, inputs={k: v.numpy() for k, v in taps.items() if k in cfg.input_order})]
+
+    def conv7_entries(dtype_name, dev, backend="hopper"):
+        """{entry: output} of conv7 through every entry point on ``dev``."""
+        grid, cfg = cases[dtype_name]
+        fleet = PixieFleet(default_grid=grid, device=dev, backend=backend)
+        out = {f"fleet {i}": o for i, o in enumerate(fleet.run_many(conv7_requests(dtype_name)))}
+        assert_sound(fleet, f"conv7 {dtype_name} on {dev}")
+        img = torch.as_tensor(conv7_frames[dtype_name][0], device=dev)
+        x = ingest_image(cfg.ingest, grid.dtype, img)
+        if backend == "hopper":
+            conv = Pixie(grid, mode="conventional", device=dev)
+            conv.load(cfg)
+            out["pixie run_image"] = conv.run_image(img)
+            out["pixie run_raw"] = conv.run_raw(x)
+            par = Pixie(grid, mode="parameterized", device=dev)
+            par.load(cfg)
+            out["pixie parameterized"] = par.run_raw(x)
+            out["vcgra_apply conventional"] = vcgra_apply(grid, cfg, x, mode="conventional")
+        return {k: v.cpu() if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+                for k, v in out.items()}
+
+    # (a) the path.
+    deep = ["gauss3"] * 17
+    mixed = [(deep, (1080, 1920)), (CHAIN, (1080, 1920)), ("gauss3", (720, 1280)),
+             ("threshold", (1080, 1920)), (deep, (900, 1600))]
+    mixed_frames = [rng.integers(0, 256, hw).astype(np.int32) for _, hw in mixed]
+
+    def mixed_requests():
+        return [FleetRequest(pipeline=app, image=img) if isinstance(app, list)
+                else FleetRequest(app=app, image=img) for (app, _), img in zip(mixed, mixed_frames)]
+
+    reset_launches()
+    served = {d: conv7_entries(d, device) for d in DTYPE_NAMES}
+    fleet = PixieFleet(default_grid=pipe_grid)
+    mixed_out = fleet.run_many(mixed_requests())
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    assert_sound(fleet, "wide and deep, mixed flush")
+    # Per dtype: B1 for the fleet's image dispatch and run_image, B2 for the
+    # channel dispatch, run_raw and the overlay's warm-up on a dummy config;
+    # then the mixed flush's single-stage dispatch and its two chain groups.
+    want = no_launches(vcgra_fused_batched=2 * len(DTYPE_NAMES) + 1,
+                       vcgra_batched=3 * len(DTYPE_NAMES),
+                       vcgra_pipeline_batched=len(chain_segments((1,) * 17)) + 1,
+                       vcgra_conventional=len(DTYPE_NAMES), vcgra_specialized=len(DTYPE_NAMES))
+    if launches != want or fleet.stats.pipeline_dispatches != 2:
+        raise AssertionError(f"wide and deep: launches {launches}, expected {want}; "
+                             f"{fleet.stats.pipeline_dispatches} chain dispatches")
+    for (app, _), img, out in zip(mixed, mixed_frames, mixed_out):
+        if not np.array_equal(out, staged_oracle(app, img)):
+            raise AssertionError(f"mixed flush: {app} differs from the staged numpy oracle")
+    torch_fleet = PixieFleet(default_grid=pipe_grid, backend="torch")
+    for got, ref_out in zip(mixed_out, torch_fleet.run_many(mixed_requests())):
+        if not np.array_equal(got, ref_out):
+            raise AssertionError("mixed flush: hopper differs from backend='torch'")
+    assert_sound(torch_fleet, "wide and deep, mixed flush, torch oracle")
+    del torch_fleet
+    torch.cuda.empty_cache()
+
+    # (b) each conv7 output against the same entry on the CPU (plain versions)
+    # and the fleet's against backend="torch" on the card.
+    kernel_of = {"fleet 0": "vcgra_fused_batched", "fleet 1": "vcgra_fused_batched",
+                 "fleet 2": "vcgra_batched", "pixie run_image": "vcgra_fused_batched",
+                 "pixie run_raw": "vcgra_batched", "pixie parameterized": "vcgra_specialized",
+                 "vcgra_apply conventional": "vcgra_conventional"}
+    for dtype_name in DTYPE_NAMES:
+        plain = conv7_entries(dtype_name, torch.device("cpu"))
+        eager = conv7_entries(dtype_name, device, backend="torch")
+        for entry, got in served[dtype_name].items():
+            kernel = kernel_of[entry]
+            tally.check(kernel, got, plain[entry], dtype_name, kernel != "vcgra_specialized")
+            if entry in eager and not torch.equal(got, eager[entry]) and dtype_name != "bfloat16":
+                raise AssertionError(f"conv7 {dtype_name} {entry}: hopper differs from torch")
+
+    # (c) B1, B2 and B4 past what any block holds in shared memory.
+    all_names = sorted(apps.ALL_APPS)
+    for dtype_name in DTYPE_NAMES:
+        grid = retyped(wide_grid(DEVICE_BANK_VALUES), dtype_name)
+        if not fused_launch(itemsize(grid.dtype), 1, grid.num_inputs, grid.pes_per_level,
+                            grid.num_outputs)[3]:
+            raise AssertionError(f"{grid.name}: value banks expected in device memory")
+        for radius in (0, 1, 17):
+            for n, H, W in ((3, 37, 53), (2, 33, 2049)):
+                picked = [all_names[i % len(all_names)] for i in range(n)]
+                images = rng.integers(0, 256, (n, H, W)).astype(np.int32)
+                settings, ingests, frames = fused_operands(
+                    grid, picked, images, device, radius, rng=rng if radius != 1 else None)
+                for dense in (settings, live_random_settings(grid, n, device, rng)):
+                    tally.check("vcgra_fused_batched",
+                                vcgra_fused_batched(grid, radius, dense, ingests, frames),
+                                vcgra_fused_batched_ref(grid, radius, dense, ingests, frames),
+                                dtype_name, True)
+        cfg_settings = pack_settings_batched(grid, VCGRAConfig.stack(
+            [map_app(apps.ALL_APPS[name](), grid) for name in all_names], device=device))
+        for dense in (cfg_settings, live_random_settings(grid, len(all_names), device, rng)):
+            for B in (45, 4099):
+                xs = torch.as_tensor(rng.integers(-8, 256, (len(all_names), grid.num_inputs, B)),
+                                     device=device).to(grid.dtype)
+                tally.check("vcgra_batched", vcgra_batched(grid, dense, xs),
+                            vcgra_batched_ref(grid, dense, xs), dtype_name, True)
+                for i in (0, len(all_names) - 1):
+                    one = tuple(t[i] for t in dense)
+                    for block_n in (128, 1024):
+                        tally.check("vcgra_conventional",
+                                    vcgra_conventional(grid, one, xs[i], block_n=block_n),
+                                    vcgra_conventional_ref(grid, one, xs[i]), dtype_name, True)
+
+    # (d) B3 past one window, and on the grids past 64 values (98 and 600:
+    # value banks in device memory, with the forward between segments).
+    chain_rows = {}
+    for dtype_name in DTYPE_NAMES:
+        for base, chains in ((pipe_grid, DEEP_CHAINS),
+                             (shared_grid(CHAIN, "pipe-shared-k2", num_outputs=2), DEEP_CHAINS),
+                             (cases[dtype_name][0], WIDE_CHAINS),
+                             (wide_grid(DEVICE_BANK_VALUES), WIDE_CHAINS)):
+            grid = retyped(base, dtype_name)
+            for label, chain in chains.items():
+                radii = tuple(r for _, r in chain)
+                segments = chain_segments(radii)
+                for n, H, W in ((3, 37, 53), (2, 70, 300)):
+                    hws = [(H, W), (1, 1)] + [
+                        (int(rng.integers(1, H + 1)), int(rng.integers(1, W + 1)))
+                        for _ in range(n - 2)]
+                    args = chain_operands(grid, chain, hws, H, W, device, rng)
+                    before = launch_counts()["vcgra_pipeline_batched"]
+                    got = vcgra_pipeline_batched(grid, radii, *args)
+                    ran = launch_counts()["vcgra_pipeline_batched"] - before
+                    if ran != len(segments):
+                        raise AssertionError(f"B3 {label}: {ran} launches for {segments}")
+                    tally.check("vcgra_pipeline_batched", got,
+                                vcgra_pipeline_batched_ref(grid, radii, *args), dtype_name)
+                row = chain_rows.setdefault(label, {"radii": list(radii), "R": sum(radii),
+                                                    "segments": [list(sg) for sg in segments],
+                                                    "grids": []})
+                if base.name not in row["grids"]:
+                    row["grids"].append(base.name)
+
+    # (e) times.
+    grid = pipe_grid
+    chain = DEEP_CHAINS["r17"]
+    radii = tuple(r for _, r in chain)
+    canvas = np.zeros((8, 2048, 2048), np.int32)
+    for i in range(8):
+        canvas[i, :1080, :1920] = rng.integers(0, 256, (1080, 1920))
+    args = chain_operands(grid, chain, [(1080, 1920)] * 8, 2048, 2048, device, rng,
+                          images=canvas)
+
+    def run_b3():
+        return vcgra_pipeline_batched(grid, radii, *args)
+
+    def plain_b3():
+        return vcgra_pipeline_batched_ref(grid, radii, *args)
+
+    err = compare(run_b3(), plain_b3(), "int32")
+    n, px, K = 8, 2048 * 2048, grid.num_outputs
+    byte_ms, _ = bound(n * px * itemsize(grid.dtype) * (1 + K), 0)
+    b_ms, b_by = bound(n * px * itemsize(grid.dtype) * (1 + K), n * px * chain_work(grid, chain))
+    b3_row = dict(ms=cuda_ms(run_b3, 20, shield=True), plain_ms=cuda_ms(plain_b3, 3),
+                  bound_ms=b_ms, bound_by=b_by, byte_bound_ms=byte_ms,
+                  shape=f"n8x2048x2048 17 x gauss3 {grid.name}", main_path_err=err,
+                  segments=len(chain_segments(radii)), live_pes=chain_work(grid, chain))
+    del args
+    torch.cuda.empty_cache()
+    grid, cfg = cases["int32"]
+    frames_np = rng.integers(0, 256, (8, 1080, 1920)).astype(np.int32)
+    settings = pack_settings_batched(grid, VCGRAConfig.stack([cfg] * 8, device=device))
+    ingests = IngestPlan.stack([cfg.ingest] * 8, grid.dtype, device=device)
+    frames = torch.as_tensor(frames_np, device=device)
+
+    def run_b1():
+        return vcgra_fused_batched(grid, 3, settings, ingests, frames)
+
+    def plain_b1():
+        return vcgra_fused_batched_ref(grid, 3, settings, ingests, frames)
+
+    err = compare(run_b1(), plain_b1(), "int32", True)
+    live_pes, _ = config_work(grid, cfg)
+    hw = 1080 * 1920
+    b_ms, b_by = bound(8 * hw * itemsize(grid.dtype) * (1 + grid.num_outputs),
+                       8 * hw * live_pes)
+    b1_row = dict(ms=cuda_ms(run_b1, 20, shield=True), plain_ms=cuda_ms(plain_b1, 3),
+                  bound_ms=b_ms, bound_by=b_by, shape=f"n8x1080x1920 {grid.name}",
+                  main_path_err=err, live_pes=live_pes,
+                  block=kernel_block("vcgra_fused_batched", grid, 3))
+
+    def both_banks(block, run, plain):
+        """The time of ``run`` with its value banks in shared memory (the
+        most threads of 128, 64, 32 that hold them) and in device memory,
+        each output bitwise its plain version; ``block()`` -> (threads,
+        ..., device_banks) of the launch."""
+        want, row = plain(), {}
+        for side, ladder in (("shared", (128, 64, 32)), ("device_banks", ())):
+            with shared_bank_threads(ladder):
+                compare(run(), want, "int32", True)
+                row[f"{side}_ms"] = cuda_ms(run, 20, shield=True)
+                if side == "shared":
+                    row["shared_threads"] = block()[0]
+        row["picked"] = "device_banks" if block()[-1] else "shared"
+        return row
+
+    switch = {f"B1 {grid.name}": both_banks(
+        lambda: fused_launch(itemsize(grid.dtype), 3, grid.num_inputs, grid.pes_per_level,
+                             grid.num_outputs), run_b1, plain_b1)}
+    del settings, ingests, frames
+    for width in SWITCH_WIDTHS:
+        grid = wide_grid(width)
+        args = (itemsize(grid.dtype), grid.num_inputs, grid.pes_per_level, grid.num_outputs)
+        library, ingests, frames = fused_operands(grid, all_names[:8], frames_np, device)
+        xs = torch.as_tensor(rng.integers(0, 256, (8, grid.num_inputs, SWITCH_B2_BATCH),
+                                          dtype=np.int32), device=device)
+        for kind, dense in (("library", library),
+                            ("dense", live_random_settings(grid, 8, device, rng))):
+            switch[f"B1 {grid.name} {kind}"] = both_banks(
+                lambda: fused_launch(args[0], 1, *args[1:]),
+                lambda: vcgra_fused_batched(grid, 1, dense, ingests, frames),
+                lambda: vcgra_fused_batched_ref(grid, 1, dense, ingests, frames))
+            switch[f"B2 {grid.name} {kind}"] = both_banks(
+                lambda: batched_launch(*args), lambda: vcgra_batched(grid, dense, xs),
+                lambda: vcgra_batched_ref(grid, dense, xs))
+        del library, ingests, frames, xs
+    b1_row["device_bank_switch"] = switch
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "wide_and_deep", "launches": launches,
+          "kernels": tally.of("vcgra_fused_batched", "vcgra_batched", "vcgra_conventional",
+                              "vcgra_pipeline_batched", "vcgra_specialized"),
+          "chains": chain_rows, "conv7_grid": f"{cases['int32'][0].name} "
+          f"{cases['int32'][0].num_inputs} values {list(cases['int32'][0].pes_per_level)}",
+          "device_bank_grid": f"wide-{DEVICE_BANK_VALUES}",
+          "times": {"vcgra_pipeline_batched": b3_row, "vcgra_fused_batched": b1_row},
+          "tolerance": "B1, B2, B4 bitwise in every dtype, bf16 included; B3 and B5 bitwise "
+                       "for int32/int16/float32, bf16 |d| <= 0.5 + 0.5|ref|",
+          "seconds": seconds})
+    return launches, {"vcgra_pipeline_batched": b3_row, "vcgra_fused_batched": b1_row}
+
+
 def oracle(app, img):
     """The port's numpy oracle of one library app on one frame."""
     from repro_torch.core import applications as apps
@@ -620,7 +1017,7 @@ def assert_sound(fleet, label):
 def phase_main_path(device, all_grid):
     import torch
     from repro_torch.core import applications as apps
-    from repro_torch.runtime.fleet import FleetRequest, PixieFleet
+    from repro_torch.runtime.fleet import PixieFleet
     from repro_torch.serve import FleetFrontend
 
     rng = np.random.default_rng(1)
@@ -635,15 +1032,10 @@ def phase_main_path(device, all_grid):
             [(2160, 3840), (720, 1280), (480, 640), (1080, 1920)])],
         [(a, frame(1080, 1920), all_grid) for a in sorted(apps.ALL_APPS)],
     ]
-    channel_frames = [frame(1080, 1920) for _ in range(4)]
-    channel_apps = ["sobel_x", "sharpen", "laplace", "threshold"]
+    channel_frames = [frame(1080, 1920) for _ in CHANNEL_APPS]
 
     def channel_requests():
-        reqs = []
-        for app, img in zip(channel_apps, channel_frames):
-            taps = apps.stencil_inputs(torch.from_numpy(img))
-            reqs.append(FleetRequest(app=app, inputs={k: v.numpy() for k, v in taps.items()}))
-        return reqs
+        return channel_requests_of(channel_frames)
 
     svc = FleetFrontend()
     if (svc.backend, svc.device.type) != ("hopper", "cuda"):
@@ -670,7 +1062,7 @@ def phase_main_path(device, all_grid):
         for (app, img, _), out in zip(reqs, outs):
             if not np.array_equal(out, oracle(app, img)):
                 raise AssertionError(f"{app} {img.shape} differs from the numpy oracle")
-    for app, img, out in zip(channel_apps, channel_frames, served_channels):
+    for app, img, out in zip(CHANNEL_APPS, channel_frames, served_channels):
         if not np.array_equal(out, oracle(app, img).reshape(1, -1)):
             raise AssertionError(f"named-channel {app} differs from the numpy oracle")
 
@@ -688,7 +1080,7 @@ def phase_main_path(device, all_grid):
     assert_sound(oracle_fleet, "main path, torch oracle")
     torch.cuda.empty_cache()
     emit({"phase": "main_path", "flushes": len(flushes) + 1,
-          "requests": sum(map(len, flushes)) + len(channel_apps),
+          "requests": sum(map(len, flushes)) + len(CHANNEL_APPS),
           "launches": launches, "dispatch_plans": stats.dispatch_plans,
           "overlay_builds": stats.overlay_builds, "main_path_s": main_s,
           "checked_against": ["numpy oracles", "backend='torch' on the card"]})
@@ -774,9 +1166,9 @@ def phase_resilience_path(svc, main_reqs, chain_reqs, pipe_grid):
     by the torch plan; (b) a transient fault that fires once is retried on
     B1; (c) a persistent ``nan_output`` on one ticket of a float32
     8-request flush quarantines that ticket alone; (d) a 65-value-wide
-    grid, wider than B1 holds, is refused at submit with a ``ValueError``
-    to its submitter (nothing launched, nothing degraded), and the torch
-    fleet serves it; (e) a fault on the depth-3 chain's hopper plan
+    grid is served by B1 (its value banks at 65 slots), nothing degraded,
+    equal to the torch fleet and the numpy oracle; (e) a fault on the
+    depth-3 chain's hopper plan
     degrades to the torch chain.  Every served output is bitwise equal to
     a sound flush of the same frames; every degradation shows in
     ``fallback_dispatches``, the breaker events and the torch plan's key
@@ -849,24 +1241,10 @@ def phase_resilience_path(svc, main_reqs, chain_reqs, pipe_grid):
     for (app, img, _), out in zip(wide_reqs, wide_sound):
         if not np.array_equal(out, oracle(app, img)):
             raise AssertionError(f"wide-65 {app}: backend='torch' differs from the numpy oracle")
-    wide_front = FleetFrontend(fleet=PixieFleet(batch_tile=2))
-    reset_launches()
-    refusals = []
-    for app, img, grid in wide_reqs:
-        try:
-            wide_front.submit(app, img, grid=grid)
-        except ValueError as exc:
-            refusals.append(str(exc))
-    wide_front.flush()
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    if (len(refusals) != len(wide_reqs) or wide_front.stats.submitted
-            or wide_front.stats.dispatch_plans or launches != no_launches()):
-        raise AssertionError(f"resilience (d): refusals {refusals}, submitted "
-                             f"{wide_front.stats.submitted}, launches {launches}")
-    assert_sound(wide_front.fleet, "resilience (d)")
-    rows["d_wide_grid"] = {"refused_at_submit": len(refusals), "refusal": refusals[0],
-                           "launches": {}, "plans": []}
+    rows["d_wide_grid"] = case(
+        "(d)", FleetFrontend(fleet=PixieFleet(batch_tile=2)), wide_reqs, wide_sound,
+        {"vcgra_fused_batched": 1}, fallback_dispatches=0, retries=0, quarantined=[],
+        plans=["hopper"])
     torch.cuda.empty_cache()
     rows["e_chain_fault"] = case(
         "(e)", FleetFrontend(fleet=PixieFleet(
@@ -881,8 +1259,7 @@ def phase_resilience_path(svc, main_reqs, chain_reqs, pipe_grid):
                    "(d) 2 x 1080p int32 wide-65; (e) 8 x 1080p int32 depth-3 chain "
                    f"{'+'.join(CHAIN)} on {pipe_grid.name}",
           "checked_against": ["sound hopper flush of the same frames, bitwise",
-                              "backend='torch' and the numpy oracle for wide-65, which "
-                              "the hopper fleet refuses at submit"]})
+                              "backend='torch' and the numpy oracle for wide-65"]})
     return rows
 
 
@@ -1145,6 +1522,117 @@ def live_work(grid, names):
     return [config_work(grid, map_app(apps.ALL_APPS[name](), grid)) for name in names]
 
 
+def chain_work(grid, chain):
+    """Live PEs summed over the stages of ``chain`` ((app, radius) pairs) by
+    :func:`config_work`: the least operations a pixel of B3 costs."""
+    return sum(pes for pes, _ in live_work(grid, [name for name, _ in chain]))
+
+
+# The kernel table's shapes (PERF.md section 6), one definition each, used by
+# the timing phases and by ``--table-times``: each returns ``(run, plain,
+# shape, operands)``.
+
+def canvas_of(imgs, n):
+    """``imgs`` top-left in an int32 ``[n, 2048, 2048]`` canvas (zero frames
+    past them, as the fleet pads a tile)."""
+    canvas = np.zeros((n, 2048, 2048), np.int32)
+    for i, img in enumerate(imgs):
+        canvas[i, :img.shape[0], :img.shape[1]] = img
+    return canvas
+
+
+def b1_case(device, grid, names, imgs):
+    """B1 at the main path's shape: apps ``names`` at radius 1 with
+    ``tile_rows="auto"`` on ``imgs`` in a ``[len(names), 2048, 2048]``
+    canvas."""
+    from repro_torch.kernels.vcgra import vcgra_fused_batched, vcgra_fused_batched_ref
+
+    ops = fused_operands(grid, names, canvas_of(imgs, len(names)), device)
+    return (lambda: vcgra_fused_batched(grid, 1, *ops, tile_rows="auto"),
+            lambda: vcgra_fused_batched_ref(grid, 1, *ops),
+            (len(names), 2048, 2048), ops)
+
+
+CHANNEL_APPS = ["sobel_x", "sharpen", "laplace", "threshold"]
+
+
+def channel_requests_of(imgs):
+    """Named-channel requests of :data:`CHANNEL_APPS` over the 3 x 3 taps
+    of ``imgs``."""
+    import torch
+    from repro_torch.core import applications as apps
+    from repro_torch.runtime.fleet import FleetRequest
+
+    reqs = []
+    for app, img in zip(CHANNEL_APPS, imgs):
+        taps = apps.stencil_inputs(torch.from_numpy(img))
+        reqs.append(FleetRequest(app=app, inputs={k: v.numpy() for k, v in taps.items()}))
+    return reqs
+
+
+def b2_case(device, grid, reqs):
+    """B2 at the named-channel flush's shape: the channels of ``reqs``
+    packed as the fleet packs them (one pow2 bucket, zero channels and the
+    first app's config up to 8 apps); ``operands`` are the padded app
+    names and the ``[8, C, B]`` stack."""
+    import torch
+    from repro_torch.core import applications as apps
+    from repro_torch.core.bitstream import VCGRAConfig
+    from repro_torch.core.interpreter import pack_inputs
+    from repro_torch.core.pixie import map_app
+    from repro_torch.core.tiling import pad_batches, pad_channels, pow2_bucket
+    from repro_torch.kernels.vcgra import pack_settings_batched, vcgra_batched, vcgra_batched_ref
+
+    names = [r.app for r in reqs]
+    cfgs = [map_app(apps.ALL_APPS[name](), grid) for name in names]
+    xs = [pad_channels(pack_inputs(c, r.inputs, grid.dtype, device=device), grid.num_inputs)
+          for c, r in zip(cfgs, reqs)]
+    xs = pad_batches(xs, pow2_bucket(max(x.shape[-1] for x in xs), 256))
+    xs += [torch.zeros_like(xs[0])] * (8 - len(xs))
+    cfgs += [cfgs[0]] * (8 - len(cfgs))
+    names += names[:1] * (8 - len(names))
+    xstack = torch.stack(xs)
+    settings = pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=device))
+    return (lambda: vcgra_batched(grid, settings, xstack),
+            lambda: vcgra_batched_ref(grid, settings, xstack),
+            tuple(xstack.shape), (names, xstack))
+
+
+def b3_case(device, grid, imgs, rng):
+    """B3 at the chain path's shape: the depth-3 :data:`CHAIN` at radius 1
+    a stage with ``tile_rows="auto"`` on ``imgs`` in an ``[8, 2048, 2048]``
+    canvas; ``operands`` are the chain and its stage-stacked operands."""
+    from repro_torch.kernels.vcgra import vcgra_pipeline_batched, vcgra_pipeline_batched_ref
+
+    chain = [(app, 1) for app in CHAIN]
+    radii = tuple(r for _, r in chain)
+    args = chain_operands(grid, chain, [img.shape for img in imgs], 2048, 2048, device, rng,
+                          images=canvas_of(imgs, len(imgs)))
+    return (lambda: vcgra_pipeline_batched(grid, radii, *args, tile_rows="auto"),
+            lambda: vcgra_pipeline_batched_ref(grid, radii, *args),
+            (len(imgs), 2048, 2048), (chain, args))
+
+
+def b4_case(device, frame, cfg=None):
+    """B4 at the single-app path's shape: ``sobel_mag`` on its exact grid
+    over the ingested ``[27, H*W]`` channels of ``frame``; ``operands`` are
+    the grid, the config, its settings and the channels."""
+    import torch
+    from repro_torch.core import applications as apps
+    from repro_torch.core.grid import for_dfg
+    from repro_torch.core.pixie import map_app
+    from repro_torch.kernels.vcgra import vcgra_conventional, vcgra_conventional_ref
+    from repro_torch.kernels.vcgra.ops import _pack_settings, ingest_image
+
+    grid = for_dfg(apps.sobel_magnitude(), shape="exact")
+    cfg = map_app(apps.sobel_magnitude(), grid) if cfg is None else cfg
+    x = ingest_image(cfg.ingest, grid.dtype, torch.as_tensor(frame, device=device))
+    settings = _pack_settings(grid, cfg, device=device)[:3]
+    return (lambda: vcgra_conventional(grid, settings, x),
+            lambda: vcgra_conventional_ref(grid, settings, x),
+            tuple(x.shape), (grid, cfg, settings, x))
+
+
 def phase_times(device, svc, main_reqs, channel_requests, all_grid):
     """Kernel, plain and bound at the main path's shapes: B1 on the
     8 x 1080p flush's n8x2048x2048 canvas and on the all-apps flush's
@@ -1154,16 +1642,9 @@ def phase_times(device, svc, main_reqs, channel_requests, all_grid):
     the end-to-end flush time.  Bounds count the live PEs' operations and,
     for B2, the live channels' bytes (also given over all C channels)."""
     import torch
-    from repro_torch.core.bitstream import VCGRAConfig
     from repro_torch.core.grid import sobel_grid
-    from repro_torch.core.interpreter import pack_inputs
-    from repro_torch.core.pixie import map_app
-    from repro_torch.core.tiling import itemsize, pad_batches, pad_channels, pow2_bucket
+    from repro_torch.core.tiling import itemsize
     from repro_torch.core import applications as apps
-    from repro_torch.kernels.vcgra import (
-        pack_settings_batched, vcgra_batched, vcgra_batched_ref,
-        vcgra_fused_batched, vcgra_fused_batched_ref,
-    )
     from repro_torch.roofline.model import F32_FLOPS, HBM_BW
 
     rng = np.random.default_rng(7)
@@ -1174,62 +1655,35 @@ def phase_times(device, svc, main_reqs, channel_requests, all_grid):
                  [rng.integers(0, 256, (1080, 1920)) for _ in all_names])]
     rows, b1_rows = {}, {}
     for label, grid, names, imgs in b1_cases:
-        n, hw, K = len(names), 2048 * 2048, grid.num_outputs
-        canvas = np.zeros((n, 2048, 2048), np.int32)
-        for i, img in enumerate(imgs):
-            canvas[i, :img.shape[0], :img.shape[1]] = img
-        settings, ingests, frames = fused_operands(grid, names, canvas, device)
-
-        def run_b1():
-            return vcgra_fused_batched(grid, 1, settings, ingests, frames, tile_rows="auto")
-
-        def plain_b1():
-            return vcgra_fused_batched_ref(grid, 1, settings, ingests, frames)
-
+        run_b1, plain_b1, (n, H, W), _ = b1_case(device, grid, names, imgs)
         err = compare(run_b1(), plain_b1(), "int32", True)
         live_pes = sum(pes for pes, _ in live_work(grid, names))
-        b_ms, b_by = bound(n * hw * itemsize(grid.dtype) * (1 + K), hw * live_pes)
+        b_ms, b_by = bound(n * H * W * itemsize(grid.dtype) * (1 + grid.num_outputs),
+                           H * W * live_pes)
         b1_rows[label] = dict(
             ms=cuda_ms(run_b1, 20, shield=True), plain_ms=cuda_ms(plain_b1, 3), bound_ms=b_ms,
-            bound_by=b_by, shape=f"n{n}x2048x2048 {grid.name}", main_path_err=err,
+            bound_by=b_by, shape=f"n{n}x{H}x{W} {grid.name}", main_path_err=err,
             live_pes=live_pes, grid_pes=n * grid.num_pes,
             block=kernel_block("vcgra_fused_batched", grid, 1))
-        del settings, ingests, frames
+        del run_b1, plain_b1
         torch.cuda.empty_cache()
     rows["vcgra_fused_batched"] = dict(b1_rows["main"], all_apps=b1_rows["all_apps"])
 
     grid = sobel_grid()
     size, K = itemsize(grid.dtype), grid.num_outputs
-    reqs = channel_requests()
-    names = [r.app for r in reqs]
-    cfgs = [map_app(apps.ALL_APPS[name](), grid) for name in names]
-    xs = [pad_channels(pack_inputs(c, r.inputs, grid.dtype, device=device), grid.num_inputs)
-          for c, r in zip(cfgs, reqs)]
-    B = pow2_bucket(max(x.shape[-1] for x in xs), 256)
-    xs = pad_batches(xs, B)
-    xs += [torch.zeros_like(xs[0])] * (8 - len(xs))
-    cfgs += [cfgs[0]] * (8 - len(cfgs))
-    names += names[:1] * (8 - len(names))
-    xstack = torch.stack(xs)
-    bsettings = pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=device))
-
-    def run_b2():
-        return vcgra_batched(grid, bsettings, xstack)
-
-    def plain_b2():
-        return vcgra_batched_ref(grid, bsettings, xstack)
-
+    run_b2, plain_b2, (_, C, B), (names, _) = b2_case(device, grid, channel_requests())
     err = compare(run_b2(), plain_b2(), "int32", True)
     work = live_work(grid, names)
     live_channels = sum(ch for _, ch in work)
     b_ms, b_by = bound(B * size * (live_channels + 8 * K), B * sum(pes for pes, _ in work))
-    all_ms, all_by = bound(8 * B * size * (grid.num_inputs + K), 8 * B * grid.num_pes)
+    all_ms, all_by = bound(8 * B * size * (C + K), 8 * B * grid.num_pes)
     rows["vcgra_batched"] = dict(
         ms=cuda_ms(run_b2, 20, shield=True), plain_ms=cuda_ms(plain_b2, 3), bound_ms=b_ms,
-        bound_by=b_by, shape=f"n8x{grid.num_inputs}x{B}", main_path_err=err,
-        live_channels=live_channels, all_channels=8 * grid.num_inputs,
+        bound_by=b_by, shape=f"n8x{C}x{B}", main_path_err=err,
+        live_channels=live_channels, all_channels=8 * C,
         bound_all_channels_ms=all_ms, bound_all_channels_by=all_by,
         block=kernel_block("vcgra_batched", grid))
+    del run_b2, plain_b2
 
     e2e = time_flushes(svc, main_reqs, "8 x 1080p int32, sobel-5x9")
     assert_sound(svc.fleet, "main path times")
@@ -1267,26 +1721,13 @@ def phase_chain_times(device, svc, chain_reqs, pipe_grid):
     same operands, and the chain flush end to end."""
     from repro_torch.core.interpreter import forward_stage_output, valid_pixel_mask
     from repro_torch.core.tiling import itemsize
-    from repro_torch.kernels.vcgra import (
-        vcgra_fused_batched, vcgra_pipeline_batched, vcgra_pipeline_batched_ref,
-    )
+    from repro_torch.kernels.vcgra import vcgra_fused_batched
 
     grid = pipe_grid
-    canvas = np.zeros((8, 2048, 2048), np.int32)
-    for i, (_, img, _) in enumerate(chain_reqs):
-        canvas[i, :img.shape[0], :img.shape[1]] = img
-    chain = [(app, 1) for app in CHAIN]
+    run_b3, plain_b3, (n, H, W), (chain, args) = b3_case(
+        device, grid, [img for _, img, _ in chain_reqs], np.random.default_rng(5))
     radii = tuple(r for _, r in chain)
-    hws = [img.shape for _, img, _ in chain_reqs]
-    args = chain_operands(grid, chain, hws, 2048, 2048, device, np.random.default_rng(5),
-                          images=canvas)
     settings, ingests, out_chs, hw, frames = args
-
-    def run_b3():
-        return vcgra_pipeline_batched(grid, radii, *args, tile_rows="auto")
-
-    def plain_b3():
-        return vcgra_pipeline_batched_ref(grid, radii, *args)
 
     def staged():
         x, valid = frames, valid_pixel_mask(hw, 2048, 2048)
@@ -1300,15 +1741,14 @@ def phase_chain_times(device, svc, chain_reqs, pipe_grid):
     got = run_b3()
     err = compare(got, plain_b3(), "int32")
     compare(staged(), got, "int32")
-    n, px, K = 8, 2048 * 2048, grid.num_outputs
-    b_ms, b_by = bound(n * px * itemsize(grid.dtype) * (1 + K),
-                       n * px * grid.num_pes * len(radii))
+    b_ms, b_by = bound(n * H * W * itemsize(grid.dtype) * (1 + grid.num_outputs),
+                       n * H * W * chain_work(grid, chain))
     # 20 runs each, interleaved: staged, kernel, kernel, staged.
     staged_ms = cuda_times(staged, 10, shield=True)
     ms = cuda_times(run_b3, 10, shield=True) + cuda_times(run_b3, 10, shield=True)
     staged_ms += cuda_times(staged, 10, shield=True)
     row = dict(ms=statistics.median(ms), plain_ms=cuda_ms(plain_b3, 3),
-               bound_ms=b_ms, bound_by=b_by, shape=f"n{n}x2048x2048 depth-3 {grid.name}",
+               bound_ms=b_ms, bound_by=b_by, shape=f"n{n}x{H}x{W} depth-3 {grid.name}",
                main_path_err=err, staged_ms=statistics.median(staged_ms),
                ms_range=[min(ms), max(ms)], staged_ms_range=[min(staged_ms), max(staged_ms)])
     row["faster"] = "B3" if row["ms"] < row["staged_ms"] else "staged"
@@ -1331,20 +1771,25 @@ def kernel_block(kernel, grid, R=0, block_n=1024):
     args = (itemsize(grid.dtype), grid.num_inputs, grid.pes_per_level, grid.num_outputs)
     code = ops._DTYPE_CODES[grid.dtype]
     if kernel == "vcgra_pipeline_batched":
-        threads, smem = ops.pipeline_launch(args[0], R, *args[1:])
-        return {"threads": threads, "smem_bytes": smem,
-                "registers_per_thread": load_library("vcgra_pipeline").vcgra_pipeline_regs(code)}
+        threads, smem, window, banks = ops.pipeline_launch(args[0], R, *args[1:])
+        which = (0 if window else 1) + 2 * banks
+        return {"threads": threads, "smem_bytes": smem, "window": window, "device_banks": banks,
+                "registers_per_thread":
+                    load_library("vcgra_pipeline").vcgra_pipeline_regs(which, code)}
     if kernel == "vcgra_conventional":
-        threads, smem, passes = ops.conventional_launch(*args, block_n)
+        threads, smem, passes, banks = ops.conventional_launch(*args, block_n)
         return {"threads": threads, "smem_bytes": smem, "passes": passes, "block_n": block_n,
-                "registers_per_thread": load_library("vcgra").vcgra_kernel_regs(3, code)}
+                "device_banks": banks,
+                "registers_per_thread": load_library("vcgra").vcgra_kernel_regs(3 + 4 * banks,
+                                                                                code)}
     if kernel == "vcgra_fused_batched":
-        threads, smem, window = ops.fused_launch(args[0], R, *args[1:])
+        threads, smem, window, banks = ops.fused_launch(args[0], R, *args[1:])
         which = 0 if window else 1
     else:
-        (threads, smem), window, which = ops.batched_launch(*args), None, 2
-    return {"threads": threads, "smem_bytes": smem, "window": window,
-            "registers_per_thread": load_library("vcgra").vcgra_kernel_regs(which, code)}
+        (threads, smem, banks), window, which = ops.batched_launch(*args), None, 2
+    return {"threads": threads, "smem_bytes": smem, "window": window, "device_banks": banks,
+            "registers_per_thread": load_library("vcgra").vcgra_kernel_regs(which + 4 * banks,
+                                                                            code)}
 
 
 def single_app_cases(dtype_name):
@@ -1573,21 +2018,15 @@ def phase_single_times(device, frame, mag_cfg, pixies):
     import torch
     import torch.nn.functional as F
     from repro_torch.core import applications as apps
-    from repro_torch.core.grid import for_dfg
     from repro_torch.kernels import stencil
     from repro_torch.kernels.vcgra import (
-        SpecializedKernel, vcgra_apply_image, vcgra_conventional, vcgra_conventional_ref,
-        vcgra_specialized, vcgra_specialized_ref,
+        SpecializedKernel, vcgra_apply_image, vcgra_specialized, vcgra_specialized_ref,
     )
-    from repro_torch.kernels.vcgra.ops import _pack_settings, ingest_image
     from repro_torch.kernels.vcgra.specialized import live_inputs
 
-    grid = for_dfg(apps.sobel_magnitude(), shape="exact")
+    run_b4, plain_b4, (C, n), (grid, _, _, x) = b4_case(device, frame, mag_cfg)
     frame_t = torch.as_tensor(frame, device=device)
-    x = ingest_image(mag_cfg.ingest, grid.dtype, frame_t)
-    C, n = x.shape
     K = grid.num_outputs
-    settings = _pack_settings(grid, mag_cfg, device=device)[:3]
     kernel = SpecializedKernel(grid, mag_cfg, False, device)
     live = len(live_inputs(grid, mag_cfg))
     live_pes = kernel.source.count(" = pe(")
@@ -1605,8 +2044,7 @@ def phase_single_times(device, frame, mag_cfg, pixies):
         rows[name] = dict(ms=cuda_ms(run, 20, shield=True), plain_ms=cuda_ms(plain, 3),
                           bound_ms=b_ms, bound_by=b_by, shape=shape, main_path_err=err)
 
-    row("vcgra_conventional", lambda: vcgra_conventional(grid, settings, x),
-        lambda: vcgra_conventional_ref(grid, settings, x), 4 * n * (b4_channels + K),
+    row("vcgra_conventional", run_b4, plain_b4, 4 * n * (b4_channels + K),
         n * b4_pes, f"[{C}, {n}] {grid.name}, {b4_channels} live rows, {b4_pes} live PEs")
     rows["vcgra_conventional"].update(block=kernel_block("vcgra_conventional", grid),
                                       live_channels=b4_channels, live_pes=b4_pes)
@@ -2349,8 +2787,6 @@ def zoo_gaps(lm, check_lm, params, seq, start, steps, cache_len, pe, b7_per_step
     |prefill logit| (``gap``) and the bf16 prefill's distance from its
     twin (``noise``); the greedy tokens that agree; and the MoE choices
     the forcing overrode."""
-    import contextlib
-
     import torch
     from repro_torch.kernels import flash_attention
     from repro_torch.models import attention
@@ -3051,7 +3487,6 @@ def phase_examples():
     ``[ok]`` checks must pass (an example that fails fails the run), and
     the kernels of its path must have launched.  The twins' printing is
     kept out of this output; their ``[ok]`` lines are in the JSON."""
-    import contextlib
     import importlib.util
     import io
 
@@ -4249,7 +4684,58 @@ def phase_dryrun(device, memo, lm_mesh, card):
 
 
 
+def table_times(device) -> dict:
+    """B1, B2, B3 and B4 at the kernel table's shapes (``PERF.md`` section
+    6: :func:`b1_case` with the main flush's apps, :func:`b2_case`,
+    :func:`b3_case`, :func:`b4_case`) on random 1080p frames, each the
+    median of 20 shielded runs by CUDA events, from whichever
+    ``repro_torch`` is first on ``sys.path``.  Each output is held to its
+    plain version first."""
+    import torch
+    from repro_torch.core.grid import sobel_grid
+
+    rng = np.random.default_rng(7)
+    imgs = [rng.integers(0, 256, (1080, 1920)).astype(np.int32) for _ in MAIN_APPS]
+    cases = {"vcgra_fused_batched": lambda: b1_case(device, sobel_grid(), MAIN_APPS, imgs),
+             "vcgra_batched": lambda: b2_case(device, sobel_grid(),
+                                              channel_requests_of(imgs[:len(CHANNEL_APPS)])),
+             "vcgra_pipeline_batched": lambda: b3_case(device, shared_grid(CHAIN, "pipe-shared"),
+                                                       imgs, rng),
+             "vcgra_conventional": lambda: b4_case(device, imgs[0])}
+    out = {}
+    for name, case in cases.items():
+        run, plain, _, _ = case()
+        compare(run(), plain(), "int32", name != "vcgra_pipeline_batched")
+        out[name] = cuda_ms(run, 20, shield=True)
+        del run, plain
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--table-times":
+        # python3 chip_smoke.py --table-times [ROOT]: B1-B4 at the table's
+        # shapes from the port under ROOT/src (default: this checkout), so
+        # that two trees can be timed in turns within one session.
+        root = Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT
+        sys.path.insert(0, str(root / "src"))
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: needs a CUDA device", file=sys.stderr)
+            return 2
+        import repro_torch
+
+        if Path(repro_torch.__file__).resolve().parents[1] != root / "src":
+            raise RuntimeError(f"imported {repro_torch.__file__}, not {root}/src")
+        from repro_torch.kernels import build
+
+        build.build_all()
+        emit({"table_times": table_times(torch.device("cuda")), "root": str(root),
+              "card": subprocess.run(
+                  ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                  capture_output=True, text=True, timeout=60, check=True).stdout.strip()})
+        return 0
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: run from a checkout of the repository (src/repro_torch missing)",
               file=sys.stderr)
@@ -4282,8 +4768,10 @@ def main() -> int:
           "tolerance": "bitwise for int32/int16/float32; bf16 |d| <= 0.5 + 0.5|ref|",
           "seconds": time.perf_counter() - t0})
 
-    svc, main_reqs, channel_requests, main_launches = phase_main_path(device, all_grid)
     pipe_grid = shared_grid(CHAIN, "pipe-shared")
+    wide_deep_launches, wide_deep_rows = phase_wide_and_deep(device, pipe_grid, tally)
+
+    svc, main_reqs, channel_requests, main_launches = phase_main_path(device, all_grid)
     chain_reqs, chain_launches = phase_chain_path(svc, pipe_grid)
     synthesis_launches = phase_synthesis_case(svc)
     resilience = phase_resilience_path(svc, main_reqs, chain_reqs, pipe_grid)
@@ -4384,6 +4872,11 @@ def main() -> int:
             "bf16_max_abs_err": bf16_errs[name],
             **{k: r[k] for k in ("cold_ms", "library_cold_ms") if k in r},
         })
+        if name in IMAGE_KERNELS and name != "stencil_fused":
+            kernels[-1]["launches_wide_and_deep"] = wide_deep_launches[name]
+        if name in wide_deep_rows:
+            kernels[-1]["wide_and_deep"] = {k: wide_deep_rows[name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "shape")}
     b7 = next(k for k in kernels if k["name"] == "flash_decode")
     b7["launches_lm_zoo"] = {arch: z["launches"]["flash_decode"] for arch, z in zoo.items()}
     b7["launches_seq_split"] = dryrun["split"]["launches"]
@@ -4394,6 +4887,7 @@ def main() -> int:
     b7["column_block"] = {r["Dv"]: {k: r[k] for k in ("ms", "plain_ms", "bound_ms")}
                           for r in dryrun["columns"]["runs"]}
     emit({"kernels": kernels, "launches": {"main_path": main_launches,
+                                           "wide_and_deep_path": wide_deep_launches,
                                            "chain_path": chain_launches,
                                            "synthesis_case": synthesis_launches,
                                            "resilience_path": {k: r["launches"] for k, r in

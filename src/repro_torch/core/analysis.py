@@ -331,13 +331,15 @@ def kernel_census(kernel, grid: GridSpec = None) -> Dict[str, object]:
             raise ValueError("B4's census needs the grid it runs")
         lib = build.load_library("vcgra")
         code = ops._DTYPE_CODES[grid.dtype]
-        threads, dynamic, passes = ops.conventional_launch(
+        threads, dynamic, passes, _ = ops.conventional_launch(
             itemsize(grid.dtype), grid.num_inputs, grid.pes_per_level, grid.num_outputs,
             ops.BLOCK_N)
         path = build.library_path("vcgra")
         counts = sass_counts(_run_tool("cuobjdump", "-sass", str(path)))
         t = _MANGLED[grid.dtype]
-        name, sass = _one(counts, f"20vcgra_batched_kernelI{t}Li0E", f"cuobjdump {path.name}")
+        # B4 is the batched kernel's shared-bank instance <T, 0, false>.
+        name, sass = _one(counts, f"20vcgra_batched_kernelI{t}Li0ELb0E",
+                          f"cuobjdump {path.name}")
         _, pack = _one(counts, f"19vcgra_pack_settingsI{t}E", f"cuobjdump {path.name}")
         regs = lib.vcgra_kernel_regs(3, code)
         static = lib.vcgra_conventional_static_smem(code)

@@ -58,25 +58,24 @@ _VOID_P, _INT, _INT64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: ``(name, argtypes)`` of every entry point, per library; all return int.
 SIGNATURES = {
     "vcgra": (
-        ("vcgra_fused_batched", [_INT] + [_VOID_P] * 11 + [_INT] * 11 + [_VOID_P]),
-        ("vcgra_batched", [_INT] + [_VOID_P] * 7 + [_INT, _INT64] + [_INT] * 7 + [_VOID_P]),
+        ("vcgra_fused_batched", [_INT] + [_VOID_P] * 12 + [_INT] * 12 + [_VOID_P]),
+        ("vcgra_batched", [_INT] + [_VOID_P] * 8 + [_INT, _INT64] + [_INT] * 8 + [_VOID_P]),
         ("vcgra_conventional",
-         [_INT] + [_VOID_P] * 7 + [_INT64, _INT64] + [_INT] * 7 + [_VOID_P]),
-        ("vcgra_max_vals", []),
+         [_INT] + [_VOID_P] * 8 + [_INT64, _INT64] + [_INT] * 8 + [_VOID_P]),
         ("vcgra_window_max_radius", []),
         ("vcgra_fused_max_radius", []),
         ("vcgra_record_ints", [_INT] * 4),
-        ("vcgra_fused_smem", [_INT] * 9),
-        ("vcgra_batched_smem", [_INT] * 8),
+        ("vcgra_pack_smem", [_INT] * 2),
+        ("vcgra_fused_smem", [_INT] * 10),
+        ("vcgra_batched_smem", [_INT] * 9),
         ("vcgra_kernel_regs", [_INT] * 2),
         ("vcgra_conventional_static_smem", [_INT]),
     ),
     "vcgra_pipeline": (
-        ("vcgra_pipeline_batched", [_INT] + [_VOID_P] * 13 + [_INT] * 12 + [_VOID_P]),
+        ("vcgra_pipeline_batched", [_INT] + [_VOID_P] * 14 + [_INT] * 14 + [_VOID_P]),
         ("vcgra_pipeline_record_ints", [_INT] * 4),
-        ("vcgra_pipeline_smem", [_INT] * 9),
-        ("vcgra_pipeline_regs", [_INT]),
-        ("vcgra_max_vals", []),
+        ("vcgra_pipeline_smem", [_INT] * 10),
+        ("vcgra_pipeline_regs", [_INT] * 2),
         ("vcgra_max_radius", []),
     ),
     "vcgra_specialize": (

@@ -95,7 +95,7 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int COMBINE_THREADS = 256;
 // HG * 32 * VEC <= GROUP_FLOATS and HG <= MAX_HEADS, HG the query heads
-// of a group rounded up to a power of two: a lane holds at most 64 query
+// of a group rounded up to a power of two: a lane keeps no more than 64 query
 // and 64 accumulator floats.  Every zoo model qualifies (gemma-2b: Hg 8,
 // D 256; glm4-9b: Hg 16, D 128).
 constexpr int GROUP_FLOATS = 2048;

@@ -29,9 +29,10 @@
 //     32 x 32P output tile) with the (32 + 2r) x (32P + 2r) frame window in
 //     shared memory and taps at precomputed offsets dy * row + dx, for r up
 //     to kMaxWindowRadius (16).  A larger radius takes the same kernel
-//     without the window (vcgra_tile_kernel<T, false, false>): each tap is
-//     read from the frame in device memory, still P pixels a thread.  The
-//     wrapper (ops.fused_launch) picks the path from the radius.
+//     without the window (vcgra_tile_kernel<T, false, false, ...>): each
+//     tap is read from the frame in device memory, still P pixels a
+//     thread.  The wrapper (ops.fused_launch) picks the path from the
+//     radius.
 //   * B2: each block stages its app's record once and then takes
 //     kBatchedPasses groups of P pixels a thread, reading each live
 //     channel's row x[c * B + p ...] with one 16-byte load where the rows
@@ -44,6 +45,11 @@
 //     thread) fits two to an SM, so on aligned rows it copies a group's
 //     live channels into shared memory with cp.async, all in flight at
 //     once, instead of two loads at a time through registers.
+//
+// Any value width: past what a 64-thread block holds in shared memory
+// (ops._block), each kernel takes its kDeviceBanks instance, value banks
+// in a device-memory scratch of the resident blocks (`vals`, bank_blocks
+// of them) and a grid-stride loop over the work.
 //
 // PE semantics are vcgra_pe.cuh's (bit for bit the reference's).  64-bit
 // index math for N*K*H*W.
@@ -64,31 +70,31 @@ constexpr int kMaxFusedRadius = 23169;
 
 // --- B1: fused-ingest kernel ------------------------------------------------
 
-template <typename T>
+template <typename T, bool kWindow, bool kDeviceBanks>
 int launch_fused(const void* frames, const int* ops, const int* sel, const int* out_sel,
                  const int* tap_sel, const void* consts, const int* radii, const int* widths,
-                 int* records, void* rec_consts, void* out, int N, int H, int W, int L,
-                 int max_w, int K, int C, int radius, int threads, int slots_a, int slots_b,
-                 cudaStream_t stream) {
-  const bool window = radius <= kMaxWindowRadius;
-  const int R = window ? radius : 0;
-  const Layout lay =
-      smem_layout(sizeof(T), R, window ? 1 : 0, slots_a, slots_b, threads, C, L, max_w, K);
+                 int* records, void* rec_consts, void* vals, void* out, int N, int H, int W,
+                 int L, int max_w, int K, int C, int radius, int threads, int slots_a,
+                 int slots_b, int bank_blocks, cudaStream_t stream) {
+  const int R = kWindow ? radius : 0;
+  const Layout lay = smem_layout(sizeof(T), R, kWindow ? 1 : 0, slots_a, slots_b, threads, C, L,
+                                 max_w, K, kDeviceBanks);
   if (lay.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = window ? vcgra_tile_kernel<T, false, true> : vcgra_tile_kernel<T, false, false>;
+  auto kernel = vcgra_tile_kernel<T, false, kWindow, kDeviceBanks>;
   cudaError_t err = allow_smem(kernel, lay.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  vcgra_pack_settings<T><<<N, 32, 0, stream>>>(
-      ops, sel, out_sel, tap_sel, static_cast<const T*>(consts), nullptr, widths, radii,
-      records, static_cast<T*>(rec_consts), 1, N, L, max_w, K, C,
-      window ? kWindowTaps : kGlobalTaps, lay.cols, threads);
-  err = cudaGetLastError();
+  err = launch_pack<T>(N, ops, sel, out_sel, tap_sel, consts, nullptr, widths, radii, records,
+                       rec_consts, 1, N, L, max_w, K, C, kWindow ? kWindowTaps : kGlobalTaps,
+                       lay.cols, threads, false, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int tile_cols = kTileRows * Vec<T>::N;
-  const dim3 grid((W + tile_cols - 1) / tile_cols, (H + kTileRows - 1) / kTileRows, N);
+  const dim3 grid = kDeviceBanks
+                        ? dim3(bank_blocks)
+                        : dim3((W + tile_cols - 1) / tile_cols, (H + kTileRows - 1) / kTileRows, N);
   kernel<<<grid, threads, lay.total, stream>>>(
       static_cast<const T*>(frames), records, static_cast<const T*>(rec_consts), nullptr,
-      radii, static_cast<T*>(out), 1, N, H, W, L, max_w, K, C, R, slots_a, slots_b);
+      radii, static_cast<T*>(out), static_cast<Vec<T>*>(vals), 1, N, H, W, L, max_w, K, C, R,
+      slots_a, slots_b, false);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -112,79 +118,101 @@ __device__ __forceinline__ void cp_async_wait() {
 // with kPasses = kBatchedPasses; B4 the one with kPasses = 0, which takes
 // the `passes` argument instead and, on aligned rows, copies every live
 // channel of a group into its value column with cp.async, all in flight
-// at once.
-template <typename T, int kPasses>
+// at once.  kDeviceBanks: a 1-D grid of resident blocks whose value banks
+// are in `vals`, each walking the (b, n) blocks of the 2-D grid in turn
+// and reading its app's record where the pack launch wrote it.
+template <typename T, int kPasses, bool kDeviceBanks>
 __global__ void __launch_bounds__(128)
 vcgra_batched_kernel(const T* __restrict__ xs, const int* __restrict__ records,
-                     T* __restrict__ out, int64_t B, int L, int max_w, int K, int C,
-                     int slots_a, int slots_b, bool aligned, int passes) {
+                     T* __restrict__ out, Vec<T>* __restrict__ vals, int64_t B, int N, int L,
+                     int max_w, int K, int C, int slots_a, int slots_b, bool aligned,
+                     int passes) {
   using V = Vec<T>;
   constexpr int P = V::N;
   const int n_pass = kPasses > 0 ? kPasses : passes;
   extern __shared__ __align__(16) unsigned char smem[];
   const int threads = blockDim.x, tid = threadIdx.x;
-  const Layout lay = smem_layout(sizeof(T), 0, 0, slots_a, slots_b, threads, C, L, max_w, K);
+  const Layout lay =
+      smem_layout(sizeof(T), 0, 0, slots_a, slots_b, threads, C, L, max_w, K, kDeviceBanks);
   const int n_rec = record_ints(C, L, max_w, K);
-  V* col_a = reinterpret_cast<V*>(smem + lay.vals_a) + tid;  // stride: threads
-  V* col_b = reinterpret_cast<V*>(smem + lay.vals_b) + tid;
-  int* s_rec = reinterpret_cast<int*>(smem + lay.ints);
-  const int n = blockIdx.y;
-  for (int i = tid; i < n_rec; i += threads) s_rec[i] = records[static_cast<int64_t>(n) * n_rec + i];
-  __syncthreads();
-  const Record rec = record_at(s_rec, C, L, max_w, K);
-  const int n_tap = rec.counts[0];
-  const T* x = xs + static_cast<int64_t>(n) * C * B;
-  T* o = out + static_cast<int64_t>(n) * K * B;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * n_pass * threads + tid;
-  for (int pass = 0; pass < n_pass; ++pass) {
-    const int64_t p = (first + static_cast<int64_t>(pass) * threads) * P;
-    if (p >= B) return;
-    auto fetch = [&](int2 t) {
-      const T* row = x + t.x * B + p;
-      if (aligned) return *reinterpret_cast<const V*>(row);
-      V v;
+  int* const s_rec = reinterpret_cast<int*>(smem + lay.ints);
+  V* col_a;  // stride: threads
+  V* col_b;
+  if constexpr (kDeviceBanks) {
+    col_a = vals + static_cast<int64_t>(blockIdx.x) * (slots_a + slots_b) * threads + tid;
+    col_b = col_a + static_cast<int64_t>(slots_a) * threads;
+  } else {
+    col_a = reinterpret_cast<V*>(smem + lay.vals_a) + tid;
+    col_b = reinterpret_cast<V*>(smem + lay.vals_b) + tid;
+    for (int i = tid; i < n_rec; i += threads)
+      s_rec[i] = records[static_cast<int64_t>(blockIdx.y) * n_rec + i];
+    __syncthreads();
+  }
+  const int64_t per_block = static_cast<int64_t>(n_pass) * threads;
+  const int64_t blocks_x = kDeviceBanks ? (B + per_block * P - 1) / (per_block * P) : 1;
+  const int64_t n_items = kDeviceBanks ? blocks_x * N : 1;
+  for (int64_t item = kDeviceBanks ? blockIdx.x : 0; item < n_items;
+       item += kDeviceBanks ? gridDim.x : 1) {
+    const int n = kDeviceBanks ? static_cast<int>(item / blocks_x) : blockIdx.y;
+    const int64_t bx = kDeviceBanks ? item % blocks_x : blockIdx.x;
+    const Record rec = record_at(
+        kDeviceBanks ? const_cast<int*>(records) + static_cast<int64_t>(n) * n_rec : s_rec, C,
+        L, max_w, K);
+    const int n_tap = rec.counts[0];
+    const T* x = xs + static_cast<int64_t>(n) * C * B;
+    T* o = out + static_cast<int64_t>(n) * K * B;
+    const int64_t first = bx * per_block + tid;
+    for (int pass = 0; pass < n_pass; ++pass) {
+      const int64_t p = (first + static_cast<int64_t>(pass) * threads) * P;
+      if (p >= B) break;
+      auto fetch = [&](int2 t) {
+        const T* row = x + t.x * B + p;
+        if (aligned) return *reinterpret_cast<const V*>(row);
+        V v;
 #pragma unroll
-      for (int e = 0; e < P; ++e) v.v[e] = p + e < B ? row[e] : zero_value<T>();
-      return v;
-    };
-    int taps = n_tap;
-    if (kPasses == 0 && aligned) {
-      for (int c = 0; c < n_tap; ++c) {
-        const int2 t = rec.tap[c];
-        cp_async16(col_a + (t.y & 0xffff), x + t.x * B + p);
+        for (int e = 0; e < P; ++e) v.v[e] = p + e < B ? row[e] : zero_value<T>();
+        return v;
+      };
+      int taps = n_tap;
+      if (kPasses == 0 && !kDeviceBanks && aligned) {
+        for (int c = 0; c < n_tap; ++c) {
+          const int2 t = rec.tap[c];
+          cp_async16(col_a + t.y, x + t.x * B + p);
+        }
+        cp_async_wait();
+        taps = 0;
       }
-      cp_async_wait();
-      taps = 0;
+      const V* src = eval_group<T>(col_a, col_b, rec, nullptr, taps, 0, 0, L, max_w, fetch);
+      store_outputs<T>(o + p, B, src, rec.out, K, aligned, B - p);
     }
-    const V* src = eval_group<T>(col_a, col_b, rec, nullptr, taps, 0, 0, L, max_w, fetch);
-    store_outputs<T>(o + p, B, src, rec.out, K, aligned, B - p);
   }
 }
 
 // B2 (kPasses = kBatchedPasses) and B4 (kPasses = 0, `passes` a block).
-template <typename T, int kPasses>
+template <typename T, int kPasses, bool kDeviceBanks>
 int launch_batched(const void* xs, const int* ops, const int* sel, const int* out_sel,
-                   const int* widths, int* records, void* out, int N, int64_t B, int L,
-                   int max_w, int K, int C, int threads, int slots_a, int slots_b, int passes,
-                   cudaStream_t stream) {
-  auto kernel = vcgra_batched_kernel<T, kPasses>;
-  const Layout lay = smem_layout(sizeof(T), 0, 0, slots_a, slots_b, threads, C, L, max_w, K);
+                   const int* widths, int* records, void* vals, void* out, int N, int64_t B,
+                   int L, int max_w, int K, int C, int threads, int slots_a, int slots_b,
+                   int passes, int bank_blocks, cudaStream_t stream) {
+  auto kernel = vcgra_batched_kernel<T, kPasses, kDeviceBanks>;
+  const Layout lay =
+      smem_layout(sizeof(T), 0, 0, slots_a, slots_b, threads, C, L, max_w, K, kDeviceBanks);
   if (lay.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_smem(kernel, lay.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  vcgra_pack_settings<T><<<N, 32, 0, stream>>>(
-      ops, sel, out_sel, nullptr, nullptr, nullptr, widths, nullptr, records, nullptr, 1, N,
-      L, max_w, K, C, kChannelTaps, 0, threads);
-  err = cudaGetLastError();
+  err = launch_pack<T>(N, ops, sel, out_sel, nullptr, nullptr, nullptr, widths, nullptr,
+                       records, nullptr, 1, N, L, max_w, K, C, kChannelTaps, 0, threads, false,
+                       stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int P = Vec<T>::N;
   const int64_t per_block = static_cast<int64_t>(threads) * passes * P;
   const bool aligned = B % P == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const dim3 grid(static_cast<unsigned>((B + per_block - 1) / per_block), N);
+  const dim3 grid = kDeviceBanks ? dim3(bank_blocks)
+                                 : dim3(static_cast<unsigned>((B + per_block - 1) / per_block), N);
   kernel<<<grid, threads, lay.total, stream>>>(
-      static_cast<const T*>(xs), records, static_cast<T*>(out), B, L, max_w, K, C, slots_a,
-      slots_b, aligned, passes);
+      static_cast<const T*>(xs), records, static_cast<T*>(out), static_cast<Vec<T>*>(vals), B, N,
+      L, max_w, K, C, slots_a, slots_b, aligned, passes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -198,37 +226,42 @@ int conventional_passes(int threads, int64_t N, int64_t block_n) {
   return static_cast<int>(want < most ? want : most > 0 ? most : 1);
 }
 
-bool valid_vec_launch(int C, int max_w, int threads, int slots_a, int slots_b) {
-  return C <= kVecMaxVals && max_w <= kVecMaxVals && slots_a >= C && slots_a >= 1 &&
-         slots_a <= kVecMaxVals && slots_b >= 1 && slots_b <= kVecMaxVals &&
-         (threads == 32 || threads == 64 || threads == 128);
+bool valid_vec_launch(int C, int threads, int slots_a, int slots_b, const void* vals,
+                      int bank_blocks) {
+  return slots_a >= C && slots_a >= 1 && slots_b >= 1 &&
+         (threads == 32 || threads == 64 || threads == 128) &&
+         (vals == nullptr || bank_blocks >= 1);
 }
 
 }  // namespace
 
-// Limits: the widest value vector of B1, B2 and B4; the largest radius of
-// B1's shared-memory window, and of B1 at all.
-extern "C" int vcgra_max_vals() { return kVecMaxVals; }
+// Limits: the largest radius of B1's shared-memory window, and of B1 at
+// all.
 extern "C" int vcgra_window_max_radius() { return kMaxWindowRadius; }
 extern "C" int vcgra_fused_max_radius() { return kMaxFusedRadius; }
 
-// Ints of one app's settings record (B1, B2, B4).
+// Ints of one app's settings record (B1, B2, B4), and bytes of the pack
+// launch's liveness bitmaps.
 extern "C" int vcgra_record_ints(int C, int L, int max_w, int K) {
   return record_ints(C, L, max_w, K);
 }
+extern "C" int vcgra_pack_smem(int C, int max_w) { return pack_smem(C, max_w); }
 
 // Bytes of dynamic shared memory one block takes (elem: the dtype's
-// bytes): B1 at `radius` (with its window up to kMaxWindowRadius, without
-// past it), B2 and B4.
+// bytes; device_banks: the banks in device memory): B1 at `radius` (with
+// its window up to kMaxWindowRadius, without past it), B2 and B4.
 extern "C" int vcgra_fused_smem(int elem, int radius, int slots_a, int slots_b, int threads,
-                                int C, int L, int max_w, int K) {
+                                int C, int L, int max_w, int K, int device_banks) {
   const bool window = radius <= kMaxWindowRadius;
   return static_cast<int>(smem_layout(elem, window ? radius : 0, window ? 1 : 0, slots_a,
-                                      slots_b, threads, C, L, max_w, K).total);
+                                      slots_b, threads, C, L, max_w, K, device_banks != 0)
+                              .total);
 }
 extern "C" int vcgra_batched_smem(int elem, int slots_a, int slots_b, int threads, int C, int L,
-                                  int max_w, int K) {
-  return static_cast<int>(smem_layout(elem, 0, 0, slots_a, slots_b, threads, C, L, max_w, K).total);
+                                  int max_w, int K, int device_banks) {
+  return static_cast<int>(
+      smem_layout(elem, 0, 0, slots_a, slots_b, threads, C, L, max_w, K, device_banks != 0)
+          .total);
 }
 
 // Static shared memory bytes of one B4 block for dtype code `dtype` (its
@@ -241,25 +274,31 @@ extern "C" int vcgra_conventional_static_smem(int dtype) {
                : -1;
   };
   switch (dtype) {
-    case 0: return bytes(vcgra_batched_kernel<int32_t, 0>);
-    case 1: return bytes(vcgra_batched_kernel<int16_t, 0>);
-    case 2: return bytes(vcgra_batched_kernel<float, 0>);
-    case 3: return bytes(vcgra_batched_kernel<__nv_bfloat16, 0>);
+    case 0: return bytes(vcgra_batched_kernel<int32_t, 0, false>);
+    case 1: return bytes(vcgra_batched_kernel<int16_t, 0, false>);
+    case 2: return bytes(vcgra_batched_kernel<float, 0, false>);
+    case 3: return bytes(vcgra_batched_kernel<__nv_bfloat16, 0, false>);
     default: return -1;
   }
 }
 
 // Registers a thread takes in kernel `kernel` (0: B1 with its window, 1:
-// B1 reading taps from device memory, 2: B2, 3: B4) for dtype code
-// `dtype`, or -1.
+// B1 reading taps from device memory, 2: B2, 3: B4; 4-7: the same with
+// their value banks in device memory) for dtype code `dtype`, or -1.
 extern "C" int vcgra_kernel_regs(int kernel, int dtype) {
-#define VCGRA_REGS(CODE, T)                                                      \
-  case CODE:                                                                     \
-    return kernel == 0   ? kernel_regs(vcgra_tile_kernel<T, false, true>)       \
-           : kernel == 1 ? kernel_regs(vcgra_tile_kernel<T, false, false>)      \
-           : kernel == 2 ? kernel_regs(vcgra_batched_kernel<T, kBatchedPasses>) \
-           : kernel == 3 ? kernel_regs(vcgra_batched_kernel<T, 0>)              \
-                         : -1;
+#define VCGRA_REGS(CODE, T)                                                            \
+  case CODE:                                                                           \
+    switch (kernel) {                                                                  \
+      case 0: return kernel_regs(vcgra_tile_kernel<T, false, true, false>);            \
+      case 1: return kernel_regs(vcgra_tile_kernel<T, false, false, false>);           \
+      case 2: return kernel_regs(vcgra_batched_kernel<T, kBatchedPasses, false>);      \
+      case 3: return kernel_regs(vcgra_batched_kernel<T, 0, false>);                   \
+      case 4: return kernel_regs(vcgra_tile_kernel<T, false, true, true>);             \
+      case 5: return kernel_regs(vcgra_tile_kernel<T, false, false, true>);            \
+      case 6: return kernel_regs(vcgra_batched_kernel<T, kBatchedPasses, true>);       \
+      case 7: return kernel_regs(vcgra_batched_kernel<T, 0, true>);                    \
+      default: return -1;                                                              \
+    }
   switch (dtype) {
     VCGRA_REGS(0, int32_t)
     VCGRA_REGS(1, int16_t)
@@ -272,27 +311,35 @@ extern "C" int vcgra_kernel_regs(int kernel, int dtype) {
 
 // dtype codes: 0 int32, 1 int16, 2 float32, 3 bfloat16.  threads (32, 64 or
 // 128) per block; slots_a / slots_b: the two value banks' slots
-// (ops.value_slots).  A bad code, a value vector wider than kVecMaxVals, a
-// radius past kMaxFusedRadius or a block over kMaxSmem returns
-// cudaErrorInvalidValue without launching.  radii: int32 [1] on the device,
-// the radius.  Scratch the caller allocates: records int32 [N,
-// vcgra_record_ints(C, L, max_w, K)] and rec_consts [N, C] of the grid
-// dtype, the settings records the first launch packs.
+// (ops.value_slots).  A bad code, a radius past kMaxFusedRadius or a block
+// over kMaxSmem returns cudaErrorInvalidValue without launching.  radii:
+// int32 [1] on the device, the radius.  Scratch the caller allocates:
+// records int32 [N, vcgra_record_ints(C, L, max_w, K)] and rec_consts [N,
+// C] of the grid dtype, the settings records the first launch packs; with
+// `vals` (not null) the value banks of bank_blocks resident blocks,
+// bank_blocks * (slots_a + slots_b) * threads 16-byte vectors, and the
+// kernel takes its device-bank instance.
 extern "C" int vcgra_fused_batched(int dtype, const void* frames, const int* ops,
                                    const int* sel, const int* out_sel, const int* tap_sel,
                                    const void* consts, const int* radii, const int* widths,
-                                   void* records, void* rec_consts, void* out, int N, int H,
-                                   int W, int L, int max_w, int K, int C, int radius,
-                                   int threads, int slots_a, int slots_b, void* stream) {
-  if (!valid_vec_launch(C, max_w, threads, slots_a, slots_b) || radius < 0 ||
+                                   void* records, void* rec_consts, void* vals, void* out,
+                                   int N, int H, int W, int L, int max_w, int K, int C,
+                                   int radius, int threads, int slots_a, int slots_b,
+                                   int bank_blocks, void* stream) {
+  if (!valid_vec_launch(C, threads, slots_a, slots_b, vals, bank_blocks) || radius < 0 ||
       radius > kMaxFusedRadius)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool window = radius <= kMaxWindowRadius, banks = vals != nullptr;
 #define VCGRA_FUSED(CODE, T)                                                                 \
-  case CODE:                                                                                 \
-    return launch_fused<T>(frames, ops, sel, out_sel, tap_sel, consts, radii, widths,        \
-                           static_cast<int*>(records), rec_consts, out, N, H, W, L, max_w, K, \
-                           C, radius, threads, slots_a, slots_b, st);
+  case CODE: {                                                                               \
+    auto launch = window ? (banks ? launch_fused<T, true, true> : launch_fused<T, true, false>) \
+                         : (banks ? launch_fused<T, false, true>                             \
+                                  : launch_fused<T, false, false>);                          \
+    return launch(frames, ops, sel, out_sel, tap_sel, consts, radii, widths,                 \
+                  static_cast<int*>(records), rec_consts, vals, out, N, H, W, L, max_w, K, C, \
+                  radius, threads, slots_a, slots_b, bank_blocks, st);                       \
+  }
   switch (dtype) {
     VCGRA_FUSED(0, int32_t)
     VCGRA_FUSED(1, int16_t)
@@ -304,20 +351,23 @@ extern "C" int vcgra_fused_batched(int dtype, const void* frames, const int* ops
 }
 
 // As vcgra_fused_batched, over pre-packed channels xs [N, C, B]; scratch:
-// records int32 [N, vcgra_record_ints(C, L, max_w, K)].
+// records int32 [N, vcgra_record_ints(C, L, max_w, K)] and, with `vals`,
+// the device-memory value banks.
 extern "C" int vcgra_batched(int dtype, const void* xs, const int* ops, const int* sel,
-                             const int* out_sel, const int* widths, void* records, void* out,
-                             int N, int64_t B, int L, int max_w, int K, int C, int threads,
-                             int slots_a, int slots_b, void* stream) {
-  if (!valid_vec_launch(C, max_w, threads, slots_a, slots_b))
+                             const int* out_sel, const int* widths, void* records, void* vals,
+                             void* out, int N, int64_t B, int L, int max_w, int K, int C,
+                             int threads, int slots_a, int slots_b, int bank_blocks,
+                             void* stream) {
+  if (!valid_vec_launch(C, threads, slots_a, slots_b, vals, bank_blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VCGRA_BATCHED(CODE, T)                                                              \
-  case CODE:                                                                                \
-    return launch_batched<T, kBatchedPasses>(xs, ops, sel, out_sel, widths,                  \
-                                             static_cast<int*>(records), out, N, B, L, max_w, \
-                                             K, C, threads, slots_a, slots_b, kBatchedPasses, \
-                                             st);
+  const bool banks = vals != nullptr;
+#define VCGRA_BATCHED(CODE, T)                                                               \
+  case CODE:                                                                                 \
+    return (banks ? launch_batched<T, kBatchedPasses, true>                                  \
+                  : launch_batched<T, kBatchedPasses, false>)(                               \
+        xs, ops, sel, out_sel, widths, static_cast<int*>(records), vals, out, N, B, L, max_w, \
+        K, C, threads, slots_a, slots_b, kBatchedPasses, bank_blocks, st);
   switch (dtype) {
     VCGRA_BATCHED(0, int32_t)
     VCGRA_BATCHED(1, int16_t)
@@ -331,20 +381,24 @@ extern "C" int vcgra_batched(int dtype, const void* xs, const int* ops, const in
 // One app over channel-major x [C, N] -> out [K, N] (B4): as vcgra_batched
 // with N = 1 app over B = N pixels; block_n pixels a block (a positive
 // multiple of kLane, else cudaErrorInvalidValue without launching);
-// scratch: records int32 [vcgra_record_ints(C, L, max_w, K)].
+// scratch: records int32 [vcgra_record_ints(C, L, max_w, K)] and, with
+// `vals`, the device-memory value banks.
 extern "C" int vcgra_conventional(int dtype, const void* x, const int* ops, const int* sel,
                                   const int* out_sel, const int* widths, void* records,
-                                  void* out, int64_t N, int64_t block_n, int L, int max_w, int K,
-                                  int C, int threads, int slots_a, int slots_b, void* stream) {
+                                  void* vals, void* out, int64_t N, int64_t block_n, int L,
+                                  int max_w, int K, int C, int threads, int slots_a, int slots_b,
+                                  int bank_blocks, void* stream) {
   if (block_n <= 0 || block_n % kLane != 0 ||
-      !valid_vec_launch(C, max_w, threads, slots_a, slots_b))
+      !valid_vec_launch(C, threads, slots_a, slots_b, vals, bank_blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool banks = vals != nullptr;
 #define VCGRA_CONVENTIONAL(CODE, T)                                                          \
   case CODE:                                                                                 \
-    return launch_batched<T, 0>(x, ops, sel, out_sel, widths, static_cast<int*>(records),    \
-                                out, 1, N, L, max_w, K, C, threads, slots_a, slots_b,        \
-                                conventional_passes<T>(threads, N, block_n), st);
+    return (banks ? launch_batched<T, 0, true> : launch_batched<T, 0, false>)(               \
+        x, ops, sel, out_sel, widths, static_cast<int*>(records), vals, out, 1, N, L, max_w,  \
+        K, C, threads, slots_a, slots_b, conventional_passes<T>(threads, N, block_n),        \
+        bank_blocks, st);
   switch (dtype) {
     VCGRA_CONVENTIONAL(0, int32_t)
     VCGRA_CONVENTIONAL(1, int16_t)

@@ -19,7 +19,7 @@
 // live channels only, which the main kernel copies to shared memory before
 // the stage; one pe_vec call site with the next PE prefetched; taps at
 // precomputed window offsets; no division or modulo per pixel.  B3 is the
-// tile kernel's chain instance, vcgra_tile_kernel<T, true, true>:
+// tile kernel's chain instance, vcgra_tile_kernel<T, true, true, ...>:
 //
 //   * The trapezoid.  One block per (app, 32-row x 32P-column output
 //     tile: 32 x 128 for 32-bit grids, 32 x 256 for 16-bit).  It loads the
@@ -39,10 +39,20 @@
 //     bytes of value columns, and the stage's settings record.  The int32
 //     depth-3 chain on pipe-shared (C 19, levels 11 7 5 4 3 2: 30 slots a
 //     thread) takes 106 KB at 128 threads: two blocks (8 warps) an SM.
-//     The wrapper (ops.pipeline_launch) picks the most threads of 128, 64,
-//     32 that fit the 232,448 bytes a block may take; at the limits (R =
-//     16, 64 + 64 slots) 64 threads take ~215 KB.  R > 16 or a value
-//     vector wider than 64 is refused.
+//     The wrapper (ops.pipeline_launch) picks the most threads of 128 and
+//     64 that fit the 232,448 bytes a block may take; past a 64-thread
+//     block, the kDeviceBanks instance keeps the value banks in a
+//     device-memory scratch of the resident blocks.
+//   * Segments.  One launch holds a segment of the chain whose radii sum
+//     to R <= kMaxWindowRadius (16); the wrapper (ops.chain_segments)
+//     splits a longer chain greedily, and a stage whose own radius is
+//     past 16 runs alone on the chain instance without a window
+//     (vcgra_tile_kernel<T, true, false, ...>: taps from device memory).
+//     Every segment but the last writes its masked forward, the same
+//     value the trapezoid keeps between its stages, as the next segment's
+//     frame [N, H, W] (`forward`); the pack launch then takes liveness
+//     from the forwarded channel for the segment's last stage.  A chain of
+//     R <= 16 is one segment, one launch.
 //   * PE semantics are vcgra_pe.cuh's, lane by lane: floor DIV with a
 //     guarded divisor, wrapping int16, __f*_rn float ops under
 //     --fmad=false, NaN-propagating MAX/MIN, bf16 rounded after every PE.
@@ -56,47 +66,57 @@
 
 namespace {
 
-template <typename T>
+template <typename T, bool kWindow, bool kDeviceBanks>
 int launch_pipeline(const void* frames, const int* ops, const int* sel, const int* out_sel,
                     const int* tap_sel, const void* consts, const int* out_chs, const int* hw,
                     const int* widths, const int* radii, int* records, void* rec_consts,
-                    void* out, int S, int N, int H, int W, int L, int max_w, int K, int C,
-                    int R, int threads, int slots_a, int slots_b, cudaStream_t stream) {
-  const Layout lay = smem_layout(sizeof(T), R, 2, slots_a, slots_b, threads, C, L, max_w, K);
+                    void* vals, void* out, int S, int N, int H, int W, int L, int max_w, int K,
+                    int C, int R, int threads, int slots_a, int slots_b, int bank_blocks,
+                    bool forward, cudaStream_t stream) {
+  const int Rw = kWindow ? R : 0;
+  const Layout lay = smem_layout(sizeof(T), Rw, kWindow ? 2 : 0, slots_a, slots_b, threads, C,
+                                 L, max_w, K, kDeviceBanks);
   if (lay.total > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(vcgra_tile_kernel<T, true, true>, lay.total);
+  auto kernel = vcgra_tile_kernel<T, true, kWindow, kDeviceBanks>;
+  cudaError_t err = allow_smem(kernel, lay.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  vcgra_pack_settings<T><<<S * N, 32, 0, stream>>>(
-      ops, sel, out_sel, tap_sel, static_cast<const T*>(consts), out_chs, widths, radii,
-      records, static_cast<T*>(rec_consts), S, N, L, max_w, K, C, kWindowTaps, lay.cols,
-      threads);
-  err = cudaGetLastError();
+  err = launch_pack<T>(S * N, ops, sel, out_sel, tap_sel, consts, out_chs, widths, radii,
+                       records, rec_consts, S, N, L, max_w, K, C,
+                       kWindow ? kWindowTaps : kGlobalTaps, lay.cols, threads, forward, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int tile_cols = kTileRows * Vec<T>::N;
-  const dim3 grid((W + tile_cols - 1) / tile_cols, (H + kTileRows - 1) / kTileRows, N);
-  vcgra_tile_kernel<T, true, true><<<grid, threads, lay.total, stream>>>(
+  const dim3 grid = kDeviceBanks
+                        ? dim3(bank_blocks)
+                        : dim3((W + tile_cols - 1) / tile_cols, (H + kTileRows - 1) / kTileRows, N);
+  kernel<<<grid, threads, lay.total, stream>>>(
       static_cast<const T*>(frames), records, static_cast<const T*>(rec_consts), hw, radii,
-      static_cast<T*>(out), S, N, H, W, L, max_w, K, C, R, slots_a, slots_b);
+      static_cast<T*>(out), static_cast<Vec<T>*>(vals), S, N, H, W, L, max_w, K, C, Rw, slots_a,
+      slots_b, forward);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool valid_launch(int S, int R, int C, int max_w, int threads, int slots_a, int slots_b) {
-  return S >= 1 && R >= 0 && R <= kMaxWindowRadius && C <= kVecMaxVals &&
-         max_w <= kVecMaxVals && slots_a >= C && slots_a >= 1 && slots_a <= kVecMaxVals &&
-         slots_b >= 1 && slots_b <= kVecMaxVals &&
-         (threads == 32 || threads == 64 || threads == 128);
+// A segment: stages whose radii sum to R within the window, or one stage
+// past it.
+bool valid_launch(int S, int R, int C, int threads, int slots_a, int slots_b, const void* vals,
+                  int bank_blocks) {
+  return S >= 1 && R >= 0 && (R <= kMaxWindowRadius || S == 1) && slots_a >= C &&
+         slots_a >= 1 && slots_b >= 1 && (threads == 32 || threads == 64 || threads == 128) &&
+         (vals == nullptr || bank_blocks >= 1);
 }
 
 }  // namespace
 
-extern "C" int vcgra_max_vals() { return kVecMaxVals; }
 extern "C" int vcgra_max_radius() { return kMaxWindowRadius; }
 
-// Bytes of dynamic shared memory one block takes (elem: the dtype's bytes).
+// Bytes of dynamic shared memory one block takes (elem: the dtype's bytes)
+// for a segment of total radius R: two window buffers up to
+// kMaxWindowRadius, none past it; device_banks: the banks in device memory.
 extern "C" int vcgra_pipeline_smem(int elem, int R, int slots_a, int slots_b, int threads,
-                                   int C, int L, int max_w, int K) {
-  return static_cast<int>(
-      smem_layout(elem, R, 2, slots_a, slots_b, threads, C, L, max_w, K).total);
+                                   int C, int L, int max_w, int K, int device_banks) {
+  const bool window = R <= kMaxWindowRadius;
+  return static_cast<int>(smem_layout(elem, window ? R : 0, window ? 2 : 0, slots_a, slots_b,
+                                      threads, C, L, max_w, K, device_banks != 0)
+                              .total);
 }
 
 // Ints of one (stage, app) settings record.
@@ -104,43 +124,66 @@ extern "C" int vcgra_pipeline_record_ints(int C, int L, int max_w, int K) {
   return record_ints(C, L, max_w, K);
 }
 
-// Registers a thread of the kernel for dtype code `dtype` takes, or -1.
-extern "C" int vcgra_pipeline_regs(int dtype) {
+// Registers a thread takes in kernel `kernel` (0: a segment with its
+// window, 1: a lone stage reading taps from device memory; 2, 3: the same
+// with their value banks in device memory) for dtype code `dtype`, or -1.
+extern "C" int vcgra_pipeline_regs(int kernel, int dtype) {
+#define VCGRA_REGS(CODE, T)                                                 \
+  case CODE:                                                                \
+    switch (kernel) {                                                       \
+      case 0: return kernel_regs(vcgra_tile_kernel<T, true, true, false>);  \
+      case 1: return kernel_regs(vcgra_tile_kernel<T, true, false, false>); \
+      case 2: return kernel_regs(vcgra_tile_kernel<T, true, true, true>);   \
+      case 3: return kernel_regs(vcgra_tile_kernel<T, true, false, true>);  \
+      default: return -1;                                                   \
+    }
   switch (dtype) {
-    case 0: return kernel_regs(vcgra_tile_kernel<int32_t, true, true>);
-    case 1: return kernel_regs(vcgra_tile_kernel<int16_t, true, true>);
-    case 2: return kernel_regs(vcgra_tile_kernel<float, true, true>);
-    case 3: return kernel_regs(vcgra_tile_kernel<__nv_bfloat16, true, true>);
+    VCGRA_REGS(0, int32_t)
+    VCGRA_REGS(1, int16_t)
+    VCGRA_REGS(2, float)
+    VCGRA_REGS(3, __nv_bfloat16)
     default: return -1;
   }
+#undef VCGRA_REGS
 }
 
-// dtype codes: 0 int32, 1 int16, 2 float32, 3 bfloat16.  threads (32, 64
-// or 128) per block; slots_a / slots_b: the two value banks' slots (bank
-// A: the C channels and levels 1, 3, ...; bank B: levels 0, 2, ...).  A
-// bad code, an empty chain, R > kMaxWindowRadius, a value vector wider
-// than kVecMaxVals or a block over kMaxSmem returns cudaErrorInvalidValue without
-// launching.  radii: int32 [S] on the device; the settings carry a leading
-// stage axis [S, N, ...].  Scratch the caller allocates: records int32
-// [S * N, vcgra_pipeline_record_ints(C, L, max_w, K)] and rec_consts [S *
-// N, C] of the grid dtype, the settings records a first launch packs.
+// One segment of a chain.  dtype codes: 0 int32, 1 int16, 2 float32, 3
+// bfloat16.  threads (32, 64 or 128) per block; slots_a / slots_b: the
+// two value banks' slots (bank A: the C channels and levels 1, 3, ...;
+// bank B: levels 0, 2, ...).  R: the segment's sum of radii; past
+// kMaxWindowRadius the segment is one stage (S = 1) without a window.  A
+// bad code, an empty segment, R past the window over more than one stage
+// or a block over kMaxSmem returns cudaErrorInvalidValue without
+// launching.  radii: int32 [S] on the device; the settings carry a
+// leading stage axis [S, N, ...].  forward (0/1): write the last stage's
+// masked forward, out [N, H, W], instead of its K outputs, out [N, K,
+// H*W].  Scratch the caller allocates: records int32 [S * N,
+// vcgra_pipeline_record_ints(C, L, max_w, K)] and rec_consts [S * N, C]
+// of the grid dtype, the settings records a first launch packs; with
+// `vals` (not null) the value banks of bank_blocks resident blocks,
+// bank_blocks * (slots_a + slots_b) * threads 16-byte vectors.
 extern "C" int vcgra_pipeline_batched(int dtype, const void* frames, const int* ops,
                                       const int* sel, const int* out_sel, const int* tap_sel,
                                       const void* consts, const int* out_chs, const int* hw,
                                       const int* widths, const int* radii, void* records,
-                                      void* rec_consts, void* out, int S,
-                                      int N, int H, int W, int L, int max_w, int K, int C,
-                                      int R, int threads, int slots_a, int slots_b,
-                                      void* stream) {
+                                      void* rec_consts, void* vals, void* out, int S, int N,
+                                      int H, int W, int L, int max_w, int K, int C, int R,
+                                      int threads, int slots_a, int slots_b, int bank_blocks,
+                                      int forward, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!valid_launch(S, R, C, max_w, threads, slots_a, slots_b))
+  if (!valid_launch(S, R, C, threads, slots_a, slots_b, vals, bank_blocks))
     return static_cast<int>(cudaErrorInvalidValue);
-#define VCGRA_PIPELINE(CODE, T)                                                             \
-  case CODE:                                                                                \
-    return launch_pipeline<T>(frames, ops, sel, out_sel, tap_sel, consts, out_chs, hw,      \
-                              widths, radii, static_cast<int*>(records), rec_consts, out, \
-                              S, N, H, W, L, max_w, K, C, R, threads,                     \
-                              slots_a, slots_b, st);
+  const bool window = R <= kMaxWindowRadius, banks = vals != nullptr;
+#define VCGRA_PIPELINE(CODE, T)                                                              \
+  case CODE: {                                                                               \
+    auto launch = window ? (banks ? launch_pipeline<T, true, true>                           \
+                                  : launch_pipeline<T, true, false>)                         \
+                         : (banks ? launch_pipeline<T, false, true>                          \
+                                  : launch_pipeline<T, false, false>);                       \
+    return launch(frames, ops, sel, out_sel, tap_sel, consts, out_chs, hw, widths, radii,    \
+                  static_cast<int*>(records), rec_consts, vals, out, S, N, H, W, L, max_w, K, \
+                  C, R, threads, slots_a, slots_b, bank_blocks, forward != 0, st);           \
+  }
   switch (dtype) {
     VCGRA_PIPELINE(0, int32_t)
     VCGRA_PIPELINE(1, int16_t)

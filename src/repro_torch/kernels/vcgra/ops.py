@@ -118,35 +118,36 @@ def _check_settings(grid: GridSpec, n: int, settings, device) -> None:
     _check("out_sel", out_sel, (n, grid.num_outputs), torch.int32, device)
 
 
-#: The widest value vector (max(C, PEs a level)) each kernel holds: B1, B2,
-#: B3 and B4 share ``csrc/vcgra_vec.cuh``'s 64.
-MAX_VALS = {"vcgra_fused_batched": 64, "vcgra_batched": 64, "vcgra_pipeline_batched": 64,
-            "vcgra_conventional": 64}
 #: The library each wrapper launches from.
 _LIBRARIES = {"vcgra_pipeline_batched": "vcgra_pipeline"}
 
 
-def check_value_width(kernel: str, grid: GridSpec) -> None:
-    """Refuse a grid whose value vector is wider than ``kernel`` holds
-    (:data:`MAX_VALS`), before any library is loaded."""
-    widest = max(grid.num_inputs, max(grid.pes_per_level))
-    limit = MAX_VALS[kernel]
-    if widest > limit:
-        raise ValueError(
-            f"grid {grid.name!r} needs a {widest}-wide value vector; "
-            f"{kernel} holds at most {limit}"
-        )
-
-
-def _launch_target(kernel: str, grid: GridSpec, n: int, device: torch.device):
+def _launch_target(kernel: str, n: int, device: torch.device):
     """The bound library of ``kernel``, after the checks only a launch
     needs."""
     if device.type != "cuda":
         raise ValueError(f"the Hopper kernels run on CUDA tensors, got {device}")
-    check_value_width(kernel, grid)
     if n > _MAX_APPS:
         raise ValueError(f"{n} apps in one launch; at most {_MAX_APPS}")
     return load_library(_LIBRARIES.get(kernel, "vcgra"))
+
+
+def _value_banks(device: torch.device, threads: int, num_inputs: int, widths,
+                 device_banks: bool):
+    """``(scratch, blocks)`` of a launch whose value banks live in device
+    memory: one resident block a streaming multiprocessor, each with its
+    ``(slots_a + slots_b) x threads`` 16-byte vectors; ``(None, 0)`` when
+    the banks fit shared memory."""
+    if not device_banks:
+        return None, 0
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count
+    slots = sum(value_slots(num_inputs, widths))
+    return torch.empty(blocks * slots * threads * 16, dtype=torch.uint8, device=device), blocks
+
+
+def _ptr(t) -> int:
+    """A tensor's address for the C entry points, 0 (NULL) for none."""
+    return 0 if t is None else t.data_ptr()
 
 
 def _raise_on_error(name: str, rc: int) -> None:
@@ -184,9 +185,10 @@ def vcgra_fused_batched(grid: GridSpec, radius: int, settings, ingests,
     _check("images", frames, (n, H, W), grid.dtype, device)
     if device.type == "cpu":
         return ref.vcgra_fused_batched_ref(grid, radius, settings, ingests, frames)
-    lib = _launch_target("vcgra_fused_batched", grid, n, device)
+    lib = _launch_target("vcgra_fused_batched", n, device)
     L, max_w, K, C = grid.num_levels, max(grid.pes_per_level), grid.num_outputs, grid.num_inputs
-    threads, _, _ = fused_launch(frames.element_size(), int(radius), C, grid.pes_per_level, K)
+    threads, _, _, banks = fused_launch(frames.element_size(), int(radius), C,
+                                        grid.pes_per_level, K)
     out = torch.empty((n, K, H * W), dtype=grid.dtype, device=device)
     if out.numel() == 0:
         return out
@@ -196,13 +198,14 @@ def vcgra_fused_batched(grid: GridSpec, radius: int, settings, ingests,
     records = torch.empty((n, record_ints(C, grid.pes_per_level, K)), dtype=torch.int32,
                           device=device)
     rec_consts = torch.empty((n, C), dtype=grid.dtype, device=device)
+    vals, blocks = _value_banks(device, threads, C, grid.pes_per_level, banks)
     with torch.cuda.device(device):
         rc = lib.vcgra_fused_batched(
             _DTYPE_CODES[grid.dtype], frames.data_ptr(), ops.data_ptr(),
             sel.data_ptr(), out_sel.data_ptr(), tap_sel.data_ptr(),
             consts.data_ptr(), radii.data_ptr(), widths.data_ptr(), records.data_ptr(),
-            rec_consts.data_ptr(), out.data_ptr(), n, H, W, L, max_w, K, C, int(radius),
-            threads, *value_slots(C, grid.pes_per_level),
+            rec_consts.data_ptr(), _ptr(vals), out.data_ptr(), n, H, W, L, max_w, K, C,
+            int(radius), threads, *value_slots(C, grid.pes_per_level), blocks,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("vcgra_fused_batched", rc)
@@ -222,9 +225,9 @@ def vcgra_batched(grid: GridSpec, settings, xs: torch.Tensor) -> torch.Tensor:
     _check("xs", xs, (n, grid.num_inputs, B), grid.dtype, device)
     if device.type == "cpu":
         return ref.vcgra_batched_ref(grid, settings, xs)
-    lib = _launch_target("vcgra_batched", grid, n, device)
+    lib = _launch_target("vcgra_batched", n, device)
     L, max_w, K = grid.num_levels, max(grid.pes_per_level), grid.num_outputs
-    threads, _ = batched_launch(xs.element_size(), C, grid.pes_per_level, K)
+    threads, _, banks = batched_launch(xs.element_size(), C, grid.pes_per_level, K)
     out = torch.empty((n, K, B), dtype=grid.dtype, device=device)
     if out.numel() == 0:
         return out
@@ -232,11 +235,13 @@ def vcgra_batched(grid: GridSpec, settings, xs: torch.Tensor) -> torch.Tensor:
     widths = _int32_on(grid.pes_per_level, device)
     records = torch.empty((n, record_ints(C, grid.pes_per_level, K)), dtype=torch.int32,
                           device=device)
+    vals, blocks = _value_banks(device, threads, C, grid.pes_per_level, banks)
     with torch.cuda.device(device):
         rc = lib.vcgra_batched(
             _DTYPE_CODES[grid.dtype], xs.data_ptr(), ops.data_ptr(), sel.data_ptr(),
-            out_sel.data_ptr(), widths.data_ptr(), records.data_ptr(), out.data_ptr(),
-            n, B, L, max_w, K, C, threads, *value_slots(C, grid.pes_per_level),
+            out_sel.data_ptr(), widths.data_ptr(), records.data_ptr(), _ptr(vals),
+            out.data_ptr(), n, B, L, max_w, K, C, threads,
+            *value_slots(C, grid.pes_per_level), blocks,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("vcgra_batched", rc)
@@ -244,13 +249,20 @@ def vcgra_batched(grid: GridSpec, settings, xs: torch.Tensor) -> torch.Tensor:
     return out
 
 
-#: The largest radius (B3: sum of the stage radii) a frame window in shared
-#: memory holds; B1 past it reads its taps from device memory, up to the
-#: largest radius whose (2r + 1)^2 + 1 tap-bank rows an int32 ``tap_sel``
-#: indexes.  The shared memory one block may take on the H100.
+#: The largest radius (B3: a segment's sum of stage radii) a frame window
+#: in shared memory holds; B1 past it reads its taps from device memory, up
+#: to the largest radius whose (2r + 1)^2 + 1 tap-bank rows an int32
+#: ``tap_sel`` indexes.  The shared memory one block may take on the H100.
 WINDOW_MAX_RADIUS = 16
 FUSED_MAX_RADIUS = 23169
 MAX_SMEM_BYTES = 232_448
+#: Threads of a block whose value banks live in device memory.
+DEVICE_BANK_THREADS = 128
+#: The block sizes, most first, at which B1-B4 keep their value banks in
+#: shared memory; past them the banks go to device memory.  A 32-thread
+#: block, one warp an SM, ran B1 and B2 2.9-3.3x slower than the
+#: device-bank instance on the H100 (``chip_smoke.py`` phase 2b).
+SHARED_BANK_THREADS = (128, 64)
 
 
 def value_slots(num_inputs: int, widths) -> Tuple[int, int]:
@@ -263,27 +275,27 @@ def value_slots(num_inputs: int, widths) -> Tuple[int, int]:
 
 def record_ints(num_inputs: int, widths, K: int) -> int:
     """Ints of one (stage, app) settings record of B1, B2 and B3: the kept
-    PEs (two ints each, a row of the widest level per level), the kept taps
-    (two ints each), each level's count, the kept consts' and zeros'
+    PEs (four ints each: opcode and the offsets of its two selects and its
+    destination, a row of the widest level per level), the kept taps (two
+    ints each), each level's count, the kept consts' and zeros'
     destinations, the K output offsets, three channel counts and the
     forwarded offset, rounded up to 4 ints (16 bytes)."""
     L = len(widths)
-    return -(-(2 * L * max(widths) + L + 4 * num_inputs + K + 4) // 4) * 4
+    return -(-(4 * L * max(widths) + L + 4 * num_inputs + K + 4) // 4) * 4
 
 
-def _block(kernel: str, itemsize: int, R: int, buffers: int, num_inputs: int, widths,
-           K: int) -> Tuple[int, int]:
-    """``(threads, dynamic shared memory bytes)`` of a block of B1, B2, B3
-    or B4: the most threads of 128, 64, 32 whose block fits
-    :data:`MAX_SMEM_BYTES` (the mirror of ``smem_layout`` in
+def _block(itemsize: int, R: int, buffers: int, num_inputs: int, widths,
+           K: int) -> Tuple[int, int, bool]:
+    """``(threads, dynamic shared memory bytes, device_banks)`` of a block
+    of B1, B2, B3 or B4: the most threads of :data:`SHARED_BANK_THREADS`
+    whose block fits :data:`MAX_SMEM_BYTES` (the mirror of ``smem_layout`` in
     ``csrc/vcgra_vec.cuh``: ``buffers`` window buffers of ``(32 + 2R) x
     (32P + 2Rp + 2P)`` elements, P = 16 / itemsize pixels a thread and Rp =
-    R rounded up to P, the value banks, the consts and a settings
-    record)."""
+    R rounded up to P, the value banks, the consts and a settings record).
+    Past them the value banks go to device memory (``device_banks``):
+    :data:`DEVICE_BANK_THREADS` threads and only the window buffers in
+    shared memory."""
     widths = list(widths)
-    if max([num_inputs] + widths) > MAX_VALS[kernel]:
-        raise ValueError(f"value vector of {max([num_inputs] + widths)} (inputs {num_inputs}, "
-                         f"levels {widths}); {kernel} takes at most {MAX_VALS[kernel]}")
     P = 16 // itemsize
     Rp = -(-R // P) * P
     rows, cols = 32 + 2 * R, 32 * P + 2 * Rp + 2 * P
@@ -291,63 +303,83 @@ def _block(kernel: str, itemsize: int, R: int, buffers: int, num_inputs: int, wi
     slots = sum(value_slots(num_inputs, widths))
     fixed = (buffers * buf + -(-num_inputs * itemsize // 16) * 16
              + 4 * record_ints(num_inputs, widths, K))
-    for threads in (128, 64, 32):
+    for threads in SHARED_BANK_THREADS:
         smem = fixed + slots * threads * 16
         if smem <= MAX_SMEM_BYTES:
-            return threads, smem
-    raise ValueError(f"{kernel}'s block does not fit {MAX_SMEM_BYTES} bytes")
+            return threads, smem, False
+    return DEVICE_BANK_THREADS, buffers * buf, True
+
+
+def chain_segments(radii) -> Tuple[Tuple[int, int], ...]:
+    """B3's launches for a chain of stage ``radii``: ``(start, stop)``
+    stage ranges filled greedily while their radii sum to at most
+    :data:`WINDOW_MAX_RADIUS`, one window a launch; a stage past it stands
+    alone (its taps read from device memory).  A chain within the window
+    is one segment."""
+    segments, start, total = [], 0, 0
+    for i, r in enumerate(int(r) for r in radii):
+        if i > start and total + r > WINDOW_MAX_RADIUS:
+            segments.append((start, i))
+            start, total = i, 0
+        total += r
+    segments.append((start, len(radii)))
+    return tuple(segments)
 
 
 def pipeline_launch(itemsize: int, R: int, num_inputs: int, widths,
-                    K: int) -> Tuple[int, int]:
-    """B3's block, ``(threads, dynamic shared memory bytes)``: two window
-    buffers for a chain whose radii sum to R.  Refuses a chain reaching
-    past :data:`WINDOW_MAX_RADIUS` or a value vector wider than 64."""
-    if R > WINDOW_MAX_RADIUS:
-        raise ValueError(f"chain radii reach {R} pixels; the kernel's halo holds at most "
-                         f"{WINDOW_MAX_RADIUS}")
-    return _block("vcgra_pipeline_batched", itemsize, R, 2, num_inputs, widths, K)
+                    K: int) -> Tuple[int, int, bool, bool]:
+    """B3's block for a segment whose radii sum to R, ``(threads, dynamic
+    shared memory bytes, window, device_banks)``: two window buffers up to
+    :data:`WINDOW_MAX_RADIUS`; past it (a lone stage) none, its taps read
+    from device memory."""
+    window = R <= WINDOW_MAX_RADIUS
+    threads, smem, banks = _block(itemsize, R if window else 0, 2 if window else 0, num_inputs,
+                                  widths, K)
+    return threads, smem, window, banks
 
 
 def fused_launch(itemsize: int, radius: int, num_inputs: int, widths,
-                 K: int) -> Tuple[int, int, bool]:
-    """B1's block, ``(threads, dynamic shared memory bytes, window)``: with
-    ``window`` (radius up to :data:`WINDOW_MAX_RADIUS`) one window buffer
-    holds the frame's tile and halo; past it the kernel reads its taps from
-    device memory and takes no buffer.  Refuses a radius past
-    :data:`FUSED_MAX_RADIUS` or a value vector wider than 64."""
+                 K: int) -> Tuple[int, int, bool, bool]:
+    """B1's block, ``(threads, dynamic shared memory bytes, window,
+    device_banks)``: with ``window`` (radius up to
+    :data:`WINDOW_MAX_RADIUS`) one window buffer holds the frame's tile and
+    halo; past it the kernel reads its taps from device memory and takes no
+    buffer.  Refuses a radius past :data:`FUSED_MAX_RADIUS`."""
     if radius > FUSED_MAX_RADIUS:
         raise ValueError(f"radius {radius}: its tap bank's rows do not fit an int32 tap_sel "
                          f"(at most {FUSED_MAX_RADIUS})")
     window = radius <= WINDOW_MAX_RADIUS
-    threads, smem = _block("vcgra_fused_batched", itemsize, radius if window else 0,
-                           int(window), num_inputs, widths, K)
-    return threads, smem, window
+    threads, smem, banks = _block(itemsize, radius if window else 0, int(window), num_inputs,
+                                  widths, K)
+    return threads, smem, window, banks
 
 
-def batched_launch(itemsize: int, num_inputs: int, widths, K: int) -> Tuple[int, int]:
-    """B2's block, ``(threads, dynamic shared memory bytes)``: no window
-    buffer.  Refuses a value vector wider than 64."""
-    return _block("vcgra_batched", itemsize, 0, 0, num_inputs, widths, K)
+def batched_launch(itemsize: int, num_inputs: int, widths, K: int) -> Tuple[int, int, bool]:
+    """B2's block, ``(threads, dynamic shared memory bytes, device_banks)``:
+    no window buffer."""
+    return _block(itemsize, 0, 0, num_inputs, widths, K)
 
 
 def conventional_launch(itemsize: int, num_inputs: int, widths, K: int,
-                        block_n: int) -> Tuple[int, int, int]:
-    """B4's block, ``(threads, dynamic shared memory bytes, passes)``: B2's
-    block over one app, taking ``block_n`` pixels in passes of ``threads *
-    P`` (P = 16 / itemsize), at least one (the C side also takes no more
-    than N needs).  Refuses a value vector wider than 64."""
-    threads, smem = _block("vcgra_conventional", itemsize, 0, 0, num_inputs, widths, K)
+                        block_n: int) -> Tuple[int, int, int, bool]:
+    """B4's block, ``(threads, dynamic shared memory bytes, passes,
+    device_banks)``: B2's block over one app, taking ``block_n`` pixels in
+    passes of ``threads * P`` (P = 16 / itemsize), at least one (the C side
+    also takes no more than N needs)."""
+    threads, smem, banks = _block(itemsize, 0, 0, num_inputs, widths, K)
     per_pass = threads * (16 // itemsize)
-    return threads, smem, max(1, -(-int(block_n) // per_pass))
+    return threads, smem, max(1, -(-int(block_n) // per_pass)), banks
 
 
 def vcgra_pipeline_batched(grid: GridSpec, radii, settings, ingests, out_chs: torch.Tensor,
                            hw: torch.Tensor, images: torch.Tensor,
                            tile_rows=None) -> torch.Tensor:
-    """N chained tenants on N raw frames in one call (a small launch that
-    packs each (stage, app)'s live settings, then the chain kernel): the
-    Hopper twin of the reference's Pallas ``vcgra_pipeline_batched``.
+    """N chained tenants on N raw frames: the Hopper twin of the
+    reference's Pallas ``vcgra_pipeline_batched``, one launch of the chain
+    kernel (after a small launch that packs each (stage, app)'s live
+    settings) per segment of :func:`chain_segments`; every segment but the
+    last hands the next its masked forward as a frame.  A chain whose radii
+    sum to at most :data:`WINDOW_MAX_RADIUS` is one segment.
 
     ``radii``: the S stage radii; ``settings``: stage-stacked dense banks
     (ops int32 [S, N, L, max_w], sel [S, N, L, max_w, 2], out_sel
@@ -379,28 +411,48 @@ def vcgra_pipeline_batched(grid: GridSpec, radii, settings, ingests, out_chs: to
     _check("out_chs", out_chs, (S, n), torch.int32, device)
     _check("hw", hw, (n, 2), torch.int32, device)
     _check("images", frames, (n, H, W), grid.dtype, device)
+    x = frames
+    for a, b in chain_segments(radii):
+        x = _pipeline_segment(grid, radii[a:b], tuple(t[a:b] for t in settings),
+                              (tap_sel[a:b], consts[a:b]), out_chs[a:b], hw, x,
+                              forward=b < S)
+    return x
+
+
+def _pipeline_segment(grid: GridSpec, radii: Tuple[int, ...], settings, ingests,
+                      out_chs: torch.Tensor, hw: torch.Tensor, frames: torch.Tensor,
+                      forward: bool) -> torch.Tensor:
+    """One segment of a chain (checked operands, sliced to its stages):
+    its last stage's K outputs ``[N, K, H*W]``, or with ``forward`` its
+    masked forward ``[N, H, W]``, the next segment's frames."""
+    n, H, W = frames.shape
+    device = frames.device
     if device.type == "cpu":
         return ref.vcgra_pipeline_batched_ref(grid, radii, settings, ingests, out_chs, hw,
-                                              frames)
-    lib = _launch_target("vcgra_pipeline_batched", grid, n, device)
-    threads, _ = pipeline_launch(frames.element_size(), R, C, grid.pes_per_level, K)
-    slots_a, slots_b = value_slots(C, grid.pes_per_level)
-    out = torch.empty((n, K, H * W), dtype=grid.dtype, device=device)
+                                              frames, forward=forward)
+    lib = _launch_target("vcgra_pipeline_batched", n, device)
+    S, R = len(radii), sum(radii)
+    L, max_w, K, C = grid.num_levels, max(grid.pes_per_level), grid.num_outputs, grid.num_inputs
+    threads, _, _, banks = pipeline_launch(frames.element_size(), R, C, grid.pes_per_level, K)
+    out = torch.empty((n, H, W) if forward else (n, K, H * W), dtype=grid.dtype, device=device)
     if out.numel() == 0:
         return out
+    ops, sel, out_sel = settings
+    tap_sel, consts = ingests
     widths = _int32_on(grid.pes_per_level, device)
     radii_t = _int32_on(radii, device)
     records = torch.empty((S * n, record_ints(C, grid.pes_per_level, K)),
                           dtype=torch.int32, device=device)
     rec_consts = torch.empty((S * n, C), dtype=grid.dtype, device=device)
+    vals, blocks = _value_banks(device, threads, C, grid.pes_per_level, banks)
     with torch.cuda.device(device):
         rc = lib.vcgra_pipeline_batched(
             _DTYPE_CODES[grid.dtype], frames.data_ptr(), ops.data_ptr(), sel.data_ptr(),
             out_sel.data_ptr(), tap_sel.data_ptr(), consts.data_ptr(), out_chs.data_ptr(),
             hw.data_ptr(), widths.data_ptr(), radii_t.data_ptr(), records.data_ptr(),
-            rec_consts.data_ptr(), out.data_ptr(),
-            S, n, H, W, L, max_w, K, C, R, threads, slots_a, slots_b,
-            torch.cuda.current_stream().cuda_stream,
+            rec_consts.data_ptr(), _ptr(vals), out.data_ptr(),
+            S, n, H, W, L, max_w, K, C, R, threads, *value_slots(C, grid.pes_per_level),
+            blocks, int(forward), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("vcgra_pipeline_batched", rc)
     LAUNCHES["vcgra_pipeline_batched"] += 1
@@ -438,19 +490,22 @@ def vcgra_conventional(grid: GridSpec, settings, x: torch.Tensor,
     _check("x", x, (grid.num_inputs, N), grid.dtype, device)
     if device.type == "cpu":
         return ref.vcgra_conventional_ref(grid, settings, x)
-    lib = _launch_target("vcgra_conventional", grid, 1, device)
-    threads, _, _ = conventional_launch(x.element_size(), C, grid.pes_per_level, K, block_n)
+    lib = _launch_target("vcgra_conventional", 1, device)
+    threads, _, _, banks = conventional_launch(x.element_size(), C, grid.pes_per_level, K,
+                                               block_n)
     out = torch.empty((K, N), dtype=grid.dtype, device=device)
     if out.numel() == 0:
         return out
     widths = _int32_on(grid.pes_per_level, device)
     records = torch.empty(record_ints(C, grid.pes_per_level, K), dtype=torch.int32,
                           device=device)
+    vals, blocks = _value_banks(device, threads, C, grid.pes_per_level, banks)
     with torch.cuda.device(device):
         rc = lib.vcgra_conventional(
             _DTYPE_CODES[grid.dtype], x.data_ptr(), ops.data_ptr(), sel.data_ptr(),
-            out_sel.data_ptr(), widths.data_ptr(), records.data_ptr(), out.data_ptr(), N,
-            block_n, L, max_w, K, C, threads, *value_slots(C, grid.pes_per_level),
+            out_sel.data_ptr(), widths.data_ptr(), records.data_ptr(), _ptr(vals),
+            out.data_ptr(), N, block_n, L, max_w, K, C, threads,
+            *value_slots(C, grid.pes_per_level), blocks,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error("vcgra_conventional", rc)
@@ -576,7 +631,8 @@ def pipeline_fn(grid: GridSpec, radii, tile_rows=None):
     """``fn(stage_settings, hw, images) -> [N, K, H*W]``: each stage's
     ``(stacked_configs, stacked_ingests, out_ch)`` is dense-packed
     (:func:`pack_settings_batched`) and stacked on a leading stage axis, so
-    the whole chain rides one launch of :func:`vcgra_pipeline_batched`."""
+    the whole chain rides :func:`vcgra_pipeline_batched`: one launch, or
+    one a segment past :data:`WINDOW_MAX_RADIUS`."""
     radii = tuple(int(r) for r in radii)
 
     def fn(stage_settings, hw, images):

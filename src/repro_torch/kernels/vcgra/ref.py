@@ -126,14 +126,16 @@ def vcgra_fused_batched_ref(grid: GridSpec, radius: int, settings: DenseSettings
 def vcgra_pipeline_batched_ref(grid: GridSpec, radii, settings: DenseSettings,
                                ingests: Tuple[torch.Tensor, torch.Tensor],
                                out_chs: torch.Tensor, hw: torch.Tensor,
-                               frames: torch.Tensor) -> torch.Tensor:
+                               frames: torch.Tensor, forward: bool = False) -> torch.Tensor:
     """A depth-S chain on raw frames ``[N, H, W]`` -> the last stage's
     ``[N, K, H*W]``, with B3's stage-stacked operands (settings
     ``[S, N, ...]``, ingests ``[S, N, C]``, ``out_chs [S, N]``,
     ``hw [N, 2]``).  Each stage runs over the whole frame; between stages
     app i forwards its output ``ys[i, out_chs[s, i]]`` (the output mux's
     pick, not the raw PE slot) with every pixel outside its true
-    ``hw[i]`` region set to zero."""
+    ``hw[i]`` region set to zero.  With ``forward`` (a segment of a longer
+    chain) the last stage forwards too: the result is that masked
+    ``[N, H, W]`` frame, the next segment's input."""
     x = frames.to(grid.dtype)
     n, H, W = x.shape
     h, w = hw[:, 0].tolist(), hw[:, 1].tolist()
@@ -142,9 +144,9 @@ def vcgra_pipeline_batched_ref(grid: GridSpec, radii, settings: DenseSettings,
     for s, r in enumerate(radii):
         ys = vcgra_fused_batched_ref(
             grid, r, tuple(t[s] for t in settings), (ingests[0][s], ingests[1][s]), x)
-        if s < len(radii) - 1:
+        if s < len(radii) - 1 or forward:
             x = torch.zeros_like(x)
             for i in range(n):
                 y = ys[i, chans[s][i]].reshape(H, W)
                 x[i, : h[i], : w[i]] = y[: h[i], : w[i]]
-    return ys
+    return x if forward else ys

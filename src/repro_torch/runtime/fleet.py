@@ -81,7 +81,6 @@ from repro_torch.core.plan import (
 from repro_torch.core.tiling import (
     TILE_AUTO, check_tile_rows, pad_batches, pad_channels, pow2_bucket, round_up, row_band,
 )
-from repro_torch.kernels.vcgra.ops import check_value_width
 from repro_torch.parallel.axes import MeshSpec, ShardedFrames, build_mesh, canonical
 from repro_torch.parallel.sharding import frame_sharding
 from repro_torch.runtime.chaos import FaultInjector, InjectedFault
@@ -737,14 +736,6 @@ class PixieFleet:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def _check_width(self, kernel: str, grid: GridSpec) -> None:
-        """On the hopper backend, refuse a grid wider than ``kernel``
-        holds, at submit and to this request's submitter alone (every
-        device: the plain versions a CPU fleet runs keep the kernels'
-        limits)."""
-        if self.backend == "hopper":
-            check_value_width(kernel, grid)
-
     def _prepare(self, request: FleetRequest) -> _Prepared:
         t0 = time.perf_counter()
         grid = request.grid or self.default_grid
@@ -761,7 +752,6 @@ class PixieFleet:
             if cfg.ingest is not None:
                 # Fused path: keep the RAW frame; line-buffer formation
                 # happens inside the batched dispatch at flush time.
-                self._check_width("vcgra_fused_batched", grid)
                 prepared = _Prepared(grid, cfg, "image", image, hw)
                 self.timings["pack_s"] += time.perf_counter() - t0
                 return prepared
@@ -772,7 +762,6 @@ class PixieFleet:
         else:
             hw = None
             feed = request.inputs
-        self._check_width("vcgra_batched", grid)
         x = interpreter.pack_inputs(cfg, feed, grid.dtype, device=self.device)
         if x.dim() != 2:
             raise ValueError(f"fleet needs flat [channels, batch] inputs, got {tuple(x.shape)}")
@@ -802,9 +791,7 @@ class PixieFleet:
                 )
         spec = PipelineSpec.chain(cfgs, request.out_channels)
         if spec.depth == 1:
-            self._check_width("vcgra_fused_batched", grid)
             return _Prepared(grid, cfgs[0], "image", image, hw)
-        self._check_width("vcgra_pipeline_batched", grid)
         return _Prepared(grid, cfgs[0], "pipeline", image, hw, spec=spec)
 
     # -- batched execution ----------------------------------------------------

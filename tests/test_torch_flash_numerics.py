@@ -1,7 +1,7 @@
 """B7's tensor-core arithmetic, emulated in PyTorch on the CPU and held to
 the plain version (``decode_ref``) at ``flash_attention.parity``'s
 tolerances, and the wrapper's pure functions (the route between the two
-bodies, split and tile sizes, shared memory of B7's and B3's blocks).
+bodies, split and tile sizes, shared memory of B7's block).
 
 The emulation repeats what ``flash_decode_tc`` computes, step by step:
 
@@ -25,7 +25,6 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels.flash_attention import decode_ref, ops, parity
-from repro_torch.kernels.vcgra import ops as vcgra_ops
 
 NEG_INF = -1e30
 #: The H100's SMs and the most splits a launch takes (``split_length``'s
@@ -211,22 +210,3 @@ def test_shared_memory_of_the_tensor_core_block():
     assert ops.tc_smem_bytes(torch.float32, 16, 256) <= ops.MAX_SMEM_BYTES
     assert not ops.tensor_core_route(torch.bfloat16, 17, 128)
     assert not ops.tensor_core_route(torch.bfloat16, 8, 48)
-
-
-@pytest.mark.parametrize("itemsize", [4, 2])
-def test_chain_kernel_block_fits_at_its_limits_and_refuses_past_them(itemsize):
-    """B3's launch shape (``vcgra.ops.pipeline_launch``): threads and shared
-    memory within the card's limits up to R = 16 and value vectors of 64,
-    refused at R = 17 or 65 values."""
-    plan = vcgra_ops.pipeline_launch
-    for R in (0, 3, 16):
-        for widths, C in (([11, 7, 5, 4, 3, 2], 19), ([64] * 4, 64), ([1], 1)):
-            threads, smem = plan(itemsize, R, C, widths, K=2)
-            assert threads in (32, 64, 128) and smem <= ops.MAX_SMEM_BYTES
-    assert plan(4, 3, 19, [11, 7, 5, 4, 3, 2], K=1)[0] == 128
-    with pytest.raises(ValueError, match="halo"):
-        plan(itemsize, 17, 19, [11, 7], K=1)
-    with pytest.raises(ValueError, match="value vector"):
-        plan(itemsize, 3, 65, [11, 7], K=1)
-    with pytest.raises(ValueError, match="value vector"):
-        plan(itemsize, 3, 19, [65, 7], K=1)

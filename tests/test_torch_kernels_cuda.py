@@ -33,7 +33,7 @@ from repro_torch.kernels.vcgra import (
     vcgra_specialized, vcgra_specialized_ref,
 )
 from repro_torch.kernels.vcgra.ops import (
-    FUSED_MAX_RADIUS, MAX_VALS, WINDOW_MAX_RADIUS, _pack_settings, batched_launch,
+    FUSED_MAX_RADIUS, WINDOW_MAX_RADIUS, _pack_settings, batched_launch, chain_segments,
     conventional_launch, fused_launch, pipeline_launch, record_ints, value_slots,
 )
 from repro_torch.kernels.vcgra.specialized import compile_module
@@ -61,10 +61,12 @@ def wide_grid():
     return custom("wide-40", 40, [40, 11, 7, 5, 3, 3, 2], 1)
 
 
-def widest_grid():
-    """A grid at the kernels' 64-value limit that every library app maps
-    on."""
-    return custom("wide-64", 64, [64, 11, 7, 5, 3, 3, 2], 1)
+def widest_grid(width=64, num_outputs=1):
+    """A grid ``width`` values wide that every library app maps on (64: the
+    kernels' widest before they took any width; 600: past what even a
+    32-thread block holds in shared memory, value banks in device
+    memory)."""
+    return custom(f"wide-{width}", width, [width, 11, 7, 5, 3, 3, 2], num_outputs)
 
 
 #: B1/B2's grids: (grid, apps mapped on it).
@@ -156,26 +158,28 @@ def test_batched_kernel_matches_plain_version(cuda, dtype_name):
 
 def test_fused_and_batched_launch_shape_matches_its_mirror(cuda):
     """The wrappers' launch-shape mirrors (``fused_launch``,
-    ``batched_launch``, ``record_ints``) equal the C side's layout, and the
+    ``batched_launch``, ``record_ints``) equal the C side's layout, in
+    shared memory and with the value banks in device memory, and the
     limits the wrappers hold equal the library's."""
     lib = load_library("vcgra")
-    assert lib.vcgra_max_vals() == 64 == MAX_VALS["vcgra_conventional"]
     assert lib.vcgra_window_max_radius() == WINDOW_MAX_RADIUS
     assert lib.vcgra_fused_max_radius() == FUSED_MAX_RADIUS
     for itemsize in (4, 2):
         for C, widths in ((18, [9] * 5), (27, [19, 11, 7, 5, 3, 3, 2]), (64, [64] * 3),
-                          (1, [1])):
+                          (1, [1]), (98, [49, 25, 13, 7, 4, 2, 1]),
+                          (600, [600, 11, 7, 5, 3, 3, 2])):
             for radius in (0, 1, 2, WINDOW_MAX_RADIUS, WINDOW_MAX_RADIUS + 1, 100):
-                threads, smem, window = fused_launch(itemsize, radius, C, widths, 2)
-                assert window == (radius <= WINDOW_MAX_RADIUS)
+                threads, smem, window, banks = fused_launch(itemsize, radius, C, widths, 2)
+                assert window == (radius <= WINDOW_MAX_RADIUS) and banks == (C == 600)
                 assert lib.vcgra_fused_smem(itemsize, radius, *value_slots(C, widths), threads,
-                                            C, len(widths), max(widths), 2) == smem
-            threads, smem = batched_launch(itemsize, C, widths, 2)
+                                            C, len(widths), max(widths), 2, banks) == smem
+            threads, smem, banks = batched_launch(itemsize, C, widths, 2)
             assert lib.vcgra_batched_smem(itemsize, *value_slots(C, widths), threads, C,
-                                          len(widths), max(widths), 2) == smem
+                                          len(widths), max(widths), 2, banks) == smem
             assert lib.vcgra_record_ints(C, len(widths), max(widths), 2) == \
                 record_ints(C, widths, 2)
-    assert all(lib.vcgra_kernel_regs(kernel, code) > 0 for kernel in range(3)
+            assert lib.vcgra_pack_smem(C, max(widths)) == 8 * -(-max(C, *widths) // 32)
+    assert all(lib.vcgra_kernel_regs(kernel, code) > 0 for kernel in range(8)
                for code in range(4))
 
 
@@ -187,51 +191,97 @@ def test_conventional_launch_shape_matches_its_mirror(cuda):
         for C, widths in ((27, [18, 10, 6, 4, 2, 2, 1]), (18, [9] * 5), (64, [64] * 3),
                           (40, [40, 11, 7, 5, 3, 3, 2]), (1, [1])):
             for block_n in (128, 1024, 4096):
-                threads, smem, passes = conventional_launch(itemsize, C, widths, 1, block_n)
+                threads, smem, passes, banks = conventional_launch(itemsize, C, widths, 1,
+                                                                   block_n)
                 assert passes == max(1, -(-block_n // (threads * 16 // itemsize)))
                 assert lib.vcgra_batched_smem(itemsize, *value_slots(C, widths), threads, C,
-                                              len(widths), max(widths), 1) == smem
-    assert conventional_launch(4, 27, [18, 10, 6, 4, 2, 2, 1], 1, 1024) == (128, 93_760, 2)
+                                              len(widths), max(widths), 1, banks) == smem
+    assert conventional_launch(4, 27, [18, 10, 6, 4, 2, 2, 1], 1, 1024) == \
+        (128, 94_768, 2, False)
     assert all(lib.vcgra_kernel_regs(3, code) > 0 for code in range(4))
 
 
+def random_settings(grid, n, device, rng):
+    """Random dense settings for ``n`` apps on ``grid``, every PE and
+    channel of it live: selects over each level's whole input, output
+    muxes over the last level, opcodes drawn from every code (units, NONE,
+    MAC and past the last) on integer grids and from the ones that keep a
+    float grid's values finite (no MUL or DIV chains to inf and NaN, whose
+    bits differ between the card and the CPU) on float grids."""
+    L, max_w, K = grid.num_levels, max(grid.pes_per_level), grid.num_outputs
+    codes = ([1, 2, 5, 6, 7, 8, 9, 10] if grid.dtype in (torch.float32, torch.bfloat16)
+             else list(range(13)))
+    ops = np.zeros((n, L, max_w), np.int32)
+    sel = np.zeros((n, L, max_w, 2), np.int32)
+    for lvl, width in enumerate(grid.pes_per_level):
+        fan_in = grid.num_inputs if lvl == 0 else grid.pes_per_level[lvl - 1]
+        ops[:, lvl, :width] = rng.choice(codes, (n, width))
+        sel[:, lvl, :width] = rng.integers(0, fan_in, (n, width, 2))
+    out = rng.integers(0, grid.pes_per_level[-1], (n, K))
+    return tuple(torch.as_tensor(a, dtype=torch.int32, device=device) for a in (ops, sel, out))
+
+
+@pytest.mark.parametrize("width", [65, 98, 600])
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_fused_batched_and_conventional_kernels_take_any_value_width(cuda, dtype_name, width):
+    """B1, B2 and B4 bitwise to their plain versions past 64 values: 65
+    (64 threads), 98 (B2 and B4 64 threads; B1, with its window buffer,
+    past a 64-thread block, its value banks in device memory) and 600 (every
+    kernel's banks in device memory); every library app, then random
+    settings."""
+    rng = np.random.default_rng(40 + width)
+    bits, float_pe = DTYPES[dtype_name]
+    grid = dataclasses.replace(widest_grid(width), data_bits=bits, float_pe=float_pe)
+    assert fused_launch(bits // 8, 1, grid.num_inputs, grid.pes_per_level, 1)[3] == \
+        (width != 65)
+    assert batched_launch(bits // 8, grid.num_inputs, grid.pes_per_level, 1)[2] == \
+        (width == 600)
+    cfgs = [map_app(apps.ALL_APPS[n](), grid) for n in ALL_APPS]
+    library = pack_settings_batched(grid, VCGRAConfig.stack(cfgs, device=cuda))
+    for settings in (library, random_settings(grid, len(cfgs), cuda, rng)):
+        n = settings[0].shape[0]
+        ingests = (torch.as_tensor(rng.integers(-1, 11, (n, width)), dtype=torch.int32,
+                                   device=cuda),
+                   torch.as_tensor(rng.integers(-8, 9, (n, width)), device=cuda).to(grid.dtype))
+        for H, W in ((37, 53), (33, 2049)):
+            frames = torch.as_tensor(rng.integers(0, 256, (n, H, W)),
+                                     device=cuda).to(grid.dtype)
+            for radius in (1, WINDOW_MAX_RADIUS + 1):
+                before = LAUNCHES["vcgra_fused_batched"]
+                got = vcgra_fused_batched(grid, radius, settings, ingests, frames)
+                assert LAUNCHES["vcgra_fused_batched"] == before + 1
+                assert_bitwise(got, vcgra_fused_batched_ref(grid, radius, settings, ingests,
+                                                            frames))
+        for B in (45, 4099):
+            xs = torch.as_tensor(rng.integers(-8, 256, (n, width, B)),
+                                 device=cuda).to(grid.dtype)
+            before = LAUNCHES["vcgra_batched"]
+            got = vcgra_batched(grid, settings, xs)
+            assert LAUNCHES["vcgra_batched"] == before + 1
+            assert_bitwise(got, vcgra_batched_ref(grid, settings, xs))
+            one = tuple(t[0] for t in settings)
+            for block_n in (128, 1024):
+                got = vcgra_conventional(grid, one, xs[0], block_n=block_n)
+                assert_bitwise(got, vcgra_conventional_ref(grid, one, xs[0]))
+
+
 def test_fused_and_batched_kernels_refuse_what_they_cannot_launch(cuda):
-    """Past 64 values B1, B2 and B4 raise (naming the kernel); the C entry
-    points refuse a bad dtype code or block_n without launching."""
+    """The C entry points refuse a bad dtype code or block_n, and device
+    banks without a block count, without launching."""
     lib = load_library("vcgra")
-    too_wide = custom("wide-65", 65, [9], 1)
     frames = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda)
-    settings = (torch.zeros((1, 1, 9), dtype=torch.int32, device=cuda),
-                torch.zeros((1, 1, 9, 2), dtype=torch.int32, device=cuda),
-                torch.zeros((1, 1), dtype=torch.int32, device=cuda))
-    ingests = (torch.zeros((1, 65), dtype=torch.int32, device=cuda),
-               torch.zeros((1, 65), dtype=torch.int32, device=cuda))
-    before = dict(LAUNCHES)
-    with pytest.raises(ValueError, match="vcgra_fused_batched holds at most 64"):
-        vcgra_fused_batched(too_wide, 1, settings, ingests, frames)
-    with pytest.raises(ValueError, match="vcgra_batched holds at most 64"):
-        vcgra_batched(too_wide, settings, torch.zeros((1, 65, 8), dtype=torch.int32,
-                                                      device=cuda))
-    b4_settings = tuple(torch.zeros(t.shape[1:], dtype=torch.int32, device=cuda)
-                        for t in settings)
-    with pytest.raises(ValueError, match="vcgra_conventional holds at most 64"):
-        vcgra_conventional(too_wide, b4_settings,
-                           torch.zeros((65, 128), dtype=torch.int32, device=cuda))
-    assert LAUNCHES == before
-    grid = wide_grid()   # 40 values: past 32, inside 64
-    cfg = map_app(apps.sobel_x(), grid)
-    x = torch.zeros((40, 128), dtype=torch.int32, device=cuda)
-    assert vcgra_conventional(grid, _pack_settings(grid, cfg, device=cuda)[:3], x).shape == \
-        (1, 128)
     before = dict(LAUNCHES)
     stream = torch.cuda.current_stream().cuda_stream
-    assert lib.vcgra_fused_batched(9, *([frames.data_ptr()] * 11), 1, 8, 8, 1, 9, 1, 18, 1,
-                                   128, 18, 9, stream) != 0
-    assert lib.vcgra_batched(9, *([frames.data_ptr()] * 7), 1, 8, 1, 9, 1, 18, 128, 18, 9,
+    ptr = frames.data_ptr()
+    assert lib.vcgra_fused_batched(9, *([ptr] * 12), 1, 8, 8, 1, 9, 1, 18, 1,
+                                   128, 18, 9, 0, stream) != 0
+    assert lib.vcgra_fused_batched(0, *([ptr] * 12), 1, 8, 8, 1, 9, 1, 18, 1,
+                                   128, 18, 9, 0, stream) != 0   # vals without blocks
+    assert lib.vcgra_batched(9, *([ptr] * 8), 1, 8, 1, 9, 1, 18, 128, 18, 9, 0,
                              stream) != 0
     for dtype, block_n in ((9, 128), (0, 100), (0, 0)):
-        assert lib.vcgra_conventional(dtype, *([frames.data_ptr()] * 7), 8, block_n, 1, 9, 1,
-                                      18, 128, 18, 9, stream) != 0
+        assert lib.vcgra_conventional(dtype, *([ptr] * 6), None, ptr, 8, block_n, 1, 9, 1,
+                                      18, 128, 18, 9, 0, stream) != 0
     assert LAUNCHES == before
 
 
@@ -326,17 +376,27 @@ def test_pipeline_kernel_spans_several_tiles_with_ragged_edges(cuda, dtype_name)
 
 
 def test_pipeline_kernel_launch_shape_matches_its_mirror(cuda):
-    """The wrapper's shared-memory mirror equals the kernel's layout."""
+    """The wrapper's shared-memory mirror equals the kernel's layout: a
+    segment's two window buffers up to R = 16, none for a lone stage past
+    it, value banks in shared or device memory."""
     lib = load_library("vcgra_pipeline")
+    assert lib.vcgra_max_radius() == WINDOW_MAX_RADIUS
     for itemsize in (4, 2):
-        for R, C, widths in ((3, 19, [11, 7, 5, 4, 3, 2]), (16, 64, [64] * 3), (0, 1, [1])):
-            threads, smem = pipeline_launch(itemsize, R, C, widths, 2)
+        for R, C, widths in ((3, 19, [11, 7, 5, 4, 3, 2]), (16, 64, [64] * 3), (0, 1, [1]),
+                             (20, 19, [11, 7, 5, 4, 3, 2]), (16, 98, [49, 25, 13, 7, 4, 2, 1]),
+                             (1, 600, [600, 11, 7, 5, 3, 3, 2]), (17, 600, [600, 3])):
+            threads, smem, window, banks = pipeline_launch(itemsize, R, C, widths, 2)
+            # conv7-exact's two R = 16 window buffers leave no room for a
+            # 64-thread block.
+            assert window == (R <= WINDOW_MAX_RADIUS)
+            assert banks == (C == 600 or (R, C) == (16, 98))
             slots_a, slots_b = value_slots(C, widths)
             assert lib.vcgra_pipeline_smem(itemsize, R, slots_a, slots_b, threads, C,
-                                           len(widths), max(widths), 2) == smem
+                                           len(widths), max(widths), 2, banks) == smem
             assert lib.vcgra_pipeline_record_ints(C, len(widths), max(widths), 2) == \
                 record_ints(C, widths, 2)
-    assert all(lib.vcgra_pipeline_regs(code) > 0 for code in range(4))
+    assert all(lib.vcgra_pipeline_regs(kernel, code) > 0 for kernel in range(4)
+               for code in range(4))
 
 
 def test_pipeline_kernel_refuses_what_it_cannot_launch(cuda):
@@ -346,18 +406,62 @@ def test_pipeline_kernel_refuses_what_it_cannot_launch(cuda):
     settings, ingests, out_chs, hw, frames = chain_operands(grid, chain, 2, 8, 8, cuda, rng)
     before = LAUNCHES["vcgra_pipeline_batched"]
     lib = load_library("vcgra_pipeline")
-    too_far = (lib.vcgra_max_radius() + 1, 0)
-    with pytest.raises(ValueError, match="halo holds at most"):
-        vcgra_pipeline_batched(grid, too_far, settings, ingests, out_chs, hw, frames)
     with pytest.raises(ValueError, match="expected cuda"):
         vcgra_pipeline_batched(grid, (1, 1), settings, ingests, out_chs, hw.cpu(), frames)
-    # The C entry point itself refuses a bad dtype code without launching.
-    assert lib.vcgra_pipeline_batched(
-        9, *([frames.data_ptr()] * 13), 2, 2, 8, 8, grid.num_levels,
-        max(grid.pes_per_level), grid.num_outputs, grid.num_inputs, 2, 128,
-        *value_slots(grid.num_inputs, grid.pes_per_level),
-        torch.cuda.current_stream().cuda_stream) != 0
+    # The C entry point itself refuses a bad dtype code, and two stages
+    # whose radii sum past the window (the wrapper's segments never do),
+    # without launching.
+    for dtype, R in ((9, 2), (0, WINDOW_MAX_RADIUS + 1)):
+        assert lib.vcgra_pipeline_batched(
+            dtype, *([frames.data_ptr()] * 12), None, frames.data_ptr(), 2, 2, 8, 8,
+            grid.num_levels, max(grid.pes_per_level), grid.num_outputs, grid.num_inputs, R,
+            128, *value_slots(grid.num_inputs, grid.pes_per_level), 0, 0,
+            torch.cuda.current_stream().cuda_stream) != 0
     assert LAUNCHES["vcgra_pipeline_batched"] == before
+
+
+#: B3 past one window: (app, stage radius) chains of R = 17 and 33 and a
+#: lone radius-20 stage between window segments.
+DEEP_CHAINS = [
+    [("gauss3", 1)] * 17,
+    [("gauss3", 1), ("sobel_x", 15), ("threshold", 1), ("gauss3", 16)],
+    [("gauss3", 1), ("threshold", 0), ("sobel_x", 20), ("gauss3", 1), ("threshold", 1)],
+]
+
+
+#: The chains the grids past 64 values run: one window (R = 3), two
+#: segments (R = 17) and the lone radius-20 stage.
+WIDE_CHAINS = [CHAINS[0], DEEP_CHAINS[0], DEEP_CHAINS[2]]
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_pipeline_kernel_serves_chains_past_its_window(cuda, dtype_name):
+    """Chains whose radii sum past 16 run as segments, one launch each,
+    every segment but the last writing the next one's frame: equal to the
+    plain chain (bitwise but bf16, within 0.5 there), on two-output grids
+    with random forwarded channels and ragged hw.  The deep chains run on
+    pipe-shared; R = 3, 17 and the lone radius-20 stage also on grids past
+    64 values: the shape of ``conv7-exact`` (98 values, banks in shared
+    memory, in device memory for the R = 16 segment) and 600 values (banks
+    in device memory, with and without the frame window)."""
+    rng = np.random.default_rng(13)
+    bits, float_pe = DTYPES[dtype_name]
+    cases = [(shared_grid(CHAIN, "pipe-shared", 2), DEEP_CHAINS),
+             (custom("conv7-exact", 98, [49, 25, 13, 7, 4, 2, 1], 2), WIDE_CHAINS),
+             (widest_grid(600, num_outputs=2), WIDE_CHAINS)]
+    for base, chains in cases:
+        grid = dataclasses.replace(base, data_bits=bits, float_pe=float_pe)
+        for chain in chains:
+            radii = tuple(r for _, r in chain)
+            segments = chain_segments(radii)
+            assert (len(segments) > 1) == (sum(radii) > WINDOW_MAX_RADIUS)
+            for n, H, W in ((3, 37, 53), (2, 70, 300)):
+                args = chain_operands(grid, chain, n, H, W, cuda, rng)
+                want = vcgra_pipeline_batched_ref(grid, radii, *args)
+                before = LAUNCHES["vcgra_pipeline_batched"]
+                got = vcgra_pipeline_batched(grid, radii, *args)
+                assert LAUNCHES["vcgra_pipeline_batched"] == before + len(segments)
+                assert_close(got, want, dtype_name)
 
 
 def single_app_cases(dtype_name):
@@ -744,23 +848,51 @@ def test_async_ingest_reuses_pinned_canvases_bitwise(cuda):
     assert fleet.stats.fallback_dispatches == fleet.stats.retries == 0
 
 
-def test_wide_grid_is_refused_at_submit_on_the_card(cuda):
-    """A 65-value-wide grid is wider than B1 holds: the hopper fleet on the
-    card refuses it at submit, nothing launches and nothing degrades; the
-    torch fleet serves it."""
+def test_wide_grid_is_served_on_the_card(cuda):
+    """A 65-value-wide grid is served by the hopper fleet on the card: B1
+    once, nothing degraded, bitwise the torch fleet."""
     from repro_torch.runtime.fleet import FleetRequest, PixieFleet
 
     grid = custom("wide-65", 65, [65, 11, 7, 5, 3, 3, 2], 1)
     image = np.random.default_rng(32).integers(0, 256, (64, 80)).astype(np.int32)
     fleet = PixieFleet(default_grid=grid)
     LAUNCHES["vcgra_fused_batched"] = 0
-    with pytest.raises(ValueError, match="65-wide value vector"):
-        fleet.submit(FleetRequest(app="sobel_x", image=image))
-    assert fleet.flush() == {} and LAUNCHES["vcgra_fused_batched"] == 0
-    assert fleet.stats.fallback_dispatches == 0 and fleet.stats.dispatch_plans == {}
-    (got,) = PixieFleet(default_grid=grid, backend="torch").run_many(
+    (got,) = fleet.run_many([FleetRequest(app="sobel_x", image=image)])
+    assert LAUNCHES["vcgra_fused_batched"] == 1
+    assert fleet.stats.fallback_dispatches == fleet.stats.retries == 0
+    (want,) = PixieFleet(default_grid=grid, backend="torch").run_many(
         [FleetRequest(app="sobel_x", image=image)])
-    assert got.shape == image.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_mixed_flush_with_a_deep_chain_on_the_card(cuda):
+    """One flush on the pipe-shared grid: a 17-stage gauss3 chain (two B3
+    segments) beside a depth-3 chain and single-stage requests, every
+    request served, bitwise the torch fleet; B3 launched once per segment
+    of each chain group."""
+    from repro_torch.runtime.fleet import FleetRequest, PixieFleet
+
+    grid = shared_grid(CHAIN, "pipe-shared")
+    rng = np.random.default_rng(33)
+    trace = [(["gauss3"] * 17, (120, 200)), (CHAIN, (90, 64)), ("gauss3", (50, 70)),
+             ("threshold", (33, 33)), (["gauss3"] * 17, (64, 257))]
+
+    def requests():
+        return [FleetRequest(pipeline=app, image=img) if isinstance(app, list)
+                else FleetRequest(app=app, image=img) for app, img in zip(apps_, imgs)]
+
+    apps_ = [app for app, _ in trace]
+    imgs = [rng.integers(0, 256, hw).astype(np.int32) for _, hw in trace]
+    fleet = PixieFleet(default_grid=grid)
+    reset = dict(LAUNCHES)
+    got = fleet.run_many(requests())
+    launched = {k: LAUNCHES[k] - reset[k] for k in LAUNCHES}
+    assert fleet.stats.pipeline_dispatches == 2
+    assert launched["vcgra_pipeline_batched"] == 2 + 1
+    assert fleet.stats.fallback_dispatches == fleet.stats.retries == 0
+    want = PixieFleet(default_grid=grid, backend="torch").run_many(requests())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_train_step_on_the_card_equals_the_cpu(cuda):

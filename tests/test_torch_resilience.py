@@ -497,10 +497,11 @@ def test_dispatch_errors_other_than_injected_faults_raise(monkeypatch, error):
 
 
 @pytest.mark.parametrize("kind", ["image", "channels", "pipeline"])
-def test_wide_grid_is_refused_at_submit(kind):
-    """A grid wider than the Hopper kernels hold (65 values) is refused at
-    submit by a hopper fleet, to its own submitter, on the CPU as on the
-    card; the torch fleet serves it, bitwise the reference's."""
+def test_wide_grid_is_served_as_the_reference_serves_it(kind):
+    """A grid 65 values wide, past what B1-B4's value banks once held, is
+    served by a hopper fleet (on the CPU, the kernels' plain versions)
+    bitwise as the reference's xla fleet serves it, and as the torch fleet
+    does: no refusal at submit, nothing degraded."""
     from repro.core.grid import custom as r_custom
     from repro_torch.core.grid import custom
 
@@ -511,13 +512,15 @@ def test_wide_grid_is_refused_at_submit(kind):
     request = {"image": dict(app="sobel_x", image=image),
                "channels": dict(app="sobel_x", inputs=taps),
                "pipeline": dict(pipeline=["sobel_x", "threshold"], image=image)}[kind]
-    fleet = PixieFleet(backend="hopper", device="cpu")
-    with pytest.raises(ValueError, match="65-wide value vector"):
-        fleet.submit(FleetRequest(grid=grid, **request))
-    assert fleet.stats.submitted == 0 and fleet.pending_count() == 0
-    (got,) = PixieFleet(backend="torch", device="cpu").run_many([FleetRequest(grid=grid, **request)])
     (want,) = RFleet(backend="xla").run_many([RRequest(grid=r_grid, **request)])
+    fleet = PixieFleet(backend="hopper", device="cpu")
+    (got,) = fleet.run_many([FleetRequest(grid=grid, **request)])
     np.testing.assert_array_equal(got, np.asarray(want))
+    assert fleet.stats.submitted == 1 and fleet.stats.dispatches == 1
+    assert all(getattr(fleet.stats, k) == 0 for k in LADDER[:4])
+    (served,) = PixieFleet(backend="torch", device="cpu").run_many(
+        [FleetRequest(grid=grid, **request)])
+    np.testing.assert_array_equal(served, got)
 
 
 def test_kernel_build_error_raises_out_of_flush(monkeypatch, tmp_path):
