@@ -214,16 +214,22 @@ Phases, each printing one JSON line (any failure raises, exit code != 0):
    cache (8 sequences of 32,768 rows, blocks with no valid row among
    them), merged by the blocks' log-sum-exps, against B7 on the whole
    cache and the plain version at ``parity``'s tolerance, each block
-   timed beside its bound; (b) gemma-2b at full width served under its
-   prefill and decode plans on the one-card host mesh (``make_serve_steps``,
-   a one-process NCCL group the phase starts and destroys): prefill and
-   8 greedy decode steps against the no-plan path, equal tokens and
-   logits, B7 18 launches a step, both paths' decode-step times and busy
-   shares, and the no-plan decode step with B7 through its torch op
-   against its direct launch; (c) ``python -m repro_torch.launch.dryrun`` for gemma-2b
-   ``train_4k`` and ``decode_32k`` on 16 x 16 and ``prefill_32k`` on 2 x
-   16 x 16, each in a subprocess (a fake world, ``meta`` tensors, nothing
-   on the card): every report present and without error; (d) the
+   timed beside its bound, and B7 over a column block of v at gemma3-12b's
+   batch-one shape beside its plain partial, its bound and one
+   ``scaled_dot_product_attention`` call; (b) gemma-2b at full width served
+   under its prefill and decode plans on the one-card host mesh
+   (``make_serve_steps``, a one-process NCCL group the phase starts and
+   destroys): prefill and 8 greedy decode steps against the no-plan path,
+   equal tokens and logits, B7 18 launches a step, both paths'
+   decode-step times and busy shares, and the no-plan decode step with B7
+   through its torch op against its direct launch; then reduced hymba-1.5b
+   and deepseek-moe-16b the same way, 8 forced decode steps, their decode
+   logits bit for bit the no-plan path's; (c) ``python -m
+   repro_torch.launch.dryrun`` for gemma-2b ``train_4k`` and ``decode_32k``
+   on 16 x 16, ``prefill_32k`` and ``train_4k`` on 2 x 16 x 16, hymba-1.5b
+   ``decode_32k`` on 16 x 16 and deepseek-moe-16b ``decode_32k`` on 2 x 16
+   x 16, each in a subprocess (a fake world, ``meta`` tensors, nothing on
+   the card): every report present and without error; (d) the
    live-bytes tracker on ``meta`` against the card: phase 15 (c)'s
    training step without a plan and through the plan step on a one-rank
    (1, 1) mesh, argument bytes equal to the card's params, moments and
@@ -234,7 +240,7 @@ Then the kernel table line (each kernel also with its bf16 max error, the
 image kernels with their launches on phase 2b's path, B1 and B3 with phase
 2b's times) and, last, ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --table-times [ROOT]`` times only B1-B4 at the
+``python3 chip_smoke.py --table-times [ROOT]`` times only B1-B7 at the
 kernel table's shapes (``PERF.md`` section 6) from the port under ROOT/src
 (default: this checkout) and prints one JSON line, so that a parent commit
 unpacked beside the checkout can be timed in turns with it in one session.
@@ -2681,7 +2687,8 @@ def planted_ring(extra_rows=0, slot_shift=0):
     import torch
     from repro_torch.models import attention
 
-    def ring(params, x, cache, lengths, *, num_heads, num_kv_heads, head_dim, rope_theta):
+    def ring(params, x, cache, lengths, *, num_heads, num_kv_heads, head_dim, rope_theta,
+             batch_share=False):
         G, Hg = num_kv_heads, num_heads // num_kv_heads
         k_cache, v_cache = cache
         W = k_cache.shape[1]
@@ -2689,7 +2696,8 @@ def planted_ring(extra_rows=0, slot_shift=0):
                                                 lengths[:, None], rope_theta)
         slots = (lengths.long() + slot_shift) % W
         n_rows = (lengths + 1 + extra_rows).clamp_max(W)
-        out = attention._decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows)
+        out = attention._decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows,
+                                       batch_share)
         return attention._decode_project_out(params, out, v_cache.dtype), (k_cache, v_cache)
 
     return ring
@@ -4233,9 +4241,16 @@ COLUMN_SHAPE = (1, 16, 8, 256, 16384, 16)
 COLUMN_BLOCK = 8
 COLUMN_DVS = (16, 128)
 COLUMN_LENGTHS = (16384, 8192 + 517)
-#: (c) the dry-run cells of gemma-2b at full width: (shape, mesh).
-DRYRUN_CELLS = (("train_4k", "single"), ("decode_32k", "single"), ("prefill_32k", "multi"),
-                ("train_4k", "multi"))
+#: (c) the dry-run cells at full width: (arch, shape, mesh); gemma-2b's,
+#: then hymba's decode MLP over 'model' and the MoE decode whose batch the
+#: 32 data ranks of two pods do not split.
+DRYRUN_CELLS = tuple((LM_ARCH, shape, mesh) for shape, mesh in (
+    ("train_4k", "single"), ("decode_32k", "single"), ("prefill_32k", "multi"),
+    ("train_4k", "multi"))) + (("hymba-1.5b", "decode_32k", "single"),
+                               ("deepseek-moe-16b", "decode_32k", "multi"))
+#: (b) reduced configs served under the one-card plan besides gemma-2b:
+#: hymba's decode MLP rank by rank, deepseek's expert-parallel MoE.
+PLAN_SERVE_REDUCED = ("hymba-1.5b", "deepseek-moe-16b")
 #: (c) the reduced zoo's cells that torch 2.11's DTensor once refused,
 #: through ``tests/test_torch_dryrun.py``'s zoo (its cut shapes).
 ZOO_211_CELLS = tuple(f"{arch}/{shape}/{mesh}" for arch, shape in (
@@ -4315,8 +4330,11 @@ def phase21_columns(device):
     shape (:data:`COLUMN_SHAPE`): for each ``Dv`` of :data:`COLUMN_DVS` and
     each length, against the plain partial over the same columns and the
     matching columns of the whole-head-dim split entry (the tensor-core
-    body), output and lse; its time, its plain version's and its bound."""
+    body), output and lse; its time, its plain version's, its bound and one
+    ``scaled_dot_product_attention`` call's over the same rows and columns
+    (``enable_gqa``; the yardstick, never called by the port)."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, parity, ref
 
     B, H, G, D, S, m = COLUMN_SHAPE
@@ -4355,14 +4373,26 @@ def phase21_columns(device):
                            shield=True)
         whole_ms = cuda_ms(lambda: ops.decode_attention_split(q, k, v, lens, r0, chunk=512), 20,
                            shield=True)
+        # the library: the rank's rows (all valid at this length) and columns
+        qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), block.transpose(1, 2)
+
+        def library():
+            return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)[:, :, 0, :]
+
+        want, _ = ref.decode_partial_ref(q, k, block, lens, r0)
+        library_err = float((library().float() - want.float()).abs().max())
+        library_ms = cuda_ms(library, 20, shield=True)
         b_ms, b_by, _ = flash_bound(B, H, G, D, [valid_rows], 2, Dv)
         runs.append({"Dv": Dv, "columns": [c0, D], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "whole_head_dim_ms": whole_ms,
                      "whole_head_dim_bound_ms": flash_bound(B, H, G, D, [valid_rows], 2)[0],
+                     "library_ms": library_ms, "library_err": library_err,
                      "max_abs_err": err})
     out = {"phase": "dryrun_columns", "shape": f"q [{B}, {H}, {D}], k [{B}, {rows}, {G}, {D}] "
            f"(rows {r0}..{r0 + rows - 1} of {S}) bf16, v a column block",
            "lengths": list(COLUMN_LENGTHS), "launches": launches, "runs": runs,
+           "library_call": "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True) "
+                           f"at length {COLUMN_LENGTHS[0]} (every row of the block valid)",
            "tolerance": "float32 outputs |d| <= 2e-5 (1 + |ref|); lse 2e-5"}
     emit(out)
     del q, k, v
@@ -4485,6 +4515,8 @@ def phase21_plan_serving(device, card):
                           for label, ms in dispatch.items()},
                        **{f"{label}_host_us_a_call": statistics.median(us)
                           for label, us in host_us.items()}}
+        reduced_runs = {arch: plan_serving_reduced(arch, mesh, device)
+                        for arch in PLAN_SERVE_REDUCED}
         same_tokens = torch.equal(runs["plan"]["tokens"], runs["no_plan"]["tokens"])
         if not same_tokens:
             raise AssertionError("(b): the plan path's greedy tokens differ from the no-plan "
@@ -4504,13 +4536,70 @@ def phase21_plan_serving(device, card):
                   for label, r in runs.items()},
                "b7_dispatch": {**b7_dispatch, "steps": 2 * DISPATCH_STEPS,
                                "calls": 2 * DISPATCH_CALLS, "order": "direct, op, op, direct"},
-               "card": card}
+               "reduced": reduced_runs, "card": card}
         emit(out)
         del params, placed, paths, runs
         torch.cuda.empty_cache()
         return out
     finally:
         dist.destroy_process_group()
+
+
+def plan_serving_reduced(arch: str, mesh, device) -> dict:
+    """(b) reduced ``arch`` served under the one-card plan: plan prefill and
+    :data:`PLAN_SERVE_STEPS` decode steps over forced tokens against the
+    no-plan path from the same bf16 weights, every logit bit for bit, B7
+    once an attention layer a decode step on both."""
+    import torch
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import LM
+    from repro_torch.models.lm import make_serve_steps
+    from repro_torch.parallel import make_plan
+
+    cfg = reduced(ARCHS[arch])
+    pre_plan = make_plan(cfg, mesh, kind="prefill")
+    dec_plan = make_plan(cfg, mesh, kind="decode")
+    lm = LM(cfg, attn_seq_shard=pre_plan.attn_mode == "seq")
+    params = lm.init(torch.Generator(device=device).manual_seed(0), cast=True)
+    rng = np.random.default_rng(27)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)),
+                              device=device)
+    forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_BATCH, PLAN_SERVE_STEPS)),
+                             device=device)
+    plan_prefill, _ = make_serve_steps(lm, pre_plan)
+    _, plan_decode = make_serve_steps(lm, dec_plan)
+    paths = {"no_plan": (lambda p, t, n: lm.prefill(p, t, cache_len=n), lm.decode_step),
+             "plan": (plan_prefill, plan_decode)}
+    logits, launches = {}, {}
+    with torch.no_grad():
+        for label, (prefill, decode) in paths.items():
+            out, cache, lengths = prefill(params, prompts, LM_MAX_SEQ)
+            torch.cuda.synchronize()
+            reset_launches()
+            logits[label] = [out]
+            for t in range(PLAN_SERVE_STEPS):
+                out, cache, lengths = decode(params, forced[:, t:t + 1], cache, lengths)
+                logits[label].append(out)
+            torch.cuda.synchronize()
+            launches[label] = launch_counts()
+            logits[label] = [x.full_tensor() if hasattr(x, "full_tensor") else x
+                             for x in logits[label]]
+            del cache
+    want = no_launches(flash_decode=cfg.num_layers * PLAN_SERVE_STEPS)
+    for label, got in launches.items():
+        if got != want:
+            raise AssertionError(f"(b) reduced {arch} {label}: decode launched {got}, not B7 "
+                                 f"{cfg.num_layers} a step")
+    steps = [torch.equal(a, b) for a, b in zip(logits["plan"], logits["no_plan"])]
+    err = max(float((a - b).abs().max()) for a, b in zip(logits["plan"], logits["no_plan"]))
+    if not all(steps[1:]):
+        raise AssertionError(f"(b) reduced {arch}: the plan's decode logits are not the no-plan "
+                             f"path's bit for bit ({err:.3g} off)")
+    del params
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "attn_mode": dec_plan.attn_mode,
+            "decode_logits_bitwise": all(steps[1:]), "prefill_logits_bitwise": steps[0],
+            "max_abs_err": err, "b7_launches": launches["plan"]["flash_decode"]}
 
 
 def tracker_child(plan: bool) -> None:
@@ -4586,6 +4675,7 @@ def phase_dryrun(device, memo, lm_mesh, card):
     ``max_memory_allocated`` of phases 15 (c) and 20."""
     import os
     import shutil
+    import signal
     import tempfile
 
     import torch
@@ -4601,9 +4691,9 @@ def phase_dryrun(device, memo, lm_mesh, card):
     out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     t0 = time.perf_counter()
     procs = {}
-    for shape, mesh in DRYRUN_CELLS:
-        procs[(shape, mesh)] = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM_ARCH, "--shape",
+    for arch, shape, mesh in DRYRUN_CELLS:
+        procs[(arch, shape, mesh)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
              shape, "--mesh", mesh, "--out", str(out_dir)], cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for label in ("no_plan", "plan"):
@@ -4613,7 +4703,7 @@ def phase_dryrun(device, memo, lm_mesh, card):
     procs["zoo"] = subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "test_torch_dryrun.py"), "--jobs",
          str(len(ZOO_211_CELLS)), *ZOO_211_CELLS], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True)
     results = {}
     try:
         for key, p in procs.items():
@@ -4623,17 +4713,22 @@ def phase_dryrun(device, memo, lm_mesh, card):
                                      f"{(stdout or '')[-3000:]}{(stderr or '')[-3000:]}")
             results[key] = stdout
     finally:
-        for p in procs.values():
-            if p.poll() is None:
+        for key, p in procs.items():
+            if p.poll() is not None:
+                continue
+            if key == "zoo":
+                os.killpg(p.pid, signal.SIGKILL)    # and its cells' subprocesses
+            else:
                 p.kill()
     cells = []
-    for shape, mesh in DRYRUN_CELLS:
-        path = out_dir / f"{LM_ARCH}__{shape}__{mesh}.json"
+    for arch, shape, mesh in DRYRUN_CELLS:
+        path = out_dir / f"{arch}__{shape}__{mesh}.json"
         if not path.exists():
-            raise AssertionError(f"(c) no report for {shape} {mesh}")
+            raise AssertionError(f"(c) no report for {arch} {shape} {mesh}")
         r = json.loads(path.read_text())
         if "error" in r or r.get("skipped"):
-            raise AssertionError(f"(c) {shape} {mesh}: {r.get('error') or r.get('reason')}")
+            raise AssertionError(f"(c) {arch} {shape} {mesh}: "
+                                 f"{r.get('error') or r.get('reason')}")
         cells.append({k: r[k] for k in (
             "arch", "shape", "mesh", "chips", "attn_mode", "bottleneck", "t_compute_s",
             "t_memory_s", "t_collective_s", "step_time_s", "flops_per_device",
@@ -4643,7 +4738,8 @@ def phase_dryrun(device, memo, lm_mesh, card):
                "peak_by_op": r["memory_analysis"]["peak_by_op"]})
     shutil.rmtree(out_dir, ignore_errors=True)
     dryrun_s = time.perf_counter() - t0
-    peaks = {c["mesh"]: c["peak_gib"] for c in cells if c["shape"] == "train_4k"}
+    peaks = {c["mesh"]: c["peak_gib"] for c in cells
+             if c["arch"] == LM_ARCH and c["shape"] == "train_4k"}
     if peaks["multi"] > peaks["single"]:
         raise AssertionError(f"(c) train_4k: {peaks['multi']:.2f} GiB a rank on two pods, more "
                              f"than one pod's {peaks['single']:.2f}")
@@ -4685,14 +4781,22 @@ def phase_dryrun(device, memo, lm_mesh, card):
 
 
 def table_times(device) -> dict:
-    """B1, B2, B3 and B4 at the kernel table's shapes (``PERF.md`` section
-    6: :func:`b1_case` with the main flush's apps, :func:`b2_case`,
-    :func:`b3_case`, :func:`b4_case`) on random 1080p frames, each the
-    median of 20 shielded runs by CUDA events, from whichever
-    ``repro_torch`` is first on ``sys.path``.  Each output is held to its
-    plain version first."""
+    """B1 to B7 at the kernel table's shapes (``PERF.md`` section 6:
+    :func:`b1_case` with the main flush's apps, :func:`b2_case`,
+    :func:`b3_case`, :func:`b4_case`; B5 and B6 on :func:`b4_case`'s app and
+    frame as :func:`phase_single_times` runs them; B7 at the engine's shape
+    of :func:`phase_lm_times`) on random 1080p frames, each the median of
+    20 shielded runs by CUDA events, from whichever ``repro_torch`` is
+    first on ``sys.path``.  Each output is held to its plain version first."""
     import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import applications as apps
     from repro_torch.core.grid import sobel_grid
+    from repro_torch.kernels import flash_attention, stencil
+    from repro_torch.kernels.flash_attention import parity
+    from repro_torch.kernels.vcgra import (
+        SpecializedKernel, vcgra_specialized, vcgra_specialized_ref,
+    )
 
     rng = np.random.default_rng(7)
     imgs = [rng.integers(0, 256, (1080, 1920)).astype(np.int32) for _ in MAIN_APPS]
@@ -4709,12 +4813,36 @@ def table_times(device) -> dict:
         out[name] = cuda_ms(run, 20, shield=True)
         del run, plain
         torch.cuda.empty_cache()
+    _, _, _, (grid, cfg, _, x) = b4_case(device, imgs[0])
+    kernel = SpecializedKernel(grid, cfg, False, device)
+    frame, pair = torch.as_tensor(imgs[0], device=device), (apps.SOBEL_X, apps.SOBEL_Y)
+    for name, run, plain in (
+            ("vcgra_specialized", lambda: vcgra_specialized(kernel, x),
+             lambda: vcgra_specialized_ref(grid, cfg, x)),
+            ("stencil_fused", lambda: stencil.stencil_fused(frame, pair),
+             lambda: stencil.stencil_fused_ref(frame, pair))):
+        compare(run(), plain(), "int32")
+        out[name] = cuda_ms(run, 20, shield=True)
+    lm = get_arch(LM_ARCH)
+    n = LM_PROMPT + LM_GEN
+    q, k, v = flash_inputs(rng, LM_BATCH, lm.num_heads, lm.num_kv_heads, lm.head_dim,
+                           LM_MAX_SEQ, torch.bfloat16, torch.bfloat16, device)
+    lens = torch.full((LM_BATCH,), n, dtype=torch.int32, device=device)
+
+    def b7():
+        return flash_attention.decode_attention(q, k, v, lens, chunk=512)
+
+    parity.check(b7(), flash_attention.decode_ref(q, k, v, lens), [n] * LM_BATCH,
+                 "B7 at the engine shape")
+    out["flash_decode"] = cuda_ms(b7, 20, shield=True)
+    del kernel, x, frame, q, k, v
+    torch.cuda.empty_cache()
     return out
 
 
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--table-times":
-        # python3 chip_smoke.py --table-times [ROOT]: B1-B4 at the table's
+        # python3 chip_smoke.py --table-times [ROOT]: B1-B7 at the table's
         # shapes from the port under ROOT/src (default: this checkout), so
         # that two trees can be timed in turns within one session.
         root = Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else ROOT

@@ -33,7 +33,9 @@ the live-bytes tracker of ``roofline.hlo_analysis``
   operations and the elementwise ops at the float32 rate (the reference's
   key set has no column of its own for them);
 * ``memory_analysis``: ``argument_size_in_bytes`` the rank's blocks of the
-  inputs, ``output_size_in_bytes`` its blocks of the outputs,
+  inputs an output depends on (``jax.jit`` drops an input no output
+  needs, such as hymba's meta tokens in decode), ``output_size_in_bytes``
+  its blocks of the outputs,
   ``alias_size_in_bytes`` the outputs written in place into inputs'
   storage (params and moments in training, the cache in decode),
   ``peak_bytes_per_device`` the tracker's high-water mark and
@@ -98,9 +100,9 @@ def _all_to_all_as_the_card_issues():
     from torch.distributed.tensor import placement_types
 
     def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
-        group = funcol._resolve_group((mesh, mesh_dim))
-        return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim,
-                                                     funcol._group_or_group_name(group))
+        # the group's name, as torch 2.11 and 2.13 both resolve it
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, funcol._resolve_group_name((mesh, mesh_dim)))
 
     @contextlib.contextmanager
     def patched():

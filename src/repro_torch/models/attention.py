@@ -45,13 +45,16 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import decode_attention
 from repro_torch.kernels.flash_attention.ops import decode_attention_split, merge_splits
 from repro_torch.models.layers import Params, f32_matmul, rope, truncated_normal
-from repro_torch.parallel.axes import constrain, from_block, local_block, whole_local
+from repro_torch.parallel.axes import (
+    constrain, from_block, local_block, model_block, ragged_share, whole_local,
+)
 
 NEG_INF = -2.0e38
 
@@ -247,22 +250,6 @@ def _seq_parallel(params, x: DTensor, G, Hg, head_dim, rope_theta, window, prefi
 _Q_DIMS, _KV_DIMS = (None, 2, 3, 4), (None, 2, 3)
 
 
-def _model_block(w):
-    """This rank's block of weight ``w`` and its split over 'model': a
-    DTensor gathered over every mesh dim but 'model' (FSDP's split); a
-    plain tensor is the whole weight, unsplit."""
-    if not isinstance(w, DTensor):
-        return w, Replicate(), None
-    mesh = w.device_mesh
-    model = mesh.mesh_dim_names.index("model")
-    split = w.placements[model]
-    split = split if isinstance(split, Shard) else Replicate()
-    keep = tuple(split if i == model else Replicate() for i in range(mesh.ndim))
-    if tuple(w.placements) != keep:
-        w = w.redistribute(mesh, keep)
-    return w, split, model
-
-
 def _project(eq: str, x, w, dims, shape):
     """``einsum(eq, x, w)`` for one decode token.  On a mesh, rank by rank:
     x's rows (laid out by its batch split, whole elsewhere) times this
@@ -270,7 +257,7 @@ def _project(eq: str, x, w, dims, shape):
     or head dim over 'model' gathered, a split of its contracted dim
     summed): no weight is gathered along 'model' and no DTensor reshape
     meets a split dim."""
-    block, split, model = _model_block(w)
+    block, split, model = model_block(w)
     if not isinstance(x, DTensor):
         return torch.einsum(eq, x, block)
     rows = tuple(x.placements)
@@ -305,7 +292,7 @@ def _decode_project_out(params, out, out_dtype):
     the product a partial sum over 'model' where ``wo`` is split there.
     bf16 attention into float32 weights (compute_dtype=None) promotes, as
     in JAX; torch.einsum takes one dtype."""
-    wo, split, model = _model_block(params["wo"])
+    wo, split, model = model_block(params["wo"])
     if not isinstance(out, DTensor):
         o = out.to(out_dtype)
         dtype = torch.promote_types(o.dtype, wo.dtype)
@@ -349,7 +336,7 @@ def _column_layout(layout, mesh, hd: int):
     return tuple(Shard(4) if i in data else Replicate() for i in range(len(layout)))
 
 
-def _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows):
+def _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows, batch_share=False):
     """One token's attention over the cache ``[B, S, G, hd]``, its new k/v
     rows written in place first.  ``q`` is ``[B, 1, G, Hg, hd]``,
     ``k_new``/``v_new`` ``[B, 1, G, hd]``, ``slots`` each sequence's cache
@@ -362,9 +349,11 @@ def _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows):
     sequence-split entry runs on them and the ranks merge by their
     log-sum-exps, and where its batch is whole over the data axes each of
     their ranks takes its own column block of v (:func:`_column_layout`)
-    and the outputs are gathered over them.  The output is laid out by the
-    cache's batch split.  A plain cache is the one-block, one-column-block
-    case."""
+    and the outputs are gathered over them, or, with ``batch_share``, its
+    own ragged share of the sequences (``axes.ragged_share``; a rank whose
+    share is empty runs no B7) and the outputs are summed over them.  The
+    output is laid out by the cache's batch split.  A plain cache is the
+    one-block, one-column-block case."""
     mesh = None
     k_loc, v_loc, q_loc = k_cache, v_cache, q
     nb, ns = k_cache.shape[:2]
@@ -403,14 +392,25 @@ def _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows):
         else:
             block[rows, local] = new
 
-    nq, _, G, Hg, hd = q_loc.shape
     lengths = mine(n_rows).to(torch.int32)
+    shared = []
+    if batch_share and seq and nb == q.shape[0]:
+        # the ragged shares of the sequences over the mesh dims that hold
+        # the whole batch; the same on every rank of the sequence split, so
+        # a merge's ranks all run it or all skip it
+        shared = [i for i in range(mesh.ndim) if i != seq[0] and mesh.shape[i] > 1]
+        b0, nb, _ = ragged_share(nb, mesh, shared)
+        q_loc, lengths = q_loc[b0:b0 + nb], lengths[b0:b0 + nb]
+        k_loc, v_loc = k_loc[b0:b0 + nb], v_loc[b0:b0 + nb]
+    nq, _, G, Hg, hd = q_loc.shape
     qh = q_loc.reshape(nq, G * Hg, hd)
-    cols = _column_layout(layout, mesh, hd) if seq else None
+    cols = _column_layout(layout, mesh, hd) if seq and not shared else None
     c0, dv = 0, hd
     if cols is not None:
         (*_, dv), (*_, c0) = local_block(q.shape, mesh, cols)
-    if seq:
+    if seq and not nq:
+        out = qh.new_zeros((0, G * Hg, hd))
+    elif seq:
         out, lse = decode_attention_split(qh, k_loc, v_loc[..., c0:c0 + dv], lengths, r0,
                                           chunk=pick_chunk(ns, 512))
         out = merge_splits(out, lse, (mesh, seq[0]))
@@ -419,6 +419,10 @@ def _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, n_rows):
     out = out.to(q_loc.dtype).reshape(nq, 1, G, Hg, dv)
     if mesh is None:
         return out
+    if shared:
+        out = F.pad(out, (0, 0, 0, 0, 0, 0, 0, 0, b0, q.shape[0] - b0 - nq))
+        part = tuple(Partial() if i in shared else Replicate() for i in range(mesh.ndim))
+        return from_block(out, mesh, part, q.shape).redistribute(mesh, rows_layout)
     if cols is None:
         return from_block(out, mesh, rows_layout, q.shape)
     return from_block(out, mesh, cols, q.shape).redistribute(mesh, rows_layout)
@@ -435,9 +439,11 @@ def attention_decode(
     head_dim: int,
     rope_theta: float,
     window: int = 0,
+    batch_share: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One-token decode over a KV cache; returns (y, cache).  The cache
-    tensors are updated in place and returned.
+    tensors are updated in place and returned.  ``batch_share``: see
+    :func:`_decode_attend`.
 
     With ``window > 0`` a sequence attends to its rows ``lengths - window
     + 1 .. lengths`` only, as the reference masks them; B7 takes no start
@@ -469,7 +475,7 @@ def attention_decode(
                                chunk=pick_chunk(window, 512)).to(q.dtype).reshape(q.shape)
     else:
         # The reference masks keys at pos <= lengths, B7 at pos < lengths: + 1.
-        out = _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, lengths + 1)
+        out = _decode_attend(q, k_new, v_new, k_cache, v_cache, slots, lengths + 1, batch_share)
     return _decode_project_out(params, out, v_cache.dtype), (k_cache, v_cache)
 
 
@@ -483,9 +489,10 @@ def attention_decode_ring(
     num_kv_heads: int,
     head_dim: int,
     rope_theta: float,
+    batch_share: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Sliding-window decode over an O(window) ring-buffer cache, updated
-    in place.
+    in place.  ``batch_share``: see :func:`_decode_attend`.
 
     The new k/v goes to slot ``lengths % W``.  Keys are stored post-RoPE at
     absolute positions, so slot order is irrelevant to the attention math,
@@ -499,5 +506,5 @@ def attention_decode_ring(
 
     q, k_new, v_new = _decode_qkv(params, x, G, Hg, head_dim, lengths[:, None], rope_theta)
     out = _decode_attend(q, k_new, v_new, k_cache, v_cache, lengths.long() % W,
-                         (lengths + 1).clamp_max(W))
+                         (lengths + 1).clamp_max(W), batch_share)
     return _decode_project_out(params, out, v_cache.dtype), (k_cache, v_cache)

@@ -37,7 +37,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.parallel.axes import (
     batch_only, constrain, constrain_time_mixer, from_block, local_block, map_block,
-    redistribute_like, whole_local,
+    model_block, redistribute_like, whole_local,
 )
 
 ATTN_KINDS = ("dense", "local", "global", "moe")
@@ -554,16 +554,53 @@ def block_decode(
     a = _attn_decode(params["attn"], cfg, kind, h, cache, lengths)
     s, (S, n) = _hymba_ssm_seq(params, cfg, h, (cache["S"], cache["n"]))
     x = x + _hymba_mix(params, a, s)
-    h2 = mlp(params["mlp"], rmsnorm(params["ln_mlp"], x), cfg.mlp_type)
-    return x + h2, _write(cache, S=S, n=n)
+    h2 = _mlp_decode(params["mlp"], rmsnorm(params["ln_mlp"], x), cfg.mlp_type)
+    return x + redistribute_like(h2, x), _write(cache, S=S, n=n)
+
+
+def _mlp_decode(params, h, mlp_type: str):
+    """The MLP of one decode token.  On a mesh, rank by rank: h's rows
+    (laid out by its batch split, whole over 'model') through this rank's
+    'model' block of the weights, the ``w_gate``/``w_up`` columns and
+    ``w_down`` rows of its share of d_ff, the product a partial sum over
+    'model'.  The split is the plan's, pinned here, not left to DTensor's
+    propagation; where the plan leaves d_ff whole on 'model' every rank
+    runs the whole MLP on its rows.  A plain h is the plain ``mlp``."""
+    if not isinstance(h, DTensor):
+        return mlp(params, h, mlp_type)
+    mesh = h.device_mesh
+    model = mesh.mesh_dim_names.index("model") if "model" in mesh.mesh_dim_names else None
+    blocks = {name: model_block(w) for name, w in params.items()}
+    cols = all(split == (Shard(0) if name == "w_down" else Shard(1))
+               for name, (_, split, _) in blocks.items())
+    local = {}
+    for name, (w, split, _) in blocks.items():
+        if isinstance(w, DTensor):
+            if not cols and split != Replicate():
+                w = w.redistribute(mesh, (Replicate(),) * mesh.ndim)
+            w = w.to_local()
+        local[name] = w
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 and i != model else Replicate()
+                 for i, p in enumerate(h.placements))
+    if tuple(h.placements) != rows:
+        h = h.redistribute(mesh, rows)
+    y = mlp(local, h.to_local(), mlp_type)
+    layout = tuple(Partial() if cols and i == model else p for i, p in enumerate(rows))
+    return from_block(y, mesh, layout, (*h.shape[:-1], y.shape[-1]))
 
 
 def _attn_decode(aparams, cfg: ArchConfig, kind: str, h, cache, lengths):
     """Attention of one token, its k/v written into ``cache`` in place: a
     ring cache of ``min(seq, window)`` slots for the window kinds (eviction
-    is the mask), the full cache for the others."""
+    is the mask), the full cache for the others.  On a mesh whose data
+    ranks do not split the batch, every layer of an MoE arch attends over
+    each data rank's share of the sequences, as ``moe_ffn_ep`` routes its
+    share of the tokens (the reference's MoE constrains its tokens over
+    the data axes, and XLA's partitioner carries that split back through
+    the step); a dense arch keeps them whole there, as the reference does."""
     kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-              head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+              head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+              batch_share=cfg.moe is not None)
     if _window_for(cfg, kind) > 0:
         y, _ = attn.attention_decode_ring(aparams, h, (cache["k"], cache["v"]), lengths, **kw)
     else:

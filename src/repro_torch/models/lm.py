@@ -44,7 +44,7 @@ from repro_torch.models.layers import (
     embed, f32_matmul, init_embedding, init_rmsnorm, rmsnorm, truncated_normal, unembed,
 )
 from repro_torch.parallel.axes import (
-    batch_divides, batch_only, constrain, from_block, local_block,
+    batch_divides, batch_only, constrain, from_block, local_block, model_block, ragged_share,
 )
 from repro_torch.tree import tree_map
 
@@ -176,6 +176,32 @@ def _vocab_parallel_ce(embed_params: Dict, hc: DTensor, lc, zloss: float) -> tor
     gold = logits.gather(-1, local.clamp(0, nv - 1)[..., None])[..., 0]
     gold = across(torch.where(inside, gold, 0.0), "sum")
     return (lse - gold).sum() + lse.square().sum() * zloss
+
+
+def _unembed_shares(embed_params: Dict, h: DTensor) -> DTensor:
+    """The logits ``[B, V]`` of one decode token ``h`` ``[B, 1, D]`` whose
+    batch the data axes do not split, rank by rank: each data rank's ragged
+    share of the sequences (``axes.ragged_share``) through its 'model'
+    block of the unembedding, the logits laid out so (the batch split
+    unevenly over the data axes, the vocabulary as the unembedding splits
+    it).  An MoE arch's, as the reference lays them out: its MoE constrains
+    the tokens over the data axes, and XLA's partitioner carries that split
+    to the logits."""
+    mesh = h.device_mesh
+    B = h.shape[0]
+    data = [i for i, a in enumerate(mesh.mesh_dim_names)
+            if a in ("pod", "data") and mesh.shape[i] > 1]
+    tied = "unembed" not in embed_params
+    w = embed_params["table"].t() if tied else embed_params["unembed"]   # [D, V]
+    block, split, model = model_block(w)
+    block = block.to_local() if isinstance(block, DTensor) else block
+    h = h.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    b0, nb, _ = ragged_share(B, mesh, data)
+    logits = f32_matmul(h[b0:b0 + nb, 0], block)
+    vocab = Shard(1) if isinstance(split, Shard) else Replicate()
+    layout = tuple(Shard(0) if i in data else vocab if i == model else Replicate()
+                   for i in range(mesh.ndim))
+    return from_block(logits, mesh, layout, (B, w.shape[1]))
 
 
 def _remat(fn):
@@ -455,6 +481,8 @@ class LM:
                 h, _ = blk.block_decode(sb, cfg, kind, h, layer_cache, lengths)
                 h = constrain(h, batch, None, None)
         h = rmsnorm(params["final_norm"], h)
+        if cfg.moe is not None and batch is None and isinstance(h, DTensor):
+            return _unembed_shares(params["embed"], h), cache, lengths + 1
         logits = unembed(params["embed"], h)
         return logits[:, 0], cache, lengths + 1
 

@@ -37,7 +37,9 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import Params, _gelu, init_mlp, mlp, truncated_normal
-from repro_torch.parallel.axes import ambient_mesh, axis_sizes, constrain, placements
+from repro_torch.parallel.axes import (
+    ambient_mesh, axis_sizes, constrain, placements, ragged_share,
+)
 
 
 def init_moe(generator: torch.Generator, d: int, f: int, moe: MoEConfig,
@@ -160,11 +162,14 @@ def moe_ffn(
 #     rank owns E/|model| experts and masks the rest), otherwise the FFN
 #     hidden dim is sharded (F-parallel fallback);
 #   * one all-reduce over 'model' sums the partial token outputs, and the
-#     aux loss's two means are averaged over the data axes.
+#     aux loss's two means are averaged over the data axes;
+#   * a batch the data axes do not split (where the reference falls back
+#     to moe_ffn) is split into ragged token shares instead, one a data
+#     rank, whose outputs and aux sums add up over the data axes.
 
 
 def _moe_local(
-    xt: torch.Tensor,            # [T_loc, D] this data-shard's tokens
+    xt: torch.Tensor,            # [T_loc, D] this rank's tokens
     router: torch.Tensor,        # [D, E] replicated
     wg: torch.Tensor,            # [E_loc, D, F] or [E, D, F_loc]
     wu: torch.Tensor,
@@ -173,22 +178,21 @@ def _moe_local(
     mlp_type: str,
     m_idx: int,                  # this rank's index on 'model' (EP only)
     ep: bool,                    # True: experts sharded over 'model'
-    dropless: bool,
+    C: int,                      # slots per expert
+    earlier=None,                # bucket counts [buckets + 1] -> the earlier ranks' counts
 ):
-    """One rank's share: ``(partial output [T_loc, D], me [E], ce [E])``,
-    the output a partial sum over 'model', ``me``/``ce`` the aux loss's
-    per-expert means over this shard's tokens."""
+    """One rank's share: ``(partial output [T_loc, D], probs [T_loc, E],
+    expert ids [T_loc, k])``, the output a partial sum over 'model'.  A
+    choice's position in its expert counts the earlier tokens' choices of
+    that expert; where these tokens are a share of a batch whose capacity
+    ``C`` counts the whole batch, ``earlier`` returns the earlier ranks'
+    counts (a collective), else the share is a batch of its own."""
     T, D = xt.shape
     E, k = moe.num_experts, moe.top_k
 
     logits = (xt @ router).float()
     probs, gate_vals, expert_ids = route(logits, k)
-    me = probs.mean(dim=0)
-    ce = torch.zeros((E,), dtype=torch.float32, device=xt.device).index_add(
-        0, expert_ids.reshape(-1),
-        torch.ones((T * k,), dtype=torch.float32, device=xt.device)) / (T * k)
 
-    C = capacity(T, moe, dropless)
     if ep:
         E_loc = wg.shape[0]
         local = (expert_ids // E_loc) == m_idx                  # my experts only
@@ -199,26 +203,39 @@ def _moe_local(
         eff_ids = expert_ids
         n_buckets = E
 
+    # a token picks an expert at most once, so no slot past T_loc fills
+    depth = min(T, C)
     flat_ids = eff_ids.reshape(T * k)
-    pos, fits = dispatch(eff_ids, n_buckets + 1, C)             # + the drop bucket
+    pos, fits = dispatch(eff_ids, n_buckets + 1, depth)         # + the drop bucket
+    if earlier is not None:
+        counts = torch.zeros((n_buckets + 1,), dtype=torch.int64, device=xt.device).index_add(
+            0, flat_ids, torch.ones_like(flat_ids))
+        fits = pos + earlier(counts)[flat_ids] < C
     keep = fits & local.reshape(T * k)
 
-    slot = torch.where(keep, flat_ids * C + pos, n_buckets * C)
+    slot = torch.where(keep, flat_ids * depth + pos, n_buckets * depth)
     token_idx = torch.arange(T, device=xt.device).repeat_interleave(k)
     # each kept slot is written once; the dropped ones go to the spare row
-    buf = torch.zeros((n_buckets * C + 1, D), dtype=xt.dtype, device=xt.device)
+    buf = torch.zeros((n_buckets * depth + 1, D), dtype=xt.dtype, device=xt.device)
     buf[slot] = xt[token_idx]
-    buf = buf[:n_buckets * C].reshape(n_buckets, C, D)
+    buf = buf[:n_buckets * depth].reshape(n_buckets, depth, D)
 
     act = F.silu if mlp_type == "swiglu" else _gelu
     g = act(torch.bmm(buf, wg))
     u = torch.bmm(buf, wu)
-    eo = torch.bmm(g * u, wd)                                   # [buckets, C, D]
+    eo = torch.bmm(g * u, wd)                                   # [buckets, depth, D]
 
     out_flat = torch.where(keep[:, None], eo.reshape(-1, D)[torch.clamp_max(
-        slot, n_buckets * C - 1)], 0.0)
+        slot, max(n_buckets * depth - 1, 0))], 0.0)
     combined = (out_flat.reshape(T, k, D) * gate_vals[..., None].to(xt.dtype)).sum(dim=1)
-    return combined, me, ce
+    return combined, probs, expert_ids
+
+
+def _expert_counts(expert_ids: torch.Tensor, E: int) -> torch.Tensor:
+    """Float32 choices per expert ``[E]``."""
+    flat = expert_ids.reshape(-1)
+    return torch.zeros((E,), dtype=torch.float32, device=flat.device).index_add(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=flat.device))
 
 
 def _local(t, mesh, spec: Sequence) -> torch.Tensor:
@@ -246,9 +263,13 @@ def moe_ffn_ep(
     """Expert-parallel MoE on the ambient LM mesh; ``moe_ffn`` where the
     reference falls back: no mesh or no 'model' axis, or neither the
     experts nor the hidden dim splitting over 'model'.  A batch that does
-    not split over the data axes runs whole on every data rank (each
-    rank's output a 1/|data| share of a partial sum, so its grads add up
-    once)."""
+    not split over the data axes arrives whole on every data rank, where
+    the reference runs ``moe_ffn``: each data rank routes its share of the
+    ``B S`` tokens (``axes.ragged_share``, so a share may be empty), each
+    choice placed by its position in the whole batch (the capacity counts
+    the whole batch), and the shares' outputs and the aux loss's sums add
+    up over the data axes: ``moe_ffn``'s numbers, with each token's work
+    done once and its grads added up once."""
     mesh = ambient_mesh()
     if mesh is None or "model" not in mesh.mesh_dim_names:
         return moe_ffn(params, x, moe, mlp_type, dropless=dropless)
@@ -257,9 +278,10 @@ def moe_ffn_ep(
     m = sizes["model"]
     daxes = tuple(a for a in ("pod", "data") if a in names)
     B, S, D = x.shape
+    E, k = moe.num_experts, moe.top_k
     n_data = math.prod(sizes[a] for a in daxes)
     split = B % n_data == 0
-    ep = moe.num_experts % m == 0
+    ep = E % m == 0
     F_ = params["w_gate"].shape[-1]
     if not ep and F_ % m != 0:
         return moe_ffn(params, x, moe, mlp_type, dropless=dropless)
@@ -268,14 +290,29 @@ def moe_ffn_ep(
     w_spec = ("model", None, None) if ep else (None, None, "model")
     wd_spec = ("model", None, None) if ep else (None, "model", None)
     xb = _local(x, mesh, (lead, None, None))
-    T_loc = xb.shape[0] * xb.shape[1]
-    y_loc, me, ce = _moe_local(
-        xb.reshape(T_loc, D), _local(params["router"], mesh, (None, None)),
+    xt = xb.reshape(-1, D)
+    T = xt.shape[0]
+    C = capacity(T, moe, dropless)
+    earlier = None
+    if not split:
+        # this data rank's share of the whole batch's tokens
+        T_all, ddims = T, [names.index(a) for a in daxes]
+        lo, T, r = ragged_share(T_all, mesh, ddims)
+        xt = xt[lo:lo + T]
+        if not dropless:
+            def earlier(counts):
+                """The earlier data ranks' choices per bucket (an all-gather
+                over the data axes, which every rank joins)."""
+                over = [Shard(0) if i in ddims else Replicate() for i in range(mesh.ndim)]
+                every = DTensor.from_local(counts[None], mesh, over, run_check=False)
+                return every.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()[:r].sum(0)
+    y_loc, probs, expert_ids = _moe_local(
+        xt, _local(params["router"], mesh, (None, None)),
         _local(params["w_gate"], mesh, w_spec), _local(params["w_up"], mesh, w_spec),
         _local(params["w_down"], mesh, wd_spec), moe, mlp_type,
-        mesh.get_local_rank("model"), ep, dropless)
+        mesh.get_local_rank("model"), ep, C, earlier)
 
-    # the psum over 'model' (partial outputs), and pmean over the data axes
+    # the psum over 'model' (partial outputs), and the sums over the data axes
     def on_mesh(local, dims):
         placed = [Replicate()] * mesh.ndim
         for a, p in dims.items():
@@ -284,19 +321,30 @@ def moe_ffn_ep(
         return t.redistribute(mesh, [Shard(0) if isinstance(p, Shard) else Replicate()
                                      for p in placed])
 
-    if split:
-        y = on_mesh(y_loc.reshape(xb.shape), {**{a: Shard(0) for a in daxes}, "model": Partial()})
-    else:
-        y = on_mesh(y_loc.reshape(xb.shape) / n_data,
-                    {**{a: Partial() for a in daxes}, "model": Partial()})
     # every 'model' rank holds the same me: each adds its 1/|model| share,
     # so the grad reaching the router counts the aux loss once
     every = {a: Partial() for a in (*daxes, "model")}
-    me = on_mesh(me / (n_data * m), every)
-    ce = on_mesh(ce / n_data, {a: Partial() for a in daxes})
-    aux = moe.router_aux_weight * moe.num_experts * torch.sum(me * ce)
-    if "shared" in params:
-        shared = mlp(params["shared"], x, mlp_type)
+    shared = params.get("shared")
+    if split:
+        y = on_mesh(y_loc.reshape(xb.shape), {**{a: Shard(0) for a in daxes}, "model": Partial()})
+        me = on_mesh(probs.mean(dim=0) / (n_data * m), every)
+        ce = on_mesh(_expert_counts(expert_ids, E) / (T * k) / n_data,
+                     {a: Partial() for a in daxes})
+    else:
+        if shared is not None and shared["w_up"].shape[-1] % m == 0:
+            # the shared experts on the share too, over this rank's 'model'
+            # block of their hidden dim: a partial sum over 'model' as well
+            y_loc = y_loc + mlp({name: _local(w, mesh, ("model", None) if name == "w_down"
+                                              else (None, "model"))
+                                 for name, w in shared.items()}, xt, mlp_type)
+            shared = None
+        y = on_mesh(F.pad(y_loc, (0, 0, lo, T_all - lo - T)).reshape(xb.shape),
+                    {**{a: Partial() for a in daxes}, "model": Partial()})
+        me = on_mesh(probs.sum(dim=0) / (T_all * m), every)
+        ce = on_mesh(_expert_counts(expert_ids, E) / (T_all * k), {a: Partial() for a in daxes})
+    aux = moe.router_aux_weight * E * torch.sum(me * ce)
+    if shared is not None:
+        shared = mlp(shared, x, mlp_type)
         if not isinstance(shared, DTensor):     # plain operands: every rank's same value
             shared = DTensor.from_local(shared, mesh, [Replicate()] * mesh.ndim, run_check=False)
         y = y + shared

@@ -218,6 +218,36 @@ def from_block(local: torch.Tensor, mesh, layout: Sequence, shape: Sequence[int]
                               stride=contiguous_strides(shape))
 
 
+def ragged_share(n: int, mesh, dims: Sequence[int]) -> Tuple[int, int, int]:
+    """``(first, count, index)`` of this rank's share of ``n`` items split
+    over the mesh dims ``dims`` as a ``Shard`` over them splits a dim of
+    ``n`` (``torch.chunk``'s shares, as XLA pads an uneven split: the last
+    shares may be short or empty); ``index`` is the rank's place among
+    their ranks, whose shares follow each other in that order."""
+    over = [Shard(0) if i in dims else Replicate() for i in range(mesh.ndim)]
+    parts = 1
+    for i in dims:
+        parts *= mesh.shape[i]
+    (count,), (first,) = local_block((n,), mesh, over)
+    return first, count, local_block((parts,), mesh, over)[1][0]
+
+
+def model_block(w):
+    """This rank's block of weight ``w`` and its split over 'model': a
+    DTensor gathered over every mesh dim but 'model' (FSDP's split); a
+    plain tensor is the whole weight, unsplit."""
+    if not isinstance(w, DTensor):
+        return w, Replicate(), None
+    mesh = w.device_mesh
+    model = mesh.mesh_dim_names.index("model")
+    split = w.placements[model]
+    split = split if isinstance(split, Shard) else Replicate()
+    keep = tuple(split if i == model else Replicate() for i in range(mesh.ndim))
+    if tuple(w.placements) != keep:
+        w = w.redistribute(mesh, keep)
+    return w, split, model
+
+
 def whole_local(w, x):
     """The whole of a DTensor weight ``w`` on this rank (gathered where the
     plan splits it, e.g. FSDP over 'data'), as a plain tensor for a product

@@ -181,10 +181,12 @@ def _per_rank(mode: "_CensusMode"):
 @dataclasses.dataclass
 class LiveBytes:
     """One rank's storage bytes over a run (:func:`analyze_with_memory`):
-    the arguments' (distinct storages), the outputs' (each distinct tensor
-    once), the outputs that are arguments' storages written in place, the
-    high-water mark of every live storage, and at that mark the live bytes
-    by the op that made them (``"argument"`` for the arguments)."""
+    the arguments' that an output depends on (distinct storages; ``jax.jit``
+    leaves an input no output needs out of the executable), the outputs'
+    (each distinct tensor once), the outputs that are arguments' storages
+    written in place, the high-water mark of every live storage, and at
+    that mark the live bytes by the op that made them (``"argument"`` for
+    the arguments)."""
 
     argument_bytes: float
     output_bytes: float
@@ -234,6 +236,33 @@ class _Tracker:
         self._seen.clear()
 
 
+class _Flow:
+    """Which arguments each storage's values derive from, a bit per
+    argument: an op's outputs take the union of its inputs' bits (a fresh
+    storage takes them, one an op writes in place or views adds them)."""
+
+    def __init__(self, args):
+        self.bits: Dict[int, int] = {}
+        for i, t in enumerate(args):
+            key = id(t.untyped_storage())
+            self.bits[key] = self.bits.get(key, 0) | (1 << i)
+
+    def op(self, inputs, results) -> None:
+        keys = {id(t.untyped_storage()) for t in inputs}
+        bits = 0
+        for key in keys:
+            bits |= self.bits.get(key, 0)
+        for t in results:
+            key = id(t.untyped_storage())
+            self.bits[key] = (self.bits.get(key, 0) | bits) if key in keys else bits
+
+    def reaching(self, outs) -> int:
+        bits = 0
+        for t in outs:
+            bits |= self.bits.get(id(t.untyped_storage()), 0)
+        return bits
+
+
 def _distinct_tensor_bytes(tensors) -> float:
     seen = set()
     total = 0.0
@@ -246,8 +275,9 @@ def _distinct_tensor_bytes(tensors) -> float:
 
 
 class _CensusMode(TorchDispatchMode):
-    def __init__(self, tracker: Optional[_Tracker] = None):
+    def __init__(self, tracker: Optional[_Tracker] = None, flow: Optional[_Flow] = None):
         super().__init__()
+        self.flow = flow
         self.flops_by_dtype: Dict[str, float] = {}
         self.elementwise = 0.0
         self.bytes = 0.0
@@ -275,6 +305,8 @@ class _CensusMode(TorchDispatchMode):
         results = _tensors(out)
         if self.tracker is not None:
             self.tracker.add(results, name)
+        if self.flow is not None:
+            self.flow.op(_tensors((args, kwargs)), results)
         self.elements[name] = self.elements.get(name, 0) + sum(r.numel() for r in results)
         self.records.append((f"{func.namespace}::{func._overloadpacket.__name__}",
                              tuple((r.dtype, tuple(r.shape)) for r in results)))
@@ -313,14 +345,17 @@ def analyze_with_memory(fn: Callable, *args, **kw) -> Tuple[Census, LiveBytes, o
     tracker = _Tracker()
     arg_tensors = [_local(t) for t in _tensors((args, kw))]
     tracker.add(arg_tensors, "argument")
-    mode = _CensusMode(tracker)
+    flow = _Flow(arg_tensors)
+    mode = _CensusMode(tracker, flow)
     try:
         with _per_rank(mode), mode:
             out = fn(*args, **kw)
         outs = [_local(t) for t in _tensors(out)]
         arg_keys = {id(t.untyped_storage()) for t in arg_tensors}
+        used = flow.reaching(outs)
         memory = LiveBytes(
-            argument_bytes=_distinct_tensor_bytes(arg_tensors),
+            argument_bytes=_distinct_tensor_bytes(
+                [t for i, t in enumerate(arg_tensors) if used >> i & 1]),
             output_bytes=_distinct_tensor_bytes(outs),
             alias_bytes=_distinct_tensor_bytes(
                 [t for t in outs if id(t.untyped_storage()) in arg_keys]),

@@ -24,11 +24,14 @@ Three kinds of subprocess start at once from one module-scoped fixture:
 
 Held exactly: skip flags and reasons, ``attn_mode``, ``chips``, ``mesh``,
 ``params_total``/``params_active``, ``model_flops``, the argument bytes a
-device, and for prefill and decode the output bytes, to which XLA's
+device (the inputs an output depends on: ``jax.jit`` drops the others),
+and for prefill and decode the output bytes, to which XLA's
 ``output_size_in_bytes`` adds the output tuple's index table, 8 bytes a
-leaf (the test adds them).  No shard here is ragged, so no padding rule
-applies.  Per-rank FLOPs (the census's products against the reference's
-HLO dots) within 0.5x-1.5x.
+leaf (the test adds them).  One shard is ragged: the two-pod MoE decode's
+logits, 16 sequences over 32 data ranks, which XLA pads to one a rank and
+DTensor splits as ``torch.chunk`` does (rank 0 holds one in both).
+Per-rank FLOPs (the census's products against the reference's HLO dots)
+within 0.5x-1.5x.
 Collective bytes by kind are printed beside the reference's; all-gather
 and all-reduce asserted > 0 wherever the reference's are.  The other kinds
 are the partitioners' own choices: DTensor's redistributions never use
@@ -58,6 +61,10 @@ CELLS = [
     ("xlstm-1.3b", "decode_32k", "single"), ("paligemma-3b", "prefill_32k", "single"),
     ("gemma-2b", "long_500k", "single"), ("gemma3-12b", "long_500k", "single"),
     ("xlstm-1.3b", "train_4k", "single"),
+    # hymba's decode MLP over 'model'; the MoE decode whose batch of 16
+    # the 32 data ranks of two pods do not split
+    ("hymba-1.5b", "decode_32k", "single"), ("hymba-1.5b", "long_500k", "single"),
+    ("deepseek-moe-16b", "decode_32k", "multi"), ("qwen2-moe-a2.7b", "decode_32k", "multi"),
 ]
 FLOPS_RATIO = (0.5, 1.5)
 

@@ -181,10 +181,8 @@ def test_the_census_counts_b7_by_its_formula():
                               + 4 * B * H)
 
 
-@pytest.mark.parametrize("Dv", [None, 16, 128])
-def test_the_smoke_bound_counts_what_the_census_counts(Dv):
-    """``chip_smoke.flash_bound`` keeps its own formula for B7's bound; it
-    reads the census's operations and bytes, a column block of v included."""
+def _smoke():
+    """``chip_smoke.py`` as a module."""
     import importlib.util
     import sys
     from pathlib import Path
@@ -197,6 +195,35 @@ def test_the_smoke_bound_counts_what_the_census_counts(Dv):
         spec.loader.exec_module(smoke)
     finally:
         del sys.modules[spec.name]
+    return smoke
+
+
+@pytest.mark.parametrize("Dv", [None, 16, 128])
+def test_the_smoke_bound_counts_what_the_census_counts(Dv):
+    """``chip_smoke.flash_bound`` keeps its own formula for B7's bound; it
+    reads the census's operations and bytes, a column block of v included."""
+    smoke = _smoke()
     B, H, G, D, lengths = 1, 16, 8, 256, [1024]
     flops, nbytes = ops.census_cost(B, H, G, D, sum(lengths), 2, Dv)
     assert smoke.flash_bound(B, H, G, D, lengths, 2, Dv) == (*smoke.bound(nbytes, flops), nbytes)
+
+
+@pytest.mark.parametrize("batch_share", [False, True])
+def test_the_smoke_planted_ring_is_the_ring_decode_with_no_fault(batch_share):
+    """The card's zoo phase swaps ``attention_decode_ring`` for
+    ``chip_smoke.planted_ring``: with no fault planted it takes the ring
+    decode's arguments and gives its output and cache bit for bit."""
+    from repro_torch.models import attention
+
+    g = torch.Generator().manual_seed(27)
+    params = attention.init_attention(g, 32, 4, 2, 8)
+    x = torch.randn(2, 1, 32, generator=g)
+    lengths = torch.tensor([3, 11], dtype=torch.int32)
+    kv = [torch.randn(2, 8, 2, 8, generator=g).to(torch.bfloat16) for _ in range(2)]
+    kw = dict(num_heads=4, num_kv_heads=2, head_dim=8, rope_theta=10000.0,
+              batch_share=batch_share)
+    want, want_kv = attention.attention_decode_ring(params, x, [t.clone() for t in kv],
+                                                    lengths, **kw)
+    got, got_kv = _smoke().planted_ring()(params, x, [t.clone() for t in kv], lengths, **kw)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got_kv, want_kv))

@@ -39,7 +39,10 @@ JAX in this module).  The tests read both.
   tolerance against one device.
 - ``moe_ffn_ep`` against ``moe_ffn`` for the expert-parallel case (E=4)
   and the hidden-dim fallback (E=3, 3 % 2 != 0): output atol 2e-5, aux
-  1e-6, the reference's numbers (``tests/test_moe.py``).
+  1e-6, the reference's numbers (``tests/test_moe.py``); and at batches of
+  1 and 3, which the data axis does not split (ragged token shares, one
+  with a capacity that drops choices), also the grads of x and of every
+  weight, at the step's grad tolerance.
 - ``TokenPipeline.device_batch_at``: each rank's block equals the slice
   of ``batch_at``.
 - Checkpoints: a sharded save, then ``restore(shardings=)`` and
@@ -58,9 +61,11 @@ JAX in this module).  The tests read both.
   ``LM.decode_step`` on one device from the same parameters and tokens.
   The cases cover every decode attention mode (``qheads``, ``heads``,
   ``head_dim``, and ``replicate`` forced by ``make_plan(attn_mode=)``),
-  gemma3's ring caches and xlstm's recurrent states, and gemma3 at a
-  batch of one (the cache's batch whole over 'data', v's head dim split
-  there).  Logits are held at
+  gemma3's ring caches and xlstm's recurrent states, gemma3 at a batch of
+  one (the cache's batch whole over 'data', v's head dim split there),
+  hymba's two branches and its MLP over 'model', and deepseek at a batch
+  of 3, which the 2 data ranks do not split (each attends over and routes
+  its ragged share of the sequences).  Logits are held at
   ``tests/test_torch_lm.py``'s tolerance (2% of the largest |logit| plus
   2e-3) and the caches at two bf16 units of their largest element (both
   sides compute in float32 over the same bf16 cache; the mesh sums in
@@ -99,6 +104,11 @@ STEP_CASES = {
 #: step cases at another batch: 2 leaves 'model' to the mixers' heads
 STEP_BATCH = {"xlstm-1.3b-heads": 2, "xlstm-1.3b-columns": 2, "hymba-1.5b": 2}
 MOE_CASES = {4: "ep", 3: "f_fallback"}      # experts -> the path on a model axis of 2
+#: batches the data axis does not split, each split into ragged token
+#: shares: case -> (experts, batch, capacity factor); a factor of 0.5
+#: drops choices, in the whole batch's token order
+MOE_UNSPLIT = {"4_unsplit": (4, 1, 8.0), "3_unsplit": (3, 3, 8.0),
+               "4_unsplit_drops": (4, 3, 0.5)}
 MOE_D, MOE_F, MOE_X = 32, 64, (4, 16, 32)
 LOSS_RTOL, GRAD_REL, LR_SHARE = 1e-5, 1e-4, 0.05
 MOE_ATOL, AUX_ATOL = 2e-5, 1e-6
@@ -111,9 +121,12 @@ SERVE_CASES = {
     "gemma3-12b": ("gemma3-12b", {}, None, "heads"),
     "xlstm-1.3b": ("xlstm-1.3b", {}, None, "heads"),
     "gemma3-12b-batch-one": ("gemma3-12b", {}, None, "heads"),
+    "hymba-1.5b": ("hymba-1.5b", {}, None, "heads"),
+    "deepseek-moe-16b-ragged": ("deepseek-moe-16b", {}, None, "heads"),
 }
-#: serve cases at another batch
-SERVE_BATCH_OF = {"gemma3-12b-batch-one": 1}
+#: serve cases at another batch (3 does not split over the 2 data ranks:
+#: the MoE arch's attention and experts run ragged shares of 2 and 1)
+SERVE_BATCH_OF = {"gemma3-12b-batch-one": 1, "deepseek-moe-16b-ragged": 3}
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS, SEQ_SHARD_MIN = 2, 12, 32, 3, 8
 BF16_EPS = 2.0 ** -8
 
@@ -133,12 +146,12 @@ def _tokens(cfg, batch: int = BATCH):
     return np.random.default_rng(3).integers(0, cfg.vocab_size, (batch, SEQ)).astype(np.int64)
 
 
-def _moe_inputs(E):
+def _moe_inputs(E, capacity_factor=8.0):
     """(MoEConfig, params on the CPU, x as numpy): the same on every rank."""
     from repro_torch.configs.base import MoEConfig
     from repro_torch.models.moe import init_moe
 
-    moe = MoEConfig(num_experts=E, top_k=2, num_shared=1, capacity_factor=8.0)
+    moe = MoEConfig(num_experts=E, top_k=2, num_shared=1, capacity_factor=capacity_factor)
     params = init_moe(torch.Generator().manual_seed(E), MOE_D, MOE_F, moe, "swiglu")
     x = np.random.default_rng(E).standard_normal(MOE_X).astype(np.float32)
     return moe, params, x
@@ -223,22 +236,59 @@ def _flat_shardings(tree):
     return leaves(tree, is_leaf=is_sharding)
 
 
-def _moe_case(mesh, rank, out, E, unsplit=False):
+def _moe_case(mesh, rank, out, E, unsplit=None):
+    """``moe_ffn_ep`` on the mesh against ``moe_ffn`` on one device; for an
+    unsplit batch (a ``MOE_UNSPLIT`` case) also the grads of x and of
+    every weight, placed as the plan places them, of ``sum(y * dy) +
+    aux``."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.models.moe import moe_ffn, moe_ffn_ep
     from repro_torch.parallel import NamedSharding, P, lm_mesh, place
 
-    moe, params, x = _moe_inputs(E)
-    xt = torch.from_numpy(x[:1] if unsplit else x)
-    want, want_aux = moe_ffn(params, xt, moe, "swiglu")
+    E, batch, factor = MOE_UNSPLIT[unsplit] if unsplit else (E, None, 8.0)
+    moe, params, x = _moe_inputs(E, factor)
+    xt = torch.from_numpy(x[:batch])
+    if not unsplit:
+        want, want_aux = moe_ffn(params, xt, moe, "swiglu")
+        with lm_mesh(mesh), implicit_replication():
+            y, aux = moe_ffn_ep(params, place(xt, NamedSharding(mesh, P("data", None, None))),
+                                moe, "swiglu")
+        res = dict(y=_np(y), aux=_np(aux), want=_np(want), want_aux=_np(want_aux))
+        if rank == 0:
+            np.savez(out / f"moe_{E}.npz", **res)
+        return
+    dy = torch.from_numpy(np.random.default_rng(E + batch).standard_normal(
+        xt.shape).astype(np.float32))
+    flat = _flat(params)
+    specs = {"router": P(None, None), "shared/w_gate": P(None, "model"),
+             "shared/w_up": P(None, "model"), "shared/w_down": P("model", None)}
+    ep = E % 2 == 0
+    for name in ("w_gate", "w_up"):
+        specs[name] = P("model", None, None) if ep else P(None, None, "model")
+    specs["w_down"] = P("model", None, None) if ep else P(None, "model", None)
+
+    def loss_grads(fn, tree, x):
+        leaves = {k: v.detach().requires_grad_() for k, v in tree.items()}
+        xd = x.detach().requires_grad_()
+        nested = {k: leaves[k] for k in ("router", "w_gate", "w_up", "w_down")}
+        nested["shared"] = {k.split("/")[1]: v for k, v in leaves.items()
+                            if k.startswith("shared/")}
+        y, aux = fn(nested, xd, moe, "swiglu")
+        grads = torch.autograd.grad((y * dy).sum() + aux, [xd, *leaves.values()])
+        return y, aux, dict(zip(["x", *leaves], grads))
+
+    want, want_aux, want_grads = loss_grads(moe_ffn, flat, xt)
     with lm_mesh(mesh), implicit_replication():
         # a batch the data axis does not split arrives whole
-        spec = P(None, None, None) if unsplit else P("data", None, None)
-        y, aux = moe_ffn_ep(params, place(xt, NamedSharding(mesh, spec)), moe, "swiglu")
+        y, aux, grads = loss_grads(
+            moe_ffn_ep, {k: place(v, NamedSharding(mesh, specs[k])) for k, v in flat.items()},
+            place(xt, NamedSharding(mesh, P(None, None, None))))
     res = dict(y=_np(y), aux=_np(aux), want=_np(want), want_aux=_np(want_aux))
+    res.update({f"grad/{k}": _np(v) for k, v in grads.items()})
+    res.update({f"one_grad/{k}": _np(v) for k, v in want_grads.items()})
     if rank == 0:
-        np.savez(out / f"moe_{E}{'_unsplit' if unsplit else ''}.npz", **res)
+        np.savez(out / f"moe_{unsplit}.npz", **res)
 
 
 def _tokens_case(mesh, rank, out):
@@ -509,7 +559,8 @@ def _worker(rank: int, port: int, out: str) -> None:
             times[name] = time.perf_counter() - t0
         for E in MOE_CASES:
             _moe_case(mesh, rank, out, E)
-        _moe_case(mesh, rank, out, 4, unsplit=True)
+        for name in MOE_UNSPLIT:
+            _moe_case(mesh, rank, out, None, unsplit=name)
         for name in SERVE_CASES:
             t0 = time.perf_counter()
             _serve_case(mesh, rank, out, name)
@@ -669,13 +720,22 @@ def test_the_cases_cover_every_attention_mode():
     assert {case[4] for case in STEP_CASES.values()} >= {"heads", "qheads", "seq"}
 
 
-@pytest.mark.parametrize("E", [*sorted(MOE_CASES), "4_unsplit"])
+@pytest.mark.parametrize("E", [*sorted(MOE_CASES), *MOE_UNSPLIT])
 def test_moe_ffn_ep_matches_moe_ffn(mesh_run, E):
-    """Also a batch of 1, which the data axis cannot split: every data rank
-    runs it whole."""
+    """Also batches of 1 and 3, which the data axis cannot split: each data
+    rank routes its ragged share of the tokens (a capacity that drops
+    choices counts the whole batch), and the grads of x and of every
+    weight add up to ``moe_ffn``'s."""
     data = np.load(mesh_run / f"moe_{E}.npz")
     np.testing.assert_allclose(data["y"], data["want"], atol=MOE_ATOL, rtol=0)
     np.testing.assert_allclose(data["aux"], data["want_aux"], atol=AUX_ATOL, rtol=0)
+    grads = _keys(data, "one_grad/")
+    assert grads == _keys(data, "grad/")
+    if E in MOE_UNSPLIT:
+        assert {"x", "w_gate", "w_up", "w_down", "router"} <= set(grads)
+    for k in grads:
+        want = data[f"one_grad/{k}"]
+        _held(data[f"grad/{k}"], want, GRAD_REL * np.abs(want).max(), label=f"grad {k}")
 
 
 def test_device_batch_at_shards_are_batch_at_slices(mesh_run):
@@ -824,6 +884,39 @@ def test_one_card_mesh_ce_is_the_plain_ce_bit_for_bit(host_mesh, vocab, tied):
     assert torch.equal(got.detach(), want.detach())
     assert torch.equal(hd.grad.full_tensor(), h.grad)
     assert torch.equal(wd.grad.full_tensor(), w.grad)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "deepseek-moe-16b"])
+def test_one_card_plan_serving_is_the_no_plan_serving_bit_for_bit(host_mesh, arch):
+    """On a ``(1, 1)`` host mesh the plan's prefill and decode steps of
+    reduced hymba (its decode MLP rank by rank) and deepseek (the
+    expert-parallel MoE) give the no-plan path's logits bit for bit, as
+    the card's one-card plan serving phase holds them."""
+    from repro_torch.models import LM
+    from repro_torch.models.lm import make_serve_steps
+    from repro_torch.parallel import make_plan
+
+    cfg = _cfg(arch)
+    lm = LM(cfg, chunk_q=8)
+    params = lm.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(27)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)))
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_STEPS)))
+    prefill, _ = make_serve_steps(lm, make_plan(cfg, host_mesh, kind="prefill"))
+    _, decode = make_serve_steps(lm, make_plan(cfg, host_mesh, kind="decode"))
+    paths = {"plan": (prefill, decode), "no_plan": (lambda p, t, n: lm.prefill(p, t, n),
+                                                     lm.decode_step)}
+    logits = {}
+    with torch.no_grad():
+        for label, (pre, dec) in paths.items():
+            out, cache, lengths = pre(params, prompt, SERVE_CACHE)
+            logits[label] = [out]
+            for t in range(SERVE_STEPS):
+                out, cache, lengths = dec(params, forced[:, t:t + 1], cache, lengths)
+                logits[label].append(out)
+    for i, (a, b) in enumerate(zip(logits["plan"], logits["no_plan"])):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        assert torch.equal(a, b), f"{arch} step {i}: {(a - b).abs().max():.3g} off"
 
 
 def _logit_tol(want):
