@@ -1305,10 +1305,9 @@ def flush_times(mode, reqs, runs=5):
         torch.cuda.synchronize()
 
     def split(before, host_before):
-        """The fleet's own per-flush split since ``before``, and the pinned
-        host allocations the caching host allocator made meanwhile."""
-        out = {f"{k}_ms_per_flush": (front.timings[k] - before[k]) * 1e3 / runs
-               for k in ("pack_s", "dispatch_s")}
+        """The fleet's own host pack time a flush since ``before``, and the
+        pinned host allocations the caching host allocator made meanwhile."""
+        out = {"pack_s_ms_per_flush": (front.timings["pack_s"] - before["pack_s"]) * 1e3 / runs}
         if host_before is not None:
             after = host_stats()
             out["pinned_allocations"] = (after.get("num_host_alloc", 0)
@@ -1702,9 +1701,8 @@ def phase_times(device, svc, main_reqs, channel_requests, all_grid):
 
 def time_flushes(svc, reqs, label, runs=5):
     """Host-clock flush times of ``reqs`` through ``svc``, each ending in a
-    synchronize, with the fleet's own split per flush: host packing
-    (canvas fill, copy to the card) vs dispatch (kernel launches and the
-    outputs' copy back)."""
+    synchronize, with the fleet's own host packing time per flush (canvas
+    fill, copy to the card)."""
     import torch
 
     flush_ms = []
@@ -1714,10 +1712,8 @@ def time_flushes(svc, reqs, label, runs=5):
         serve(svc, reqs)
         torch.cuda.synchronize()
         flush_ms.append((time.perf_counter() - t0) * 1e3)
-    split = {f"{k}_ms_per_flush": (svc.timings[k] - before[k]) * 1e3 / runs
-             for k in ("pack_s", "dispatch_s")}
     return {"flush": label, "median_ms": statistics.median(flush_ms), "runs_ms": flush_ms,
-            **split}
+            "pack_s_ms_per_flush": (svc.timings["pack_s"] - before["pack_s"]) * 1e3 / runs}
 
 
 def phase_chain_times(device, svc, chain_reqs, pipe_grid):

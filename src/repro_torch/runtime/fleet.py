@@ -88,6 +88,7 @@ from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 from repro_torch.runtime.resilience import (
     BreakerBoard, PoisonedOutputError, QuarantinedError, RetryPolicy,
 )
+from repro_torch.runtime.spans import span
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -469,9 +470,9 @@ class PixieFleet:
         self._flush_successes: List[Tuple[Any, str]] = []
         self._chain_cache = LRUCache(64)
         self.stats.breaker_events = self.breakers.events
-        # pack_s: host-side input preparation; dispatch_s: overlay
-        # executions incl. output copies; flush_s: the most recent flush.
-        self.timings: Dict[str, float] = {"pack_s": 0.0, "dispatch_s": 0.0}
+        # pack_s: host-side input preparation, at submit (_prepare) and in
+        # the flush up to the launch; flush_s: the most recent flush.
+        self.timings: Dict[str, float] = {"pack_s": 0.0}
 
     @property
     def devices(self) -> int:
@@ -822,18 +823,20 @@ class PixieFleet:
         configs += [configs[0]] * (n_tile - n)
         self.stats.padded_app_slots += n_tile - n
         self.stats.partial_tile_dispatches += 1 if n < n_tile else 0
-        stacked, ingests = self._stacked_bank(grid, configs, fused=True)
+        with span("fleet.bank"):
+            stacked, ingests = self._stacked_bank(grid, configs, fused=True)
         frames = self._ship_frames(fn, items, n_tile, Hb, Wb, grid.dtype)
         self._note_overlap(t0)
         self.timings["pack_s"] += time.perf_counter() - t0
 
-        t0 = time.perf_counter()
         self._pre_dispatch(plan, items)
-        ys = self._corrupt_outputs(items, fn(stacked, ingests, frames))
+        with span("fleet.launch"):
+            ys = fn(stacked, ingests, frames)
+        ys = self._corrupt_outputs(items, ys)
         self.stats.dispatches += 1
         self.stats.fused_dispatches += 1
-        self._unpack_frames(fn.plan, items, ys, n_tile, Hb, Wb, out)
-        self.timings["dispatch_s"] += time.perf_counter() - t0
+        with span("fleet.unpack"):
+            self._unpack_frames(fn.plan, items, ys, n_tile, Hb, Wb, out)
 
     def _canvas_sides(self, plan: OverlayPlan,
                       items: List[Tuple[int, _Prepared]]) -> Tuple[int, int]:
@@ -857,13 +860,16 @@ class PixieFleet:
         (:meth:`_ship_sharded_frames`)."""
         if self.ingest == "async" and fn.mesh is not None:
             return self._ship_sharded_frames(fn.mesh, items, n_tile, Hb, Wb, dtype)
-        entry = self._canvas((n_tile, Hb, Wb), dtype)
-        for i, (_, p) in enumerate(items):
-            H, W = p.hw
-            entry.buf[i, :H, :W] = torch.from_numpy(np.ascontiguousarray(p.payload))
-        if self.ingest == "sync":
-            return entry.buf.to(self.device)
-        return self._ship(entry, self.device)
+        with span("fleet.canvas"):
+            entry = self._canvas((n_tile, Hb, Wb), dtype)
+        with span("fleet.embed"):
+            for i, (_, p) in enumerate(items):
+                H, W = p.hw
+                entry.buf[i, :H, :W] = torch.from_numpy(np.ascontiguousarray(p.payload))
+        with span("fleet.ship"):
+            if self.ingest == "sync":
+                return entry.buf.to(self.device)
+            return self._ship(entry, self.device)
 
     def _ship(self, entry: _PooledBuffer, device: torch.device) -> torch.Tensor:
         """Async copy of a pooled canvas to ``device``.  On a card the copy
@@ -900,14 +906,18 @@ class PixieFleet:
         chunk, band = n_tile // mesh.app, Hb // mesh.rows
         shipped = []
         for b in sharding.blocks(n_tile, Hb):
-            entry = self._canvas((chunk, band, Wb), dtype, slot=(b.i, b.j), device=b.device)
-            for k, (_, p) in enumerate(items[b.apps.start:b.apps.stop]):
-                H, W = p.hw
-                h = min(H - b.rows.start, band)
-                if h > 0:
-                    rows = p.payload[b.rows.start:b.rows.start + h]
-                    entry.buf[k, :h, :W] = torch.from_numpy(np.ascontiguousarray(rows))
-            shipped.append(self._ship(entry, b.device))
+            with span("fleet.canvas"):
+                entry = self._canvas((chunk, band, Wb), dtype, slot=(b.i, b.j),
+                                     device=b.device)
+            with span("fleet.embed"):
+                for k, (_, p) in enumerate(items[b.apps.start:b.apps.stop]):
+                    H, W = p.hw
+                    h = min(H - b.rows.start, band)
+                    if h > 0:
+                        rows = p.payload[b.rows.start:b.rows.start + h]
+                        entry.buf[k, :h, :W] = torch.from_numpy(np.ascontiguousarray(rows))
+            with span("fleet.ship"):
+                shipped.append(self._ship(entry, b.device))
         return sharding.assemble((n_tile, Hb, Wb), shipped)
 
     def _unpack_frames(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
@@ -982,28 +992,30 @@ class PixieFleet:
         self.stats.padded_app_slots += n_tile - n
         self.stats.partial_tile_dispatches += 1 if n < n_tile else 0
         stage_settings = []
-        for si in range(specs[0].depth):
-            stacked, ingests = self._stacked_bank(
-                grid, [s.stages[si].config for s in specs], fused=True)
-            out_ch = self._small_to_device(
-                np.asarray([s.stages[si].out_channel for s in specs], np.int32))
-            stage_settings.append((stacked, ingests, out_ch))
-        hw = np.full((n_tile, 2), (Hb, Wb), np.int32)
-        for i, (_, p) in enumerate(items):
-            hw[i] = p.hw
-        hw = self._small_to_device(hw)
+        with span("fleet.bank"):
+            for si in range(specs[0].depth):
+                stacked, ingests = self._stacked_bank(
+                    grid, [s.stages[si].config for s in specs], fused=True)
+                out_ch = self._small_to_device(
+                    np.asarray([s.stages[si].out_channel for s in specs], np.int32))
+                stage_settings.append((stacked, ingests, out_ch))
+            hw = np.full((n_tile, 2), (Hb, Wb), np.int32)
+            for i, (_, p) in enumerate(items):
+                hw[i] = p.hw
+            hw = self._small_to_device(hw)
         frames = self._ship_frames(fn, items, n_tile, Hb, Wb, grid.dtype)
         self._note_overlap(t0)
         self.timings["pack_s"] += time.perf_counter() - t0
 
-        t0 = time.perf_counter()
         self._pre_dispatch(plan, items)
-        ys = self._corrupt_outputs(items, fn(tuple(stage_settings), hw, frames))
+        with span("fleet.launch"):
+            ys = fn(tuple(stage_settings), hw, frames)
+        ys = self._corrupt_outputs(items, ys)
         self.stats.dispatches += 1
         self.stats.fused_dispatches += 1
         self.stats.pipeline_dispatches += 1
-        self._unpack_frames(fn.plan, items, ys, n_tile, Hb, Wb, out)
-        self.timings["dispatch_s"] += time.perf_counter() - t0
+        with span("fleet.unpack"):
+            self._unpack_frames(fn.plan, items, ys, n_tile, Hb, Wb, out)
 
     def _dispatch_packed(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
                          out: Dict[int, Any]) -> None:
@@ -1017,42 +1029,45 @@ class PixieFleet:
         batch = pow2_bucket(max(p.payload.shape[-1] for _, p in items),
                             self.min_pixel_batch)
         configs = [p.cfg for _, p in items]
-        xs = pad_batches([p.payload for _, p in items], batch)
         # Tile padding on the app axis: replay config[0] on zero pixels.
         configs += [configs[0]] * (n_tile - n)
-        xs += [torch.zeros_like(xs[0])] * (n_tile - n)
         self.stats.padded_app_slots += n_tile - n
         self.stats.partial_tile_dispatches += 1 if n < n_tile else 0
-        stacked = self._stacked_bank(grid, configs)
-        xstack = torch.stack(xs)
+        with span("fleet.bank"):
+            stacked = self._stacked_bank(grid, configs)
+        with span("fleet.embed"):
+            xs = pad_batches([p.payload for _, p in items], batch)
+            xs += [torch.zeros_like(xs[0])] * (n_tile - n)
+            xstack = torch.stack(xs)
         self._note_overlap(t0)
         self.timings["pack_s"] += time.perf_counter() - t0
 
-        t0 = time.perf_counter()
         self._pre_dispatch(plan, items)
-        ys = self._corrupt_outputs(items, fn(stacked, xstack))
+        with span("fleet.launch"):
+            ys = fn(stacked, xstack)
+        ys = self._corrupt_outputs(items, ys)
         self.stats.dispatches += 1
         self.stats.stamp_dispatch(fn.plan, f"n{n_tile}xb{batch}")
         self.stats.executed += n
-        if self.ingest == "async":
-            views = []
-            for i, (_, p) in enumerate(items):
-                y = ys[i, :, : p.payload.shape[-1]]
-                if p.hw is not None:
-                    H, W = p.hw
-                    y = y[:, : H * W].reshape((-1, H, W))
-                    y = y[0] if y.shape[0] == 1 else y
-                views.append(y)
-            self._unpack_lazy(items, views, ys.numel(), out)
-        else:
-            for i, (ticket, p) in enumerate(items):
-                y = _to_host(ys[i, :, : p.payload.shape[-1]])
-                if p.hw is not None:
-                    H, W = p.hw
-                    y = y[:, : H * W].reshape((-1, H, W))
-                    y = y[0] if y.shape[0] == 1 else y
-                out[ticket] = y
-        self.timings["dispatch_s"] += time.perf_counter() - t0
+        with span("fleet.unpack"):
+            if self.ingest == "async":
+                views = []
+                for i, (_, p) in enumerate(items):
+                    y = ys[i, :, : p.payload.shape[-1]]
+                    if p.hw is not None:
+                        H, W = p.hw
+                        y = y[:, : H * W].reshape((-1, H, W))
+                        y = y[0] if y.shape[0] == 1 else y
+                    views.append(y)
+                self._unpack_lazy(items, views, ys.numel(), out)
+            else:
+                for i, (ticket, p) in enumerate(items):
+                    y = _to_host(ys[i, :, : p.payload.shape[-1]])
+                    if p.hw is not None:
+                        H, W = p.hw
+                        y = y[:, : H * W].reshape((-1, H, W))
+                        y = y[0] if y.shape[0] == 1 else y
+                    out[ticket] = y
 
     # -- resilient dispatch ---------------------------------------------------
 

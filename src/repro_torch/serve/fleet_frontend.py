@@ -265,6 +265,6 @@ class FleetFrontend(ImageService):
 
     @property
     def timings(self):
-        """Fleet timing split: cumulative ``pack_s`` vs ``dispatch_s`` plus
-        the last ``flush_s`` / ``flush_started``."""
+        """Fleet timings: cumulative host ``pack_s`` plus the last
+        ``flush_s`` / ``flush_started``."""
         return self.fleet.timings

@@ -70,6 +70,7 @@ from repro_torch.core.tiling import pow2_bucket
 from repro_torch.parallel.axes import MeshSpec
 from repro_torch.runtime.chaos import FaultInjector
 from repro_torch.runtime.fleet import FleetRequest, PixieFleet
+from repro_torch.runtime.spans import span
 from repro_torch.serve.fleet_frontend import build_fleet, resolve_frontend_mesh
 from repro_torch.serve.service import (
     AdmissionError, DispatchError, ImageJob, ImageService, JobHandle,
@@ -429,36 +430,47 @@ class StreamingFrontend(ImageService):
             # allow (deadline slack / linger / hard timeout), then drain
             # without blocking.
             timeout = self._wake_in(pending)
-            try:
-                item = self._queue.get(timeout=timeout)
-                if item is _STOP:
-                    self._stopping = True
-                else:
-                    pending.append(item)
-                while True:   # opportunistically drain the burst
-                    item = self._queue.get_nowait()
+            with span("frontend.wait"):
+                try:
+                    item = self._queue.get(timeout=timeout)
                     if item is _STOP:
                         self._stopping = True
                     else:
                         pending.append(item)
-            except queue.Empty:
-                pass
+                    while True:   # opportunistically drain the burst
+                        item = self._queue.get_nowait()
+                        if item is _STOP:
+                            self._stopping = True
+                        else:
+                            pending.append(item)
+                except queue.Empty:
+                    pass
 
             # 2. Launch decision.
             now = time.perf_counter()
             self._expire_timeouts(pending, now)
-            if pending and (
-                self._stopping
-                or len(pending) >= self.target_batch
-                or self._deadline_urgent(pending, now)
-                or self._lingered(pending, now)
-            ):
+            trigger = self._trigger(pending, now) if pending else None
+            if trigger is not None:
                 batch = self._select_batch(pending)
                 self._inflight_reqs = batch
-                self._dispatch(batch)
+                self._dispatch(batch, trigger)
                 self._inflight_reqs = []
             if self._stopping and not pending and self._queue.empty():
                 return
+
+    def _trigger(self, pending: List[_PendingRequest], now: float) -> Optional[str]:
+        """The launch trigger that fires first, in order -- ``drain`` (the
+        front end is closing), ``full_tile``, ``deadline``, ``linger`` --
+        or None; the flush's span carries it as ``trigger=``."""
+        if self._stopping:
+            return "drain"
+        if len(pending) >= self.target_batch:
+            return "full_tile"
+        if self._deadline_urgent(pending, now):
+            return "deadline"
+        if self._lingered(pending, now):
+            return "linger"
+        return None
 
     def _expire_timeouts(self, pending: List[_PendingRequest],
                          now: float) -> None:
@@ -543,33 +555,42 @@ class StreamingFrontend(ImageService):
             self.fleet.stats.preempted_batches += 1
         return batch
 
-    def _dispatch(self, batch: List[_PendingRequest]) -> None:
+    def _dispatch(self, batch: List[_PendingRequest], trigger: str) -> None:
         """One fleet flush for the selected batch.  Per-request fleet
         submit failures (unmappable app, grid mismatch) fail only their
         own handle -- they can never poison the rest of the batch."""
+        seq = self._flush_seq
         tickets: Dict[int, _PendingRequest] = {}
-        for p in batch:
-            try:
-                if isinstance(p.work, list):
-                    req = FleetRequest(pipeline=p.work, image=p.image,
-                                       grid=p.grid)
-                else:
-                    req = FleetRequest(app=p.work, image=p.image, grid=p.grid)
-                t = self.fleet.submit(req)
-            except Exception as exc:    # noqa: BLE001 -- handed to the handle
-                p.handle._fail(exc)
-                continue
-            tickets[t] = p
+        with span("frontend.admit", flush=seq):
+            for p in batch:
+                try:
+                    if isinstance(p.work, list):
+                        req = FleetRequest(pipeline=p.work, image=p.image,
+                                           grid=p.grid)
+                    else:
+                        req = FleetRequest(app=p.work, image=p.image, grid=p.grid)
+                    t = self.fleet.submit(req)
+                except Exception as exc:    # noqa: BLE001 -- handed to the handle
+                    p.handle._fail(exc)
+                    continue
+                tickets[t] = p
         if not tickets:
             return
-        seq = self._flush_seq
         self._flush_seq += 1
         try:
-            outs = self.fleet.flush()
+            with span("frontend.flush", flush=seq, trigger=trigger):
+                outs = self.fleet.flush()
         except Exception as exc:        # noqa: BLE001 -- handed to the handles
             for p in tickets.values():
                 p.handle._fail(exc)
             return
+        with span("frontend.deliver", flush=seq):
+            self._deliver(tickets, outs, seq)
+
+    def _deliver(self, tickets: Dict[int, _PendingRequest], outs: Dict[int, object],
+                 seq: int) -> None:
+        """Hand each request of flush ``seq`` its output, or its own
+        failure, and feed the flush's wall time to the EWMAs."""
         flush_started = self.fleet.timings.get("flush_started", time.perf_counter())
         flush_s = self.fleet.timings.get("flush_s", 0.0)
         # EWMA update, per population present in this flush: the deadline
