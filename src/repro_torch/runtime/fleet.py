@@ -23,8 +23,9 @@ Scheduling model (the reference's, rule for rule):
   ``(grid, "pipe", radii)`` and each group runs as ONE pipeline dispatch
   whose intermediates never leave the device;
 * each group is padded to fixed tiles -- the app axis to ``batch_tile``
-  (padded slots replay ``configs[0]`` on zero inputs), the canvas sides
-  and flat pixel batches to power-of-two buckets -- and outputs are sliced
+  (padded slots replay ``configs[0]`` on zero inputs), flat pixel batches
+  to power-of-two buckets, frames into a zero canvas fitted to the tile's
+  largest frame inside its power-of-two bucket -- and outputs are sliced
   back, so results are bitwise identical to unbatched runs;
 * mapped configs are cached by DFG structural hash (and library name),
   executables per plan, stacked settings banks per tenant set;
@@ -89,6 +90,11 @@ from repro_torch.runtime.resilience import (
     BreakerBoard, PoisonedOutputError, QuarantinedError, RetryPolicy,
 )
 from repro_torch.runtime.spans import span
+
+#: A fitted frame canvas's width is rounded up to this many elements: whole
+#: 16-byte vectors a row in every grid dtype, so the kernels' vector stores
+#: cover each row.
+CANVAS_ROW_ALIGN = 16
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -245,6 +251,10 @@ class FleetStats:
     overlay_cache_hits: int = 0
     stack_bank_hits: int = 0     # stacked settings banks reused across flushes
     canvas_pool_hits: int = 0    # frame canvases reused instead of allocated
+    # Pixels of the frame canvases the executables ran over, and of their
+    # pow-2 buckets (the dispatch stamp's sides), summed over frame dispatches.
+    canvas_px: int = 0
+    bucket_px: int = 0
     # Canvas reuse of a sharded async fleet, by device: each mesh shard
     # fills and ships its own pooled buffer.  Empty for unsharded fleets.
     canvas_pool_device_hits: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -686,20 +696,26 @@ class PixieFleet:
         return entry, True
 
     def _canvas(self, shape: Tuple[int, ...], dtype: torch.dtype,
+                fit: Optional[Tuple[int, ...]] = None,
                 slot: Optional[Tuple[int, int]] = None,
-                device: Optional[torch.device] = None) -> _PooledBuffer:
-        """A zeroed host frame canvas from the canvas pool.  A sharded
-        async fleet gives each mesh shard (``slot``, on ``device``) its own
-        buffers, so one shard's copy in flight never holds up another's
-        fill; their reuse is also counted per device."""
+                device: Optional[torch.device] = None) -> Tuple[_PooledBuffer, torch.Tensor]:
+        """A zeroed host frame canvas from the canvas pool: the pooled
+        buffer, allocated and keyed by its bucket ``shape``, and the canvas,
+        ``fit`` (default ``shape``) as a contiguous view of the buffer's
+        prefix.  Only the view is zeroed on reuse.  A sharded async fleet
+        gives each mesh shard (``slot``, on ``device``) its own buffers, so
+        one shard's copy in flight never holds up another's fill; their
+        reuse is also counted per device."""
         entry, reused = self._pooled(self._canvas_pool, shape, dtype, slot)
+        fit = fit or shape
+        canvas = entry.buf.view(-1)[:math.prod(fit)].view(fit)
         if reused:
             self.stats.canvas_pool_hits += 1
             if device is not None:
                 hits = self.stats.canvas_pool_device_hits
                 hits[str(device)] = hits.get(str(device), 0) + 1
-            entry.buf.zero_()
-        return entry
+            canvas.zero_()
+        return entry, canvas
 
     def _note_overlap(self, pack_started: float) -> None:
         """Credit host pack time to ``ingest_overlap_s`` when it ran while
@@ -807,17 +823,19 @@ class PixieFleet:
         same bitwise outputs, another executable.
 
         Frames are embedded top-left into one zero host canvas
-        [n_tile, Hb, Wb] (pow-2-bucketed sides, app axis rounded to
-        batch_tile), copied to the device once; the zero canvas right/below
-        a frame is read by edge taps exactly like ``stencil_inputs``'s zero
-        border, so each [H, W] output slice is bitwise the unbatched one.
+        [n_tile, Hc, Wc] (sides fitted to the largest frame,
+        :meth:`_canvas_sides`; app axis rounded to batch_tile), copied to the
+        device once; the zero canvas right/below a frame, and the zero
+        border past the canvas, are read by edge taps exactly like
+        ``stencil_inputs``'s zero border, so each [H, W] output slice is
+        bitwise the unbatched one.
         """
         t0 = time.perf_counter()
         fn = self.overlay_executable(plan)
         grid = plan.grid
         n = len(items)
         n_tile = round_up(n, self._app_tile)
-        Hb, Wb = self._canvas_sides(plan, items)
+        bucket, sides = self._canvas_sides(plan, fn, items)
         configs = [p.cfg for _, p in items]
         # Tile padding on the app axis: replay config[0] on a zero frame.
         configs += [configs[0]] * (n_tile - n)
@@ -825,59 +843,73 @@ class PixieFleet:
         self.stats.partial_tile_dispatches += 1 if n < n_tile else 0
         with span("fleet.bank"):
             stacked, ingests = self._stacked_bank(grid, configs, fused=True)
-        frames = self._ship_frames(fn, items, n_tile, Hb, Wb, grid.dtype)
+        frames = self._ship_frames(fn, items, n_tile, bucket, sides, grid.dtype)
         self._note_overlap(t0)
         self.timings["pack_s"] += time.perf_counter() - t0
 
         self._pre_dispatch(plan, items)
-        with span("fleet.launch"):
+        with span("fleet.launch", canvas_px=self.stats.canvas_px,
+                  bucket_px=self.stats.bucket_px):
             ys = fn(stacked, ingests, frames)
         ys = self._corrupt_outputs(items, ys)
         self.stats.dispatches += 1
         self.stats.fused_dispatches += 1
         with span("fleet.unpack"):
-            self._unpack_frames(fn.plan, items, ys, n_tile, Hb, Wb, out)
+            self._unpack_frames(fn.plan, items, ys, n_tile, bucket, sides, out)
 
-    def _canvas_sides(self, plan: OverlayPlan,
-                      items: List[Tuple[int, _Prepared]]) -> Tuple[int, int]:
-        """The canvas ``(Hb, Wb)`` of a frame dispatch: pow-2 buckets of the
-        largest frame.  A row-sharded plan rounds Hb to whole
+    def _canvas_sides(self, plan: OverlayPlan, fn: OverlayExecutable,
+                      items: List[Tuple[int, _Prepared]]
+                      ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+        """The bucket ``(Hb, Wb)`` and the canvas ``(Hc, Wc)`` of a frame
+        dispatch.  The bucket, pow-2 sides of the largest frame, keys the
+        pooled host buffers and the dispatch's stamp, as the reference's
+        compile cache is keyed; a row-sharded plan rounds Hb to whole
         radius-floored bands, so the sharded ship path and the executable
         agree on the band split and the executable's own row padding is a
-        no-op."""
-        Hb = pow2_bucket(max(p.hw[0] for _, p in items), self.min_image_side)
-        Wb = pow2_bucket(max(p.hw[1] for _, p in items), self.min_image_side)
+        no-op.  A plan on a granted mesh runs over the bucket.  On one
+        device the executable takes any sides, so the canvas fits the
+        frames: the largest height, and the largest width rounded up to
+        :data:`CANVAS_ROW_ALIGN` elements (whole 16-byte vectors a row in
+        every grid dtype) but never past Wb."""
+        H = max(p.hw[0] for _, p in items)
+        W = max(p.hw[1] for _, p in items)
+        Hb = pow2_bucket(H, self.min_image_side)
+        Wb = pow2_bucket(W, self.min_image_side)
         if plan.mesh.rows > 1:
             Hb = row_band(Hb, plan.mesh.rows, plan.radius) * plan.mesh.rows
-        return Hb, Wb
+        if fn.mesh is not None:
+            return (Hb, Wb), (Hb, Wb)
+        return (Hb, Wb), (max(H, 1), min(round_up(max(W, 1), CANVAS_ROW_ALIGN), Wb))
 
     def _ship_frames(self, fn: OverlayExecutable, items: List[Tuple[int, _Prepared]],
-                     n_tile: int, Hb: int, Wb: int, dtype: torch.dtype):
-        """Embed the raw frames top-left into one pooled zero canvas
-        ``[n_tile, Hb, Wb]`` and copy it to the fleet's device (on a CPU
-        fleet the canvas itself; outputs never alias it).  An async
-        dispatch on a granted mesh ships per shard instead
-        (:meth:`_ship_sharded_frames`)."""
+                     n_tile: int, bucket: Tuple[int, int], sides: Tuple[int, int],
+                     dtype: torch.dtype):
+        """Embed the raw frames top-left into one zero canvas ``[n_tile,
+        *sides]``, the prefix of a pooled ``[n_tile, *bucket]`` buffer, and
+        copy it to the fleet's device (on a CPU fleet the canvas itself;
+        outputs never alias it).  An async dispatch on a granted mesh ships
+        per shard instead (:meth:`_ship_sharded_frames`)."""
         if self.ingest == "async" and fn.mesh is not None:
-            return self._ship_sharded_frames(fn.mesh, items, n_tile, Hb, Wb, dtype)
+            return self._ship_sharded_frames(fn.mesh, items, n_tile, *bucket, dtype)
         with span("fleet.canvas"):
-            entry = self._canvas((n_tile, Hb, Wb), dtype)
+            entry, canvas = self._canvas((n_tile, *bucket), dtype, fit=(n_tile, *sides))
         with span("fleet.embed"):
             for i, (_, p) in enumerate(items):
                 H, W = p.hw
-                entry.buf[i, :H, :W] = torch.from_numpy(np.ascontiguousarray(p.payload))
+                canvas[i, :H, :W] = torch.from_numpy(np.ascontiguousarray(p.payload))
         with span("fleet.ship"):
             if self.ingest == "sync":
-                return entry.buf.to(self.device)
-            return self._ship(entry, self.device)
+                return canvas.to(self.device)
+            return self._ship(entry, canvas, self.device)
 
-    def _ship(self, entry: _PooledBuffer, device: torch.device) -> torch.Tensor:
-        """Async copy of a pooled canvas to ``device``.  On a card the copy
-        runs ``non_blocking`` on the device's side stream into memory
-        allocated there (and marked as used by the device's dispatch
-        stream), the dispatch stream waits on its event, and the canvas
-        keeps the event as its pending copy, waited for at reuse."""
-        canvas = entry.buf
+    def _ship(self, entry: _PooledBuffer, canvas: torch.Tensor,
+              device: torch.device) -> torch.Tensor:
+        """Async copy of ``canvas``, a view of a pooled buffer, to
+        ``device``.  On a card the copy runs ``non_blocking`` on the
+        device's side stream into memory allocated there (and marked as
+        used by the device's dispatch stream), the dispatch stream waits on
+        its event, and the buffer keeps the event as its pending copy,
+        waited for at reuse."""
         if device.type != "cuda":
             return canvas.to(device)
         copy = self._copy_streams.get(device)
@@ -907,45 +939,49 @@ class PixieFleet:
         shipped = []
         for b in sharding.blocks(n_tile, Hb):
             with span("fleet.canvas"):
-                entry = self._canvas((chunk, band, Wb), dtype, slot=(b.i, b.j),
-                                     device=b.device)
+                entry, canvas = self._canvas((chunk, band, Wb), dtype, slot=(b.i, b.j),
+                                             device=b.device)
             with span("fleet.embed"):
                 for k, (_, p) in enumerate(items[b.apps.start:b.apps.stop]):
                     H, W = p.hw
                     h = min(H - b.rows.start, band)
                     if h > 0:
                         rows = p.payload[b.rows.start:b.rows.start + h]
-                        entry.buf[k, :h, :W] = torch.from_numpy(np.ascontiguousarray(rows))
+                        canvas[k, :h, :W] = torch.from_numpy(np.ascontiguousarray(rows))
             with span("fleet.ship"):
-                shipped.append(self._ship(entry, b.device))
+                shipped.append(self._ship(entry, canvas, b.device))
         return sharding.assemble((n_tile, Hb, Wb), shipped)
 
     def _unpack_frames(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
-                       ys: torch.Tensor, n_tile: int, Hb: int, Wb: int,
-                       out: Dict[int, Any]) -> None:
-        """Stamp a frame dispatch and slice each request's ``[H, W]`` (or
-        ``[K, H, W]``) output back to the host."""
+                       ys: torch.Tensor, n_tile: int, bucket: Tuple[int, int],
+                       sides: Tuple[int, int], out: Dict[int, Any]) -> None:
+        """Stamp a frame dispatch with its bucket, count its canvas, and
+        slice each request's ``[H, W]`` (or ``[K, H, W]``) output, ``ys``
+        over the canvas ``sides``, back to the host."""
+        (Hb, Wb), (Hc, Wc) = bucket, sides
         self.stats.stamp_dispatch(plan, f"n{n_tile}x{Hb}x{Wb}")
         self.stats.executed += len(items)
+        self.stats.canvas_px += n_tile * Hc * Wc
+        self.stats.bucket_px += n_tile * Hb * Wb
         if self.ingest == "async":
             views = []
             for i, (_, p) in enumerate(items):
                 H, W = p.hw
-                y = ys[i].reshape(-1, Hb, Wb)[:, :H, :W]
+                y = ys[i].reshape(-1, Hc, Wc)[:, :H, :W]
                 views.append(y[0] if y.shape[0] == 1 else y)
-            self._unpack_lazy(items, views, ys.numel(), out)
+            self._unpack_lazy(items, views, ys.numel() // (Hc * Wc) * Hb * Wb, out)
             return
         for i, (ticket, p) in enumerate(items):
             H, W = p.hw
-            y = _to_host(ys[i].reshape(-1, Hb, Wb)[:, :H, :W])
+            y = _to_host(ys[i].reshape(-1, Hc, Wc)[:, :H, :W])
             out[ticket] = y[0] if y.shape[0] == 1 else y
 
     def _unpack_lazy(self, items: List[Tuple[int, _Prepared]], views: List[torch.Tensor],
                      capacity: int, out: Dict[int, Any]) -> None:
         """Async unpack: every request's output view is gathered into ONE
         buffer, which lands in a pooled host buffer of ``capacity``
-        elements (the dispatch's padded output size, so pool keys follow
-        the tile buckets) -- on a card through one ``non_blocking`` copy
+        elements (the dispatch's output size over its bucket, so pool keys
+        follow the tile buckets) -- on a card through one ``non_blocking`` copy
         into pinned memory -- and is handed out as :class:`LazyOutput`
         windows behind one readiness probe.  bf16 widens exactly to
         float32 on the way."""
@@ -981,14 +1017,14 @@ class PixieFleet:
         tile) and adds two operands: per-stage settings banks (through the
         same bank cache) and the per-app true frame extents ``hw`` the
         executor re-masks intermediates with.  Padded app slots replay item
-        0's chain on a zero frame with ``hw = (Hb, Wb)``."""
+        0's chain on a zero frame with ``hw = (Hc, Wc)``, the canvas."""
         t0 = time.perf_counter()
         fn = self.overlay_executable(plan)
         grid = plan.grid
         n = len(items)
         specs = plan.pipeline
         n_tile = len(specs)
-        Hb, Wb = self._canvas_sides(plan, items)
+        bucket, sides = self._canvas_sides(plan, fn, items)
         self.stats.padded_app_slots += n_tile - n
         self.stats.partial_tile_dispatches += 1 if n < n_tile else 0
         stage_settings = []
@@ -999,23 +1035,24 @@ class PixieFleet:
                 out_ch = self._small_to_device(
                     np.asarray([s.stages[si].out_channel for s in specs], np.int32))
                 stage_settings.append((stacked, ingests, out_ch))
-            hw = np.full((n_tile, 2), (Hb, Wb), np.int32)
+            hw = np.full((n_tile, 2), sides, np.int32)
             for i, (_, p) in enumerate(items):
                 hw[i] = p.hw
             hw = self._small_to_device(hw)
-        frames = self._ship_frames(fn, items, n_tile, Hb, Wb, grid.dtype)
+        frames = self._ship_frames(fn, items, n_tile, bucket, sides, grid.dtype)
         self._note_overlap(t0)
         self.timings["pack_s"] += time.perf_counter() - t0
 
         self._pre_dispatch(plan, items)
-        with span("fleet.launch"):
+        with span("fleet.launch", canvas_px=self.stats.canvas_px,
+                  bucket_px=self.stats.bucket_px):
             ys = fn(tuple(stage_settings), hw, frames)
         ys = self._corrupt_outputs(items, ys)
         self.stats.dispatches += 1
         self.stats.fused_dispatches += 1
         self.stats.pipeline_dispatches += 1
         with span("fleet.unpack"):
-            self._unpack_frames(fn.plan, items, ys, n_tile, Hb, Wb, out)
+            self._unpack_frames(fn.plan, items, ys, n_tile, bucket, sides, out)
 
     def _dispatch_packed(self, plan: OverlayPlan, items: List[Tuple[int, _Prepared]],
                          out: Dict[int, Any]) -> None:

@@ -6,7 +6,8 @@ on ``time.perf_counter()`` (the clock a traced benchmark pins the
 profiler's device intervals to), the recording thread, the enclosing span
 on that thread (so a reader can compute self time), and small ids that tie
 the spans of one flush together (``flush=``, and ``trigger=`` on the
-launch).
+launch).  A frame dispatch's ``fleet.launch`` also carries the fleet's
+canvas counters as they stood before it (``canvas_px=``, ``bucket_px=``).
 
 The profiler records host operators of the thread that started it only,
 and the front end's flushes run on its worker thread.  The gate here reads

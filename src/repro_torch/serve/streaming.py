@@ -351,11 +351,11 @@ class StreamingFrontend(ImageService):
         return max(self._est_flush.values(), default=self._est_flush_seed)
 
     def _flush_key(self, p: _PendingRequest) -> tuple:
-        """The EWMA population of one request: its grid and the padded
-        canvas bucket its frame lands in -- the SAME pow-2 bucketing the
-        fleet's dispatch uses, so requests that share a compiled
-        executable shape (and therefore a flush-duration profile) share
-        an estimate."""
+        """The EWMA population of one request: its grid and the pow-2
+        canvas bucket its frame lands in -- the bucket the fleet keys its
+        pooled canvases and dispatch stamps by (its executables run over a
+        canvas fitted to the tile's frames inside that bucket), so requests
+        of one size class share a flush-duration estimate."""
         grid = p.grid or self.fleet.default_grid
         H, W = p.image.shape
         return (

@@ -20,11 +20,13 @@ from repro.runtime.fleet import FleetRequest as RRequest, PixieFleet as RFleet
 from repro.serve.fleet_frontend import FleetFrontend as RFrontend
 
 from repro_torch.core import applications as t_apps
+from repro_torch.core.plan import OverlayExecutable
 from repro_torch.runtime.fleet import (
     FleetRequest as TRequest, LRUCache, PixieFleet as TFleet,
 )
 from repro_torch.serve import FleetFrontend as TFrontend
 
+from conftest import shared_app_grid
 from test_torch_core import R_SHARED, port_config, port_grid, with_dtype
 
 PORT_BACKENDS = ["torch", "hopper"]
@@ -130,6 +132,69 @@ def test_fleet_matches_reference_on_other_grid_dtypes(dtype_name):
                                        rtol=0.5, atol=0.5)
         else:
             np.testing.assert_array_equal(g, w)
+
+
+#: Frames whose largest side is no power of two (bucket 32 x 64; canvas: the
+#: largest height, the largest width rounded up to 16), and frames that fill
+#: their bucket: (frame sizes, bucket, canvas).
+RAGGED = ([(20, 40), (13, 9)], (32, 64), (20, 48))
+FILLED = ([(16, 32), (8, 16)], (16, 32), (16, 32))
+CHAIN = ["gauss3", "sobel_x", "threshold"]
+
+
+def spy_on_frames(fleet):
+    """Record the shape of the frames operand of every executable call."""
+    shapes, build = [], fleet.overlay_executable
+
+    def overlay_executable(plan):
+        ex = build(plan)
+
+        def run(*args):
+            shapes.append(tuple(args[-1].shape))
+            return ex(*args)
+
+        return OverlayExecutable(ex.plan, run, mesh=ex.mesh)
+
+    fleet.overlay_executable = overlay_executable
+    return shapes
+
+
+@pytest.mark.parametrize("path,ingest,case", [
+    ("fused", "sync", RAGGED), ("fused", "async", RAGGED),
+    ("pipeline", "sync", RAGGED), ("pipeline", "async", RAGGED),
+    ("fused", "sync", FILLED),
+], ids=["fused-sync", "fused-async", "pipeline-sync", "pipeline-async", "filled"])
+def test_frame_canvas_fits_the_tiles_frames(path, ingest, case):
+    """B1's and B3's dispatches run over a canvas fitted to the tile's
+    frames inside their pow-2 bucket, which still keys the pools and the
+    dispatch stamp: outputs bitwise the reference's, equal counters and plan
+    keys.  The two frames swap slots each flush, so a reused canvas holds
+    the other frame's pixels until it is zeroed (the third flush reuses
+    the first's buffer under async ingest)."""
+    shapes, (Hb, Wb), (Hc, Wc) = case
+    imgs = frames(11, shapes)
+    if path == "fused":
+        r_grid, work = r_sobel_grid(), [dict(app="sobel_x"), dict(app="laplace")]
+    else:
+        r_grid, work = shared_app_grid(CHAIN, name="pipe-shared"), [dict(pipeline=CHAIN)] * 2
+    r_fleet = RFleet(default_grid=r_grid, backend="xla", batch_tile=2, ingest=ingest)
+    t_fleet = TFleet(default_grid=port_grid(r_grid), backend="torch", batch_tile=2,
+                     device="cpu", ingest=ingest)
+    shipped = spy_on_frames(t_fleet)
+    for order in ((0, 1), (1, 0), (1, 0)):
+        want = r_fleet.run_many([RRequest(image=imgs[i], **work[i]) for i in order])
+        got = t_fleet.run_many([TRequest(image=imgs[i], **work[i]) for i in order])
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    # The reference's plan keys name async ingest; the port's do not.
+    r_stats = dataclasses.replace(r_fleet.stats, dispatch_plans={
+        k.replace("|async|", "|"): v for k, v in r_fleet.stats.dispatch_plans.items()})
+    assert_same_stats(t_fleet.stats, r_stats, "torch")
+    assert shipped == [(2, Hc, Wc)] * 3 and Wc % 16 == 0
+    assert t_fleet.stats.canvas_px == 3 * 2 * Hc * Wc
+    assert t_fleet.stats.bucket_px == 3 * 2 * Hb * Wb
+    assert set(t_fleet.stats.dispatch_plans.values()) == {3}
+    assert all(k.endswith(f"|n2x{Hb}x{Wb}") for k in t_fleet.stats.dispatch_plans)
 
 
 def test_flush_limit_and_ticket_redemption():

@@ -895,6 +895,49 @@ def test_mixed_flush_with_a_deep_chain_on_the_card(cuda):
         np.testing.assert_array_equal(g, w)
 
 
+def test_1080p_chain_tile_runs_over_its_fitted_canvas(cuda):
+    """A tile of eight 1080 x 1920 frames, each ``gauss3`` x 16 then
+    ``sobel_x`` (two B3 segments): the canvas the card receives is the
+    frames' own [8, 1080, 1920], not their 2048 x 2048 bucket, and every
+    answer is bitwise the benchmark's plain reference (exact integers)."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.core.plan import OverlayExecutable
+    from repro_torch.runtime.fleet import FleetRequest, PixieFleet
+
+    path = Path(__file__).resolve().parents[1] / "bench" / "reference" / "stencils.py"
+    spec = importlib.util.spec_from_file_location("bench_reference_stencils", path)
+    plain = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(plain)
+    chain = ["gauss3"] * 16 + ["sobel_x"]
+    rng = np.random.default_rng(34)
+    imgs = [rng.integers(0, 1 << 16, (1080, 1920)).astype(np.int32) for _ in range(8)]
+    fleet = PixieFleet(default_grid=shared_grid(CHAIN, "pipe-shared"))
+    shipped, build = [], fleet.overlay_executable
+
+    def overlay_executable(plan):
+        ex = build(plan)
+
+        def run(*args):
+            shipped.append((tuple(args[-1].shape), args[-1].device.type))
+            return ex(*args)
+
+        return OverlayExecutable(ex.plan, run, mesh=ex.mesh)
+
+    fleet.overlay_executable = overlay_executable
+    reset = LAUNCHES["vcgra_pipeline_batched"]
+    got = fleet.run_many([FleetRequest(pipeline=chain, image=im) for im in imgs])
+    assert LAUNCHES["vcgra_pipeline_batched"] - reset == 2
+    assert shipped == [((8, 1080, 1920), "cuda")]
+    assert fleet.stats.fallback_dispatches == fleet.stats.retries == 0
+    assert (fleet.stats.canvas_px, fleet.stats.bucket_px) == (8 * 1080 * 1920, 8 * 2048 * 2048)
+    assert list(fleet.stats.dispatch_plans)[0].endswith("|n8x2048x2048")
+    for g, im in zip(got, imgs):
+        want = plain.run(chain, torch.from_numpy(im).to(cuda)).cpu().numpy()
+        np.testing.assert_array_equal(g.astype(np.int64), want)
+
+
 def test_train_step_on_the_card_equals_the_cpu(cuda):
     """Two ``train_step``s of reduced gemma-2b (float32 compute, TF32 off)
     on the card against the CPU port's, from the same parameters and batch
