@@ -59,5 +59,7 @@ def check(config: dict, pools, samples: List[tuple], mix_keys, unanswered: int,
 
 
 def passed(checks: Dict[str, Dict[str, float]]) -> bool:
-    ok = all(v["value"] <= v["limit"] for k, v in checks.items() if k != "checked_min")
-    return ok and checks["checked_min"]["value"] >= checks["checked_min"]["limit"]
+    """Every number at or under its limit; a name ending in ``_min`` is a
+    floor, at or over it."""
+    return all(v["value"] >= v["limit"] if k.endswith("_min") else v["value"] <= v["limit"]
+               for k, v in checks.items())

@@ -1,8 +1,10 @@
 """What one run recorded, as the metric readers see it.
 
-Every reader in ``bench/metrics/`` gets one :class:`Run` and returns a
+Every reader in ``bench/metrics/`` gets one run record and returns a
 number, or ``None`` where the run holds nothing for it to read (the
-harness then leaves that metric out of the result line).
+harness then leaves that metric out of the result line): a :class:`Run`
+of the image service, or an :class:`LMRun` of a served language model.
+The fields both share (the window, set-up, the trace) have one name.
 """
 
 from __future__ import annotations
@@ -124,3 +126,88 @@ def percentile(values, q: float) -> Optional[float]:
     if len(values) == 0:
         return None
     return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+@dataclasses.dataclass
+class Stream:
+    """One served language-model request as its client saw it (host
+    clock): the times each output token reached the host, the first one
+    when ``add_request`` returned."""
+
+    client: int
+    index: int                    # the client's request number, from 0
+    prompt_len: int
+    target: int                   # output tokens the client asked for
+    t_submit: float               # the client's request sent: its last one done
+    token_times: List[float] = dataclasses.field(default_factory=list)
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    t_done: Optional[float] = None
+    error: Optional[str] = None
+
+    @property
+    def ok(self) -> bool:
+        return self.error is None
+
+
+@dataclasses.dataclass
+class Tick:
+    """One ``SlotServer.tick``: host span, the slots it decoded for
+    requests, and the cache rows those slots attend over (each slot's
+    prompt and output so far)."""
+
+    t0: float
+    t1: float
+    active: int
+    kv_rows: int
+
+
+@dataclasses.dataclass
+class Prefill:
+    """One ``SlotServer.add_request``: host span and prompt tokens."""
+
+    t0: float
+    t1: float
+    tokens: int
+
+
+@dataclasses.dataclass
+class LMRun:
+    cell: str
+    config: dict
+    traffic: dict
+    seconds: float
+    setup_seconds: float
+    t_start: float
+    t_end: float
+    streams: List[Stream]
+    ticks: List[Tick]
+    prefills: List[Prefill]
+    trace: Optional[Trace] = None
+    setup_phases: Dict[str, float] = dataclasses.field(default_factory=dict)
+    host_cpu: str = "not read"
+
+    @property
+    def window_s(self) -> float:
+        return self.t_end - self.t_start
+
+    def inside(self, t: float) -> bool:
+        return self.t_start <= t <= self.t_end
+
+    def window_ticks(self) -> List[Tick]:
+        """Ticks that started inside the window."""
+        return [k for k in self.ticks if self.inside(k.t0)]
+
+    def window_prefills(self) -> List[Prefill]:
+        """Prefills that started inside the window."""
+        return [p for p in self.prefills if self.inside(p.t0)]
+
+    def completed(self) -> List[Stream]:
+        """Requests whose last token came inside the window."""
+        return [s for s in self.streams if s.ok and s.t_done is not None
+                and self.inside(s.t_done)]
+
+    def failed(self) -> List[Stream]:
+        """Requests that raised: inside the window, or after it before
+        the load stopped (a run is never left with a raise uncounted)."""
+        return [s for s in self.streams if not s.ok and s.t_done is not None
+                and s.t_done >= self.t_start]

@@ -2,15 +2,19 @@
 
 ``python3 bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>``
 
-1. Set-up (timed from process start): the port's serving entry as
-   the configuration states it, the frame pool from the seed, a warm-up of
-   the cell's own work and sizes (kernel libraries built or loaded,
-   executables, pooled buffers), and the clients' ramp.
-2. The window: the closed loop runs ``--seconds``; with ``--trace 1`` under
+The configuration names its system (``"system"``: ``image``, the default,
+or ``lm``), a module of this package (``benchlib/<system>.py``) whose
+``System`` the run drives in one fixed order:
+
+1. Set-up (timed from process start): the system builds the port's
+   serving entry as the configuration states it and its inputs from the
+   seed, warms up the cell's own work and sizes (kernel libraries built or
+   loaded, pooled buffers), and starts its clients; then the clients' ramp.
+2. The window: the load runs ``--seconds``; with ``--trace 1`` under
    ``torch.profiler``.
-3. After it closes: the clients finish what they sent, the card's memory
-   peak is read, the front end is closed and freed, and the configuration's
-   plain reference checks the sampled answers.
+3. After it closes: the load stops, the card's memory peak is read, the
+   system's serving state is freed, and the configuration's plain
+   reference checks what the timed path produced.
 4. Standard output's last line is one JSON object: ``correct``,
    ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics,
    or with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
@@ -27,27 +31,28 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import importlib
 import json
 import subprocess
 import sys
 import threading
 import time
+from types import ModuleType
 from typing import Optional
 
 from benchlib import check as chk
-from benchlib import traffic as tr
-from benchlib.load import ClosedLoop, warm
-from benchlib.record import LADDER, Run, fleet_snapshot
 from benchlib.spec import ROOT, Cell, load_cell, load_module
-from benchlib.system import build_frontend, build_grid
 from benchlib.trace import Profiled
 
 #: Top-level module names that may not be loaded: JAX and the JAX package.
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-#: Answers a client keeps for the check, at seeded moments of the window.
-CHECK_PER_CLIENT = 8
 #: Seconds the clients may still wait, past the window, for what they sent.
 DRAIN_S = 60.0
+
+
+def system_of(config: dict) -> ModuleType:
+    """The module of the configuration's system, ``benchlib/<system>.py``."""
+    return importlib.import_module(f"benchlib.{config.get('system', 'image')}")
 
 
 def forbidden_modules():
@@ -60,9 +65,10 @@ def parse(argv):
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True, help="length of the measured window")
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    p.add_argument("--grid-dtype", default=None,
-                   help="run the grid in this dtype instead of the configuration's "
-                        "(the lower-precision control; its answers should fail the check)")
+    p.add_argument("--control", default=None,
+                   help="run the lower-precision control, whose answers should fail the "
+                        "check: the configuration's ``control`` (image: the grid's dtype, "
+                        "int16; lm: the weights rounded through float8_e4m3fn)")
     return p.parse_args(argv)
 
 
@@ -98,99 +104,79 @@ def card_line() -> str:
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
-             started: float, grid_dtype: Optional[str] = None,
+             started: float, control: Optional[str] = None,
              traffic_overrides: Optional[dict] = None):
-    """Set up, measure and check one run; returns ``(run, checks, ladder,
+    """Set up, measure and check one run; returns ``(run, checks, counters,
     device)``: the records, each number compared beside its limit, the
-    ladder's and builds' counts over the window, and the result's device.  ``device`` is ``"cuda"`` for a measurement; the tests
-    drive the rest of a run on ``"cpu"``."""
+    system's counters over the window, and the result's device.
+    ``device`` is ``"cuda"`` for a measurement; the tests drive the rest of
+    a run on ``"cpu"``."""
     import torch
 
     marks = [("torch", time.perf_counter())]
-    import repro_torch.serve  # noqa: F401 -- the port's import, timed on its own
-
-    marks.append(("port import", time.perf_counter()))
-    traffic = {**cell.traffic, **(traffic_overrides or {})}
-    dtype = grid_dtype or cell.config["dtype"]
-    grid = build_grid(cell.config, dtype)
-    pools = tr.frame_pool(traffic, seed)
-    marks.append(("frames", time.perf_counter()))
-    mix_keys = sorted({tr.work_key(w) for w in traffic["mix"]})
-    svc = build_frontend(cell.config, device)
-    on_card = svc.device.type == "cuda"
-    marks.append(("front end", time.perf_counter()))
+    sut = system_of(cell.config).System(cell, seed, seconds, device, marks, control,
+                                        traffic_overrides)
+    on_card = sut.device.type == "cuda"
     stop = threading.Event()
     profiled = None
     try:
-        answer_dtype = warm(svc, grid, traffic, pools, int(traffic["warm_rounds"]))
-        load = ClosedLoop(svc, grid, traffic, seed, seconds, pools, stop, CHECK_PER_CLIENT,
-                          answer_dtype)
+        sut.warm(stop)
         if on_card:
             torch.cuda.synchronize()
         marks.append(("warm-up", time.perf_counter()))
-        load.start()
-        time.sleep(float(traffic["ramp_s"]))
-        profiled = Profiled(svc.fleet) if trace else None
+        sut.start()
+        time.sleep(float(sut.traffic["ramp_s"]))
+        profiled = Profiled(sut.host_spans(), sut.between) if trace else None
         with profiled or contextlib.nullcontext():
             t_start = profiled.open() if profiled else time.perf_counter()
             marks.append(("ramp", t_start))
-            load.t_start = t_start
+            sut.open_window(t_start)
             cpu_start = host_cpu()
-            fleet_start = fleet_snapshot(svc.fleet)
             while time.perf_counter() < t_start + seconds:
                 time.sleep(min(0.05, max(0.0, t_start + seconds - time.perf_counter())))
-            fleet_end = fleet_snapshot(svc.fleet)
+            sut.close_window()
             t_end = profiled.close_window() if profiled else time.perf_counter()
             host_window = cpu_shares(cpu_start, host_cpu())
         stop.set()
-        load.join(DRAIN_S)
-        stuck = len(load.in_flight) if load.is_alive() else 0
-        memory_peak = torch.cuda.max_memory_allocated(svc.device) if on_card else 0
-        batch_tile = svc.fleet.batch_tile
+        sut.drain(DRAIN_S)
+        memory_peak = torch.cuda.max_memory_allocated(sut.device) if on_card else 0
     finally:
         stop.set()
-        svc.close(timeout=DRAIN_S)
-    run = Run(
-        cell=cell.name, config=cell.config, traffic=traffic, dtype=dtype,
-        batch_tile=batch_tile, seconds=seconds, setup_seconds=t_start - started,
-        t_start=t_start, t_end=t_end,
-        requests=list(load.records),
-        fleet_start=fleet_start, fleet_end=fleet_end,
+        sut.close(DRAIN_S)
+    run = sut.record(
+        cell=cell.name, config=cell.config, traffic=sut.traffic, seconds=seconds,
+        setup_seconds=t_start - started, t_start=t_start, t_end=t_end,
         trace=profiled.reduce() if profiled else None,
         setup_phases={name: t - prev for (name, t), prev in
                       zip(marks, [started] + [t for _, t in marks[:-1]])},
         host_cpu=host_window,
     )
-    samples = load.samples
-    ladder = {k: run.delta(k) for k in LADDER + ("overlay_builds",)}
-    del svc, load, profiled
+    counters = sut.counters
+    del profiled
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    unanswered = stuck + sum(not r.ok for r in run.requests)
-    checks = chk.check(cell.config, pools, samples, mix_keys, unanswered,
-                       "cuda" if on_card else "cpu", min_checked=int(traffic["clients"]))
+    t_check = time.perf_counter()
+    checks = sut.check(run)
+    print(f"check s: {time.perf_counter() - t_check:.3f}", file=sys.stderr)
     info = {"platform": "gpu" if on_card else device,
             "kind": torch.cuda.get_device_name(0) if on_card else device,
             "count": cell.chips, "memory_peak_bytes": int(memory_peak)}
     if run.trace is not None:
         info["busy_s"] = run.trace.busy_s
         info["window_s"] = run.trace.window_s
-    return run, checks, ladder, info
+    return run, checks, counters, info
 
 
-def result_line(cell: Cell, run: Run, checks, ladder, info) -> dict:
+def result_line(cell: Cell, run, checks, counters, info) -> dict:
     metrics = {}
     for metric in (cell.per_layer if run.trace is not None else cell.end_to_end):
         value = load_module("metrics", metric["name"]).read(run)
         if value is not None:
             metrics[metric["name"]] = {"value": value, "unit": metric["unit"]}
-    errors = len(run.failed())
-    # A dispatch served off the hopper plan (a ladder fallback) counts every
-    # request it could have held as failed.
-    off_plan = min(len(run.completed()), int(ladder["fallback_dispatches"]) * run.batch_tile)
-    line = {"correct": chk.passed(checks), "attempted": len(run.completed()) + errors,
-            "failed": errors + off_plan, "metrics": metrics, "device": info}
+    attempted, failed = system_of(run.config).tally(run, counters)
+    line = {"correct": chk.passed(checks), "attempted": attempted, "failed": failed,
+            "metrics": metrics, "device": info}
     if run.trace is not None:
         line["breakdown"] = run.trace.breakdown
     line["checks"] = checks
@@ -208,30 +194,18 @@ def main(argv, started: float) -> int:
               f"torch sees {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    run, checks, ladder, info = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                                         "cuda", started, grid_dtype=args.grid_dtype)
+    run, checks, counters, info = run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                                           "cuda", started, control=args.control)
     found = forbidden_modules()
     if found:
         print(f"no result: the process loaded {found}", file=sys.stderr)
         return 3
-    line = result_line(cell, run, checks, ladder, info)
-    print(f"card: {card_line()}; grid dtype {run.dtype}", file=sys.stderr)
+    line = result_line(cell, run, checks, counters, info)
+    print(f"card: {card_line()}", file=sys.stderr)
     print("set-up s: " + ", ".join(f"{k} {v:.3f}" for k, v in run.setup_phases.items()),
           file=sys.stderr)
-    print("window: " + " ".join(f"{k}={run.delta(k)}" for k in
-                                ("dispatches", "partial_tile_dispatches", "executed")),
-          file=sys.stderr)
-    done = run.completed()
-    per_s = [0] * max(1, int(run.window_s))
-    for r in done:
-        per_s[min(len(per_s) - 1, int(r.t_done - run.t_start))] += 1
-    flush_ms = sorted(r.flush_s * 1e3 for r in done if r.flush_s is not None)
-    if flush_ms:
-        print(f"host CPUs in the window: {run.host_cpu}", file=sys.stderr)
-        print(f"answers a second: {per_s}; flush ms p50 {flush_ms[len(flush_ms) // 2]:.2f} "
-              f"max {flush_ms[-1]:.2f}; pack ms a dispatch "
-              f"{1e3 * run.delta('pack_s') / max(1, run.delta('dispatches')):.2f}", file=sys.stderr)
-    print("ladder and builds: " + " ".join(f"{k}={v}" for k, v in ladder.items()), file=sys.stderr)
+    for text in system_of(run.config).report(run, counters):
+        print(text, file=sys.stderr)
     print(json.dumps(line), flush=True)
     for name, v in checks.items():
         print(f"check {name} {v['value']} limit {v['limit']}", file=sys.stderr)

@@ -4,8 +4,8 @@
 and metric.  Everything that belongs to one of them sits in a file of its
 own under ``bench/``, found by that name alone:
 
-    bench/configs/<config>.json     a deployment: grid, dtype, front end
-    bench/workloads/<traffic>.json  a traffic mix: clients, frames, apps
+    bench/configs/<config>.json     a deployment: its system and sizes
+    bench/workloads/<traffic>.json  a traffic mix: clients, sizes, mix
     bench/metrics/<metric>.py       one reader a metric, ``read(run)``
     bench/bounds/<kernel>.py        one kernel's operations and bytes
     bench/reference/<name>.py       a configuration's plain reference
@@ -55,10 +55,25 @@ def load_module(kind: str, name: str) -> ModuleType:
     return mod
 
 
-def applies(metric: dict, cell: str) -> bool:
+def applies(metric: dict, cell: str, spec: dict) -> bool:
     """Does ``metric`` (an entry of ``end_to_end`` or ``per_layer``) belong
-    to ``cell``?  Without a ``workloads`` key it belongs to every cell."""
-    return "workloads" not in metric or cell in metric["workloads"]
+    to ``cell``?  A ``workloads`` key lists its cells.  Without one, an
+    end-to-end metric belongs to every cell, and a per-layer metric to every
+    cell that reports the end-to-end metric it ``moves``: so a cell of a
+    served model takes the per-layer metrics of its system's rate, and none
+    of the image service's, with no entry naming it."""
+    if "workloads" in metric:
+        return cell in metric["workloads"]
+    if "moves" not in metric:
+        return True
+    return any(m["name"] == metric["moves"] and applies(m, cell, spec)
+               for m in spec["end_to_end"])
+
+
+def metrics_of(cell: str, spec: dict):
+    """The ``(end_to_end, per_layer)`` entries that belong to ``cell``."""
+    return ([m for m in spec["end_to_end"] if applies(m, cell, spec)],
+            [m for m in spec["per_layer"] if applies(m, cell, spec)])
 
 
 @dataclasses.dataclass
@@ -83,12 +98,8 @@ def load_cell(name: str, spec: dict = None) -> Cell:
     entry = entries[0]
     configs = {c["name"]: c for c in spec["configs"]}
     config = json.loads((ROOT / configs[entry["config"]]["file"]).read_text())
-    return Cell(
-        name=name,
-        chips=int(entry["chips"]),
-        config=config,
-        traffic=load_json("workloads", entry["traffic"]),
-        end_to_end=[m for m in spec["end_to_end"] if applies(m, name)],
-        per_layer=[m for m in spec["per_layer"] if applies(m, name)],
-    )
+    end_to_end, per_layer = metrics_of(name, spec)
+    return Cell(name=name, chips=int(entry["chips"]), config=config,
+                traffic=load_json("workloads", entry["traffic"]),
+                end_to_end=end_to_end, per_layer=per_layer)
 

@@ -8,11 +8,14 @@ the trace's device intervals and the host's own stamps (requests, the
 flush spans below) share one time line.
 
 The profiler records host operators of the thread that started it only,
-and the port's flushes run on the front end's worker thread.  So the
-harness wraps the fleet's public ``flush`` for the traced run and keeps
-its spans itself (one ``perf_counter`` pair a flush): an idle gap on the
+and the port's work runs on another thread (the front end's worker, or
+the load's).  So each system hands the trace its own host spans, each
+``(label, start, end)`` on ``perf_counter``: the image service wraps the
+fleet's public ``flush`` for the traced run (:class:`CallSpans`), a
+served model gives its load's ticks and prefills.  An idle gap on the
 card is named by the CUDA runtime call the host was in (the profiler
-records those from every thread), else by whether a flush was running.
+records those from every thread), else by the host span that covers most
+of it, else by the system's name for the time between its spans.
 """
 
 from __future__ import annotations
@@ -95,53 +98,73 @@ def overlaps_by_gap(gap_list, spans):
     return out
 
 
-def idle_names(gap_list, runtime, flushes) -> List[str]:
+#: The image service's names for an idle gap inside and outside a flush.
+IN_FLUSH = "host in fleet.flush, no CUDA call"
+BETWEEN_FLUSHES = "host between flushes"
+
+
+def name_gaps(gap_list, runtime, host, between: str) -> List[str]:
     """What the host was doing while the card idled over each gap: the
-    CUDA runtime call that covers most of it, else whether a flush was
-    running through most of it."""
+    CUDA runtime call that covers most of it, else the host span
+    (``(label, start, end)``) whose label covers most of it, else
+    ``between``."""
     calls = overlaps_by_gap(gap_list, runtime)
-    inside = overlaps_by_gap(gap_list, [("flush", s, e) for s, e in flushes])
+    inside = overlaps_by_gap(gap_list, host)
     names = []
-    for gap, by_call, by_flush in zip(gap_list, calls, inside):
+    for gap, by_call, by_span in zip(gap_list, calls, inside):
         half = 0.5 * (gap[1] - gap[0])
         call = max(by_call.items(), key=lambda kv: kv[1], default=(None, 0.0))
+        span = max(by_span.items(), key=lambda kv: kv[1], default=(None, 0.0))
         if call[0] is not None and call[1] >= half:
             names.append(f"host in {call[0]}")
-        elif by_flush.get("flush", 0.0) >= half:
-            names.append("host in fleet.flush, no CUDA call")
+        elif span[0] is not None and span[1] >= half:
+            names.append(span[0])
         else:
-            names.append("host between flushes")
+            names.append(between)
     return names
 
 
-class FlushSpans:
-    """``fleet.flush`` wrapped to record a ``perf_counter`` span a call."""
+def idle_names(gap_list, runtime, flushes) -> List[str]:
+    """:func:`name_gaps` with the image service's flush spans ``(start,
+    end)``."""
+    return name_gaps(gap_list, runtime, [(IN_FLUSH, s, e) for s, e in flushes],
+                     BETWEEN_FLUSHES)
 
-    def __init__(self, fleet):
-        self.spans: List[Tuple[float, float]] = []
-        self._fleet = fleet
-        self._flush = fleet.flush
 
-        def flush(*args, **kwargs):
+class CallSpans:
+    """``obj.<attr>`` wrapped to record a ``perf_counter`` span a call,
+    labelled ``label``, until :meth:`close`."""
+
+    def __init__(self, obj, attr: str, label: str):
+        self.spans: List[Tuple[str, float, float]] = []
+        self._obj, self._attr = obj, attr
+        self._real = getattr(obj, attr)
+        real = self._real
+
+        def call(*args, **kwargs):
             t0 = time.perf_counter()
             try:
-                return self._flush(*args, **kwargs)
+                return real(*args, **kwargs)
             finally:
-                self.spans.append((t0, time.perf_counter()))
+                self.spans.append((label, t0, time.perf_counter()))
 
-        fleet.flush = flush
+        setattr(obj, attr, call)
 
     def close(self) -> None:
-        self._fleet.flush = self._flush
+        setattr(self._obj, self._attr, self._real)
 
 
 class Profiled:
     """The measured window under ``torch.profiler``: ``with`` it around
     the window; ``open()`` marks the window's start inside the profiler
-    and returns it on ``perf_counter``; :meth:`reduce` reads the trace."""
+    and returns it on ``perf_counter``; :meth:`reduce` reads the trace.
+    ``host``: the system's host spans, an object with ``spans`` (``(label,
+    start, end)``) and ``close()``, closed on exit; ``between``: the name
+    of an idle gap outside them."""
 
-    def __init__(self, fleet):
-        self.flushes = FlushSpans(fleet)
+    def __init__(self, host, between: str):
+        self.host = host
+        self.between = between
         self._stack = contextlib.ExitStack()
         self._range = None
         self.t_start = self.t_end = None
@@ -168,7 +191,7 @@ class Profiled:
 
     def __exit__(self, *exc) -> None:
         self._stack.close()
-        self.flushes.close()
+        self.host.close()
 
     def reduce(self) -> Optional[Trace]:
         """The window's device intervals on ``perf_counter``, their union,
@@ -196,9 +219,9 @@ class Profiled:
         for name, start, end in device:
             by_op[short(name)] += end - start
         idle = defaultdict(float)
-        flushes = [s for s in self.flushes.spans if s[1] > t0 and s[0] < t1]
+        host = [s for s in self.host.spans if s[2] > t0 and s[1] < t1]
         free = gaps(busy, t0, t1)
-        for gap, name in zip(free, idle_names(free, runtime, flushes)):
+        for gap, name in zip(free, name_gaps(free, runtime, host, self.between)):
             idle[name] += gap[1] - gap[0]
         breakdown = {
             "device_ops": sorted(([n, s] for n, s in by_op.items()), key=lambda x: -x[1])[:TOP],

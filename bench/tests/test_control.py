@@ -2,7 +2,7 @@
 
 The configuration states int32 grids; the program's own int16 grid (the
 nearest narrower type) is the control.  Its answers to 16-bit samples must
-fail the check on every seed: run with ``--grid-dtype int16`` for a short
+fail the check on every seed: run with ``--control int16`` for a short
 window, three seeds a cell.  Card only (``-m cuda``)."""
 
 import json
@@ -23,7 +23,7 @@ SEEDS = (2**31 + 11, 2**31 + 12, 2**31 + 13)
 def test_int16_control_fails(card, cell, seed):
     proc = subprocess.run(
         [sys.executable, "bench/run.py", "--workload", cell, "--seed", str(seed),
-         "--seconds", "2", "--trace", "0", "--grid-dtype", "int16"],
+         "--seconds", "2", "--trace", "0", "--control", "int16"],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-2000:]
     line = json.loads(proc.stdout.strip().splitlines()[-1])

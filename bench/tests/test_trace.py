@@ -9,8 +9,11 @@ from benchlib.record import Request, Run, Trace, percentile
 from benchlib.spec import BENCH, load_module
 from benchlib.trace import gaps, idle_names, short, union
 
-#: Every reader under ``bench/metrics/``, listed in ``BENCHMARK.json`` or not.
-READERS = sorted(p.name[:-3] for p in (BENCH / "metrics").glob("*.py"))
+#: Every reader of the image service's run under ``bench/metrics/``, listed
+#: in ``BENCHMARK.json`` or not (a served model's reader says ``SYSTEM =
+#: "lm"``; ``test_lm_readers.py`` reads those).
+READERS = sorted(p.name[:-3] for p in (BENCH / "metrics").glob("*.py")
+                 if getattr(load_module("metrics", p.name[:-3]), "SYSTEM", "image") == "image")
 
 
 def test_union_and_gaps():
